@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Quickest proof that the PyTorch/CUDA port serves DiffGFDN RIRs on an NVIDIA GPU.
+"""Quickest proof that the PyTorch/CUDA port serves and trains DiffGFDNs on an NVIDIA GPU.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -20,16 +20,32 @@ Phases (any failure raises and exits non-zero, with no result line):
    against a float64 numpy reference on a few systems;
 4. time each kernel, its plain version and the library call computing the
    same function (CUDA events, L2 flushed before each launch), and the
-   served RIRs per second of each configuration.
+   served RIRs per second of each configuration;
+5. train both configurations at full width for 2 epochs through the user
+   entry point ``run_training_var_receiver_pos`` (the same synthetic
+   dataset, the preset's hold-out and split: 3 steps of 32 per epoch). Each
+   kernel's launch count is set to 0 just before a configuration trains and
+   read just after; every forward and backward kernel of its path must have
+   launched. The losses must be finite and the last checkpoint must read
+   back to the trained parameters. One step at the same parameters, batch
+   and EDC mask then runs on the kernels and on the plain versions: the
+   losses must agree to 1e-6 relative and every parameter gradient to 1e-3
+   relative L2. The inputs each backward kernel got in that step are kept;
+   each backward kernel is held against its plain version on them (1e-4)
+   and timed beside its bound, its plain version and the library call
+   computing the same function. Per configuration the phase prints the
+   median step time after a warm-up step, steps/s and the peak memory.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``. ``--log-dir`` receives
 the compiler's resource report and a torch.profiler table of one served
-batch per configuration; that batch's wall time, the card's busy time within
-it and its idle share join the configuration's phase-2 line.
+batch and of one training step per configuration; their wall time, the
+card's busy time within them and its idle share join the configuration's
+phase-2 and phase-5 lines.
 """
 
 import argparse
+import contextlib
 import json
 from pathlib import Path
 import subprocess
@@ -44,11 +60,21 @@ H100_FP32_FLOP_PER_S = 67e12  # fp32 outside the tensor cores, H100 SXM data she
 NUM_RECEIVERS = 96
 BATCH = 32
 SEED = 2024
-# the slice's two configurations and the kernels each one's path launches
+# the two configurations and the kernels each one's serving path launches
 CONFIGS = {
     "fullband_grid_colorless": ("cinv", "sos"),
     "three_room_example": ("lu",),
 }
+# ... and each one's training path, forward and backward
+TRAIN_KERNELS = {
+    "fullband_grid_colorless": ("cinv", "neg_ptgpt", "sos", "sos_backward"),
+    "three_room_example": ("lu", "lut_apply", "cinv"),
+}
+TRAIN_EPOCHS = 2
+TIMED_STEPS = 5
+DEVICE = "cuda"
+LOSS_TOL = 1e-6   # step loss, kernels vs plain versions, relative
+GRAD_TOL = 1e-3   # each parameter gradient, kernels vs plain versions, relative L2
 RIR_TOL = 1e-3   # relative L2 error of the RIRs, kernel path vs plain path
 EDC_TOL_DB = 0.01  # Schroeder EDC difference over the first 0.5 s
 KERNEL_TOL = 1e-4  # max abs error / max |plain|
@@ -91,6 +117,33 @@ def device_busy_us(events, window) -> float:
     return busy
 
 
+# device symbols of the hand-written kernels (csrc/*.cu)
+KERNEL_SYMBOLS = ("cinv_kernel", "neg_ptgpt_kernel", "sos_cascade_kernel", "sos_bwd_",
+                  "lu_solve_kernel", "lut_apply_kernel")
+
+
+def profile_once(fn, label: str, table_path: Path):
+    """Run ``fn`` once under torch.profiler; write its tables (by device time,
+    then by host time) to ``table_path``; return (wall ms of the window,
+    device busy ms in it, device ms of the hand-written kernels in it)."""
+    import torch
+    from torch.profiler import profile as tprofile, ProfilerActivity, record_function
+
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function(label):
+            fn()
+            torch.cuda.synchronize()
+    averages = prof.key_averages()
+    table_path.write_text(averages.table(sort_by="cuda_time_total", row_limit=60) + "\n"
+                          + averages.table(sort_by="self_cpu_time_total", row_limit=40))
+    events = prof.events()
+    window = next(e.time_range for e in events if e.name == label)
+    busy = device_busy_us(events, window)
+    require(busy > 0.0, f"{label}: the profiled window shows no device work")
+    ours = [e for e in events if any(k in e.name for k in KERNEL_SYMBOLS)]
+    return window.elapsed_us() / 1e3, busy / 1e3, device_busy_us(ours, window) / 1e3
+
+
 def edc_db(x: np.ndarray) -> np.ndarray:
     e = np.cumsum((x.astype(np.float64) ** 2)[..., ::-1], axis=-1)[..., ::-1]
     return 10.0 * np.log10(e + 1e-300)
@@ -113,22 +166,27 @@ def make_room(tmp: Path, name: str, fs: float, nfft: int):
     return room
 
 
-def launch_counts():
+def kernel_wrappers():
+    """{name: the wrapper that counts the kernel's launches}."""
     from diffgfdn_torch.kernels import cinv, lu, sos
 
     return {
-        "cinv": cinv.cinv.launches,
-        "sos": sos.sos_cascade_response.launches,
-        "lu": lu.lu_solve.launches,
+        "cinv": cinv.cinv,
+        "neg_ptgpt": cinv.neg_ptgpt,
+        "sos": sos.sos_cascade_response,
+        "sos_backward": sos.sos_cascade_backward,
+        "lu": lu.lu_solve,
+        "lut_apply": lu.lut_apply,
     }
 
 
-def reset_counts() -> None:
-    from diffgfdn_torch.kernels import cinv, lu, sos
+def launch_counts():
+    return {name: fn.launches for name, fn in kernel_wrappers().items()}
 
-    cinv.cinv.launches = 0
-    sos.sos_cascade_response.launches = 0
-    lu.lu_solve.launches = 0
+
+def reset_counts() -> None:
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
 
 
 def serve(name: str, tmp: Path, log_dir):
@@ -189,23 +247,13 @@ def serve(name: str, tmp: Path, log_dir):
         plain_s = time.perf_counter() - t0
     profiled = {}
     if log_dir is not None:
-        from torch.profiler import profile as tprofile, ProfilerActivity, record_function
-
-        with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            with record_function("served_batch"):
-                infer.rirs_at(idx[:BATCH], BATCH)
-                torch.cuda.synchronize()
-        (Path(log_dir) / f"profile_{name}.txt").write_text(
-            prof.key_averages().table(sort_by="cuda_time_total", row_limit=25)
-        )
-        events = prof.events()
-        window = next(e.time_range for e in events if e.name == "served_batch")
-        busy = device_busy_us(events, window)
-        require(busy > 0.0, f"{name}: the profiled batch shows no device work")
+        wall, busy, ours = profile_once(lambda: infer.rirs_at(idx[:BATCH], BATCH),
+                                        "served_batch", Path(log_dir) / f"profile_{name}.txt")
         profiled = {
-            "profiled_batch_ms": window.elapsed_us() / 1e3,
-            "profiled_device_busy_ms": busy / 1e3,
-            "profiled_idle_share": 1.0 - busy / window.elapsed_us(),
+            "profiled_batch_ms": wall,
+            "profiled_device_busy_ms": busy,
+            "profiled_kernels_ms": ours,
+            "profiled_idle_share": 1.0 - busy / wall,
         }
     result = {
         "config": name,
@@ -449,6 +497,249 @@ def time_kernels(inputs, errors, launches) -> list:
     return rows
 
 
+@contextlib.contextmanager
+def recording_kernel_inputs(store: dict):
+    """Within the block, the wrappers of B5 and of the backward kernels keep
+    a copy of the inputs of their first call, under the kernel's name."""
+    from diffgfdn_torch.kernels import cinv, lu, sos
+
+    patched = [(cinv, "neg_ptgpt", "neg_ptgpt"), (lu, "lut_apply", "lut_apply"),
+               (lu, "lu_solve", "lu"), (sos, "sos_cascade_backward", "sos_backward")]
+    originals = [getattr(mod, attr) for mod, attr, _ in patched]
+
+    def recorder(fn, name):
+        def wrapped(*args):
+            store.setdefault(name, tuple(a.detach().clone() for a in args))
+            return fn(*args)
+        # the wrapper counts under its module name, which is this recorder
+        # while the block runs: launches made here are comparisons, not counted
+        wrapped.launches = 0
+        return wrapped
+
+    for (mod, attr, name), fn in zip(patched, originals):
+        setattr(mod, attr, recorder(fn, name))
+    try:
+        yield
+    finally:
+        for (mod, attr, _), fn in zip(patched, originals):
+            setattr(mod, attr, fn)
+
+
+def rel_l2(a, b) -> float:
+    import torch
+
+    ref = float(torch.linalg.vector_norm(b))
+    diff = float(torch.linalg.vector_norm(a - b))
+    return diff / ref if ref > 0.0 else diff
+
+
+def train(name: str, tmp: Path, log_dir):
+    """Phase 5 for one configuration: returns (result, backward-kernel inputs, launches)."""
+    import torch
+
+    from diffgfdn_torch.config import preset_config
+    from diffgfdn_torch.kernels.dispatch import plain_versions
+    from diffgfdn_torch.losses import edc_mask
+    from diffgfdn_torch.training import load_checkpoint, run_training_var_receiver_pos
+    from diffgfdn_torch.utils.params import torch_state_from_jax
+
+    cfg = preset_config(name)
+    tc = cfg.trainer_config
+    tc.train_dir = str(tmp / name / "train_run")
+    tc.max_epochs = TRAIN_EPOCHS
+    room = make_room(tmp, name, cfg.sample_rate, tc.num_freq_bins)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer, model = run_training_var_receiver_pos(cfg, room, device=DEVICE)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = launch_counts()
+    peak_run = torch.cuda.max_memory_allocated()
+    for kernel in TRAIN_KERNELS[name]:
+        require(launches[kernel] > 0, f"{name}: kernel {kernel} never launched in training")
+    losses = trainer.train_loss + trainer.valid_loss
+    require(len(trainer.train_loss) == TRAIN_EPOCHS and bool(np.isfinite(losses).all()),
+            f"{name}: training losses {losses}")
+    saved = torch_state_from_jax(load_checkpoint(tc.train_dir, TRAIN_EPOCHS - 1))
+    for key, value in model.state_dict().items():
+        require(torch.equal(saved[key], value.cpu()), f"{name}: checkpoint differs at {key}")
+
+    # one step on the kernels and on the plain versions: same parameters,
+    # batch and EDC mask; the kernels' step keeps each backward kernel's inputs
+    idx = torch.arange(BATCH, device=DEVICE)
+    batch = trainer.gather(idx)
+    mask = None
+    if tc.use_edc_mask:
+        n = 2 * (batch["z_values"].shape[0] - 1)
+        length = min(trainer.max_ir_len_samps, n) - trainer.mixing_time_samps
+        mask = edc_mask(length, torch.Generator(device=DEVICE).manual_seed(SEED), idx.device)
+    inputs = {}
+    with recording_kernel_inputs(inputs):
+        loss_k, _ = trainer.loss_and_grads(batch, mask)
+    grads_k = {n: p.grad.clone() for n, p in model.named_parameters()}
+    with plain_versions():
+        loss_p, _ = trainer.loss_and_grads(batch, mask)
+    grads_p = {n: p.grad.clone() for n, p in model.named_parameters()}
+    loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    grad_errs = {n: rel_l2(grads_k[n], grads_p[n]) for n in grads_k}
+    worst = max(grad_errs, key=grad_errs.get)
+    require(loss_rel <= LOSS_TOL, f"{name}: step loss kernels vs plain {loss_rel}")
+    require(grad_errs[worst] <= GRAD_TOL, f"{name}: gradient of {worst} kernels vs plain "
+            f"{grad_errs[worst]}")
+
+    # step time, as fit_indexed runs a step: warm-up, then timed steps
+    trainer.fit_step(idx)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    times = []
+    for _ in range(TIMED_STEPS):
+        t0 = time.perf_counter()
+        trainer.fit_step(idx)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    per_step = {k: launch_counts()[k] / TIMED_STEPS for k in TRAIN_KERNELS[name]}
+    peak_step = torch.cuda.max_memory_allocated()
+    with plain_versions():
+        t0 = time.perf_counter()
+        trainer.fit_step(idx)
+        torch.cuda.synchronize()
+        plain_step_s = time.perf_counter() - t0
+    profiled = {}
+    if log_dir is not None:
+        wall, busy, ours = profile_once(lambda: trainer.fit_step(idx), "train_step",
+                                        Path(log_dir) / f"profile_train_{name}.txt")
+        profiled = {"profiled_step_ms": wall, "profiled_device_busy_ms": busy,
+                    "profiled_kernels_ms": ours, "profiled_idle_share": 1.0 - busy / wall}
+    step_s = float(np.median(times))
+    result = {
+        "config": name,
+        "epochs": TRAIN_EPOCHS,
+        "steps_per_epoch": trainer.steps_per_epoch,
+        "batch": BATCH,
+        "nfft": tc.num_freq_bins,
+        "run_s": run_s,
+        "train_loss": trainer.train_loss,
+        "valid_loss": trainer.valid_loss,
+        "step_ms": step_s * 1e3,
+        "step_ms_all": [t * 1e3 for t in times],
+        "steps_per_s": 1.0 / step_s,
+        "plain_step_ms": plain_step_s * 1e3,
+        "peak_mem_run_mb": peak_run / 2 ** 20,
+        "peak_mem_step_mb": peak_step / 2 ** 20,
+        "step_loss_rel_vs_plain": loss_rel,
+        "max_grad_rel_l2_vs_plain": grad_errs[worst],
+        "launches": {k: launches[k] for k in TRAIN_KERNELS[name]},
+        "launches_per_step": per_step,
+        **profiled,
+    }
+    return result, inputs, launches
+
+
+def neg_ptgpt_cost(k: int, n: int):
+    """Bytes moved and fp32 operations of -P^H G P^H (two N^3 complex contractions)."""
+    return 3 * k * n * n * 8, k * 16 * n ** 3
+
+
+def lut_apply_cost(k: int, n: int):
+    """Bytes moved and fp32 operations of the transposed solve from the factors."""
+    nbytes = k * (n * n * 8 + n * 4 + 2 * n * 8)
+    return nbytes, k * (12 * n + 8 * n * (n - 1) + 2 * (n - 1))
+
+
+def sos_backward_cost(r: int, k: int, f: int):
+    """Bytes moved and fp32 operations of the cascade backward (h recomputed,
+    then 6K sums per row)."""
+    return r * f * 8 + f * 8 + 4 * r * k * 3 * 4, r * f * (91 * k + 11)
+
+
+def backward_rows(inputs: dict, launches: dict) -> list:
+    """Phase 5, kernels: each backward kernel against its plain version (and a
+    float64 reference on a few systems) at the inputs a training step gave
+    it, and its time beside its bound, plain version and library call."""
+    import torch
+
+    from diffgfdn_torch.kernels.cinv import neg_ptgpt
+    from diffgfdn_torch.kernels.dispatch import plain_versions
+    from diffgfdn_torch.kernels.lu import lut_apply
+    from diffgfdn_torch.kernels.sos import sos_cascade_backward, sos_cascade_backward_plain
+
+    def both(fn, *args):
+        out = fn(*args)
+        with plain_versions():
+            ref = fn(*args)
+        torch.cuda.synchronize()
+        return out, ref
+
+    def plain(fn, *args):
+        with plain_versions():
+            return fn(*args)
+
+    rows = []
+    p, g = inputs["neg_ptgpt"]
+    out, ref = both(neg_ptgpt, p, g)
+    err = rel_err(out, ref)
+    p64, g64 = p[:256].cpu().numpy().astype(np.complex128), g[:256].cpu().numpy()
+    ph = np.conj(np.swapaxes(p64, -1, -2))
+    ref64 = -(ph @ g64 @ ph)
+    err64 = float(np.abs(out[:256].cpu().numpy() - ref64).max() / np.abs(ref64).max())
+    require(err <= KERNEL_TOL and err64 <= KERNEL_TOL, f"neg_ptgpt: rel err {err}, f64 {err64}")
+    print(f"neg_ptgpt {tuple(p.shape)}: rel err vs plain {err:.3e}, vs numpy {err64:.3e}")
+    b_ms, b_by = bound(*neg_ptgpt_cost(p.shape[0], p.shape[1]))
+    rows.append({
+        "name": "neg_ptgpt", "route": "cuda", "source": "diffgfdn_torch/csrc/cinv.cu",
+        "replaces": "diffgfdn_tpu/kernels/pallas_cinv.py:146",
+        "launches": launches["neg_ptgpt"], "max_abs_err": float(torch.max(torch.abs(out - ref))),
+        "ms": device_ms(lambda: neg_ptgpt(p, g)), "plain_ms": device_ms(lambda: plain(neg_ptgpt, p, g)),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": device_ms(lambda: -(p.mH @ g @ p.mH)),
+    })
+
+    num, den, w, g = inputs["sos_backward"]
+    (dn, dd), (dn_p, dd_p) = both(sos_cascade_backward, num, den, w, g)
+    err = max(rel_err(dn, dn_p), rel_err(dd, dd_p))
+    dn64, dd64 = sos_cascade_backward_plain(num[:4].double(), den[:4].double(),
+                                            w.to(torch.complex128), g[:4].to(torch.complex128))
+    err64 = max(rel_err(dn[:4].double(), dn64), rel_err(dd[:4].double(), dd64))
+    require(err <= KERNEL_TOL, f"sos_cascade_backward: rel err {err}")
+    require(err64 <= SOS_F64_TOL, f"sos_cascade_backward: vs float64 {err64}")
+    print(f"sos_cascade_backward {tuple(num.shape)} x F={w.shape[0]}: rel err vs plain "
+          f"{err:.3e}, vs float64 {err64:.3e}")
+    b_ms, b_by = bound(*sos_backward_cost(num.shape[0], num.shape[1], w.shape[0]))
+    rows.append({
+        "name": "sos_cascade_backward", "route": "cuda", "source": "diffgfdn_torch/csrc/sos.cu",
+        "replaces": "diffgfdn_tpu/kernels/pallas_sos.py:64",
+        "launches": launches["sos_backward"],
+        "max_abs_err": float(max(torch.max(torch.abs(dn - dn_p)), torch.max(torch.abs(dd - dd_p)))),
+        "ms": device_ms(lambda: sos_cascade_backward(num, den, w, g)),
+        "plain_ms": device_ms(lambda: plain(sos_cascade_backward, num, den, w, g)),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+    })
+
+    m, _ = inputs["lu"]
+    lu, piv, g = inputs["lut_apply"]
+    out, ref = both(lut_apply, lu, piv, g)
+    err = rel_err(out, ref)
+    m64, g64 = m[:256].cpu().numpy().astype(np.complex128), g[:256].cpu().numpy()
+    y64 = np.linalg.solve(np.conj(np.swapaxes(m64, -1, -2)), g64[..., None])[..., 0]
+    err64 = float(np.abs(out[:256].cpu().numpy() - y64).max() / np.abs(y64).max())
+    require(err <= KERNEL_TOL and err64 <= KERNEL_TOL, f"lut_apply: rel err {err}, f64 {err64}")
+    print(f"lut_apply {tuple(g.shape)}: rel err vs plain {err:.3e}, vs numpy {err64:.3e}")
+    b_ms, b_by = bound(*lut_apply_cost(g.shape[0], g.shape[1]))
+    rows.append({
+        "name": "lut_apply", "route": "cuda", "source": "diffgfdn_torch/csrc/lu.cu",
+        "replaces": "diffgfdn_tpu/kernels/pallas_lu.py:142",
+        "launches": launches["lut_apply"], "max_abs_err": float(torch.max(torch.abs(out - ref))),
+        "ms": device_ms(lambda: lut_apply(lu, piv, g)),
+        "plain_ms": device_ms(lambda: plain(lut_apply, lu, piv, g)),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": device_ms(lambda: torch.linalg.solve(m.mH, g.unsqueeze(-1))),
+    })
+    return rows
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--log-dir", default=None,
@@ -497,6 +788,19 @@ def main(argv=None) -> int:
         errors = check_kernels(inputs)
         print("phase 3: every kernel matches its plain version and numpy")
         rows = time_kernels(inputs, errors, launches)
+        del served, inputs
+        backward_inputs, train_launches = {}, {}
+        for name in TRAIN_KERNELS:
+            t0 = time.perf_counter()
+            result, recorded, counts = train(name, tmp, log_dir)
+            backward_inputs.update(recorded)
+            for kernel in ("neg_ptgpt", "sos_backward", "lut_apply"):
+                if kernel in TRAIN_KERNELS[name]:
+                    train_launches[kernel] = counts[kernel]
+            print(f"phase 5: trained {name} in {time.perf_counter() - t0:.1f} s: "
+                  + json.dumps(result))
+        rows += backward_rows(backward_inputs, train_launches)
+        print("phase 5: every backward kernel matches its plain version and numpy")
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({

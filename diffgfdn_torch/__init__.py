@@ -1,8 +1,15 @@
 """PyTorch / CUDA port of diffgfdn_tpu for NVIDIA Hopper (H100).
 
-Serving slice: ``inference.InferDiffGFDN`` reads a JAX-format checkpoint and
-returns RIRs at dataset receiver positions through the hand-written kernels
-in ``kernels/`` (``csrc/*.cu``). Entry points run on CUDA unless the caller
-passes ``device="cpu"``, where each kernel wrapper takes its plain PyTorch
+Two slices of ``DiffGFDNVarReceiverPos``:
+
+* training: ``training.run_training_var_receiver_pos`` (CLI
+  ``python -m diffgfdn_torch.cli.run_model``) trains on a grid of receivers
+  through ``training.GFDNTrainer`` and writes JAX-format checkpoints;
+* serving: ``inference.InferDiffGFDN`` reads such a checkpoint and returns
+  RIRs at dataset receiver positions.
+
+Both run through the hand-written kernels in ``kernels/`` (``csrc/*.cu``),
+forward and backward. Entry points run on CUDA unless the caller passes
+``device="cpu"``, where each kernel wrapper takes its plain PyTorch
 version. The package never imports JAX or ``diffgfdn_tpu``.
 """

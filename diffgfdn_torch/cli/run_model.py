@@ -1,0 +1,69 @@
+"""CLI: train a DiffGFDN from a config (port of ``diffgfdn_tpu/cli/run_model.py``).
+
+    python -m diffgfdn_torch.cli.run_model -c <config.yml | preset name> [--resume]
+
+``-c`` takes a YAML file or the name of a preset in ``config/presets.py``
+(``fullband_grid_colorless``, ``three_room_example``), which needs no YAML
+parser. Trains on CUDA unless ``--device cpu`` is given. Grid-of-receivers
+training only: single-position fits (``ir_path``) and directional FDNs
+(``ambi_order``) raise NotImplementedError (ROADMAP A10).
+"""
+
+import argparse
+import dataclasses
+import logging
+from pathlib import Path
+import pickle
+import shutil
+
+import numpy as np
+
+
+def _load_config(spec: str):
+    from ..config import load_and_validate_config, PRESETS, preset_config
+    from ..config.schema import DiffGFDNConfig
+
+    if spec in PRESETS:
+        return preset_config(spec)
+    return load_and_validate_config(spec, DiffGFDNConfig)
+
+
+def main(argv=None) -> None:
+    parser = argparse.ArgumentParser(description="Train a DiffGFDN with the PyTorch port")
+    parser.add_argument("-c", "--config", required=True,
+                        help="YAML config path, or the name of a preset")
+    parser.add_argument("--wipe-train-dir", action="store_true",
+                        help="delete and recreate the training directory first")
+    parser.add_argument("--resume", action="store_true",
+                        help="continue an interrupted run from the newest checkpoint "
+                        "(parameters and optimizer state)")
+    parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    args = parser.parse_args(argv)
+    if args.resume and args.wipe_train_dir:
+        parser.error("--resume and --wipe-train-dir are mutually exclusive")
+
+    from ..utils.device import resolve_device
+
+    device = resolve_device(args.device)  # raises before anything is written
+    logging.basicConfig(level=logging.INFO)
+    config = _load_config(args.config)
+    np.random.seed(config.seed)
+    if config.ir_path is not None:
+        raise NotImplementedError("single-position fits (ir_path) are not ported yet (ROADMAP A10)")
+    if config.ambi_order is not None:
+        raise NotImplementedError("directional FDNs (ambi_order) are not ported yet (ROADMAP A10)")
+
+    train_dir = Path(config.trainer_config.train_dir)
+    if args.wipe_train_dir and train_dir.exists():
+        shutil.rmtree(train_dir)
+    train_dir.mkdir(parents=True, exist_ok=True)
+    with open(train_dir / "config_args.pickle", "wb") as f:
+        pickle.dump(dataclasses.asdict(config), f)
+
+    from ..training.solver import run_training_var_receiver_pos
+
+    run_training_var_receiver_pos(config, export_irs=True, resume=args.resume, device=device)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,7 +1,10 @@
-// Batched complex inverse by Gauss-Jordan elimination with partial pivoting.
+// Batched complex inverse by Gauss-Jordan elimination with partial pivoting,
+// and its vector-Jacobian product -P^H G P^H.
 //
 // Replaces: diffgfdn_tpu/kernels/pallas_cinv.py::_gj_kernel (cinv_pallas),
-// which FeedbackLoop._inv calls for the per-bin loop matrices.
+// which FeedbackLoop._inv calls for the per-bin loop matrices, and
+// ::_ptgpt_kernel (neg_ptgpt_pallas), the inverse's backward (second part of
+// this file).
 //
 // Computes, for each of K independent systems, inv(M) of an N x N complex64
 // matrix: row-reduce [M | I] with the pivot of step k taken as the FIRST row
@@ -112,6 +115,89 @@ __global__ void cinv_kernel(const float2* __restrict__ m, float2* __restrict__ o
 
 constexpr int kThreads = 128;
 
+// Backward of the inverse: out = -(P^H G P^H) per system, torch's complex
+// gradient convention (G is the gradient of a real loss with respect to P,
+// d/dRe + i d/dIm; the Pallas kernel computes -(P^T g P^T) for JAX's
+// cotangent g = conj(G)). Order of operations as in neg_ptgpt_plain in
+// diffgfdn_torch/kernels/cinv.py: T = G P^H row by row, each entry summed
+// over m = 0..N-1 from zero; out accumulated over l = 0..N-1 as
+// out[i][j] -= conj(P[l][i]) T[l][j]. With --fmad=false the two agree bit for
+// bit.
+//
+// Layout: p, g, out (K, N, N) complex64, contiguous. Any 1 <= N <= 32.
+//
+// Bound on an H100: at the training shape (K = 3 x 65537, N = 4) the kernel
+// reads P and G and writes the output, 3 x K x N^2 x 8 B = 75.5 MB (22.5 us at
+// 3.35 TB/s), against 16 N^3 = 1 kFLOP per system (0.2 GFLOP, 3 us at
+// 67 TFLOP/s): memory bound. Design: one thread per system keeps P and the
+// output in registers (local memory beyond N = 8) and reads G one row at a
+// time, so device memory sees one read of each input and one write of the
+// output; conjugation is applied on load, as a sign.
+template <int N>
+__global__ void neg_ptgpt_kernel(const float2* __restrict__ p, const float2* __restrict__ g,
+                                 float2* __restrict__ out, long long k_sys) {
+  constexpr int U = N <= 8 ? N : 1;
+  const long long s = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (s >= k_sys) return;
+  const float2* p_in = p + s * N * N;
+  const float2* g_in = g + s * N * N;
+
+  float pr[N][N], pi[N][N], our[N][N], oui[N][N];
+#pragma unroll U
+  for (int r = 0; r < N; ++r) {
+#pragma unroll U
+    for (int c = 0; c < N; ++c) {
+      const float2 v = p_in[r * N + c];
+      pr[r][c] = v.x;
+      pi[r][c] = v.y;
+      our[r][c] = 0.0f;
+      oui[r][c] = 0.0f;
+    }
+  }
+
+#pragma unroll U
+  for (int l = 0; l < N; ++l) {
+    float gr[N], gi[N];
+#pragma unroll U
+    for (int m = 0; m < N; ++m) {
+      const float2 v = g_in[l * N + m];
+      gr[m] = v.x;
+      gi[m] = v.y;
+    }
+    // row l of T = G P^H: t[j] = sum_m G[l][m] conj(P[j][m])
+    float tr[N], ti[N];
+#pragma unroll U
+    for (int j = 0; j < N; ++j) {
+      float ar = 0.0f, ai = 0.0f;
+#pragma unroll U
+      for (int m = 0; m < N; ++m) {
+        ar = ar + (gr[m] * pr[j][m] + gi[m] * pi[j][m]);
+        ai = ai + (gi[m] * pr[j][m] - gr[m] * pi[j][m]);
+      }
+      tr[j] = ar;
+      ti[j] = ai;
+    }
+    // out[i][j] -= conj(P[l][i]) t[j]
+#pragma unroll U
+    for (int i = 0; i < N; ++i) {
+#pragma unroll U
+      for (int j = 0; j < N; ++j) {
+        our[i][j] = our[i][j] - (pr[l][i] * tr[j] + pi[l][i] * ti[j]);
+        oui[i][j] = oui[i][j] - (pr[l][i] * ti[j] - pi[l][i] * tr[j]);
+      }
+    }
+  }
+
+  float2* o = out + s * N * N;
+#pragma unroll U
+  for (int r = 0; r < N; ++r) {
+#pragma unroll U
+    for (int c = 0; c < N; ++c) {
+      o[r * N + c] = make_float2(our[r][c], oui[r][c]);
+    }
+  }
+}
+
 }  // namespace
 
 #define CINV_CASE(n)                                                        \
@@ -136,6 +222,35 @@ extern "C" int diffgfdn_cinv_c64(const void* m, void* out, long long k_sys, int 
     CINV_CASE(19) CINV_CASE(20) CINV_CASE(21) CINV_CASE(22) CINV_CASE(23) CINV_CASE(24)
     CINV_CASE(25) CINV_CASE(26) CINV_CASE(27) CINV_CASE(28) CINV_CASE(29) CINV_CASE(30)
     CINV_CASE(31) CINV_CASE(32)
+    default:
+      return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+#define PTGPT_CASE(n)                                                       \
+  case n:                                                                   \
+    neg_ptgpt_kernel<n><<<blocks, kThreads, 0, st>>>(pi, gi, o, k_sys);     \
+    break;
+
+// p, g, out: (K, N, N) complex64 device pointers; stream: a cudaStream_t.
+// Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for an
+// unsupported N).
+extern "C" int diffgfdn_neg_ptgpt_c64(const void* p, const void* g, void* out,
+                                      long long k_sys, int n, void* stream) {
+  if (k_sys <= 0) return cudaSuccess;
+  const float2* pi = static_cast<const float2*>(p);
+  const float2* gi = static_cast<const float2*>(g);
+  float2* o = static_cast<float2*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const unsigned blocks = static_cast<unsigned>((k_sys + kThreads - 1) / kThreads);
+  switch (n) {
+    PTGPT_CASE(1) PTGPT_CASE(2) PTGPT_CASE(3) PTGPT_CASE(4) PTGPT_CASE(5) PTGPT_CASE(6)
+    PTGPT_CASE(7) PTGPT_CASE(8) PTGPT_CASE(9) PTGPT_CASE(10) PTGPT_CASE(11) PTGPT_CASE(12)
+    PTGPT_CASE(13) PTGPT_CASE(14) PTGPT_CASE(15) PTGPT_CASE(16) PTGPT_CASE(17) PTGPT_CASE(18)
+    PTGPT_CASE(19) PTGPT_CASE(20) PTGPT_CASE(21) PTGPT_CASE(22) PTGPT_CASE(23) PTGPT_CASE(24)
+    PTGPT_CASE(25) PTGPT_CASE(26) PTGPT_CASE(27) PTGPT_CASE(28) PTGPT_CASE(29) PTGPT_CASE(30)
+    PTGPT_CASE(31) PTGPT_CASE(32)
     default:
       return cudaErrorInvalidValue;
   }

@@ -1,6 +1,13 @@
-"""Host-side data: the three-room dataset, batch gathering, a synthetic generator."""
+"""Host-side data: the three-room dataset, batch gathering, splits, a synthetic generator."""
 
-from .batching import arrays_from_room_dataset, BatchArrays, gather_batch
+from .batching import (
+    arrays_from_room_dataset,
+    BatchArrays,
+    fixed_test_split,
+    gather_batch,
+    index_batches,
+    train_valid_split,
+)
 from .room_dataset import RoomDataset, ThreeRoomDataset
 from .synthetic import generate_three_room_pickle, synthetic_three_room_dataset
 
@@ -9,7 +16,10 @@ __all__ = [
     "RoomDataset",
     "ThreeRoomDataset",
     "arrays_from_room_dataset",
+    "fixed_test_split",
     "gather_batch",
+    "index_batches",
     "generate_three_room_pickle",
     "synthetic_three_room_dataset",
+    "train_valid_split",
 ]

@@ -1,6 +1,10 @@
-"""Batch arrays gathered by receiver index (port of ``data/batching.py``, serving subset)."""
+"""Batch arrays gathered by receiver index, and the dataset splits (port of ``data/batching.py``).
 
-from typing import Callable, Dict, Optional, Union
+The splits draw from ``np.random.RandomState`` exactly as the JAX package
+does, so both packages train and validate on the same receivers for a seed.
+"""
+
+from typing import Callable, Dict, Iterator, Optional, Tuple, Union
 
 import numpy as np
 
@@ -24,6 +28,8 @@ class BatchArrays:
         target_rir_response: _ArrayOrThunk = None,    # (R, F) complex64
         target_common_slope_amps: Optional[np.ndarray] = None,
         mesh_2d: Optional[np.ndarray] = None,  # (L, 2)
+        target_early_time: Optional[np.ndarray] = None,  # (R, mixing time) float32
+        target_rir_time: Optional[np.ndarray] = None,    # (R, T) float32
     ):
         self.z_values = z_values
         self.source_position = source_position
@@ -36,6 +42,10 @@ class BatchArrays:
         }
         self.target_common_slope_amps = target_common_slope_amps
         self.mesh_2d = mesh_2d
+        # time-domain targets: the trainer uploads these and takes every
+        # spectrum and loss feature on the device
+        self.target_early_time = target_early_time
+        self.target_rir_time = target_rir_time
 
     def _spectrum(self, key: str) -> Optional[np.ndarray]:
         value = self._spectra[key]
@@ -90,6 +100,8 @@ def arrays_from_room_dataset(
         ),
         target_common_slope_amps=None if amps is None else np.asarray(amps, np.float32),
         mesh_2d=room_data.mesh_2d.points.astype(np.float32),
+        target_early_time=room_data.early_rir_time,
+        target_rir_time=room_data.rirs32,
     )
 
 
@@ -109,3 +121,35 @@ def gather_batch(arrays: BatchArrays, idx: np.ndarray) -> Dict[str, np.ndarray]:
     if arrays.mesh_2d is not None:
         batch["mesh_2d"] = arrays.mesh_2d
     return batch
+
+
+def fixed_test_split(
+    num_items: int, test_ratio: float = 0.1, seed: int = 42
+) -> Tuple[np.ndarray, np.ndarray]:
+    """(test_indices, remaining_indices): seeded, stable across runs."""
+    rng = np.random.RandomState(seed)
+    idx = rng.permutation(num_items)
+    test_size = int(num_items * test_ratio)
+    return idx[:test_size], idx[test_size:]
+
+
+def train_valid_split(
+    indices: np.ndarray, split: float, seed: Optional[int] = None
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Random split of the given indices into train / valid subsets."""
+    rng = np.random.RandomState(seed)
+    perm = rng.permutation(len(indices))
+    n_train = int(len(indices) * split)
+    return indices[perm[:n_train]], indices[perm[n_train:]]
+
+
+def index_batches(
+    indices: np.ndarray, batch_size: int, shuffle: bool = True, seed: Optional[int] = None
+) -> Iterator[np.ndarray]:
+    """Full batches of indices, the tail dropped, in the order the JAX
+    package's ``iterate_batches`` draws them (optionally shuffled by seed)."""
+    idx = np.array(indices)
+    if shuffle:
+        idx = idx[np.random.RandomState(seed).permutation(len(idx))]
+    for k in range(len(idx) // batch_size):
+        yield idx[k * batch_size : (k + 1) * batch_size]

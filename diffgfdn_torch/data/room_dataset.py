@@ -101,6 +101,20 @@ class RoomDataset:
         self.mesh_2d = self.get_2d_meshgrid()
 
     @property
+    def rirs32(self) -> np.ndarray:
+        """Contiguous float32 time-domain RIRs (R, T)."""
+        return self._rirs32
+
+    @property
+    def early_rir_time(self) -> np.ndarray:
+        """Faded early segment (R, mixing time samples), cached."""
+        if "early_t" not in self._lazy:
+            self._lazy["early_t"] = early_split(
+                self._rirs32, self.mixing_time_ms, self.sample_rate
+            )
+        return self._lazy["early_t"]
+
+    @property
     def rir_mag_response(self) -> np.ndarray:
         if "rir" not in self._lazy:
             self._lazy["rir"] = rfft(self._rirs32, n=self.num_freq_bins, axis=-1)
@@ -109,8 +123,7 @@ class RoomDataset:
     @property
     def early_rir_mag_response(self) -> np.ndarray:
         if "early" not in self._lazy:
-            early = early_split(self._rirs32, self.mixing_time_ms, self.sample_rate)
-            self._lazy["early"] = rfft(early, n=self.num_freq_bins, axis=-1)
+            self._lazy["early"] = rfft(self.early_rir_time, n=self.num_freq_bins, axis=-1)
         return self._lazy["early"]
 
     @property

@@ -1,10 +1,16 @@
-"""Batched single-RHS LU solve: the kernel and its plain version.
+"""Batched single-RHS LU solve and its backward: the kernels and their plain versions.
 
-Replaces ``diffgfdn_tpu/kernels/pallas_lu.py::_lu_solve_kernel``. The kernel
-is ``csrc/lu.cu``; :func:`lu_solve_plain` is the same arithmetic as PyTorch
-tensor operations. Both return ``(x, lu, piv)`` in the layout documented in
-``csrc/lu.cu``: x (K, N) complex64, the packed product-form factors
-lu (N, N, K) complex64 and the pivots piv (N, K) int32.
+* :func:`lu_solve` replaces ``diffgfdn_tpu/kernels/pallas_lu.py::_lu_solve_kernel``;
+  it and :func:`lu_solve_plain` return ``(x, lu, piv)`` in the layout
+  documented in ``csrc/lu.cu``: x (K, N), the packed product-form factors
+  lu (N, N, K) and the pivots piv (N, K) int32;
+* :func:`lut_apply` replaces ``pallas_lu.py::_lut_apply_kernel``: it solves
+  M^H y = g from those factors (the solve's backward in torch's complex
+  gradient convention); :func:`lut_apply_plain` is its plain version.
+
+Both kernels are in ``csrc/lu.cu``. The plain versions work in any complex
+dtype (complex128 for ``torch.autograd.gradcheck``); the wrappers take
+complex64.
 """
 
 import ctypes
@@ -18,6 +24,8 @@ from .dispatch import runs_kernel
 MAX_N = 32
 _SIGNATURES = {
     "diffgfdn_lu_solve_c64": [ctypes.c_void_p] * 5
+    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
+    "diffgfdn_lut_apply_c64": [ctypes.c_void_p] * 4
     + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
 }
 
@@ -73,7 +81,7 @@ def lu_solve_plain(
         ri[:, k + 1:] = ri[:, k + 1:] - (fr * pbi + fi * pbr)
 
     # back substitution: x[k] = (rhs[k] - sum_{j>k} U[k][j] x[j]) / U[k][k]
-    xr = torch.zeros((kb, n), dtype=torch.float32, device=dev)
+    xr = torch.zeros((kb, n), dtype=m.real.dtype, device=dev)
     xi = torch.zeros_like(xr)
     for k in range(n - 1, -1, -1):
         num_r, num_i = rr[:, k], ri[:, k]
@@ -124,3 +132,80 @@ def lu_solve(
 
 
 lu_solve.launches = 0
+
+
+def lut_apply_plain(lu: torch.Tensor, piv: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version: y = M^-H g from (lu, piv) of :func:`lu_solve_plain`.
+
+    lu (N, N, K), piv (N, K), g (K, N) -> y (K, N). Every factor is
+    conjugated on use: forward substitution with U^H, then the multipliers
+    and the swaps undone from the last step to the first.
+    """
+    n = g.shape[1]
+    fr, fi = lu.real, -lu.imag  # conjugated factors, each [i, j] a (K,) row
+    wr = [g.real[:, i] for i in range(n)]
+    wi = [g.imag[:, i] for i in range(n)]
+    # pass 1: U^H w = g
+    for k in range(n):
+        dr, di = fr[k, k], fi[k, k]
+        inv_den = 1.0 / (dr * dr + di * di)
+        wkr = (wr[k] * dr + wi[k] * di) * inv_den
+        wki = (wi[k] * dr - wr[k] * di) * inv_den
+        wr[k], wi[k] = wkr, wki
+        for i in range(k + 1, n):
+            ur, ui = fr[k, i], fi[k, i]
+            wr[i] = wr[i] - (ur * wkr - ui * wki)
+            wi[i] = wi[i] - (ur * wki + ui * wkr)
+    # pass 2: w[k] -= sum_{i>k} conj(f_k[i]) w[i], then swap w[k] and w[p_k]
+    for k in range(n - 1, -1, -1):
+        if k < n - 1:
+            sr = torch.zeros_like(wr[k])
+            si = torch.zeros_like(wi[k])
+            for i in range(k + 1, n):
+                sr = sr + (fr[i, k] * wr[i] - fi[i, k] * wi[i])
+                si = si + (fr[i, k] * wi[i] + fi[i, k] * wr[i])
+            wr[k] = wr[k] - sr
+            wi[k] = wi[k] - si
+        p = piv[k]
+        for r in range(k + 1, n):
+            sel = p == r
+            wr[k], wr[r] = torch.where(sel, wr[r], wr[k]), torch.where(sel, wr[k], wr[r])
+            wi[k], wi[r] = torch.where(sel, wi[r], wi[k]), torch.where(sel, wi[k], wi[r])
+    return torch.complex(torch.stack(wr, dim=1), torch.stack(wi, dim=1))
+
+
+def lut_apply(lu: torch.Tensor, piv: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """y = M^-H g for K complex64 systems from the factors :func:`lu_solve` returned.
+
+    lu (N, N, K) complex64, piv (N, K) int32, g (K, N) complex64 -> y (K, N).
+    CPU tensors take :func:`lut_apply_plain`; CUDA tensors launch
+    ``csrc/lu.cu`` (any N <= 32, contiguous inputs), counted in
+    ``lut_apply.launches``.
+    """
+    n = g.shape[-1] if g.dim() == 2 else -1
+    kb = g.shape[0]
+    if (g.dim() != 2 or tuple(lu.shape) != (n, n, kb) or tuple(piv.shape) != (n, kb)
+            or lu.dtype != torch.complex64 or g.dtype != torch.complex64
+            or piv.dtype != torch.int32):
+        raise ValueError(
+            f"lut_apply takes lu (N, N, K) complex64, piv (N, K) int32 and g (K, N) "
+            f"complex64, got {tuple(lu.shape)} {lu.dtype}, {tuple(piv.shape)} {piv.dtype}, "
+            f"{tuple(g.shape)} {g.dtype}"
+        )
+    if not runs_kernel(lu, piv, g):
+        return lut_apply_plain(lu, piv, g)
+    if n > MAX_N or not (lu.is_contiguous() and piv.is_contiguous() and g.is_contiguous()):
+        raise ValueError(f"lut_apply kernel takes contiguous inputs with N <= {MAX_N}")
+    y = torch.empty_like(g)
+    lib = _build.load("lu", _SIGNATURES)
+    with torch.cuda.device(g.device):
+        err = lib.diffgfdn_lut_apply_c64(
+            lu.data_ptr(), piv.data_ptr(), g.data_ptr(), y.data_ptr(), kb, n,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(err, "lut_apply")
+    lut_apply.launches += 1
+    return y
+
+
+lut_apply.launches = 0

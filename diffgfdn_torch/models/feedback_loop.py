@@ -9,7 +9,8 @@ Absorption: fixed per-line scalar gains (``gains``) or fixed per-line SOS
 cascades fitted by the GEQ designer (``sos_coeffs``).
 """
 
-from typing import Optional, Sequence
+import contextlib
+from typing import Iterator, Optional, Sequence
 
 import numpy as np
 import torch
@@ -71,6 +72,7 @@ class FeedbackLoop(nn.Module):
         self.M = nn.Parameter(
             (2.0 * torch.rand((g, nper, nper), generator=generator) - 1.0) / np.sqrt(nper)
         )
+        self._shared_blocks = None
         n_alpha = g * (g - 1) // 2
         if use_zero_coupling:
             self.register_buffer("alpha", torch.zeros(n_alpha), persistent=False)
@@ -93,9 +95,32 @@ class FeedbackLoop(nn.Module):
 
     # ---------------------------- feedback matrix ---------------------------
 
+    def orthogonal_blocks(self) -> torch.Tensor:
+        """ortho(M_g) = exp(skew(M_g)) per group, (G, Nper, Nper).
+
+        Inside :meth:`sharing_orthogonal_blocks` it is computed once and
+        reused (the loss evaluation of a training step needs it three times:
+        loop matrix, sub-FDN output, sparsity loss, as one jitted JAX step
+        computes it once).
+        """
+        if self._shared_blocks is not None:
+            if self._shared_blocks[0] is None:
+                self._shared_blocks[0] = orthogonal_from_skew(self.M)
+            return self._shared_blocks[0]
+        return orthogonal_from_skew(self.M)
+
+    @contextlib.contextmanager
+    def sharing_orthogonal_blocks(self) -> Iterator[None]:
+        """Within the block, :meth:`orthogonal_blocks` is computed once."""
+        self._shared_blocks = [None]
+        try:
+            yield
+        finally:
+            self._shared_blocks = None
+
     def block_mixing_matrix(self) -> torch.Tensor:
         """Block matrix with blocks ortho(M_i) @ ortho(M_j), shape (N, N)."""
-        o = orthogonal_from_skew(self.M)  # (G, Nper, Nper)
+        o = self.orthogonal_blocks()  # (G, Nper, Nper)
         block = torch.einsum("gab,hbc->gahc", o, o)
         return block.reshape(self.num_delays, self.num_delays)
 
@@ -131,7 +156,7 @@ class FeedbackLoop(nn.Module):
         d_diag = z[None, :, None] ** delays[:, None, :]  # (G, F, Nper)
         gamma_inv = self._inverse_gammas(z).reshape(g, nper, -1).transpose(1, 2)
         ddecay = (d_diag * gamma_inv).to(torch.complex64)
-        o = orthogonal_from_skew(self.M)
+        o = self.orthogonal_blocks()
         a_blocks = torch.matmul(o, o).to(torch.complex64)  # (G, Nper, Nper)
         return torch.diag_embed(ddecay) - a_blocks[:, None]
 

@@ -35,22 +35,27 @@ def svf_filter_types(num_biquads: int) -> np.ndarray:
 
 def svf_params_to_response(
     svf_params: torch.Tensor,
-    cutoffs: np.ndarray,
+    cutoffs,
     z: torch.Tensor,
     compress_pole_factor: float = 1.0,
+    filter_types: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Constrained SVF params -> cascade frequency response.
 
     ``svf_params``: (..., K, 2) raw MLP outputs; channel 0 is resonance
     (constrained to (1e-6, 1)), channel 1 gain in dB (constrained to
-    (-6, 6)). Returns (response (..., F), num (..., K, 3), den (..., K, 3)).
+    (-6, 6)). ``cutoffs`` (K,) and ``filter_types`` (K,), when given as
+    tensors on the parameters' device, are used without a host copy.
+    Returns (response (..., F), num (..., K, 3), den (..., K, 3)).
     """
     res = scaled_sigmoid(svf_params[..., 0], 1e-6, 1.0)
     g_db = scaled_sigmoid(svf_params[..., 1], -6.0, 6.0)
     k = svf_params.shape[-2]
     shape = (1,) * (svf_params.dim() - 2) + (k,)
     dev = svf_params.device
-    ftypes = torch.as_tensor(svf_filter_types(k), device=dev).reshape(shape)
+    if filter_types is None:
+        filter_types = svf_filter_types(k)
+    ftypes = torch.as_tensor(filter_types, device=dev).reshape(shape)
     cut = torch.as_tensor(cutoffs, dtype=torch.float32, device=dev).reshape(shape)
     num, den = svf_to_biquad(cut, res, ftypes, g_db, compress_pole_factor)
     return sos_cascade_response(num, den, z), num, den
@@ -80,6 +85,15 @@ class SVFFromMLP(nn.Module):
         super().__init__()
         _check_encoding(encoding_type)
         self.cutoffs = svf_cutoff_frequencies(sample_rate)
+        # device copies of the constants, so a forward uploads nothing
+        self.register_buffer(
+            "cutoff_values", torch.as_tensor(self.cutoffs, dtype=torch.float32),
+            persistent=False,
+        )
+        self.register_buffer(
+            "filter_types", torch.as_tensor(svf_filter_types(len(self.cutoffs))),
+            persistent=False,
+        )
         self.compress_pole_factor = compress_pole_factor
         self.encoding = SinusoidalEncoding(num_fourier_features)
         self.mlp = MLP(
@@ -90,7 +104,8 @@ class SVFFromMLP(nn.Module):
     def forward(self, x: dict) -> torch.Tensor:
         svf = self.mlp(self.encoding(x["listener_position"]))  # (B, G, K, 2)
         resp, _, _ = svf_params_to_response(
-            svf, self.cutoffs, x["z_values"], self.compress_pole_factor
+            svf, self.cutoff_values, x["z_values"], self.compress_pole_factor,
+            self.filter_types,
         )
         return resp
 

@@ -1,24 +1,26 @@
-"""Differentiable GFDN model (port of ``diffgfdn_tpu/models/gfdn.py``, serving slice).
+"""Differentiable GFDN model (port of ``diffgfdn_tpu/models/gfdn.py``).
 
 H(z) = c(z)^T (D(z) Gamma(z)^-1 - A(z))^-1 b(z) + d(z), evaluated at all
 rFFT bins at once.
 
-* :class:`DiffGFDN` — io gains, feedback loop and the three transfer-function
-  forms (general, per-group filter heads, frequency-independent heads);
+* :class:`DiffGFDN` — io gains, feedback loop, the three transfer-function
+  forms (general, per-group filter heads, frequency-independent heads) and
+  the lossless per-group responses ``sub_fdn_output``;
 * :class:`DiffGFDNVarReceiverPos` — output gains (scalar heads) or SVF
   filters (SVF heads) conditioned on the listener position via an MLP.
 
-The colorless sub-FDN output (``sub_fdn_output``), used only by the
-colorless training loss, arrives with the training slice (ROADMAP A5).
+``forward`` returns H alone: the trainer calls ``sub_fdn_output`` itself
+when the colorless loss is on, so serving never computes it.
 """
 
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 from ..config.schema import CouplingMatrixType, FeatureEncodingType
+from ..kernels.linalg import cinv
 from .feedback_loop import FeedbackLoop
 from .gain_heads import expand_groups_to_delay_lines, GainsFromMLP, SVFFromMLP
 
@@ -60,6 +62,25 @@ class DiffGFDN(nn.Module):
             sos_coeffs=sos_coeffs,
             generator=generator,
         )
+
+    def sub_fdn_output(self, z: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Lossless response of each sub-FDN (no absorption, no coupling).
+
+        Each group's loop is diag(z^m) - ortho(M_g), inverted per bin through
+        the Gauss-Jordan kernel. Returns (Hout (F, G), Hout_per_del
+        (G, Nper, F)): the per-group output and the per-delay-line
+        contributions c_n (P b)_n.
+        """
+        g, nper = self.num_groups, self.num_delay_lines_per_group
+        fl = self.feedback_loop
+        delays = fl.delays.reshape(g, nper)
+        o = fl.orthogonal_blocks().to(torch.complex64)  # (G, Nper, Nper)
+        d = (z[None, :, None] ** delays[:, None, :]).to(torch.complex64)  # (G, F, Nper)
+        p = cinv(torch.diag_embed(d) - o[:, None])  # (G, F, Nper, Nper)
+        c = self.output_gains.reshape(g, nper).to(torch.complex64)
+        b = self.input_gains.reshape(g, nper).to(torch.complex64)
+        h_per_del = c[:, :, None] * torch.einsum("gfnm,gm->gnf", p, b)
+        return h_per_del.sum(dim=1).T, h_per_del
 
     def transfer_function(
         self,

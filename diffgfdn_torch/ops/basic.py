@@ -1,7 +1,9 @@
-"""Basic DSP helpers (port of ``diffgfdn_tpu/ops/basic.py``, serving subset).
+"""Basic DSP helpers (port of ``diffgfdn_tpu/ops/basic.py``, training subset).
 
 Host-side helpers stay numpy; :func:`get_frequency_samples` builds the z
-grid as a torch tensor on the requested device.
+grid as a torch tensor on the requested device; :func:`db` and
+:func:`schroeder_backward_int` are the differentiable tensor ops of the
+training losses.
 """
 
 from typing import Tuple, Union
@@ -11,6 +13,23 @@ import torch
 
 # Energy decays by 60 dB in T60 seconds: exp(-t * LOG10E6 / T60).
 LOG10E6 = float(np.log(10.0 ** 6))  # = 13.8155...
+_EPS_F32 = float(np.finfo(np.float32).eps)
+
+
+def db(x: torch.Tensor, is_squared: bool = False, min_value: float = -200.0) -> torch.Tensor:
+    """Linear values to decibels, 10 or 20 log10(|x| + eps_f32), clipped below."""
+    factor = 10.0 if is_squared else 20.0
+    return torch.clamp(factor * torch.log10(torch.abs(x) + _EPS_F32), min=min_value)
+
+
+def schroeder_backward_int(signal: torch.Tensor) -> torch.Tensor:
+    """Schroeder backward integral along the last axis: EDC(t) = sum_{u>=t} signal(u)^2.
+
+    Summed from the end (flip, cumsum, flip), as ``lax.cumsum(reverse=True)``
+    does: small late values are added first, so the tail does not cancel.
+    """
+    s2 = signal * signal
+    return torch.flip(torch.cumsum(torch.flip(s2, dims=(-1,)), dim=-1), dims=(-1,))
 
 
 def db2lin_np(x, is_squared: bool = False):

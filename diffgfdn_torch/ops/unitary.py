@@ -1,8 +1,10 @@
 """Orthogonal matrix parametrizations (port of ``diffgfdn_tpu/ops/unitary.py``).
 
-Serving subset: the skew/matrix-exponential orthogonal parametrization and
-the Givens-angle rotation used by SCALAR coupling.
+The skew/matrix-exponential orthogonal parametrization and the Givens-angle
+rotation used by SCALAR coupling.
 """
+
+import math
 
 import torch
 
@@ -13,9 +15,46 @@ def skew(x: torch.Tensor) -> torch.Tensor:
     return a - a.transpose(-1, -2)
 
 
+_TAYLOR_DEGREE = 12  # 1 / 13! < 2e-10: below float32 rounding for |A|_1 <= 1
+_MAX_SQUARINGS = 8  # accurate for |A|_1 <= 2^8
+# Taylor coefficients 1/j!, grouped for Paterson-Stockmeyer in powers of A^3:
+# p(A) = sum_i C_i (A^3)^i with C_i = c_3i I + c_3i+1 A + c_3i+2 A^2
+_PS_COEFFS = [[1.0 / math.factorial(3 * i + j) if 3 * i + j <= _TAYLOR_DEGREE else 0.0
+               for j in range(3)] for i in range(_TAYLOR_DEGREE // 3 + 1)]
+
+
+def matrix_exp(a: torch.Tensor) -> torch.Tensor:
+    """exp(A) by scaling and squaring, batched, without reading anything back
+    to the host (``torch.linalg.matrix_exp`` copies its norms to the host on
+    CUDA, a synchronization per call).
+
+    A is scaled by 2^-s with s = ceil(log2 |A|_1) in [0, 8] (computed on the
+    device), the degree-12 Taylor polynomial is evaluated by Paterson and
+    Stockmeyer's scheme (six matrix products), and the result is squared s
+    times: each of the 8 squarings is applied only where its index is below s.
+    """
+    # s is piecewise constant in A: no gradient flows through it (and none
+    # must, since log2 of a zero norm would turn it into 0 * inf)
+    norm = torch.amax(torch.sum(torch.abs(a.detach()), dim=-2), dim=-1)
+    s = torch.clamp(torch.ceil(torch.log2(norm)), min=0.0, max=float(_MAX_SQUARINGS))
+    x = a * torch.pow(2.0, -s)[..., None, None]
+    eye = torch.eye(a.shape[-1], dtype=a.dtype, device=a.device).expand_as(a)
+    x2 = torch.matmul(x, x)
+    x3 = torch.matmul(x2, x)
+    coeffs = torch.tensor(_PS_COEFFS, dtype=a.dtype, device=a.device)
+    c = torch.einsum("ij,j...->i...", coeffs, torch.stack([eye, x, x2]))  # C_i
+    e = c[-1]
+    for i in range(len(_PS_COEFFS) - 2, -1, -1):
+        e = torch.matmul(e, x3) + c[i]
+    square = s[..., None] > torch.arange(_MAX_SQUARINGS, device=a.device)
+    for i in range(_MAX_SQUARINGS):
+        e = torch.where(square[..., i, None, None], torch.matmul(e, e), e)
+    return e
+
+
 def orthogonal_from_skew(x: torch.Tensor) -> torch.Tensor:
     """Orthogonal matrix exp(skew(x)); batched over leading axes."""
-    return torch.linalg.matrix_exp(skew(x))
+    return matrix_exp(skew(x))
 
 
 def planar_rotation(alpha: torch.Tensor, n: int, i: int) -> torch.Tensor:

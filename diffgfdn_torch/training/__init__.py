@@ -1,12 +1,35 @@
-"""Model construction and checkpoints (the trainers arrive with the training slice)."""
+"""Model construction, checkpoints and grid-of-receivers training."""
 
 from .build import absorption_arrays, build_gfdn_model
-from .checkpoints import load_checkpoint, load_latest_checkpoint, save_checkpoint
+from .checkpoints import (
+    load_checkpoint,
+    load_latest_checkpoint,
+    load_latest_checkpoint_with_epoch,
+    load_opt_state,
+    save_checkpoint,
+    save_opt_state,
+)
+from .optim import make_optimizer, param_labels
+from .save_results import gfdn_param_dict, save_diff_gfdn_parameters, save_loss
+from .solver import run_training_var_receiver_pos
+from .trainer import exact_valid_batches, GFDNTrainer, padded_batches
 
 __all__ = [
+    "GFDNTrainer",
     "absorption_arrays",
     "build_gfdn_model",
+    "exact_valid_batches",
+    "gfdn_param_dict",
     "load_checkpoint",
     "load_latest_checkpoint",
+    "load_latest_checkpoint_with_epoch",
+    "load_opt_state",
+    "make_optimizer",
+    "padded_batches",
+    "param_labels",
+    "run_training_var_receiver_pos",
     "save_checkpoint",
+    "save_diff_gfdn_parameters",
+    "save_loss",
+    "save_opt_state",
 ]

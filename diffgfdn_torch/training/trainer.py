@@ -1,0 +1,400 @@
+"""Grid-of-receivers GFDN training on the device (port of ``training/trainer.py`` GFDNTrainer).
+
+The precomputed-target path of the JAX trainer, which
+``run_training_var_receiver_pos`` takes:
+
+* the dataset's time-domain RIRs and early segments are uploaded once; the
+  target EDC and EDR features and the early spectra are computed on the
+  device and stay there (:meth:`GFDNTrainer.precompute_target_features`,
+  :meth:`GFDNTrainer.upload_arrays`);
+* batches are gathered on the device from an index matrix uploaded once per
+  epoch; the EDC mask is drawn on the device from a ``torch.Generator``;
+* losses are summed on the device, and the host reads them once per epoch,
+  when it writes the epoch's checkpoint and optimizer-state sidecar;
+* the sub-FDN energy normalization runs under ``no_grad``, before every step
+  for scalar heads and once per epoch for SVF heads, as in the JAX trainer.
+
+Each step's gradients run through the hand-written backward kernels: B2
+(``neg_ptgpt``) behind ``block_responses`` and ``sub_fdn_output``, B4
+(``sos_cascade_backward``) behind the SVF heads, B6 (``lut_apply``) behind
+the scalar heads' ``drive``.
+"""
+
+import logging
+import os
+import time
+from typing import Dict, Iterable, List, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from ..config.schema import TrainerConfig
+from ..data.audio import write_wav
+from ..losses import amse_loss, edc_loss_from_rir, edc_mask, edr_loss_from_rir, mse_loss
+from ..losses import sparsity_loss
+from ..ops.basic import db, ms_to_samps, schroeder_backward_int
+from ..ops.stft import edr_from_stft, stft
+from ..utils.device import resolve_device
+from ..utils.params import jax_params_from_torch, load_jax_params
+from .checkpoints import (
+    load_latest_checkpoint_with_epoch,
+    load_opt_state,
+    save_checkpoint,
+    save_opt_state,
+)
+from .optim import make_optimizer
+
+logger = logging.getLogger("diffgfdn_torch")
+
+Batch = Dict[str, torch.Tensor]
+
+
+def padded_batches(idx: np.ndarray, batch_size: int):
+    """Split an index vector into full batches, padding the tail by wrapping
+    around to the head (every item at least once, every batch full)."""
+    n = len(idx)
+    for k in range(max(1, -(-n // batch_size))):
+        b = idx[k * batch_size : (k + 1) * batch_size]
+        if len(b) == 0:
+            return
+        if len(b) < batch_size:
+            b = np.concatenate([b, idx[: batch_size - len(b)]])
+        yield b
+
+
+def exact_valid_batches(idx: np.ndarray, batch_size: int):
+    """(full batches, unpadded remainder) of a validation split: an
+    item-weighted mean over them is the exact per-item mean."""
+    idx = np.asarray(idx)
+    n = len(idx)
+    full = [idx[k * batch_size : (k + 1) * batch_size] for k in range(n // batch_size)]
+    return full, idx[(n // batch_size) * batch_size :]
+
+
+class GFDNTrainer:
+    """Trainer for position-conditioned (grid) GFDNs.
+
+    ``device`` defaults to CUDA and raises without a card unless the caller
+    passes ``device="cpu"``; the model is moved there.
+    """
+
+    patience: int = 5
+    early_stop_tol: float = 1e-3
+
+    def __init__(
+        self,
+        model: torch.nn.Module,
+        trainer_config: TrainerConfig,
+        steps_per_epoch: int,
+        common_decay_times: Optional[np.ndarray] = None,
+        sample_rate: Optional[float] = None,
+        device: Union[str, torch.device] = "cuda",
+    ):
+        cfg = trainer_config
+        if cfg.use_reg_loss and model.use_svf_in_output:
+            raise NotImplementedError(
+                "the aliasing regularizer (use_reg_loss) is not ported yet (ROADMAP A5)"
+            )
+        if cfg.use_frequency_weighting or cfg.use_erb_edr_loss:
+            raise NotImplementedError(
+                "frequency weighting and the ERB-grouped EDR loss are not ported yet "
+                "(ROADMAP A5)"
+            )
+        if cfg.subband_process_config is not None:
+            raise NotImplementedError(
+                "subband training (subband_process_config) is not ported yet (ROADMAP A11)"
+            )
+        self.device = resolve_device(device)
+        self.model = model.to(self.device)
+        self.cfg = cfg
+        self.steps_per_epoch = max(1, steps_per_epoch)
+        self.sample_rate = sample_rate or model.sample_rate
+        max_ir_len_ms = (
+            2000.0 if common_decay_times is None else float(np.max(common_decay_times)) * 1e3
+        )
+        self.mixing_time_samps = ms_to_samps(20.0, self.sample_rate)
+        self.max_ir_len_samps = ms_to_samps(max_ir_len_ms, self.sample_rate)
+        # EDR STFT window: 4096, shrunk for short IRs so there are >= 4 frames
+        time_len = cfg.num_freq_bins if cfg.num_freq_bins is not None else 2 ** 17
+        self.edr_win = min(2 ** 12, 2 ** int(np.log2(max(time_len // 4, 8))))
+        self.edr_hop = self.edr_win // 2
+
+        self.train_loss: List[float] = []
+        self.valid_loss: List[float] = []
+        self.individual_train_loss: List[Dict[str, float]] = []
+        self.individual_valid_loss: List[Dict[str, float]] = []
+        self._early_stop = 0
+        self.features: Optional[Batch] = None
+        self.data: Optional[Batch] = None
+        self.optimizer: Optional[torch.optim.Optimizer] = None
+        self.scheduler = None
+        self.mask_generator = torch.Generator(device=self.device).manual_seed(0)
+
+    # ----------------------------- loss assembly -----------------------------
+
+    def _losses(self, batch: Batch, edc_mask_values: Optional[torch.Tensor] = None
+                ) -> Dict[str, torch.Tensor]:
+        """The weighted losses of one batch, as the JAX trainer's fast path.
+
+        ``edc_mask_values``: the EDC time mask to use when ``use_edc_mask`` is
+        on; None draws one from ``mask_generator``.
+        """
+        with self.model.feedback_loop.sharing_orthogonal_blocks():
+            cfg = self.cfg
+            h = self.model(batch)
+            n = 2 * (h.shape[-1] - 1)
+            rir = torch.fft.irfft(h, n, dim=-1)
+            mix, end = self.mixing_time_samps, min(self.max_ir_len_samps, n)
+            mask = None
+            if cfg.use_edc_mask:
+                mask = edc_mask_values
+                if mask is None:
+                    mask = edc_mask(end - mix, self.mask_generator, rir.device)
+            losses = {
+                "edc_loss": cfg.edc_loss_weight
+                * edc_loss_from_rir(batch["target_edc_db"], rir[..., mix:end], mask)
+            }
+            rir_env = rir
+            if cfg.reduced_pole_radius != 1.0:
+                rir_env = rir * torch.pow(
+                    1.0 / cfg.reduced_pole_radius,
+                    torch.arange(n, dtype=torch.float32, device=rir.device),
+                )
+            losses["edr_loss"] = cfg.edr_loss_weight * edr_loss_from_rir(
+                batch["target_edr_db"], batch["target_edr_abs_sum"], rir_env,
+                win_size=self.edr_win, hop_size=self.edr_hop,
+            )
+            if cfg.use_colorless_loss:
+                h_out, _ = self.model.sub_fdn_output(batch["z_values"])  # (F, G)
+                spectral_fn = amse_loss if cfg.use_asym_spectral_loss else mse_loss
+                spectral = 0.0
+                for k in range(self.model.num_groups):
+                    spectral = spectral + cfg.spectral_loss_weight * spectral_fn(
+                        h_out[..., k], torch.ones_like(h_out[..., k].real)
+                    )
+                ortho = self.model.feedback_loop.orthogonal_blocks()
+                losses["spectral_loss"] = spectral
+                losses["sparsity_loss"] = cfg.sparsity_loss_weight * sparsity_loss(ortho[-1])
+            return losses
+
+    def loss_and_grads(self, batch: Batch, edc_mask_values: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Zero the gradients, then the total loss of one batch and its
+        backward: the parameters' ``.grad`` hold the step's gradients."""
+        for p in self.model.parameters():
+            p.grad = None
+        losses = self._losses(batch, edc_mask_values)
+        total = sum(losses.values())
+        total.backward()
+        return total.detach(), {k: v.detach() for k, v in losses.items()}
+
+    def fit_step(self, idx: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """One step of :meth:`fit_indexed` on the receivers ``idx`` (a device
+        tensor): the per-step normalization of scalar heads, then the
+        optimizer step on the gathered batch. Returns the device-resident
+        losses (no host sync)."""
+        if not self.model.use_svf_in_output:
+            self._normalize_params()
+        total, aux = self.loss_and_grads(self.gather(idx))
+        self.optimizer.step()
+        self.scheduler.step()
+        return total, aux
+
+    # ----------------------- device-resident data path -----------------------
+
+    @torch.no_grad()
+    def precompute_target_features(self, arrays, chunk: int = 32) -> None:
+        """Target EDC (dB) after truncation, target EDR (dB) and its |.| sum per
+        receiver, computed once on the device from the time-domain RIRs (zero
+        padded or cut to nfft) and kept there."""
+        nfft = 2 * (arrays.z_values.shape[0] - 1)
+        rirs = torch.as_tensor(arrays.target_rir_time, dtype=torch.float32, device=self.device)
+        rirs = torch.nn.functional.pad(rirs[:, :nfft], (0, max(0, nfft - rirs.shape[1])))
+        mix, end = self.mixing_time_samps, min(self.max_ir_len_samps, nfft)
+        edcs, edrs, sums = [], [], []
+        for k in range(0, rirs.shape[0], chunk):
+            rir = rirs[k : k + chunk]
+            edcs.append(db(schroeder_backward_int(rir[..., mix:end]), is_squared=True))
+            edr = edr_from_stft(stft(rir, self.edr_win, self.edr_hop))
+            edrs.append(edr)
+            sums.append(torch.sum(torch.abs(edr), dim=(-2, -1)))
+        self.features = {
+            "target_edc_db": torch.cat(edcs),
+            "target_edr_db": torch.cat(edrs),
+            "target_edr_abs_sum": torch.cat(sums),
+        }
+        self.data = None
+
+    @torch.no_grad()
+    def upload_arrays(self, arrays) -> Batch:
+        """The model inputs and loss features on the device, from one upload:
+        z, positions, the early spectra (rfft of the early segments on the
+        device) and the precomputed target features."""
+        if self.features is None:
+            self.precompute_target_features(arrays)
+        dev = self.device
+        nfft = 2 * (arrays.z_values.shape[0] - 1)
+        early = torch.as_tensor(arrays.target_early_time, dtype=torch.float32, device=dev)
+        self.data = {
+            "z_values": torch.as_tensor(arrays.z_values, device=dev),
+            "listener_position": torch.as_tensor(arrays.listener_position, device=dev),
+            "norm_listener_position": torch.as_tensor(arrays.norm_listener_position, device=dev),
+            "target_early_response": torch.fft.rfft(early, n=nfft, dim=-1),
+            **self.features,
+        }
+        return self.data
+
+    def gather(self, idx: torch.Tensor) -> Batch:
+        """One batch gathered on the device (z is shared by every receiver)."""
+        return {k: v if k == "z_values" else v[idx] for k, v in self.data.items()}
+
+    # ---------------------------- normalization ------------------------------
+
+    @torch.no_grad()
+    def _normalize_params(self) -> None:
+        """Scale b and c so each sub-FDN has unit average energy: divide each
+        group's io gains by E[|H_sub_g|^2]^(1/4), in place."""
+        h_sub, _ = self.model.sub_fdn_output(self.data["z_values"])
+        scale = torch.pow(torch.mean(torch.abs(h_sub) ** 2, dim=0), 0.25)  # (G,)
+        per_line = torch.repeat_interleave(scale, self.model.num_delay_lines_per_group)[:, None]
+        self.model.input_gains.div_(per_line)
+        self.model.output_gains.div_(per_line)
+
+    # ------------------------------- training --------------------------------
+
+    def fit_indexed(
+        self,
+        arrays,
+        train_idx: np.ndarray,
+        valid_idx: np.ndarray,
+        seed: int = 0,
+        resume: bool = False,
+    ) -> torch.nn.Module:
+        """Epoch loop over device-resident data; returns the trained model.
+
+        Batch order and splits come from ``np.random.RandomState(seed)`` as in
+        the JAX trainer. ``resume=True`` restarts from the newest checkpoint
+        in ``train_dir`` and its optimizer-state sidecar.
+        """
+        cfg = self.cfg
+        start_epoch, resumed = 0, None
+        if resume:
+            found = load_latest_checkpoint_with_epoch(cfg.train_dir, cfg.max_epochs - 1)
+            if found is not None:
+                tree, last_epoch = found
+                load_jax_params(self.model, tree)
+                start_epoch = last_epoch + 1
+                resumed = load_opt_state(cfg.train_dir, last_epoch, self.device)
+                logger.info("resuming from epoch %d (%s optimizer state)", start_epoch,
+                            "with" if resumed is not None else "without")
+        # no sidecar: Adam restarts, but the step decay resumes at its position
+        count_offset = start_epoch * self.steps_per_epoch if resume and resumed is None else 0
+        self.optimizer, self.scheduler = make_optimizer(
+            cfg, self.model, self.steps_per_epoch, count_offset=count_offset
+        )
+        if resumed is not None:
+            self.optimizer.load_state_dict(resumed["optimizer"])
+            self.scheduler.load_state_dict(resumed["scheduler"])
+        if len(train_idx) == 0:
+            raise ValueError("no training items: train_idx is empty (check "
+                             "train_valid_split / dataset size)")
+        if self.data is None:
+            self.upload_arrays(arrays)
+        self.mask_generator.manual_seed(seed)
+        bs = min(cfg.batch_size, max(1, len(train_idx)))
+        vbs = min(cfg.batch_size, max(1, len(valid_idx)))
+        vfull, vrem = exact_valid_batches(valid_idx, vbs)
+        valid_batches = [
+            torch.as_tensor(np.asarray(b), dtype=torch.long, device=self.device)
+            for b in vfull + ([vrem] if len(vrem) else [])
+        ]
+        if start_epoch == 0:
+            save_checkpoint(cfg.train_dir, -1, jax_params_from_torch(self.model))
+
+        rng = np.random.RandomState(seed)
+        for _ in range(start_epoch):  # replay: a resumed run sees the same batch order
+            rng.permutation(len(train_idx))
+        start = time.time()
+        for epoch in range(start_epoch, cfg.max_epochs):
+            ep_start = time.time()
+            perm = train_idx[rng.permutation(len(train_idx))]
+            idx_mat = torch.as_tensor(
+                np.stack(list(padded_batches(perm, bs))), dtype=torch.long, device=self.device
+            )
+            if self.model.use_svf_in_output:
+                self._normalize_params()
+            ep_total, ep_aux = 0.0, {}
+            for idx in idx_mat:
+                total, aux = self.fit_step(idx)
+                ep_total = ep_total + total
+                ep_aux = {k: ep_aux.get(k, 0.0) + v for k, v in aux.items()}
+            v_total, v_aux, v_weight = 0.0, {}, 0
+            with torch.no_grad():
+                for vidx in valid_batches:
+                    losses = self._losses(self.gather(vidx))
+                    w = len(vidx)
+                    v_total = v_total + sum(losses.values()) * w
+                    v_aux = {k: v_aux.get(k, 0.0) + v * w for k, v in losses.items()}
+                    v_weight += w
+            # the epoch's one read of device values
+            keys = list(ep_aux)
+            vkeys = list(v_aux)
+            row = [ep_total] + [ep_aux[k] for k in keys]
+            if v_weight:
+                row += [v_total] + [v_aux[k] for k in vkeys]
+            host = torch.stack([torch.as_tensor(x, device=self.device) for x in row]).tolist()
+            n_steps = idx_mat.shape[0]
+            self.train_loss.append(host[0] / n_steps)
+            self.individual_train_loss.append(
+                {k: host[1 + i] / n_steps for i, k in enumerate(keys)}
+            )
+            if v_weight:
+                base = 1 + len(keys)
+                self.valid_loss.append(host[base] / v_weight)
+                self.individual_valid_loss.append(
+                    {k: host[base + 1 + i] / v_weight for i, k in enumerate(vkeys)}
+                )
+            else:
+                self.valid_loss.append(0.0)
+                self.individual_valid_loss.append({})
+            save_checkpoint(cfg.train_dir, epoch, jax_params_from_torch(self.model))
+            save_opt_state(cfg.train_dir, epoch, {"optimizer": self.optimizer.state_dict(),
+                                                  "scheduler": self.scheduler.state_dict()})
+            logger.info("epoch %d train %.4f valid %.4f (%.2fs)", epoch, self.train_loss[-1],
+                        self.valid_loss[-1], time.time() - ep_start)
+            # an empty validation split pins valid_loss at 0.0, which must not
+            # trip early stopping
+            if len(valid_idx) > 0 and len(self.valid_loss) >= 2:
+                if abs(self.valid_loss[-2] - self.valid_loss[-1]) <= self.early_stop_tol:
+                    self._early_stop += 1
+                else:
+                    self._early_stop = 0
+            if self._early_stop == self.patience:
+                logger.info("early stopping at epoch %d", epoch)
+                break
+        logger.info("training time: %.3fs", time.time() - start)
+        return self.model
+
+    # ------------------------------ IR export --------------------------------
+
+    def save_irs(
+        self,
+        batches: Iterable[np.ndarray],
+        directory,
+        filename_prefix: str = "ir",
+        norm: bool = True,
+    ) -> None:
+        """Write the model's RIRs for batches of receiver indices as wav
+        files named by the receivers' positions."""
+        from ..inference.gfdn_inference import make_rir_synthesis_fn
+
+        synth = make_rir_synthesis_fn(self.model, self.cfg.reduced_pole_radius)
+        os.makedirs(directory, exist_ok=True)
+        for idx in batches:
+            batch = self.gather(torch.as_tensor(idx, device=self.device))
+            rirs = synth(batch).cpu().numpy()
+            if norm:
+                rirs = rirs / (np.max(np.abs(rirs)) + 1e-12)
+            for rir, pos in zip(rirs, batch["listener_position"].cpu().numpy()):
+                name = f"{filename_prefix}_({pos[0]:.2f}, {pos[1]:.2f}, {pos[2]:.2f}).wav"
+                write_wav(os.path.join(directory, name), rir, self.sample_rate)

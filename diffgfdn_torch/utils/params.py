@@ -11,9 +11,13 @@ optionally under a top-level ``"params"`` key) maps onto the port's
 * every other key keeps its name (``input_gains``, ``output_gains``,
   ``feedback_loop/M``, ``feedback_loop/alpha``, ``output_filters``,
   ``output_scalars``).
+
+Gradients map by the same rules (:func:`jax_grads_from_torch`), and the
+optimizer's parameter groups are labelled on the flax path
+(:func:`flax_path`), as the JAX package labels its tree.
 """
 
-from typing import Dict
+from typing import Dict, Iterable, List, Tuple
 
 import numpy as np
 import torch
@@ -51,33 +55,54 @@ def load_jax_params(model: nn.Module, tree: Dict) -> nn.Module:
     return model
 
 
-def jax_params_from_torch(model: nn.Module) -> Dict:
-    """The port's parameters as a flax tree ``{"params": ...}`` of numpy arrays,
-    in the layout a JAX checkpoint holds (the inverse of :func:`torch_state_from_jax`)."""
+def flax_path(name: str) -> Tuple[List[str], bool]:
+    """The flax tree keys of a port parameter name, and whether its array is
+    the transpose of the flax leaf (the rules above, in reverse)."""
+    parts = name.split(".")
+    keys: List[str] = []
+    transpose = False
+    i = 0
+    while i < len(parts):
+        part = parts[i]
+        if part in ("dense", "norm"):
+            layer, leaf = parts[i + 1], parts[i + 2]
+            if part == "dense":
+                keys += [f"Dense_{layer}", "kernel" if leaf == "weight" else "bias"]
+                transpose = leaf == "weight"
+            else:
+                keys += [f"LayerNorm_{layer}", "scale" if leaf == "weight" else "bias"]
+            i += 3
+            continue
+        keys.append("MLP_0" if part == "mlp" else part)
+        i += 1
+    return keys, transpose
+
+
+def _flax_tree(named: Iterable[Tuple[str, torch.Tensor]]) -> Dict:
     tree: Dict = {}
-    for name, value in model.state_dict().items():
-        parts = name.split(".")
+    for name, value in named:
+        keys, transpose = flax_path(name)
         arr = value.detach().cpu().numpy()
-        keys = []
-        i = 0
-        while i < len(parts):
-            part = parts[i]
-            if part in ("dense", "norm"):
-                layer, leaf = parts[i + 1], parts[i + 2]
-                if part == "dense":
-                    keys += [f"Dense_{layer}", "kernel" if leaf == "weight" else "bias"]
-                    arr = arr.T if leaf == "weight" else arr
-                else:
-                    keys += [f"LayerNorm_{layer}", "scale" if leaf == "weight" else "bias"]
-                i += 3
-                continue
-            keys.append("MLP_0" if part == "mlp" else part)
-            i += 1
         node = tree
         for k in keys[:-1]:
             node = node.setdefault(k, {})
-        node[keys[-1]] = np.ascontiguousarray(arr)
+        node[keys[-1]] = np.ascontiguousarray(arr.T if transpose else arr)
     return {"params": tree}
+
+
+def jax_params_from_torch(model: nn.Module) -> Dict:
+    """The port's parameters as a flax tree ``{"params": ...}`` of numpy arrays,
+    in the layout a JAX checkpoint holds (the inverse of :func:`torch_state_from_jax`)."""
+    return _flax_tree(model.state_dict().items())
+
+
+def jax_grads_from_torch(model: nn.Module) -> Dict:
+    """The port's ``.grad``s as a flax tree, mapped by the same rules as the
+    parameters (Dense kernels transposed); parameters without a gradient are
+    left out."""
+    return _flax_tree(
+        (name, p.grad) for name, p in model.named_parameters() if p.grad is not None
+    )
 
 
 def _tensor(x) -> torch.Tensor:

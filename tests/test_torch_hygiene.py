@@ -50,6 +50,29 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(tmp_path):
         build_gfdn_model(cfg, room.common_decay_times)
 
 
+def test_training_entry_points_default_to_cuda_and_raise_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card: the default device is valid here")
+    from diffgfdn_torch.cli.run_model import main as cli_main
+    from diffgfdn_torch.config import preset_config
+    from diffgfdn_torch.data import synthetic_three_room_dataset
+    from diffgfdn_torch.training import build_gfdn_model, GFDNTrainer
+    from diffgfdn_torch.training import run_training_var_receiver_pos
+
+    cfg = preset_config("three_room_example", sample_rate=8000.0, num_delay_lines=6)
+    cfg.trainer_config.train_dir = str(tmp_path / "train")
+    room = synthetic_three_room_dataset(tmp_path, nfft=512, num_rec_per_room=1,
+                                        rir_len_s=0.05)
+    model = build_gfdn_model(cfg, room.common_decay_times, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        GFDNTrainer(model, cfg.trainer_config, 1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_training_var_receiver_pos(cfg, room)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli_main(["-c", "three_room_example"])
+    assert not (tmp_path / "train").exists()
+
+
 def test_port_is_lint_clean():
     sys.path.insert(0, str(ROOT / "tools"))
     import lint

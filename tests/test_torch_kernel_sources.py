@@ -6,9 +6,13 @@ against a small header that stands in for the CUDA built-ins (``float2``,
 nothing); launches (``<<<...>>>``) are stripped. A small host harness then runs every
 kernel thread by thread, one thread per block, and the results are compared
 with the plain PyTorch versions on the same inputs. With no fused
-multiply-add on either side the Gauss-Jordan inverse, the cascade response,
-the LU factors and the pivots must agree bit for bit; the LU solution sums
-its back substitution in another order (bound 1e-5 max |x|).
+multiply-add on either side the Gauss-Jordan inverse and its backward
+-P^H G P^H, the cascade response, the LU factors and pivots and the
+transposed solve must agree bit for bit; the LU solution sums its back
+substitution in another order (bound 1e-5 max |x|), and so do the cascade
+backward's sums over the bins (bound 1e-5 max |gradient|). The cascade
+backward runs with one thread per block here: its warp shuffles add nothing
+(the shim's shuffle returns 0), so each block's partial is one thread's sum.
 
 This checks the kernels' logic and arithmetic only: compilation for the
 card, launch configuration and memory behaviour are checked on the card
@@ -25,9 +29,9 @@ import numpy as np
 import pytest
 import torch
 
-from diffgfdn_torch.kernels.cinv import cinv_plain
-from diffgfdn_torch.kernels.lu import lu_solve_plain
-from diffgfdn_torch.kernels.sos import sos_cascade_plain
+from diffgfdn_torch.kernels.cinv import cinv_plain, neg_ptgpt_plain
+from diffgfdn_torch.kernels.lu import lu_solve_plain, lut_apply_plain
+from diffgfdn_torch.kernels.sos import sos_cascade_backward_plain, sos_cascade_plain
 from torch_port_helpers import cascade, systems
 
 CSRC = Path(__file__).resolve().parents[1] / "diffgfdn_torch" / "csrc"
@@ -36,6 +40,7 @@ SIZES = (1, 4, 9, 12, 27)
 SHIM = """
 #pragma once
 #include <cstddef>
+#include <math.h>
 struct float2 { float x, y; };
 inline float2 make_float2(float a, float b) { return {a, b}; }
 struct dim3 {
@@ -49,6 +54,7 @@ inline int cudaGetLastError() { return 0; }
 #define __global__
 #define __shared__
 #define __syncthreads()
+inline float __shfl_down_sync(unsigned, float, int) { return 0.0f; }
 namespace { float coef[1 << 16]; }  // the cascade's dynamic shared memory
 """
 
@@ -61,7 +67,14 @@ extern "C" void emu(const void* m, void* out, long long k, int n) {
     blockIdx = dim3((unsigned)s);
     switch (n) { CASES }
   }
-}""".replace("CASES", _CASES.replace("KERNEL", "cinv_kernel").replace("ARGS", "mi, o, k")),
+}""".replace("CASES", _CASES.replace("KERNEL", "cinv_kernel").replace("ARGS", "mi, o, k")) + """
+extern "C" void emu_ptgpt(const void* p, const void* g, void* out, long long k, int n) {
+  auto pi = (const float2*)p; auto gi = (const float2*)g; auto o = (float2*)out;
+  for (long long s = 0; s < k; ++s) {
+    blockIdx = dim3((unsigned)s);
+    switch (n) { CASES }
+  }
+}""".replace("CASES", _CASES.replace("KERNEL", "neg_ptgpt_kernel").replace("ARGS", "pi, gi, o, k")),
     "lu": """
 extern "C" void emu(const void* m, const void* b, void* x, void* lu, void* piv,
                     long long k, int n) {
@@ -72,7 +85,17 @@ extern "C" void emu(const void* m, const void* b, void* x, void* lu, void* piv,
     switch (n) { CASES }
   }
 }""".replace("CASES", _CASES.replace("KERNEL", "lu_solve_kernel")
-             .replace("ARGS", "mi, bi, xo, lo, po, k")),
+             .replace("ARGS", "mi, bi, xo, lo, po, k")) + """
+extern "C" void emu_lut(const void* lu, const void* piv, const void* g, void* y,
+                        long long k, int n) {
+  auto li = (const float2*)lu; auto pi = (const int*)piv; auto gi = (const float2*)g;
+  auto yo = (float2*)y;
+  for (long long s = 0; s < k; ++s) {
+    blockIdx = dim3((unsigned)s);
+    switch (n) { CASES }
+  }
+}""".replace("CASES", _CASES.replace("KERNEL", "lut_apply_kernel")
+             .replace("ARGS", "li, pi, gi, yo, k")),
     "sos": """
 extern "C" void emu(const void* num, const void* den, const void* w, void* h,
                     int rows, int k, long long f) {
@@ -82,6 +105,23 @@ extern "C" void emu(const void* num, const void* den, const void* w, void* h,
       sos_cascade_kernel((const float*)num, (const float*)den, (const float2*)w,
                          (float2*)h, k, f);
     }
+}
+// K = 11 sections, one thread per block covering `per` bins; then the reduction
+extern "C" void emu_bwd(const void* num, const void* den, const void* w, const void* g,
+                        void* partial, void* dnum, void* dden, int rows, long long f,
+                        int per, int n_blocks) {
+  blockDim = dim3(1);
+  for (int r = 0; r < rows; ++r)
+    for (int b = 0; b < n_blocks; ++b) {
+      blockIdx = dim3((unsigned)b, (unsigned)r);
+      sos_bwd_partial_kernel<11>((const float*)num, (const float*)den, (const float2*)w,
+                                 (const float2*)g, (float*)partial, rows, f, per);
+    }
+  for (long long i = 0; i < (long long)rows * 66; ++i) {
+    blockIdx = dim3((unsigned)i);
+    sos_bwd_reduce_kernel((const float*)partial, (float*)dnum, (float*)dden, n_blocks,
+                          rows, 33);
+  }
 }""",
 }
 
@@ -100,7 +140,7 @@ def emulated(tmp_path_factory):
         src = src.replace("#include <cuda_runtime.h>", '#include "shim.h"')
         src = re.sub(r"<<<.*?>>>", "", src, flags=re.S)
         unit = build / f"{name}_host.cpp"
-        unit.write_text('#include "shim.h"\ndim3 blockIdx, threadIdx(0, 0, 0), blockDim;\n'
+        unit.write_text('#include "shim.h"\ndim3 blockIdx, threadIdx(0, 0, 0), blockDim(1, 1, 1);\n'
                         + src + harness)
         procs[name] = subprocess.Popen(
             [cxx, "-std=c++17", "-O1", "-ffp-contract=off", "-w", "-shared", "-fPIC",
@@ -155,3 +195,45 @@ def test_sos_source_matches_plain_bitwise(emulated, r, k):
                         ctypes.c_int(k), ctypes.c_longlong(len(w)))
     ref = sos_cascade_plain(torch.from_numpy(num), torch.from_numpy(den), torch.from_numpy(w))
     np.testing.assert_array_equal(h, ref.numpy())
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_neg_ptgpt_source_matches_plain_bitwise(emulated, n):
+    p, _ = systems(150, n, seed=200 + n)
+    g, _ = systems(150, n, seed=300 + n)
+    out = np.empty_like(p)
+    emulated["cinv"].emu_ptgpt(_ptr(p), _ptr(g), _ptr(out), ctypes.c_longlong(len(p)),
+                               ctypes.c_int(n))
+    ref = neg_ptgpt_plain(torch.from_numpy(p), torch.from_numpy(g)).numpy()
+    np.testing.assert_array_equal(out, ref)
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_lut_apply_source_matches_plain_bitwise(emulated, n):
+    m, b = systems(150, n, seed=400 + n)
+    if n == 1:
+        m[:, 0, 0] += 1.0
+    _, lu, piv = lu_solve_plain(torch.from_numpy(m), torch.from_numpy(b))
+    g = np.ascontiguousarray(b[::-1])
+    y = np.empty_like(g)
+    lu_np, piv_np = np.ascontiguousarray(lu.numpy()), np.ascontiguousarray(piv.numpy())
+    emulated["lu"].emu_lut(_ptr(lu_np), _ptr(piv_np), _ptr(g), _ptr(y),
+                           ctypes.c_longlong(len(g)), ctypes.c_int(n))
+    np.testing.assert_array_equal(y, lut_apply_plain(lu, piv, torch.from_numpy(g)).numpy())
+
+
+def test_sos_backward_source_matches_plain(emulated):
+    r, k, f, per = 3, 11, 257, 8
+    num, den, z = cascade(r, k, f, seed=9)
+    w = (1.0 / z).astype(np.complex64)
+    rng = np.random.RandomState(9)
+    g = (rng.randn(r, f) + 1j * rng.randn(r, f)).astype(np.complex64)
+    n_blocks = -(-f // per)
+    partial = np.empty((n_blocks, r, 6 * k), np.float32)
+    dnum, dden = np.empty_like(num), np.empty_like(den)
+    emulated["sos"].emu_bwd(_ptr(num), _ptr(den), _ptr(w), _ptr(g), _ptr(partial), _ptr(dnum),
+                            _ptr(dden), ctypes.c_int(r), ctypes.c_longlong(f), ctypes.c_int(per),
+                            ctypes.c_int(n_blocks))
+    ref_n, ref_d = sos_cascade_backward_plain(*(torch.from_numpy(x) for x in (num, den, w, g)))
+    for out, ref in ((dnum, ref_n.numpy()), (dden, ref_d.numpy())):
+        assert np.abs(out - ref).max() <= 1e-5 * np.abs(ref).max()

@@ -7,7 +7,10 @@ where only PyTorch is installed; from the repository root:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
 
 (``--noconftest`` skips tests/conftest.py, which configures JAX.)
-Bound: max abs error <= 1e-4 max |plain|; identical LU pivots.
+Bound: max abs error <= 1e-4 max |plain|; identical LU pivots. The
+backward kernels (B2 ``neg_ptgpt``, B6 ``lut_apply``, B4
+``sos_cascade_backward``) are also driven through autograd with a
+non-contiguous gradient, which the autograd functions make contiguous.
 """
 
 import pytest
@@ -16,6 +19,7 @@ import torch
 from diffgfdn_torch.kernels import cinv as cinv_mod
 from diffgfdn_torch.kernels import lu as lu_mod, sos as sos_mod
 from diffgfdn_torch.kernels.dispatch import plain_versions
+from diffgfdn_torch.kernels import linalg
 from torch_port_helpers import cascade, KERNEL_TOL as TOL, max_rel, systems
 
 
@@ -65,3 +69,88 @@ def test_sos_kernel_matches_plain_on_card(cuda_device, r):
         *(torch.from_numpy(x).to(cuda_device) for x in (num, den, z)),
     )
     assert max_rel(out.cpu().numpy(), ref.cpu().numpy()) <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4, 12, 27])
+def test_neg_ptgpt_kernel_matches_plain_on_card(cuda_device, n):
+    m, _ = systems(1000, n, seed=n)
+    g, _ = systems(1000, n, seed=50 + n)
+    p = cinv_mod.cinv(torch.from_numpy(m).to(cuda_device))
+    before = cinv_mod.neg_ptgpt.launches
+    out, ref = _on_card_and_plain(cinv_mod.neg_ptgpt, p, torch.from_numpy(g).to(cuda_device))
+    assert cinv_mod.neg_ptgpt.launches == before + 1
+    assert max_rel(out.cpu().numpy(), ref.cpu().numpy()) <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4, 12, 27])
+def test_lut_apply_kernel_matches_plain_on_card(cuda_device, n):
+    m, b = systems(1000, n, seed=n)
+    _, lu, piv = lu_mod.lu_solve(torch.from_numpy(m).to(cuda_device),
+                                 torch.from_numpy(b).to(cuda_device))
+    g = torch.from_numpy(b[::-1].copy()).to(cuda_device)
+    before = lu_mod.lut_apply.launches
+    out, ref = _on_card_and_plain(lu_mod.lut_apply, lu, piv, g)
+    assert lu_mod.lut_apply.launches == before + 1
+    assert max_rel(out.cpu().numpy(), ref.cpu().numpy()) <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [12, 96])
+def test_sos_backward_kernel_matches_plain_on_card(cuda_device, r):
+    num, den, z = cascade(r, 11, 65537, seed=r)
+    g = torch.randn((r, 65537), dtype=torch.complex64, generator=torch.Generator().manual_seed(r))
+    args = [torch.from_numpy(x).to(cuda_device) for x in (num, den)]
+    w = (1.0 / torch.from_numpy(z).to(cuda_device)).to(torch.complex64)
+    before = sos_mod.sos_cascade_backward.launches
+    (dn, dd), (dn_p, dd_p) = _on_card_and_plain(sos_mod.sos_cascade_backward, *args, w,
+                                                g.to(cuda_device))
+    assert sos_mod.sos_cascade_backward.launches == before + 1
+    assert max_rel(dn.cpu().numpy(), dn_p.cpu().numpy()) <= TOL
+    assert max_rel(dd.cpu().numpy(), dd_p.cpu().numpy()) <= TOL
+
+
+def _grads(fn, inputs, g):
+    """Gradients of Re<g, fn(inputs)> with respect to inputs, on the kernels
+    and on the plain versions; g is handed over non-contiguous."""
+    out = []
+    for plain in (False, True):
+        leaves = [x.detach().clone().requires_grad_() for x in inputs]
+        if plain:
+            with plain_versions():
+                y = fn(*leaves)
+                y.backward(g)
+        else:
+            y = fn(*leaves)
+            y.backward(g)
+        out.append([x.grad for x in leaves])
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.cuda
+def test_autograd_backward_launches_the_kernels_with_non_contiguous_gradients(cuda_device):
+    m, b = systems(3 * 500, 4, seed=1)
+    m = torch.from_numpy(m).to(cuda_device).reshape(3, 500, 4, 4)
+    b = torch.from_numpy(b[:4, 0]).to(cuda_device)
+    g_inv = torch.randn((3, 500, 4, 4, 2), dtype=torch.complex64, device=cuda_device)[..., 0]
+    g_x = torch.randn((3, 500, 4, 2), dtype=torch.complex64, device=cuda_device)[..., 0]
+    assert not g_inv.is_contiguous() and not g_x.is_contiguous()
+    before = (cinv_mod.neg_ptgpt.launches, lu_mod.lut_apply.launches)
+    (dm,), (dm_p,) = _grads(linalg.cinv, [m], g_inv)
+    (dm2, db), (dm2_p, db_p) = _grads(linalg.csolve1, [m, b], g_x)
+    assert (cinv_mod.neg_ptgpt.launches, lu_mod.lut_apply.launches) == (
+        before[0] + 1, before[1] + 1)
+    for out, ref in ((dm, dm_p), (dm2, dm2_p), (db, db_p)):
+        assert max_rel(out.cpu().numpy(), ref.cpu().numpy()) <= TOL
+
+    num, den, z = cascade(96, 11, 4097, seed=2)
+    num, den, z = (torch.from_numpy(x).to(cuda_device) for x in (num, den, z))
+    g_h = torch.randn((96, 4097, 2), dtype=torch.complex64, device=cuda_device)[..., 0]
+    before = sos_mod.sos_cascade_backward.launches
+    (dn, dd), (dn_p, dd_p) = _grads(lambda a, d: sos_mod.sos_cascade_response(a, d, z),
+                                    [num, den], g_h)
+    assert sos_mod.sos_cascade_backward.launches == before + 1
+    for out, ref in ((dn, dn_p), (dd, dd_p)):
+        assert max_rel(out.cpu().numpy(), ref.cpu().numpy()) <= TOL
