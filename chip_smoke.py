@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Quickest proof that the PyTorch/CUDA port serves and trains DiffGFDNs on an NVIDIA GPU.
+"""Quickest proof that the PyTorch/CUDA port serves, trains and synthesizes DiffGFDNs on an NVIDIA GPU.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -34,7 +34,20 @@ Phases (any failure raises and exits non-zero, with no result line):
    each backward kernel is held against its plain version on them (1e-4)
    and timed beside its bound, its plain version and the library call
    computing the same function. Per configuration the phase prints the
-   median step time after a warm-up step, steps/s and the peak memory.
+   median step time after a warm-up step, steps/s and the peak memory;
+6. synthesize 96 RIRs per configuration in the time domain through the user
+   entry point ``make_time_domain_synthesis_fn`` (the model as phase 2's
+   ``InferDiffGFDN`` loaded it, num_samples = nfft, batches of 32). Each
+   kernel's launch count is set to 0 just before the factory (the delay-line
+   run) and read after the mix: three_room_example (scalar absorption) must
+   have launched B7, fullband_grid_colorless (GEQ absorption, the exact
+   filtered path in PyTorch) the SVF heads' B3 and no B7. The RIRs must be finite,
+   decay, match the same path on the plain versions, and match the
+   frequency path of the same model at the same receivers without the
+   direct part (max |delta| <= 2e-3 peak, EDC within 0.01 dB over 0.5 s).
+   B7 is then held against its plain version at the path's delays, at a
+   delay set spanning 50000 samples and on a random input, and against a
+   float64 numpy recursion, and timed beside its bound and plain version.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``. ``--log-dir`` receives
@@ -78,6 +91,13 @@ GRAD_TOL = 1e-3   # each parameter gradient, kernels vs plain versions, relative
 RIR_TOL = 1e-3   # relative L2 error of the RIRs, kernel path vs plain path
 EDC_TOL_DB = 0.01  # Schroeder EDC difference over the first 0.5 s
 KERNEL_TOL = 1e-4  # max abs error / max |plain|
+TD_FREQ_TOL = 2e-3  # time-domain vs frequency-path RIRs: max abs error / peak
+# the configurations whose time-domain synthesis launches B7 (scalar
+# absorption); the GEQ-absorbed one runs the filtered path and B3 in its heads
+TD_KERNELS = {
+    "fullband_grid_colorless": ("sos",),
+    "three_room_example": ("tdgfdn",),
+}
 # the float64 check of the cascade: a low-cutoff section evaluated in float32
 # near DC cancels about four digits (a0 + a1 + a2 ~ 4 f^2), in every version
 SOS_F64_TOL = 1e-2
@@ -119,7 +139,7 @@ def device_busy_us(events, window) -> float:
 
 # device symbols of the hand-written kernels (csrc/*.cu)
 KERNEL_SYMBOLS = ("cinv_kernel", "neg_ptgpt_kernel", "sos_cascade_kernel", "sos_bwd_",
-                  "lu_solve_kernel", "lut_apply_kernel")
+                  "lu_solve_kernel", "lut_apply_kernel", "tdgfdn_kernel")
 
 
 def profile_once(fn, label: str, table_path: Path):
@@ -168,7 +188,7 @@ def make_room(tmp: Path, name: str, fs: float, nfft: int):
 
 def kernel_wrappers():
     """{name: the wrapper that counts the kernel's launches}."""
-    from diffgfdn_torch.kernels import cinv, lu, sos
+    from diffgfdn_torch.kernels import cinv, lu, sos, tdgfdn
 
     return {
         "cinv": cinv.cinv,
@@ -177,6 +197,7 @@ def kernel_wrappers():
         "sos_backward": sos.sos_cascade_backward,
         "lu": lu.lu_solve,
         "lut_apply": lu.lut_apply,
+        "tdgfdn": tdgfdn.delay_line_outputs,
     }
 
 
@@ -740,6 +761,176 @@ def backward_rows(inputs: dict, launches: dict) -> list:
     return rows
 
 
+def td_reference_f64(delays, gains, a, b, u) -> np.ndarray:
+    """Delay-line outputs (T, N) by the block recursion in float64 numpy."""
+    n, t_len, m_max = len(delays), len(u), max(delays)
+    block = min(delays)
+    hist = np.zeros((n, t_len + m_max))
+    y = np.zeros((t_len, n))
+    for start in range(0, t_len, block):
+        stop = min(start + block, t_len)
+        t = np.arange(start, stop)
+        y_blk = gains * hist[np.arange(n)[None, :], t[:, None] + m_max - np.asarray(delays)]
+        hist[:, m_max + start:m_max + stop] = (y_blk @ a.T + u[start:stop, None] * b).T
+        y[start:stop] = y_blk
+    return y
+
+
+def tdgfdn_cost(t_len: int, n: int):
+    """Bytes moved and fp32 operations of the delay-line recursion: u read,
+    y written, the loop's constants read; per sample N gain products, the
+    N x N mix and the N input terms."""
+    return 4 * t_len * (1 + n) + 4 * (n * n + 3 * n), t_len * (2 * n * n + 2 * n)
+
+
+def time_domain(name: str, infer, log_dir):
+    """Phase 6 for one configuration: returns (result, launches, B7 inputs or None)."""
+    import torch
+
+    from diffgfdn_torch.inference import make_rir_synthesis_fn, make_time_domain_synthesis_fn
+    from diffgfdn_torch.kernels.dispatch import plain_versions
+
+    model, cfg = infer.model, infer.config
+    nfft, fs = cfg.trainer_config.num_freq_bins, cfg.sample_rate
+    idx = np.arange(NUM_RECEIVERS)
+    batches = [infer._device_batch(idx[k:k + BATCH]) for k in range(0, NUM_RECEIVERS, BATCH)]
+
+    def mix(synth, drop_direct=False):
+        outs = []
+        for batch in batches:
+            if drop_direct:
+                batch = {k: v for k, v in batch.items() if k != "target_early_response"}
+            outs.append(synth(batch).cpu().numpy())
+        return np.concatenate(outs)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    synth = make_time_domain_synthesis_fn(model, nfft)
+    torch.cuda.synchronize()
+    factory_s = time.perf_counter() - t0
+    rirs = mix(synth)
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    for kernel in TD_KERNELS[name]:
+        require(launches[kernel] > 0, f"{name}: kernel {kernel} never launched in time-domain synthesis")
+    if "tdgfdn" not in TD_KERNELS[name]:
+        require(launches["tdgfdn"] == 0, f"{name}: the filtered path launched B7")
+    require(rirs.shape == (NUM_RECEIVERS, nfft), f"{name}: time-domain RIR shape {rirs.shape}")
+    require(bool(np.isfinite(rirs).all()), f"{name}: non-finite time-domain RIRs")
+    edc = edc_db(rirs)
+    drop = edc[:, int(0.05 * fs)] - edc[:, int(1.0 * fs)]
+    require(bool((drop > 10.0).all()), f"{name}: time-domain RIRs do not decay (min {drop.min()} dB)")
+    half_s = int(0.5 * fs)
+
+    with plain_versions():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain = mix(make_time_domain_synthesis_fn(model, nfft))
+        plain_s = time.perf_counter() - t0
+    rel = float(np.linalg.norm(rirs - plain) / np.linalg.norm(plain))
+    edc_plain = float(np.abs(edc - edc_db(plain))[:, :half_s].max())
+    require(rel <= RIR_TOL, f"{name}: time-domain RIRs vs plain path rel L2 {rel}")
+    require(edc_plain <= EDC_TOL_DB, f"{name}: time-domain EDC vs plain path {edc_plain} dB")
+
+    freq = mix(make_rir_synthesis_fn(model, cfg.trainer_config.reduced_pole_radius), True)
+    freq_err = float(np.abs(rirs - freq).max() / np.abs(freq).max())
+    edc_freq = float(np.abs(edc - edc_db(freq))[:, :half_s].max())
+    require(freq_err <= TD_FREQ_TOL, f"{name}: time domain vs frequency path {freq_err} of peak")
+    require(edc_freq <= EDC_TOL_DB, f"{name}: time domain vs frequency path EDC {edc_freq} dB")
+
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        mix(synth)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    profiled = {}
+    if log_dir is not None:
+        wall, busy, ours = profile_once(lambda: synth(batches[0]), "td_batch",
+                                        Path(log_dir) / f"profile_td_{name}.txt")
+        profiled = {"profiled_batch_ms": wall, "profiled_device_busy_ms": busy,
+                    "profiled_kernels_ms": ours, "profiled_idle_share": 1.0 - busy / wall}
+    mix_s = float(np.median(times))
+    result = {
+        "config": name,
+        "receivers": NUM_RECEIVERS,
+        "num_samples": nfft,
+        "factory_ms": factory_s * 1e3,
+        "mix_ms": mix_s * 1e3,
+        "mix_ms_all": [t * 1e3 for t in times],
+        "rirs_per_s": NUM_RECEIVERS / mix_s,
+        "plain_factory_and_mix_ms": plain_s * 1e3,
+        "rel_l2_vs_plain": rel,
+        "edc_max_abs_db_vs_plain": edc_plain,
+        "max_abs_over_peak_vs_freq_path": freq_err,
+        "edc_max_abs_db_vs_freq_path": edc_freq,
+        "peak_mem_mb": peak / 2 ** 20,
+        "launches": {k: launches[k] for k in TD_KERNELS[name]},
+        **profiled,
+    }
+    b7_inputs = None
+    if "tdgfdn" in TD_KERNELS[name]:
+        fl = model.feedback_loop
+        with torch.no_grad():
+            b7_inputs = (model.delays, fl.gamma_scalar().clone(), fl.coupled_feedback_matrix(),
+                         model.input_gains[:, 0].clone())
+    return result, launches, b7_inputs
+
+
+def tdgfdn_row(b7_inputs, launches: int) -> dict:
+    """Phase 6, B7: the kernel against its plain version at the path's delays
+    (impulse and random input) and at a 50000-sample delay spread, and
+    against float64 numpy; then its time beside its bound and plain version."""
+    import torch
+
+    from diffgfdn_torch.kernels.dispatch import plain_versions
+    from diffgfdn_torch.kernels.tdgfdn import delay_line_outputs
+
+    delays, g, a, b = b7_inputs
+    n = len(delays)
+    t_len = 131072
+    rng = np.random.RandomState(SEED)
+    impulse = torch.zeros(t_len, device=g.device)
+    impulse[0] = 1.0
+    noise = torch.from_numpy(rng.randn(t_len).astype(np.float32)).to(g.device)
+    wide = tuple(int(d) for d in np.linspace(100, 50000, n))
+    cases = [("path", delays, impulse), ("path_random", delays, noise), ("wide", wide, noise)]
+    err_path = None
+    for label, dl, u in cases:
+        out = delay_line_outputs(dl, g, a, b, u)
+        with plain_versions():
+            ref = delay_line_outputs(dl, g, a, b, u)
+        torch.cuda.synchronize()
+        err = rel_err(out, ref)
+        require(err <= KERNEL_TOL, f"tdgfdn {label}: rel err {err}")
+        head = 8192
+        ref64 = td_reference_f64(dl, g.double().cpu().numpy(), a.double().cpu().numpy(),
+                                 b.double().cpu().numpy(), u[:head].double().cpu().numpy())
+        err64 = float(np.abs(out[:head].cpu().numpy() - ref64).max() / np.abs(ref64).max())
+        require(err64 <= KERNEL_TOL, f"tdgfdn {label}: vs float64 numpy {err64}")
+        if label == "path":
+            err_path = float(torch.max(torch.abs(out - ref)))
+        print(f"tdgfdn {label} T={t_len} N={n} delays {min(dl)}..{max(dl)}: rel err vs plain "
+              f"{err:.3e}, vs float64 numpy (first {head}) {err64:.3e}")
+    b_ms, b_by = bound(*tdgfdn_cost(t_len, n))
+    plain_args = (delays, g, a, b, impulse)
+
+    def plain():
+        with plain_versions():
+            return delay_line_outputs(*plain_args)
+
+    return {
+        "name": "tdgfdn", "route": "cuda", "source": "diffgfdn_torch/csrc/tdgfdn.cu",
+        "replaces": "diffgfdn_tpu/kernels/tdgfdn.py:167",
+        "launches": launches, "max_abs_err": err_path,
+        "ms": device_ms(lambda: delay_line_outputs(*plain_args)),
+        "plain_ms": device_ms(plain, reps=5),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+    }
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--log-dir", default=None,
@@ -788,7 +979,7 @@ def main(argv=None) -> int:
         errors = check_kernels(inputs)
         print("phase 3: every kernel matches its plain version and numpy")
         rows = time_kernels(inputs, errors, launches)
-        del served, inputs
+        del inputs
         backward_inputs, train_launches = {}, {}
         for name in TRAIN_KERNELS:
             t0 = time.perf_counter()
@@ -801,6 +992,16 @@ def main(argv=None) -> int:
                   + json.dumps(result))
         rows += backward_rows(backward_inputs, train_launches)
         print("phase 5: every backward kernel matches its plain version and numpy")
+        del backward_inputs
+        for name in TD_KERNELS:
+            t0 = time.perf_counter()
+            result, counts, b7_inputs = time_domain(name, served[name], log_dir)
+            print(f"phase 6: time-domain synthesis {name} in {time.perf_counter() - t0:.1f} s: "
+                  + json.dumps(result))
+            if b7_inputs is not None:
+                rows.append(tdgfdn_row(b7_inputs, counts["tdgfdn"]))
+        del served
+        print("phase 6: B7 matches its plain version and numpy")
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({

@@ -2,17 +2,23 @@
 
 Given a checkpoint (the JAX package's format, ``training/checkpoints.py``)
 and dataset receiver indices, run the model over the receivers' positions
-and irfft the transfer function to RIRs of shape (B, nfft).
+and irfft the transfer function to RIRs of shape (B, nfft)
+(:class:`InferDiffGFDN`), or run the loop in the time domain with no time
+aliasing (:func:`make_time_domain_synthesis_fn`).
 """
 
-from typing import Callable, Dict, Optional, Union
+from typing import Callable, Dict, List, Optional, Union
 
 import numpy as np
+from scipy.signal import fftconvolve
 import torch
 
 from ..config.schema import DiffGFDNConfig
 from ..data.batching import arrays_from_room_dataset
 from ..data.room_dataset import RoomDataset
+from ..kernels.tdgfdn import delay_line_outputs, delay_line_outputs_filtered, filter_bank_from_sos
+from ..models import DiffGFDNVarReceiverPos
+from ..models.gain_heads import expand_groups_to_delay_lines
 from ..training.build import build_gfdn_model
 from ..training.checkpoints import load_latest_checkpoint
 from ..utils.device import resolve_device
@@ -24,17 +30,22 @@ MODEL_INPUTS = ("z_values", "listener_position", "norm_listener_position",
 
 
 def make_rir_synthesis_fn(
-    model: torch.nn.Module, reduced_pole_radius: float = 1.0
-) -> Callable[[Dict[str, torch.Tensor]], torch.Tensor]:
+    model: torch.nn.Module, reduced_pole_radius: float = 1.0,
+    external_amplitudes: bool = False,
+) -> Callable[..., torch.Tensor]:
     """``synth(batch) -> RIRs (B, nfft)`` float32, on the batch's device.
 
     irffts the model's transfer function and undoes sampling outside the
     unit circle with a growing exponential. Forward only: no autograd graph.
+    ``external_amplitudes=True`` makes it ``synth(batch, amplitudes)``: the
+    (B, num_groups) amplitudes replace the scalar head's per-group gains.
     """
 
     @torch.no_grad()
-    def synth(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        h = model(batch)
+    def synth(batch: Dict[str, torch.Tensor], *amplitudes: torch.Tensor) -> torch.Tensor:
+        if len(amplitudes) != int(external_amplitudes):
+            raise TypeError(f"synth takes {int(external_amplitudes)} amplitude argument(s)")
+        h = model(batch, *amplitudes)
         n = 2 * (h.shape[-1] - 1)
         rir = torch.fft.irfft(h, n, dim=-1)
         if reduced_pole_radius != 1.0:
@@ -43,6 +54,76 @@ def make_rir_synthesis_fn(
                 growth, torch.arange(n, dtype=torch.float32)
             ).to(rir.device)
         return rir
+
+    return synth
+
+
+def make_time_domain_synthesis_fn(
+    model: torch.nn.Module, num_samples: int
+) -> Callable[[Dict[str, torch.Tensor]], torch.Tensor]:
+    """Alias-free time-domain RIR synthesis from a trained model.
+
+    Returns ``synth(batch) -> (B, num_samples)`` float32 on the model's
+    device. The feedback loop runs once, here, as the exact block-feedforward
+    recursion (``kernels/tdgfdn.py``): its delay-line impulse response is
+    position-independent, so the infinite tail has no time aliasing whatever
+    its length (the frequency-sampled path wraps the energy beyond nfft).
+    Scalar absorption runs kernel B7 on the card; GEQ (SOS) absorption runs
+    the exact block state-space path. Per batch:
+
+    * scalar heads: the per-position mix is one (B, N) x (N, T) product;
+    * SVF heads: the per-group output filters (short IIRs) are applied by a
+      zero-padded rFFT product at nfft2 = next_pow2(num_samples + 4096).
+
+    The direct part is not added (renderers splice it separately). ``batch``
+    holds ``listener_position`` and ``norm_listener_position`` (B, 3) on the
+    model's device.
+    """
+    if not isinstance(model, DiffGFDNVarReceiverPos):
+        raise NotImplementedError(
+            f"time-domain synthesis of {type(model).__name__} (directional and other "
+            "GFDN variants) is not ported yet (ROADMAP A10)"
+        )
+    fl = model.feedback_loop
+    nper = model.num_delay_lines_per_group
+    delays = model.delays
+    with torch.no_grad():
+        a = fl.coupled_feedback_matrix()
+        b = model.input_gains[:, 0]
+        impulse = torch.zeros(num_samples, dtype=torch.float32, device=b.device)
+        impulse[0] = 1.0
+        if fl.use_absorption_filters:
+            bank = filter_bank_from_sos(fl.sos_coeffs_host, delays)
+            y = delay_line_outputs_filtered(delays, bank, a, b, impulse)
+        else:
+            y = delay_line_outputs(delays, fl.gamma_scalar(), a, b, impulse)  # (T, N)
+
+    if not model.use_svf_in_output:
+        @torch.no_grad()
+        def synth(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+            c = expand_groups_to_delay_lines(model.output_scalars(batch), nper)
+            return (y @ (c * model.output_gains[:, 0]).T).T
+
+        return synth
+
+    # SVF heads: the loop part above is already alias-free; the output
+    # filters multiply its spectrum at a generously padded length. The lines
+    # of a group share the group's filter, so the output gains pool the
+    # line spectra per group first: w[f, g] = sum_{n in g} c_n Y[f, n]
+    nfft2 = 1 << int(np.ceil(np.log2(num_samples + 4096)))
+    z2 = torch.from_numpy(
+        np.exp(1j * np.linspace(0.0, np.pi, nfft2 // 2 + 1)).astype(np.complex64)
+    ).to(y.device)
+    with torch.no_grad():
+        yf = torch.fft.rfft(y, nfft2, dim=0)  # (F2, N)
+        c = model.output_gains[:, 0].to(torch.complex64)
+        w = (yf * c).reshape(-1, model.num_groups, nper).sum(dim=-1)  # (F2, G)
+
+    @torch.no_grad()
+    def synth(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        r = model.output_filters({**batch, "z_values": z2})  # (B, G, F2)
+        h = torch.einsum("bgf,fg->bf", r, w)
+        return torch.fft.irfft(h, nfft2, dim=-1)[:, :num_samples]
 
     return synth
 
@@ -86,6 +167,7 @@ class InferDiffGFDN:
         load_jax_params(self.model, params)
         self.model.eval()
         self._synth = make_rir_synthesis_fn(self.model, tc.reduced_pole_radius)
+        self._amp_synth = None  # built on the first rirs_with_amplitudes call
         self.arrays = arrays_from_room_dataset(
             room_data,
             new_sampling_radius=(
@@ -99,19 +181,91 @@ class InferDiffGFDN:
         batch["z_values"] = self.arrays.z_values  # shared by every receiver
         return {k: torch.from_numpy(v).to(self.device) for k, v in batch.items()}
 
-    def rirs_at(self, rec_indices: np.ndarray, batch_size: int = 32) -> np.ndarray:
-        """Synthesize RIRs (len(rec_indices), nfft) at the dataset receiver indices.
-
-        The last batch is padded to ``batch_size`` with its first index and
-        trimmed, so every call runs full batches.
-        """
+    def _batched_synth(
+        self, synth, rec_indices: np.ndarray, batch_size: int,
+        amplitudes: Optional[np.ndarray] = None,
+    ) -> np.ndarray:
+        """Run ``synth`` over the indices in batches. The last batch is padded
+        to ``batch_size`` with its first index (and amplitude row) and
+        trimmed, so every call runs full batches."""
         rec_indices = np.asarray(rec_indices)
         outs = []
         for k in range(0, len(rec_indices), batch_size):
             idx = rec_indices[k : k + batch_size]
             n_real = len(idx)
-            if n_real < batch_size:
-                idx = np.concatenate([idx, idx[:1].repeat(batch_size - n_real)])
-            rir = self._synth(self._device_batch(idx))
+            pad = batch_size - n_real
+            if pad:
+                idx = np.concatenate([idx, idx[:1].repeat(pad)])
+            args = ()
+            if amplitudes is not None:
+                amp = amplitudes[k : k + batch_size]
+                if pad:
+                    amp = np.concatenate([amp, amp[:1].repeat(pad, axis=0)])
+                args = (torch.from_numpy(amp).to(self.device),)
+            rir = synth(self._device_batch(idx), *args)
             outs.append(rir[:n_real].cpu().numpy())
         return np.concatenate(outs, axis=0)
+
+    def rirs_at(self, rec_indices: np.ndarray, batch_size: int = 32) -> np.ndarray:
+        """Synthesize RIRs (len(rec_indices), nfft) at the dataset receiver indices."""
+        return self._batched_synth(self._synth, rec_indices, batch_size)
+
+    def rirs_with_amplitudes(
+        self, rec_indices: np.ndarray, amplitudes: np.ndarray, batch_size: int = 32
+    ) -> np.ndarray:
+        """Synthesize with externally provided common-slope amplitudes.
+
+        ``amplitudes`` (len(rec_indices), num_groups) replace the scalar
+        head's per-group gains (driving a trained GFDN from a common-slopes
+        model's amplitude predictions). Scalar-head models only.
+        """
+        if self.model.use_svf_in_output:
+            raise ValueError(
+                "direct CS-amplitude injection needs a scalar-head model "
+                "(use_svf_in_output=False)"
+            )
+        rec_indices = np.asarray(rec_indices)
+        amplitudes = np.asarray(amplitudes, np.float32)
+        expected = (len(rec_indices), self.model.num_groups)
+        if amplitudes.shape != expected:
+            raise ValueError(
+                f"amplitudes must have shape {expected} "
+                f"(one row per receiver index), got {amplitudes.shape}"
+            )
+        if self._amp_synth is None:
+            self._amp_synth = make_rir_synthesis_fn(
+                self.model, self.config.trainer_config.reduced_pole_radius,
+                external_amplitudes=True,
+            )
+        return self._batched_synth(self._amp_synth, rec_indices, batch_size, amplitudes)
+
+    def head_outputs(self, rec_indices: np.ndarray) -> Dict[str, np.ndarray]:
+        """Per-position head outputs (gains, or SVF parameters and biquads) at the indices."""
+        with torch.no_grad():
+            out = self.model.head_outputs(self._device_batch(np.asarray(rec_indices)))
+        return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+def subband_energy_compensation(band_filter: np.ndarray) -> float:
+    """Energy compensation for training on band-filtered targets: the L2
+    norm of the band filter's FIR coefficients."""
+    return float(np.sqrt(np.sum(np.asarray(band_filter) ** 2)))
+
+
+def merge_subband_rirs(band_rirs: List[np.ndarray], band_filters: np.ndarray) -> np.ndarray:
+    """Filter each band's synthesized RIRs with its reconstructing filter
+    and sum across bands -> broadband RIRs.
+
+    ``band_rirs``: list of (..., T) arrays, one per band (any leading dims);
+    ``band_filters``: (num_bands, filt_len). The group delay of the
+    linear-phase filterbank is compensated.
+    """
+    t_len = band_rirs[0].shape[-1]
+    filt_len = band_filters.shape[-1]
+    delay = filt_len // 2
+    out = np.zeros(band_rirs[0].shape)
+    shape = (1,) * (band_rirs[0].ndim - 1) + (filt_len,)
+    for b, rirs in enumerate(band_rirs):
+        filtered = fftconvolve(rirs, band_filters[b].reshape(shape), mode="full", axes=-1)
+        out += filtered[..., delay : delay + t_len]
+    return out

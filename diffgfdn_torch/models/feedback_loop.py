@@ -69,6 +69,9 @@ class FeedbackLoop(nn.Module):
             else torch.as_tensor(np.asarray(sos_coeffs), dtype=torch.float32),
             persistent=False,
         )
+        # the designed cascades as given (float64 from the GEQ fit): the
+        # time-domain path builds its state-space constants from them
+        self.sos_coeffs_host = None if sos_coeffs is None else np.asarray(sos_coeffs)
         self.M = nn.Parameter(
             (2.0 * torch.rand((g, nper, nper), generator=generator) - 1.0) / np.sqrt(nper)
         )

@@ -101,12 +101,23 @@ class SVFFromMLP(nn.Module):
             len(self.cutoffs), 2, generator=generator,
         )
 
-    def forward(self, x: dict) -> torch.Tensor:
+    def forward(self, x: dict, return_params: bool = False):
+        """(B, G, F) complex responses at ``x["z_values"]``; with
+        ``return_params`` also the constrained SVF parameters and the biquads
+        as {"svf_params" (B, G, K, 2), "biquad_num", "biquad_den"}."""
         svf = self.mlp(self.encoding(x["listener_position"]))  # (B, G, K, 2)
-        resp, _, _ = svf_params_to_response(
+        resp, num, den = svf_params_to_response(
             svf, self.cutoff_values, x["z_values"], self.compress_pole_factor,
             self.filter_types,
         )
+        if return_params:
+            res = scaled_sigmoid(svf[..., 0], 1e-6, 1.0)
+            g_db = scaled_sigmoid(svf[..., 1], -6.0, 6.0)
+            return resp, {
+                "svf_params": torch.stack([res, g_db], dim=-1),
+                "biquad_num": num,
+                "biquad_den": den,
+            }
         return resp
 
 

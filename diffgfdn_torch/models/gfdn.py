@@ -173,19 +173,23 @@ class DiffGFDNVarReceiverPos(DiffGFDN):
         else:
             self.output_scalars = GainsFromMLP(**head)
 
-    def forward(self, x: Dict[str, torch.Tensor]) -> torch.Tensor:
+    def forward(
+        self, x: Dict[str, torch.Tensor], output_scalars: Optional[torch.Tensor] = None
+    ) -> torch.Tensor:
         """(B, F) complex transfer function at the batch's listener positions.
 
         ``x`` holds ``z_values`` (F,), ``listener_position`` and
         ``norm_listener_position`` (B, 3) and, when present, the
         ``target_early_response`` (B, F) added as the direct part.
+        ``output_scalars`` (B, G), given to a scalar-head model, replace the
+        head's per-group gains (externally provided common-slope amplitudes).
         """
         z = x["z_values"]
         direct = x.get("target_early_response")
         if self.use_svf_in_output:
             group_resp = self.output_filters(x)  # (B, G, F) complex
             return self.transfer_function_group_heads(z, group_resp, direct)
-        gains = self.output_scalars(x)  # (B, G)
+        gains = self.output_scalars(x) if output_scalars is None else output_scalars  # (B, G)
         c_scalars = (
             expand_groups_to_delay_lines(gains, self.num_delay_lines_per_group)
             * self.output_gains[:, 0]
@@ -193,3 +197,11 @@ class DiffGFDNVarReceiverPos(DiffGFDN):
         return self.transfer_function_scalar_heads(
             z, c_scalars, self.input_gains[:, 0], direct
         )
+
+    def head_outputs(self, x: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Per-position head outputs: {"gains" (B, G)} for scalar heads, the
+        SVF parameters and biquads for SVF heads."""
+        if self.use_svf_in_output:
+            _, params = self.output_filters(x, return_params=True)
+            return params
+        return {"gains": self.output_scalars(x)}

@@ -13,6 +13,11 @@ substitution in another order (bound 1e-5 max |x|), and so do the cascade
 backward's sums over the bins (bound 1e-5 max |gradient|). The cascade
 backward runs with one thread per block here: its warp shuffles add nothing
 (the shim's shuffle returns 0), so each block's partial is one thread's sum.
+The time-domain recursion (B7) cannot run thread by thread through its
+kernel: thread 0 would reach the next block of samples before thread 1 had
+written this one. Its per-sample step is a device function, which the
+harness drives block by block, then thread by thread; it must agree with
+the plain version bit for bit.
 
 This checks the kernels' logic and arithmetic only: compilation for the
 card, launch configuration and memory behaviour are checked on the card
@@ -32,6 +37,7 @@ import torch
 from diffgfdn_torch.kernels.cinv import cinv_plain, neg_ptgpt_plain
 from diffgfdn_torch.kernels.lu import lu_solve_plain, lut_apply_plain
 from diffgfdn_torch.kernels.sos import sos_cascade_backward_plain, sos_cascade_plain
+from diffgfdn_torch.kernels.tdgfdn import _block_size, delay_line_outputs_plain, MAX_THREADS
 from torch_port_helpers import cascade, systems
 
 CSRC = Path(__file__).resolve().parents[1] / "diffgfdn_torch" / "csrc"
@@ -52,6 +58,8 @@ typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 inline int cudaGetLastError() { return 0; }
 #define __global__
+#define __device__
+#define __forceinline__ inline
 #define __shared__
 #define __syncthreads()
 inline float __shfl_down_sync(unsigned, float, int) { return 0.0f; }
@@ -123,6 +131,23 @@ extern "C" void emu_bwd(const void* num, const void* den, const void* w, const v
                           rows, 33);
   }
 }""",
+    "tdgfdn": """
+extern "C" void emu(const void* u, const void* g, const void* a, const void* b,
+                    const void* d, void* y, void* hist, long long t_len, int n, int m_max,
+                    int block) {
+  auto ui = (const float*)u; auto gi = (const float*)g; auto ai = (const float*)a;
+  auto bi = (const float*)b; auto di = (const int*)d; auto yo = (float*)y;
+  auto ho = (float*)hist;
+  const long long h_len = t_len + m_max;
+  for (long long k = 0; k < (long long)n * m_max; ++k) ho[(k / m_max) * h_len + k % m_max] = 0.0f;
+  for (long long start = 0; start < t_len; start += block)
+    for (int tid = 0; tid < block; ++tid) {
+      const long long t = start + tid;
+      if (t >= t_len) continue;
+      switch (n) { CASES }
+    }
+}""".replace("CASES", _CASES.replace("KERNEL", "tdgfdn_step")
+             .replace("ARGS", "t, ui, gi, ai, bi, di, yo, t_len, ho, h_len, m_max")),
 }
 
 
@@ -237,3 +262,26 @@ def test_sos_backward_source_matches_plain(emulated):
     ref_n, ref_d = sos_cascade_backward_plain(*(torch.from_numpy(x) for x in (num, den, w, g)))
     for out, ref in ((dnum, ref_n.numpy()), (dden, ref_d.numpy())):
         assert np.abs(out - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize(
+    "delays,t_len,seed",
+    [((37, 41, 43, 53), 1000, 1), ((5, 9, 11, 17, 23, 29, 31, 37, 41), 777, 2),
+     (tuple(int(d) for d in np.linspace(100, 50000, 12)), 3000, 3)],
+    ids=["n4", "n9_ragged", "n12_wide"],
+)
+def test_tdgfdn_source_matches_plain_bitwise(emulated, delays, t_len, seed):
+    n = len(delays)
+    rng = np.random.RandomState(seed)
+    a = (np.linalg.qr(rng.randn(n, n))[0] * 0.999).astype(np.float32)
+    g = rng.uniform(0.9, 0.999, n).astype(np.float32)
+    b = rng.randn(n).astype(np.float32)
+    u = rng.randn(t_len).astype(np.float32)
+    d = np.asarray(delays, np.int32)
+    y = np.empty((n, t_len), np.float32)  # line-major, as the kernel writes it
+    hist = np.full((n, t_len + max(delays)), np.nan, np.float32)  # the kernel zeroes its prefix
+    emulated["tdgfdn"].emu(_ptr(u), _ptr(g), _ptr(a), _ptr(b), _ptr(d), _ptr(y), _ptr(hist),
+                           ctypes.c_longlong(t_len), ctypes.c_int(n), ctypes.c_int(max(delays)),
+                           ctypes.c_int(min(_block_size(delays), MAX_THREADS)))
+    ref = delay_line_outputs_plain(delays, *(torch.from_numpy(x) for x in (g, a, b, u)))
+    np.testing.assert_array_equal(y.T, ref.numpy())

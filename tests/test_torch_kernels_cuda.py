@@ -11,13 +11,16 @@ Bound: max abs error <= 1e-4 max |plain|; identical LU pivots. The
 backward kernels (B2 ``neg_ptgpt``, B6 ``lut_apply``, B4
 ``sos_cascade_backward``) are also driven through autograd with a
 non-contiguous gradient, which the autograd functions make contiguous.
+B7 ``delay_line_outputs`` runs at the served path's delays and length
+(T = 131072), at a delay set spanning 50000 samples, and on a random input.
 """
 
+import numpy as np
 import pytest
 import torch
 
 from diffgfdn_torch.kernels import cinv as cinv_mod
-from diffgfdn_torch.kernels import lu as lu_mod, sos as sos_mod
+from diffgfdn_torch.kernels import lu as lu_mod, sos as sos_mod, tdgfdn as td_mod
 from diffgfdn_torch.kernels.dispatch import plain_versions
 from diffgfdn_torch.kernels import linalg
 from torch_port_helpers import cascade, KERNEL_TOL as TOL, max_rel, systems
@@ -154,3 +157,48 @@ def test_autograd_backward_launches_the_kernels_with_non_contiguous_gradients(cu
     assert sos_mod.sos_cascade_backward.launches == before + 1
     for out, ref in ((dn, dn_p), (dd, dd_p)):
         assert max_rel(out.cpu().numpy(), ref.cpu().numpy()) <= TOL
+
+
+def _td_inputs(delays, t_len, impulse, seed):
+    from diffgfdn_torch.ops.absorption import decay_times_to_gain_per_sample
+
+    n = len(delays)
+    rng = np.random.RandomState(seed)
+    a = (np.linalg.qr(rng.randn(n, n))[0]).astype(np.float32)
+    g = decay_times_to_gain_per_sample(1.2, np.asarray(delays), 32000.0).astype(np.float32)
+    b = rng.randn(n).astype(np.float32)
+    u = np.zeros(t_len, np.float32) if impulse else rng.randn(t_len).astype(np.float32)
+    if impulse:
+        u[0] = 1.0
+    return [torch.from_numpy(x) for x in (g, a, b, u)]
+
+
+def _path_delays():
+    from diffgfdn_torch.config import preset_config
+
+    return tuple(int(d) for d in preset_config("three_room_example").delay_length_samps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["path_impulse", "path_random", "wide_random"])
+def test_tdgfdn_kernel_matches_plain_on_card(cuda_device, case):
+    if case.startswith("path"):
+        delays, t_len = _path_delays(), 131072
+    else:
+        delays, t_len = tuple(int(d) for d in np.linspace(100, 50000, 12)), 8192
+    args = [x.to(cuda_device) for x in _td_inputs(delays, t_len, case == "path_impulse", seed=7)]
+    before = td_mod.delay_line_outputs.launches
+    out, ref = _on_card_and_plain(lambda *a: td_mod.delay_line_outputs(delays, *a), *args)
+    assert td_mod.delay_line_outputs.launches == before + 1
+    assert out.shape == (t_len, len(delays))
+    assert max_rel(out.cpu().numpy(), ref.cpu().numpy()) <= TOL
+
+
+@pytest.mark.cuda
+def test_tdgfdn_kernel_raises_for_mixed_devices(cuda_device):
+    delays = (37, 41, 43, 53)
+    g, a, b, u = _td_inputs(delays, 256, True, seed=1)
+    before = td_mod.delay_line_outputs.launches
+    with pytest.raises(ValueError, match="different devices"):
+        td_mod.delay_line_outputs(delays, g.to(cuda_device), a, b.to(cuda_device), u)
+    assert td_mod.delay_line_outputs.launches == before
