@@ -4,6 +4,7 @@
 Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py [--log-dir DIR]
+    python3 chip_smoke.py --cascade-times ROOT
 
 Phases (any failure raises and exits non-zero, with no result line):
 
@@ -19,8 +20,10 @@ Phases (any failure raises and exits non-zero, with no result line):
    served path gave it and at the other shapes the model family uses, and
    against a float64 numpy reference on a few systems;
 4. time each kernel, its plain version and the library call computing the
-   same function (CUDA events, L2 flushed before each launch), and the
-   served RIRs per second of each configuration;
+   same function (CUDA events around one wrapper call, L2 flushed before
+   each: ``ms``), the kernel's own device time (CUDA events around the bare
+   launches, the host's enqueueing hidden behind a sleep kernel:
+   ``kernel_ms``), and the served RIRs per second of each configuration;
 5. train both configurations at full width for 2 epochs through the user
    entry point ``run_training_var_receiver_pos`` (the same synthetic
    dataset, the preset's hold-out and split: 3 steps of 32 per epoch). Each
@@ -50,16 +53,19 @@ Phases (any failure raises and exits non-zero, with no result line):
    float64 numpy recursion, and timed beside its bound and plain version.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
-as its last line ``{"ok": true, "device": {...}}``. ``--log-dir`` receives
-the compiler's resource report and a torch.profiler table of one served
-batch and of one training step per configuration; their wall time, the
-card's busy time within them and its idle share join the configuration's
-phase-2 and phase-5 lines.
+as its last line ``{"ok": true, "device": {...}}``. ``--cascade-times ROOT``
+instead only times B3 and B4 of the port's checkout under ROOT (so that two
+trees can be compared in turns in one call) and prints no result line.
+``--log-dir`` receives the compiler's resource report and a torch.profiler
+table of one served batch and of one training step per configuration;
+their wall time, the card's busy time within them and its idle share join
+the configuration's phase-2 and phase-5 lines.
 """
 
 import argparse
 import contextlib
 import json
+import re
 from pathlib import Path
 import subprocess
 import sys
@@ -342,6 +348,7 @@ def check_kernels(inputs) -> dict:
     """Phase 3: each kernel against its plain version (and numpy) on the card."""
     import torch
 
+    from diffgfdn_torch.kernels import sos as sos_mod
     from diffgfdn_torch.kernels.cinv import cinv
     from diffgfdn_torch.kernels.dispatch import plain_versions
     from diffgfdn_torch.kernels.lu import lu_solve
@@ -431,6 +438,52 @@ def device_ms(fn, reps: int = 20) -> float:
     return float(np.median(times))
 
 
+# a sleep kernel of this many clock cycles (some 2 ms on an H100) outlasts
+# the host's enqueueing of one kernel call
+SLEEP_CYCLES = 4_000_000
+
+
+def kernel_ms(fn, reps: int = 20) -> float:
+    """The kernel's own device time: median over ``reps`` calls of CUDA
+    events around one call of ``fn``, which launches the kernel on prepared
+    inputs and nothing else, L2 flushed before each. A sleep kernel ahead of
+    the start event keeps the stream busy while the host enqueues the call,
+    so the window holds the launches back to back and not the host's time
+    (which :func:`device_ms`, around a whole wrapper call on an idle stream,
+    includes). CUDA events only: the profiler's device records are not
+    complete on every run."""
+    import torch
+
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def bare_cascade(sos_module, num, den, z):
+    """A call of the forward cascade kernel alone (``sos_cascade`` of the
+    given module), on the inputs ``sos_cascade_response`` would prepare from
+    (..., K, 3) coefficients and z."""
+    import torch
+
+    k = num.shape[-2]
+    num32 = num.reshape(-1, k, 3).to(torch.float32).contiguous()
+    den32 = den.reshape(-1, k, 3).to(torch.float32).contiguous()
+    w = (1.0 / z).to(torch.complex64)
+    return lambda: sos_module.sos_cascade(num32, den32, w)
+
+
 def bound(nbytes: float, flops: float):
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     t_ops = flops / H100_FP32_FLOP_PER_S * 1e3
@@ -466,6 +519,7 @@ def time_kernels(inputs, errors, launches) -> list:
     """Phase 4: kernel, plain version and library call at the path shapes."""
     import torch
 
+    from diffgfdn_torch.kernels import sos as sos_mod
     from diffgfdn_torch.kernels.cinv import cinv
     from diffgfdn_torch.kernels.dispatch import plain_versions
     from diffgfdn_torch.kernels.lu import lu_solve
@@ -484,6 +538,7 @@ def time_kernels(inputs, errors, launches) -> list:
         "replaces": "diffgfdn_tpu/kernels/pallas_cinv.py:34",
         "launches": launches["cinv"], "max_abs_err": errors["cinv"],
         "ms": device_ms(lambda: cinv(m)), "plain_ms": device_ms(lambda: plain(cinv, m)),
+        "kernel_ms": kernel_ms(lambda: cinv(m)),
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": device_ms(lambda: torch.linalg.inv(m)),
     })
@@ -495,6 +550,7 @@ def time_kernels(inputs, errors, launches) -> list:
         "launches": launches["sos"], "max_abs_err": errors["sos"],
         "ms": device_ms(lambda: sos_cascade_response(num, den, z)),
         "plain_ms": device_ms(lambda: plain(sos_cascade_response, num, den, z)),
+        "kernel_ms": kernel_ms(bare_cascade(sos_mod, num, den, z)),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
     })
     m, b = inputs["lu"]
@@ -506,6 +562,7 @@ def time_kernels(inputs, errors, launches) -> list:
         "launches": launches["lu"], "max_abs_err": errors["lu"],
         "ms": device_ms(lambda: lu_solve(m, b)),
         "plain_ms": device_ms(lambda: plain(lu_solve, m, b)),
+        "kernel_ms": kernel_ms(lambda: lu_solve(m, b)),
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": device_ms(lambda: torch.linalg.solve(m, b.unsqueeze(-1))),
     })
@@ -513,7 +570,8 @@ def time_kernels(inputs, errors, launches) -> list:
     num, den, z = inputs["sos12"]
     b_ms, _ = bound(*sos_cost(num.shape[0], num.shape[1], z.shape[0]))
     print(f"sos at R={num.shape[0]}: {device_ms(lambda: sos_cascade_response(num, den, z)):.4f} ms "
-          f"(plain {device_ms(lambda: plain(sos_cascade_response, num, den, z)):.4f} ms, "
+          f"(kernel {kernel_ms(bare_cascade(sos_mod, num, den, z)):.4f} ms, "
+          f"plain {device_ms(lambda: plain(sos_cascade_response, num, den, z)):.4f} ms, "
           f"bound {b_ms:.4f} ms)")
     return rows
 
@@ -676,6 +734,12 @@ def sos_backward_cost(r: int, k: int, f: int):
     return r * f * 8 + f * 8 + 4 * r * k * 3 * 4, r * f * (91 * k + 11)
 
 
+def sos_backward_saved_h_cost(r: int, k: int, f: int):
+    """The same with h read from the forward's output instead of recomputed:
+    G and h read, and the recompute's operations (sos_cost's) left out."""
+    return 2 * r * f * 8 + f * 8 + 4 * r * k * 3 * 4, r * f * ((91 * k + 11) - (32 * k + 3))
+
+
 def backward_rows(inputs: dict, launches: dict) -> list:
     """Phase 5, kernels: each backward kernel against its plain version (and a
     float64 reference on a few systems) at the inputs a training step gave
@@ -714,29 +778,36 @@ def backward_rows(inputs: dict, launches: dict) -> list:
         "replaces": "diffgfdn_tpu/kernels/pallas_cinv.py:146",
         "launches": launches["neg_ptgpt"], "max_abs_err": float(torch.max(torch.abs(out - ref))),
         "ms": device_ms(lambda: neg_ptgpt(p, g)), "plain_ms": device_ms(lambda: plain(neg_ptgpt, p, g)),
+        "kernel_ms": kernel_ms(lambda: neg_ptgpt(p, g)),
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": device_ms(lambda: -(p.mH @ g @ p.mH)),
     })
 
-    num, den, w, g = inputs["sos_backward"]
-    (dn, dd), (dn_p, dd_p) = both(sos_cascade_backward, num, den, w, g)
+    num, den, w, g, h = inputs["sos_backward"]
+    (dn, dd), (dn_p, dd_p) = both(sos_cascade_backward, num, den, w, g, h)
     err = max(rel_err(dn, dn_p), rel_err(dd, dd_p))
     dn64, dd64 = sos_cascade_backward_plain(num[:4].double(), den[:4].double(),
-                                            w.to(torch.complex128), g[:4].to(torch.complex128))
+                                            w.to(torch.complex128), g[:4].to(torch.complex128),
+                                            h[:4].to(torch.complex128))
     err64 = max(rel_err(dn[:4].double(), dn64), rel_err(dd[:4].double(), dd64))
     require(err <= KERNEL_TOL, f"sos_cascade_backward: rel err {err}")
     require(err64 <= SOS_F64_TOL, f"sos_cascade_backward: vs float64 {err64}")
     print(f"sos_cascade_backward {tuple(num.shape)} x F={w.shape[0]}: rel err vs plain "
           f"{err:.3e}, vs float64 {err64:.3e}")
-    b_ms, b_by = bound(*sos_backward_cost(num.shape[0], num.shape[1], w.shape[0]))
+    b_ms, b_by = bound(*sos_backward_saved_h_cost(num.shape[0], num.shape[1], w.shape[0]))
+    b_old, b_old_by = bound(*sos_backward_cost(num.shape[0], num.shape[1], w.shape[0]))
+    k_ms = kernel_ms(lambda: sos_cascade_backward(num, den, w, g, h))
+    print(f"sos_cascade_backward: kernel {k_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, h read), "
+          f"bound with h recomputed {b_old:.4f} ms ({b_old_by})")
     rows.append({
         "name": "sos_cascade_backward", "route": "cuda", "source": "diffgfdn_torch/csrc/sos.cu",
         "replaces": "diffgfdn_tpu/kernels/pallas_sos.py:64",
         "launches": launches["sos_backward"],
         "max_abs_err": float(max(torch.max(torch.abs(dn - dn_p)), torch.max(torch.abs(dd - dd_p)))),
-        "ms": device_ms(lambda: sos_cascade_backward(num, den, w, g)),
-        "plain_ms": device_ms(lambda: plain(sos_cascade_backward, num, den, w, g)),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "ms": device_ms(lambda: sos_cascade_backward(num, den, w, g, h)),
+        "plain_ms": device_ms(lambda: plain(sos_cascade_backward, num, den, w, g, h)),
+        "kernel_ms": k_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "bound_ms_h_recomputed": b_old, "library_ms": None,
     })
 
     m, _ = inputs["lu"]
@@ -755,10 +826,92 @@ def backward_rows(inputs: dict, launches: dict) -> list:
         "launches": launches["lut_apply"], "max_abs_err": float(torch.max(torch.abs(out - ref))),
         "ms": device_ms(lambda: lut_apply(lu, piv, g)),
         "plain_ms": device_ms(lambda: plain(lut_apply, lu, piv, g)),
+        "kernel_ms": kernel_ms(lambda: lut_apply(lu, piv, g)),
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": device_ms(lambda: torch.linalg.solve(m.mH, g.unsqueeze(-1))),
     })
     return rows
+
+
+def ptxas_usage(log: str, fragment: str):
+    """(registers, spill-store bytes) that ptxas reported for the first entry
+    function whose mangled name contains ``fragment``, or None."""
+    for m in re.finditer(r"entry function '(\S+)'(.*?)Used (\d+) registers", log, re.S):
+        if fragment in m.group(1):
+            spill = re.search(r"(\d+) bytes spill stores", m.group(2))
+            return int(m.group(3)), int(spill.group(1)) if spill else 0
+    return None
+
+
+def cascade_times(root: Path) -> dict:
+    """B3 (R = 96 heads, R = 12 absorption) and B4 of the diffgfdn_torch
+    package under ``root``, at the fullband path's shapes: coefficients from
+    the seeded fullband model at phase 2's first batch of receivers, a random
+    G, h from B3. Per kernel: the wrapper call's time (``ms``), the kernel's
+    own device time (``kernel_ms``) and the bound; and ptxas's registers and
+    spill-store bytes of both kernels at K = 11 when this process built them.
+    Runs any tree of the port, whether its B4 reads h or recomputes it, so
+    that two trees can be compared in one call."""
+    import inspect
+
+    sys.path.insert(0, str(root.resolve()))
+    import diffgfdn_torch
+    import torch
+
+    require(root.resolve() in Path(diffgfdn_torch.__file__).resolve().parents,
+            f"diffgfdn_torch imported from {diffgfdn_torch.__file__}, not from {root}")
+    from diffgfdn_torch.config import preset_config
+    from diffgfdn_torch.data.batching import arrays_from_room_dataset
+    from diffgfdn_torch.kernels import _build, sos
+    from diffgfdn_torch.models.gain_heads import svf_params_to_response
+    from diffgfdn_torch.training import build_gfdn_model
+
+    # before the model's first cascade loads the library; empty if this
+    # checkout built it before
+    log = _build.build_all(("sos",))["sos"]
+    name = "fullband_grid_colorless"
+    cfg = preset_config(name)
+    with tempfile.TemporaryDirectory() as tmp:
+        room = make_room(Path(tmp), name, cfg.sample_rate, cfg.trainer_config.num_freq_bins)
+        arrays = arrays_from_room_dataset(room)
+    model = build_gfdn_model(cfg, room.common_decay_times, room.band_centre_hz, device=DEVICE)
+    z = torch.from_numpy(arrays.z_values).to(DEVICE)
+    pos = torch.from_numpy(arrays.listener_position[:BATCH]).to(DEVICE)
+    with torch.no_grad():
+        head = model.output_filters
+        _, num, den = svf_params_to_response(head.mlp(head.encoding(pos)), head.cutoffs, z)
+        num96 = num.reshape(-1, num.shape[-2], 3).contiguous()
+        den96 = den.reshape(-1, den.shape[-2], 3).contiguous()
+        coeffs = model.feedback_loop.sos_coeffs
+        num12, den12 = coeffs[..., 0].contiguous(), coeffs[..., 1].contiguous()
+    w = (1.0 / z).to(torch.complex64)
+    r, k, f = num96.shape[0], num96.shape[1], w.shape[0]
+    g = torch.randn((r, f), dtype=torch.complex64, device=DEVICE,
+                    generator=torch.Generator(device=DEVICE).manual_seed(SEED))
+    h = sos.sos_cascade(num96, den96, w)
+    reads_h = "h" in inspect.signature(sos.sos_cascade_backward).parameters
+    bwd_args = (num96, den96, w, g, h) if reads_h else (num96, den96, w, g)
+    out = {"root": str(root), "b4_reads_h": reads_h, "ptxas": None}
+    if log:
+        out["ptxas"] = {
+            "sos_cascade_kernel": (ptxas_usage(log, f"sos_cascade_kernelILi{k}E")
+                                   or ptxas_usage(log, "sos_cascade_kernelE")),
+            f"sos_bwd_partial_kernel<{k}>": ptxas_usage(log, f"sos_bwd_partial_kernelILi{k}E"),
+        }
+    for label, (n, d) in (("sos96", (num96, den96)), ("sos12", (num12, den12))):
+        def call(n=n, d=d):
+            return sos.sos_cascade_response(n, d, z)
+        out[label] = {"ms": device_ms(call), "kernel_ms": kernel_ms(bare_cascade(sos, n, d, z)),
+                      "bound_ms": bound(*sos_cost(n.shape[0], n.shape[1], f))[0]}
+
+    def backward():
+        return sos.sos_cascade_backward(*bwd_args)
+    out["sos_backward"] = {
+        "ms": device_ms(backward), "kernel_ms": kernel_ms(backward),
+        "bound_ms": bound(*sos_backward_saved_h_cost(r, k, f))[0],
+        "bound_ms_h_recomputed": bound(*sos_backward_cost(r, k, f))[0],
+    }
+    return out
 
 
 def td_reference_f64(delays, gains, a, b, u) -> np.ndarray:
@@ -879,6 +1032,30 @@ def time_domain(name: str, infer, log_dir):
     return result, launches, b7_inputs
 
 
+def bare_tdgfdn(delays, g, a, b, u):
+    """A call of B7 alone: the C entry point of ``csrc/tdgfdn.cu`` on the
+    buffers ``delay_line_outputs`` would prepare (the wrapper's blocking copy
+    of the delay list to the card stays outside the timed window)."""
+    import torch
+
+    from diffgfdn_torch.kernels import _build, tdgfdn
+
+    delays = tuple(int(x) for x in delays)
+    n, t_len, m_max = len(delays), u.shape[0], max(delays)
+    bufs = [x.to(torch.float32).contiguous() for x in (u, g, a, b)]
+    bufs.append(torch.tensor(delays, dtype=torch.int32, device=u.device))
+    bufs.append(torch.empty((n, t_len), dtype=torch.float32, device=u.device))
+    bufs.append(torch.empty((n, t_len + m_max), dtype=torch.float32, device=u.device))
+    block = min(tdgfdn._block_size(delays), tdgfdn.MAX_THREADS)
+    lib = _build.load("tdgfdn", tdgfdn._SIGNATURES)
+
+    def call():
+        err = lib.diffgfdn_tdgfdn_f32(*(x.data_ptr() for x in bufs), t_len, n, m_max, block,
+                                      torch.cuda.current_stream().cuda_stream)
+        _build.check(err, "tdgfdn")
+    return call
+
+
 def tdgfdn_row(b7_inputs, launches: int) -> dict:
     """Phase 6, B7: the kernel against its plain version at the path's delays
     (impulse and random input) and at a 50000-sample delay spread, and
@@ -927,6 +1104,7 @@ def tdgfdn_row(b7_inputs, launches: int) -> dict:
         "launches": launches, "max_abs_err": err_path,
         "ms": device_ms(lambda: delay_line_outputs(*plain_args)),
         "plain_ms": device_ms(plain, reps=5),
+        "kernel_ms": kernel_ms(bare_tdgfdn(*plain_args)),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
     }
 
@@ -935,6 +1113,10 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--log-dir", default=None,
                         help="write the build log and a profile of one served batch here")
+    parser.add_argument("--cascade-times", metavar="ROOT", default=None,
+                        help="only time B3 and B4 of the diffgfdn_torch package under ROOT "
+                             "(another checkout of the port) and print them as one JSON "
+                             "line; no result line")
     args = parser.parse_args(argv)
 
     import torch
@@ -942,6 +1124,10 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    if args.cascade_times is not None:
+        print(card_line())
+        print(json.dumps({"cascade_times": cascade_times(Path(args.cascade_times))}))
+        return 0
     try:
         from diffgfdn_torch.kernels import _build
     except ImportError as exc:

@@ -7,11 +7,18 @@
   coefficient gradients in torch's complex gradient convention, reduced over
   the bins; :func:`sos_cascade_backward_plain` is its plain version.
 
-Both kernels are in ``csrc/sos.cu``. :func:`sos_cascade_response` is an
-autograd function whose forward saves only the coefficients and w (no
-per-section planes) and whose backward recomputes h, as the JAX custom VJP
-does. The plain versions work in float64 / complex128 too (for
-``torch.autograd.gradcheck``); the kernels take float32 / complex64.
+Both kernels are in ``csrc/sos.cu``. They agree with their plain versions
+within a tolerance, not bit for bit: they evaluate the section polynomials
+as the plain versions do, but fuse the products after them, and the forward
+takes one reciprocal per output (prod P_k and prod Q_k carried through the
+sections) where the plain version divides per section (1e-4 of max |h| on
+the model's inputs; the backward's sums also run in another order, and its
+reciprocals are the card's one-instruction approximation). :func:`sos_cascade_response` is an autograd function whose forward
+saves the response h with the coefficients and w, when a coefficient needs
+a gradient, and whose backward reads that h instead of recomputing it as
+the JAX custom VJP does. The plain versions work in float64 / complex128
+too (for ``torch.autograd.gradcheck``); the kernels take float32 /
+complex64.
 """
 
 import ctypes
@@ -24,15 +31,17 @@ from . import _build
 from .dispatch import runs_kernel
 
 MAX_SECTIONS = 16  # the backward kernel's template instantiations
-BWD_THREADS = 256
-BWD_BINS_PER_THREAD = 8
+BWD_THREADS = 256  # kThreads of csrc/sos.cu
+BWD_SPLIT = 2  # kSplit of csrc/sos.cu: the warps that share a bin's sections
+# bins per thread of the backward: 33 blocks per row at F = 65537, 3168 blocks
+# over 96 rows, six waves on 132 SMs at four blocks per SM
+BWD_BINS_PER_THREAD = 16
 _TINY = 1e-30  # clamp of |P|^2 and |Q|^2 in the backward, as in _bwd_kernel
 _SIGNATURES = {
     "diffgfdn_sos_cascade_c64": [ctypes.c_void_p] * 4
     + [ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p],
-    "diffgfdn_sos_cascade_bwd_c64": [ctypes.c_void_p] * 7
-    + [ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-       ctypes.c_int, ctypes.c_void_p],
+    "diffgfdn_sos_cascade_bwd_c64": [ctypes.c_void_p] * 8
+    + [ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
 }
 
 
@@ -86,30 +95,24 @@ def sos_cascade(num: torch.Tensor, den: torch.Tensor, w: torch.Tensor) -> torch.
 
 
 def sos_cascade_backward_plain(
-    num: torch.Tensor, den: torch.Tensor, w: torch.Tensor, g: torch.Tensor
+    num: torch.Tensor, den: torch.Tensor, w: torch.Tensor, g: torch.Tensor, h: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the cascade's backward -> (dnum, dden) (R, K, 3).
 
-    For the gradient G (R, F) of a real loss with respect to h:
-    dnum[r, k, j] = sum_f Re[conj(G) h w^j / P_k] and
-    dden[r, k, j] = -sum_f Re[conj(G) h w^j / Q_k], h recomputed, |P|^2 and
-    |Q|^2 clamped at 1e-30.
+    For the gradient G (R, F) of a real loss with respect to the response
+    h (R, F) at w: dnum[r, k, j] = sum_f Re[conj(G) h w^j / P_k] and
+    dden[r, k, j] = -sum_f Re[conj(G) h w^j / Q_k], |P|^2 and |Q|^2 clamped
+    at 1e-30. h is the forward's output: the JAX kernel recomputes it with
+    |Q|^2 clamped too, which gives the same h wherever |Q_k|^2 >= 1e-30 for
+    every k, that is wherever h is finite.
     """
     zre, zim = w.real[None], w.imag[None]
     z2re = zre * zre - zim * zim
     z2im = 2.0 * zre * zim
-    r, k, _ = num.shape
-    hre = torch.ones((r, w.shape[0]), dtype=w.real.dtype, device=w.device)
-    him = torch.zeros_like(hre)
-    for i in range(k):
-        pre, pim = _poly(num[:, i], zre, zim, z2re, z2im)
-        qre, qim = _poly(den[:, i], zre, zim, z2re, z2im)
-        iq = 1.0 / torch.clamp(qre * qre + qim * qim, min=_TINY)
-        sre = (pre * qre + pim * qim) * iq
-        sim = (pim * qre - pre * qim) * iq
-        hre, him = hre * sre - him * sim, hre * sim + him * sre
+    k = num.shape[1]
     # s = conj(G) h
     gre, gim = g.real, g.imag
+    hre, him = h.real, h.imag
     sre = gre * hre + gim * him
     sim = gre * him - gim * hre
     dnum = torch.empty_like(num)
@@ -133,37 +136,42 @@ def sos_cascade_backward_plain(
 
 
 def sos_cascade_backward(
-    num: torch.Tensor, den: torch.Tensor, w: torch.Tensor, g: torch.Tensor
+    num: torch.Tensor, den: torch.Tensor, w: torch.Tensor, g: torch.Tensor, h: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Coefficient gradients of the cascade: (R, K, 3) float32 x2, w (F,),
-    g (R, F) complex64 -> (dnum, dden) (R, K, 3) float32.
+    g and the forward's response h (R, F) complex64 -> (dnum, dden) (R, K, 3)
+    float32.
 
     CPU tensors take :func:`sos_cascade_backward_plain`; CUDA tensors launch
     the two-pass reduction of ``csrc/sos.cu`` (K <= 16, contiguous inputs),
     counted in ``sos_cascade_backward.launches``.
     """
     r, k, _ = num.shape
-    if tuple(g.shape) != (r, w.shape[0]):
-        raise ValueError(f"sos_cascade_backward: g {tuple(g.shape)} for R={r}, F={w.shape[0]}")
-    if not runs_kernel(num, den, w, g):
-        return sos_cascade_backward_plain(num, den, w, g)
+    for name, t in (("g", g), ("h", h)):
+        if tuple(t.shape) != (r, w.shape[0]):
+            raise ValueError(
+                f"sos_cascade_backward: {name} {tuple(t.shape)} for R={r}, F={w.shape[0]}"
+            )
+    if not runs_kernel(num, den, w, g, h):
+        return sos_cascade_backward_plain(num, den, w, g, h)
     if (k > MAX_SECTIONS or num.dtype != torch.float32 or g.dtype != torch.complex64
-            or not all(t.is_contiguous() for t in (num, den, w, g))):
+            or h.dtype != torch.complex64
+            or not all(t.is_contiguous() for t in (num, den, w, g, h))):
         raise ValueError(
             f"sos_cascade_backward kernel takes contiguous float32 / complex64 inputs "
             f"with K <= {MAX_SECTIONS}"
         )
     f = w.shape[0]
-    n_blocks = -(-f // (BWD_THREADS * BWD_BINS_PER_THREAD))
+    n_blocks = -(-f // (BWD_THREADS // BWD_SPLIT * BWD_BINS_PER_THREAD))
     partial = torch.empty((n_blocks, r, 6 * k), dtype=torch.float32, device=g.device)
     dnum = torch.empty_like(num)
     dden = torch.empty_like(den)
     lib = _build.load("sos", _SIGNATURES)
     with torch.cuda.device(g.device):
         err = lib.diffgfdn_sos_cascade_bwd_c64(
-            num.data_ptr(), den.data_ptr(), w.data_ptr(), g.data_ptr(), partial.data_ptr(),
-            dnum.data_ptr(), dden.data_ptr(), r, k, f, n_blocks, BWD_THREADS,
-            BWD_BINS_PER_THREAD, torch.cuda.current_stream().cuda_stream,
+            num.data_ptr(), den.data_ptr(), w.data_ptr(), g.data_ptr(), h.data_ptr(),
+            partial.data_ptr(), dnum.data_ptr(), dden.data_ptr(), r, k, f, n_blocks,
+            torch.cuda.current_stream().cuda_stream,
         )
     _build.check(err, "sos_cascade_backward")
     sos_cascade_backward.launches += 1
@@ -176,23 +184,27 @@ sos_cascade_backward.launches = 0
 class _Cascade(torch.autograd.Function):
     """h = cascade(num, den, w) with the analytic coefficient backward.
 
-    Saves only num, den and w; the backward recomputes h. No gradient flows
-    to w, and none is computed when neither coefficient set needs one.
+    Saves num, den, w and the response h, which the backward reads (the
+    autograd version counter raises if a caller wrote into h in place), and
+    nothing when neither coefficient set needs a gradient. No gradient flows
+    to w.
     """
 
     @staticmethod
     def forward(ctx, num, den, w, response: Callable, backward: Callable):
-        ctx.save_for_backward(num, den, w)
-        ctx.backward_fn = backward
-        return response(num, den, w)
+        h = response(num, den, w)
+        if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
+            ctx.save_for_backward(num, den, w, h)
+            ctx.backward_fn = backward
+        return h
 
     @staticmethod
     def backward(ctx, g):
         need_num, need_den = ctx.needs_input_grad[:2]
         if not (need_num or need_den):
             return None, None, None, None, None
-        num, den, w = ctx.saved_tensors
-        dnum, dden = ctx.backward_fn(num, den, w, g.contiguous())
+        num, den, w, h = ctx.saved_tensors
+        dnum, dden = ctx.backward_fn(num, den, w, g.contiguous(), h)
         return (dnum if need_num else None), (dden if need_den else None), None, None, None
 
 

@@ -7,8 +7,9 @@ A JAX cotangent is the conjugate of torch's gradient G, so:
 * B2: neg_ptgpt(P, G) = -P^H G P^H = conj(neg_ptgpt_pallas(P, conj(G)));
 * B6: lut_apply(lu, piv, G) = M^-H G = conj(lut_apply_pallas(facs, conj(G))),
   fed the factors and pivots of the JAX forward of the same systems;
-* B4: sos_cascade_backward(num, den, 1/z, G) = the cotangent conj(G) pulled
-  back by ``jax.vjp`` of ``sos_cascade_response_pallas``.
+* B4: sos_cascade_backward(num, den, 1/z, G, h) = the cotangent conj(G)
+  pulled back by ``jax.vjp`` of ``sos_cascade_response_pallas``, with h the
+  port's forward response (the Pallas backward recomputes it).
 
 N covers the served blocks (4) and the coupled loop (12), R the absorption
 (12) and the SVF heads (96); N = 27 is in test_torch_backward_kernels_n27.py.
@@ -74,8 +75,9 @@ def test_sos_backward_plain_matches_pallas_vjp(r, record_property):
     )
     ref_n, ref_d = (np.asarray(x) for x in vjp(np.conj(g)))
     w = torch.from_numpy((1.0 / z).astype(np.complex64))
-    dn, dd = sos_mod.sos_cascade_backward(torch.from_numpy(num), torch.from_numpy(den), w,
-                                          torch.from_numpy(g))
+    num_t, den_t = torch.from_numpy(num), torch.from_numpy(den)
+    h = sos_mod.sos_cascade(num_t, den_t, w)
+    dn, dd = sos_mod.sos_cascade_backward(num_t, den_t, w, torch.from_numpy(g), h)
     err = max(max_rel(dn.numpy(), ref_n), max_rel(dd.numpy(), ref_d))
     record_property("max_rel", err)
     assert err <= TOL
@@ -89,7 +91,9 @@ def test_backward_wrappers_reject_what_they_do_not_take():
         lu_mod.lut_apply(torch.zeros((4, 4, 5), dtype=torch.complex64),
                          torch.zeros((4, 5), dtype=torch.int64),
                          torch.zeros((5, 4), dtype=torch.complex64))
-    with pytest.raises(ValueError):
-        sos_mod.sos_cascade_backward(torch.zeros(2, 3, 3), torch.zeros(2, 3, 3),
-                                     torch.ones(7, dtype=torch.complex64),
-                                     torch.zeros((2, 6), dtype=torch.complex64))
+    for g_shape, h_shape in (((2, 6), (2, 7)), ((2, 7), (2, 6))):
+        with pytest.raises(ValueError):
+            sos_mod.sos_cascade_backward(torch.zeros(2, 3, 3), torch.zeros(2, 3, 3),
+                                         torch.ones(7, dtype=torch.complex64),
+                                         torch.zeros(g_shape, dtype=torch.complex64),
+                                         torch.zeros(h_shape, dtype=torch.complex64))

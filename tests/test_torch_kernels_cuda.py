@@ -7,7 +7,10 @@ where only PyTorch is installed; from the repository root:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
 
 (``--noconftest`` skips tests/conftest.py, which configures JAX.)
-Bound: max abs error <= 1e-4 max |plain|; identical LU pivots. The
+Bound: max abs error <= 1e-4 max |plain|; identical LU pivots. The cascade
+forward (B3) also runs with every section scaled by 1e4 and 1e-4, where the
+unscaled product of |Q_k|^2 leaves float32, and its backward (B4), given
+the forward's response, must give the same bits on two launches. The
 backward kernels (B2 ``neg_ptgpt``, B6 ``lut_apply``, B4
 ``sos_cascade_backward``) are also driven through autograd with a
 non-contiguous gradient, which the autograd functions make contiguous.
@@ -64,13 +67,16 @@ def test_lu_kernel_matches_plain_on_card(cuda_device, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("r", [12, 96])
-def test_sos_kernel_matches_plain_on_card(cuda_device, r):
-    num, den, z = cascade(r, 11, 4097, seed=r)
+@pytest.mark.parametrize("r,scale", [(12, 1.0), (96, 1.0), (12, 1e4), (12, 1e-4)],
+                         ids=["12", "96", "12_wide_up", "12_wide_down"])
+def test_sos_kernel_matches_plain_on_card(cuda_device, r, scale):
+    num, den, z = cascade(r, 16 if scale != 1.0 else 11, 4097, seed=r)
+    num, den = num * np.float32(scale), den * np.float32(scale)
     out, ref = _on_card_and_plain(
         sos_mod.sos_cascade_response,
         *(torch.from_numpy(x).to(cuda_device) for x in (num, den, z)),
     )
+    assert torch.isfinite(out).all()
     assert max_rel(out.cpu().numpy(), ref.cpu().numpy()) <= TOL
 
 
@@ -102,16 +108,31 @@ def test_lut_apply_kernel_matches_plain_on_card(cuda_device, n):
 @pytest.mark.cuda
 @pytest.mark.parametrize("r", [12, 96])
 def test_sos_backward_kernel_matches_plain_on_card(cuda_device, r):
-    num, den, z = cascade(r, 11, 65537, seed=r)
-    g = torch.randn((r, 65537), dtype=torch.complex64, generator=torch.Generator().manual_seed(r))
-    args = [torch.from_numpy(x).to(cuda_device) for x in (num, den)]
-    w = (1.0 / torch.from_numpy(z).to(cuda_device)).to(torch.complex64)
+    args = _backward_inputs(r, cuda_device)
     before = sos_mod.sos_cascade_backward.launches
-    (dn, dd), (dn_p, dd_p) = _on_card_and_plain(sos_mod.sos_cascade_backward, *args, w,
-                                                g.to(cuda_device))
+    (dn, dd), (dn_p, dd_p) = _on_card_and_plain(sos_mod.sos_cascade_backward, *args)
     assert sos_mod.sos_cascade_backward.launches == before + 1
     assert max_rel(dn.cpu().numpy(), dn_p.cpu().numpy()) <= TOL
     assert max_rel(dd.cpu().numpy(), dd_p.cpu().numpy()) <= TOL
+
+
+def _backward_inputs(r, device):
+    """num, den, w, G and the kernel forward's h at K = 11, F = 65537."""
+    num, den, z = cascade(r, 11, 65537, seed=r)
+    g = torch.randn((r, 65537), dtype=torch.complex64, generator=torch.Generator().manual_seed(r))
+    num, den = (torch.from_numpy(x).to(device) for x in (num, den))
+    w = (1.0 / torch.from_numpy(z).to(device)).to(torch.complex64)
+    return num, den, w, g.to(device), sos_mod.sos_cascade(num, den, w)
+
+
+@pytest.mark.cuda
+def test_sos_backward_kernel_is_deterministic_on_card(cuda_device):
+    args = _backward_inputs(96, cuda_device)
+    first = sos_mod.sos_cascade_backward(*args)
+    second = sos_mod.sos_cascade_backward(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def _grads(fn, inputs, g):
