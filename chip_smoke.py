@@ -4,7 +4,7 @@
 Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py [--log-dir DIR]
-    python3 chip_smoke.py --cascade-times ROOT
+    python3 chip_smoke.py --kernel-times ROOT   (alias: --cascade-times)
 
 Phases (any failure raises and exits non-zero, with no result line):
 
@@ -18,7 +18,8 @@ Phases (any failure raises and exits non-zero, with no result line):
    the same path run with the kernels' plain versions on the card;
 3. hold each kernel against its plain version on the card, at the inputs the
    served path gave it and at the other shapes the model family uses, and
-   against a float64 numpy reference on a few systems;
+   against a float64 numpy reference on a few systems; the inverse (B1) must
+   equal its plain version bit for bit (path, N = 12, N = 27);
 4. time each kernel, its plain version and the library call computing the
    same function (CUDA events around one wrapper call, L2 flushed before
    each: ``ms``), the kernel's own device time (CUDA events around the bare
@@ -34,9 +35,9 @@ Phases (any failure raises and exits non-zero, with no result line):
    and EDC mask then runs on the kernels and on the plain versions: the
    losses must agree to 1e-6 relative and every parameter gradient to 1e-3
    relative L2. The inputs each backward kernel got in that step are kept;
-   each backward kernel is held against its plain version on them (1e-4)
-   and timed beside its bound, its plain version and the library call
-   computing the same function. Per configuration the phase prints the
+   each backward kernel is held against its plain version on them (1e-4;
+   B2 bit for bit) and timed beside its bound, its plain version and the
+   library call computing the same function. Per configuration the phase prints the
    median step time after a warm-up step, steps/s and the peak memory;
 6. synthesize 96 RIRs per configuration in the time domain through the user
    entry point ``make_time_domain_synthesis_fn`` (the model as phase 2's
@@ -53,9 +54,10 @@ Phases (any failure raises and exits non-zero, with no result line):
    float64 numpy recursion, and timed beside its bound and plain version.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
-as its last line ``{"ok": true, "device": {...}}``. ``--cascade-times ROOT``
-instead only times B3 and B4 of the port's checkout under ROOT (so that two
-trees can be compared in turns in one call) and prints no result line.
+as its last line ``{"ok": true, "device": {...}}``. ``--kernel-times ROOT``
+(or its older name ``--cascade-times``) instead only times B1, B2, B3 and B4
+of the port's checkout under ROOT (so that two trees can be compared in
+turns in one call) and prints no result line.
 ``--log-dir`` receives the compiler's resource report and a torch.profiler
 table of one served batch and of one training step per configuration;
 their wall time, the card's busy time within them and its idle share join
@@ -370,15 +372,16 @@ def check_kernels(inputs) -> dict:
     ]
     for label, m in cases:
         out, ref = both(cinv, m)
-        err = rel_err(out, ref)
-        require(err <= KERNEL_TOL, f"cinv {label}: rel err {err}")
+        differ = int((out != ref).sum())
+        require(differ == 0, f"cinv {label}: {differ} elements differ from the plain version")
         m64 = m[:256].cpu().numpy().astype(np.complex128)
         inv64 = np.linalg.inv(m64)
         err64 = float(np.abs(out[:256].cpu().numpy() - inv64).max() / np.abs(inv64).max())
         require(err64 <= KERNEL_TOL, f"cinv {label}: vs float64 numpy {err64}")
         if label == "path":
             errors["cinv"] = float(torch.max(torch.abs(out - ref)))
-        print(f"cinv {label} {tuple(m.shape)}: rel err vs plain {err:.3e}, vs numpy {err64:.3e}")
+        print(f"cinv {label} {tuple(m.shape)}: elements differing from plain {differ}, "
+              f"vs numpy {err64:.3e}")
 
     # B3: the SVF heads (R = B*G = 96) and the absorption cascades (R = N = 12)
     for label in ("sos96", "sos12"):
@@ -765,13 +768,15 @@ def backward_rows(inputs: dict, launches: dict) -> list:
     rows = []
     p, g = inputs["neg_ptgpt"]
     out, ref = both(neg_ptgpt, p, g)
-    err = rel_err(out, ref)
+    differ = int((out != ref).sum())
     p64, g64 = p[:256].cpu().numpy().astype(np.complex128), g[:256].cpu().numpy()
     ph = np.conj(np.swapaxes(p64, -1, -2))
     ref64 = -(ph @ g64 @ ph)
     err64 = float(np.abs(out[:256].cpu().numpy() - ref64).max() / np.abs(ref64).max())
-    require(err <= KERNEL_TOL and err64 <= KERNEL_TOL, f"neg_ptgpt: rel err {err}, f64 {err64}")
-    print(f"neg_ptgpt {tuple(p.shape)}: rel err vs plain {err:.3e}, vs numpy {err64:.3e}")
+    require(differ == 0 and err64 <= KERNEL_TOL,
+            f"neg_ptgpt: {differ} elements differ from the plain version, f64 {err64}")
+    print(f"neg_ptgpt {tuple(p.shape)}: elements differing from plain {differ}, "
+          f"vs numpy {err64:.3e}")
     b_ms, b_by = bound(*neg_ptgpt_cost(p.shape[0], p.shape[1]))
     rows.append({
         "name": "neg_ptgpt", "route": "cuda", "source": "diffgfdn_torch/csrc/cinv.cu",
@@ -834,24 +839,34 @@ def backward_rows(inputs: dict, launches: dict) -> list:
 
 
 def ptxas_usage(log: str, fragment: str):
-    """(registers, spill-store bytes) that ptxas reported for the first entry
-    function whose mangled name contains ``fragment``, or None."""
+    """{registers, spill-store bytes, stack-frame bytes} that ptxas reported
+    for the first entry function whose mangled name contains ``fragment``,
+    or None. A stack frame without spills is a per-thread array that stayed
+    in local memory."""
     for m in re.finditer(r"entry function '(\S+)'(.*?)Used (\d+) registers", log, re.S):
         if fragment in m.group(1):
             spill = re.search(r"(\d+) bytes spill stores", m.group(2))
-            return int(m.group(3)), int(spill.group(1)) if spill else 0
+            frame = re.search(r"(\d+) bytes stack frame", m.group(2))
+            return {"registers": int(m.group(3)),
+                    "spill_stores": int(spill.group(1)) if spill else 0,
+                    "stack_frame": int(frame.group(1)) if frame else 0}
     return None
 
 
-def cascade_times(root: Path) -> dict:
-    """B3 (R = 96 heads, R = 12 absorption) and B4 of the diffgfdn_torch
-    package under ``root``, at the fullband path's shapes: coefficients from
-    the seeded fullband model at phase 2's first batch of receivers, a random
-    G, h from B3. Per kernel: the wrapper call's time (``ms``), the kernel's
-    own device time (``kernel_ms``) and the bound; and ptxas's registers and
-    spill-store bytes of both kernels at K = 11 when this process built them.
-    Runs any tree of the port, whether its B4 reads h or recomputes it, so
-    that two trees can be compared in one call."""
+def kernel_times(root: Path) -> dict:
+    """B1, B2, B3 and B4 of the diffgfdn_torch package under ``root``, at
+    the fullband path's shapes, so that two trees can be compared in turns
+    in one call. B1: the seeded fullband model's loop-matrix blocks
+    (3 x 65537 systems of 4 x 4), then 65537 random systems at N = 12
+    (learned scalar coupling) and 27 (directional); B2: P from B1 and a
+    seeded G at each of those shapes. B3 (R = 96 heads, R = 12 absorption)
+    and B4: coefficients from the same model at phase 2's first batch of
+    receivers, a random G, h from B3. Per kernel and shape: the wrapper
+    call's time (``ms``), the kernel's own device time (``kernel_ms``) and
+    the bound; and ptxas's registers, spill-store and stack-frame bytes of
+    ``cinv_kernel<4>``, ``neg_ptgpt_kernel<4>`` and the cascade kernels at
+    K = 11 when this process built them. Runs any tree of the port, whether
+    its B4 reads h or recomputes it."""
     import inspect
 
     sys.path.insert(0, str(root.resolve()))
@@ -862,13 +877,13 @@ def cascade_times(root: Path) -> dict:
             f"diffgfdn_torch imported from {diffgfdn_torch.__file__}, not from {root}")
     from diffgfdn_torch.config import preset_config
     from diffgfdn_torch.data.batching import arrays_from_room_dataset
-    from diffgfdn_torch.kernels import _build, sos
+    from diffgfdn_torch.kernels import _build, cinv, sos
     from diffgfdn_torch.models.gain_heads import svf_params_to_response
     from diffgfdn_torch.training import build_gfdn_model
 
-    # before the model's first cascade loads the library; empty if this
-    # checkout built it before
-    log = _build.build_all(("sos",))["sos"]
+    # before the model's first call loads a library; empty if this checkout
+    # built it before
+    logs = _build.build_all(("sos", "cinv"))
     name = "fullband_grid_colorless"
     cfg = preset_config(name)
     with tempfile.TemporaryDirectory() as tmp:
@@ -878,6 +893,7 @@ def cascade_times(root: Path) -> dict:
     z = torch.from_numpy(arrays.z_values).to(DEVICE)
     pos = torch.from_numpy(arrays.listener_position[:BATCH]).to(DEVICE)
     with torch.no_grad():
+        m_path = model.feedback_loop.loop_matrix_blocks(z).reshape(-1, 4, 4).contiguous()
         head = model.output_filters
         _, num, den = svf_params_to_response(head.mlp(head.encoding(pos)), head.cutoffs, z)
         num96 = num.reshape(-1, num.shape[-2], 3).contiguous()
@@ -886,18 +902,33 @@ def cascade_times(root: Path) -> dict:
         num12, den12 = coeffs[..., 0].contiguous(), coeffs[..., 1].contiguous()
     w = (1.0 / z).to(torch.complex64)
     r, k, f = num96.shape[0], num96.shape[1], w.shape[0]
-    g = torch.randn((r, f), dtype=torch.complex64, device=DEVICE,
-                    generator=torch.Generator(device=DEVICE).manual_seed(SEED))
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    g = torch.randn((r, f), dtype=torch.complex64, device=DEVICE, generator=gen)
     h = sos.sos_cascade(num96, den96, w)
     reads_h = "h" in inspect.signature(sos.sos_cascade_backward).parameters
     bwd_args = (num96, den96, w, g, h) if reads_h else (num96, den96, w, g)
     out = {"root": str(root), "b4_reads_h": reads_h, "ptxas": None}
-    if log:
+    if logs["sos"] or logs["cinv"]:
         out["ptxas"] = {
-            "sos_cascade_kernel": (ptxas_usage(log, f"sos_cascade_kernelILi{k}E")
-                                   or ptxas_usage(log, "sos_cascade_kernelE")),
-            f"sos_bwd_partial_kernel<{k}>": ptxas_usage(log, f"sos_bwd_partial_kernelILi{k}E"),
+            "cinv_kernel<4>": ptxas_usage(logs["cinv"], "cinv_kernelILi4E"),
+            "neg_ptgpt_kernel<4>": ptxas_usage(logs["cinv"], "neg_ptgpt_kernelILi4E"),
+            "sos_cascade_kernel": (ptxas_usage(logs["sos"], f"sos_cascade_kernelILi{k}E")
+                                   or ptxas_usage(logs["sos"], "sos_cascade_kernelE")),
+            f"sos_bwd_partial_kernel<{k}>": ptxas_usage(logs["sos"],
+                                                        f"sos_bwd_partial_kernelILi{k}E"),
         }
+    for label, m in (("path", m_path), ("N=12", random_systems(65537, 12, gen)[0]),
+                     ("N=27", random_systems(65537, 27, gen)[0])):
+        kb, n = m.shape[0], m.shape[1]
+        p = cinv.cinv(m)
+        g_p = torch.randn(p.shape, dtype=torch.complex64, device=DEVICE, generator=gen)
+        out[f"cinv {label}"] = {
+            "shape": list(m.shape), "ms": device_ms(lambda: cinv.cinv(m)),
+            "kernel_ms": kernel_ms(lambda: cinv.cinv(m)), "bound_ms": bound(*cinv_cost(kb, n))[0]}
+        out[f"neg_ptgpt {label}"] = {
+            "shape": list(p.shape), "ms": device_ms(lambda: cinv.neg_ptgpt(p, g_p)),
+            "kernel_ms": kernel_ms(lambda: cinv.neg_ptgpt(p, g_p)),
+            "bound_ms": bound(*neg_ptgpt_cost(kb, n))[0]}
     for label, (n, d) in (("sos96", (num96, den96)), ("sos12", (num12, den12))):
         def call(n=n, d=d):
             return sos.sos_cascade_response(n, d, z)
@@ -1113,9 +1144,10 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--log-dir", default=None,
                         help="write the build log and a profile of one served batch here")
-    parser.add_argument("--cascade-times", metavar="ROOT", default=None,
-                        help="only time B3 and B4 of the diffgfdn_torch package under ROOT "
-                             "(another checkout of the port) and print them as one JSON "
+    parser.add_argument("--kernel-times", "--cascade-times", dest="kernel_times",
+                        metavar="ROOT", default=None,
+                        help="only time B1, B2, B3 and B4 of the diffgfdn_torch package under "
+                             "ROOT (another checkout of the port) and print them as one JSON "
                              "line; no result line")
     args = parser.parse_args(argv)
 
@@ -1124,9 +1156,9 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
-    if args.cascade_times is not None:
+    if args.kernel_times is not None:
         print(card_line())
-        print(json.dumps({"cascade_times": cascade_times(Path(args.cascade_times))}))
+        print(json.dumps({"kernel_times": kernel_times(Path(args.kernel_times))}))
         return 0
     try:
         from diffgfdn_torch.kernels import _build

@@ -20,6 +20,13 @@ where the card takes the one-instruction approximation (relative error
 under 2^-22). The cascade backward's threads run one at a time through their
 device function, and their sums are added into the block's partial in
 thread order.
+The inverse and its backward (B1, B2) stage tiles of systems through
+shared memory for N <= 8, with a barrier between the copies in, the solves
+and the copies out: the harness runs each of those phases thread by thread
+over the tile, through the kernels' own copy and per-system device
+functions (the card's asynchronous copy is a plain copy on the host), and
+drives the per-system functions system by system for larger N. A further
+test holds the tile copies to moving each element once.
 The time-domain recursion (B7) cannot run thread by thread through its
 kernel: thread 0 would reach the next block of samples before thread 1 had
 written this one. Its per-sample step is a device function, which the
@@ -49,6 +56,7 @@ from torch_port_helpers import cascade, KERNEL_TOL, max_rel, systems
 
 CSRC = Path(__file__).resolve().parents[1] / "diffgfdn_torch" / "csrc"
 SIZES = (1, 4, 9, 12, 27)
+TILE_SIZES = (1, 4, 8)  # tile-copy tests: N of the tiled kernels (N <= 8)
 BWD_SECTIONS = (1, 11, 16)  # the cascade backward's K in these tests
 # the forward source against the plain version's per-section quotients on
 # random cascades: max abs error / max |plain| (fused products, one reciprocal)
@@ -99,20 +107,125 @@ namespace { float4 coef4[1 << 14]; }  // the cascade's dynamic shared memory
 _CASES = " ".join(f"case {n}: KERNEL<{n}>(ARGS); break;" for n in SIZES)
 HARNESSES = {
     "cinv": """
+// the tiled kernels (N <= kMaxTiledN) block by block, each phase thread by
+// thread as the barriers order them; the others system by system
+template <int N>
+void emu_cinv_n(const float2* m, float2* o, long long k) {
+  if constexpr (N <= kMaxTiledN) {
+    constexpr int T = Tile<N>::kSystems, E = Tile<N>::kElems, S = Tile<N>::kStride;
+    static float2 tile[T * S];
+    for (long long first = 0; first < k; first += T) {
+      const int systems = k - first < T ? (int)(k - first) : T;
+      for (int t = 0; t < T; ++t) {
+        threadIdx = dim3(t);
+        tile_load<N>(m + first * E, tile, systems * E);
+      }
+      for (int t = 0; t < systems; ++t) gj_inverse<N>(tile + t * S, tile + t * S);
+      for (int t = 0; t < T; ++t) {
+        threadIdx = dim3(t);
+        tile_store<N>(tile, o + first * E, systems * E);
+      }
+    }
+  } else {
+    for (long long s = 0; s < k; ++s) gj_inverse<N>(m + s * N * N, o + s * N * N);
+  }
+}
+template <int N>
+void emu_ptgpt_n(const float2* p, const float2* g, float2* o, long long k) {
+  if constexpr (N <= kMaxTiledN) {
+    constexpr int T = Tile<N>::kSystems, E = Tile<N>::kElems, S = Tile<N>::kStride;
+    static float2 tile_p[T * S], tile_g[T * S];
+    for (long long first = 0; first < k; first += T) {
+      const int systems = k - first < T ? (int)(k - first) : T;
+      for (int t = 0; t < T; ++t) {
+        threadIdx = dim3(t);
+        tile_load<N>(p + first * E, tile_p, systems * E);
+        tile_load<N>(g + first * E, tile_g, systems * E);
+      }
+      for (int t = 0; t < systems; ++t)
+        neg_ptgpt_system<N>(tile_p + t * S, tile_g + t * S, tile_p + t * S);
+      for (int t = 0; t < T; ++t) {
+        threadIdx = dim3(t);
+        tile_store<N>(tile_p, o + first * E, systems * E);
+      }
+    }
+  } else {
+    for (long long s = 0; s < k; ++s)
+      neg_ptgpt_system<N>(p + s * N * N, g + s * N * N, o + s * N * N);
+  }
+}
+// every (block, thread, copy step): hits[e] counts the copies of element e
+// of the K x N^2; bad counts copies to a slot outside the tile or to a slot
+// another step of the same tile also took
+template <int N>
+void tile_cover_n(long long k, unsigned char* hits, long long* bad) {
+  constexpr int T = Tile<N>::kSystems, E = Tile<N>::kElems, S = Tile<N>::kStride;
+  static unsigned char slot_hits[T * S];
+  for (long long first = 0; first < k; first += T) {
+    const int systems = k - first < T ? (int)(k - first) : T;
+    for (int i = 0; i < T * S; ++i) slot_hits[i] = 0;
+    for (int t = 0; t < T; ++t) {
+      threadIdx = dim3(t);
+      for (int c = 0; c < E; ++c) {
+        const int e = copy_element<N>(c);
+        if (e >= systems * E) continue;
+        hits[first * E + e] += 1;
+        const int slot = tile_slot<N>(e);
+        if (slot < 0 || slot >= T * S || slot_hits[slot]++) *bad += 1;
+      }
+    }
+  }
+}
+// src through tile_load and tile_store into dst, tile by tile; misplaced
+// counts elements that are not where the solve of their system reads them
+// (element j of the tile's system s in slot s * kStride + j)
+template <int N>
+void tile_roundtrip_n(const float2* src, float2* dst, long long k, long long* misplaced) {
+  constexpr int T = Tile<N>::kSystems, E = Tile<N>::kElems, S = Tile<N>::kStride;
+  static float2 tile[T * S];
+  for (long long first = 0; first < k; first += T) {
+    const int systems = k - first < T ? (int)(k - first) : T;
+    for (int t = 0; t < T; ++t) {
+      threadIdx = dim3(t);
+      tile_load<N>(src + first * E, tile, systems * E);
+    }
+    for (int s = 0; s < systems; ++s)
+      for (int j = 0; j < E; ++j) {
+        const float2 a = tile[s * S + j], b = src[(first + s) * E + j];
+        if (std::memcmp(&a, &b, sizeof a) != 0) *misplaced += 1;
+      }
+    for (int t = 0; t < T; ++t) {
+      threadIdx = dim3(t);
+      tile_store<N>(tile, dst + first * E, systems * E);
+    }
+  }
+}
 extern "C" void emu(const void* m, void* out, long long k, int n) {
   auto mi = (const float2*)m; auto o = (float2*)out;
-  for (long long s = 0; s < k; ++s) {
-    blockIdx = dim3((unsigned)s);
-    switch (n) { CASES }
-  }
-}""".replace("CASES", _CASES.replace("KERNEL", "cinv_kernel").replace("ARGS", "mi, o, k")) + """
+  switch (n) { CASES }
+}""".replace("CASES", _CASES.replace("KERNEL", "emu_cinv_n").replace("ARGS", "mi, o, k")) + """
 extern "C" void emu_ptgpt(const void* p, const void* g, void* out, long long k, int n) {
   auto pi = (const float2*)p; auto gi = (const float2*)g; auto o = (float2*)out;
-  for (long long s = 0; s < k; ++s) {
-    blockIdx = dim3((unsigned)s);
-    switch (n) { CASES }
-  }
-}""".replace("CASES", _CASES.replace("KERNEL", "neg_ptgpt_kernel").replace("ARGS", "pi, gi, o, k")),
+  switch (n) { CASES }
+}""".replace("CASES", _CASES.replace("KERNEL", "emu_ptgpt_n").replace("ARGS", "pi, gi, o, k")) + """
+extern "C" int tile_systems(int n) {
+  switch (n) { TILE_CASES }
+  return 0;
+}
+extern "C" void tile_cover(long long k, int n, void* hits, long long* bad) {
+  switch (n) { COVER_CASES }
+}
+extern "C" void tile_roundtrip(const void* src, void* dst, long long k, int n,
+                               long long* misplaced) {
+  switch (n) { ROUNDTRIP_CASES }
+}""".replace("TILE_CASES", " ".join(
+        f"case {n}: return Tile<{n}>::kSystems;" for n in TILE_SIZES)).replace(
+    "COVER_CASES", " ".join(
+        f"case {n}: tile_cover_n<{n}>(k, (unsigned char*)hits, bad); break;"
+        for n in TILE_SIZES)).replace(
+    "ROUNDTRIP_CASES", " ".join(
+        f"case {n}: tile_roundtrip_n<{n}>((const float2*)src, (float2*)dst, k, misplaced); "
+        "break;" for n in TILE_SIZES)),
     "lu": """
 extern "C" void emu(const void* m, const void* b, void* x, void* lu, void* piv,
                     long long k, int n) {
@@ -276,6 +389,35 @@ def test_cinv_source_matches_plain_bitwise(emulated, n):
     out = np.empty_like(m)
     emulated["cinv"].emu(_ptr(m), _ptr(out), ctypes.c_longlong(len(m)), ctypes.c_int(n))
     np.testing.assert_array_equal(out, cinv_plain(torch.from_numpy(m)).numpy())
+
+
+@pytest.mark.parametrize("k_of_tile", [lambda t: t - 1, lambda t: t, lambda t: t + 1,
+                                       lambda t: 3 * 65537], ids=["T-1", "T", "T+1", "3x65537"])
+@pytest.mark.parametrize("n", TILE_SIZES)
+def test_cinv_tile_copies_cover_each_element_once(emulated, n, k_of_tile):
+    """The tiled kernels' copies between device and shared memory: over every
+    block, thread and copy step, each of the K x N^2 elements is moved once
+    (the loads and the stores share the mapping), each into its own slot
+    of its tile, and the slot is where its system's solve reads it; a
+    round trip through tile_load and tile_store from a base 8 bytes past a
+    16-byte boundary gives the same bits and touches nothing outside."""
+    lib = emulated["cinv"]
+    k = k_of_tile(lib.tile_systems(ctypes.c_int(n)))
+    count = k * n * n
+    hits = np.zeros(count, np.uint8)
+    bad, misplaced = ctypes.c_longlong(0), ctypes.c_longlong(0)
+    lib.tile_cover(ctypes.c_longlong(k), ctypes.c_int(n), _ptr(hits), ctypes.byref(bad))
+    assert bad.value == 0
+    np.testing.assert_array_equal(hits, 1)
+    buf = np.arange(2 * count + 4, dtype=np.uint32).view(np.complex64)  # distinct bits
+    src = buf[1:-1]  # 8 bytes past the buffer's 16-byte-aligned start
+    assert src.ctypes.data % 16 == 8
+    out = np.full(count + 2, 7 + 7j, np.complex64)
+    lib.tile_roundtrip(_ptr(src), _ptr(out[1:-1]), ctypes.c_longlong(k), ctypes.c_int(n),
+                       ctypes.byref(misplaced))
+    assert misplaced.value == 0
+    np.testing.assert_array_equal(out[1:-1].view(np.uint64), src.view(np.uint64))
+    assert out[0] == out[-1] == 7 + 7j
 
 
 @pytest.mark.parametrize("n", SIZES)

@@ -7,7 +7,11 @@ where only PyTorch is installed; from the repository root:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
 
 (``--noconftest`` skips tests/conftest.py, which configures JAX.)
-Bound: max abs error <= 1e-4 max |plain|; identical LU pivots. The cascade
+Bound: max abs error <= 1e-4 max |plain|; identical LU pivots. The inverse
+(B1 ``cinv``) and its backward (B2 ``neg_ptgpt``) must equal their plain
+versions bit for bit, at every N of the model family, on ragged K around
+the 128 systems of a block, on a contiguous view 8 bytes past a 16-byte
+boundary, and on two launches alike. The cascade
 forward (B3) also runs with every section scaled by 1e4 and 1e-4, where the
 unscaled product of |Q_k|^2 leaves float32, and its backward (B4), given
 the forward's response, must give the same bits on two launches. The
@@ -44,14 +48,63 @@ def _on_card_and_plain(fn, *args):
     return out, ref
 
 
+# csrc/cinv.cu runs 128 systems a block at each N below (one tile at N <= 4,
+# one system a thread at N > 8); K = 3 x 65537 is the fullband path's
+CINV_SIZES = (1, 4, 9, 12, 27)
+CINV_BLOCK = 128
+CINV_K = (1, CINV_BLOCK - 1, CINV_BLOCK, CINV_BLOCK + 1, 1000, 3 * 65537)
+
+
+def _cinv_systems(k, n, seed):
+    m, _ = systems(k, n, seed=seed)
+    if n == 1:
+        m[:, 0, 0] += 1.0  # a 1 x 1 system has no row to pivot to
+    return m
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [4, 12, 27])
-def test_cinv_kernel_matches_plain_on_card(cuda_device, n):
-    m, _ = systems(1000, n, seed=n)
+@pytest.mark.parametrize("k", CINV_K)
+@pytest.mark.parametrize("n", CINV_SIZES)
+def test_cinv_kernel_matches_plain_on_card(cuda_device, n, k):
+    m = torch.from_numpy(_cinv_systems(k, n, seed=n)).to(cuda_device)
     before = cinv_mod.cinv.launches
-    out, ref = _on_card_and_plain(cinv_mod.cinv, torch.from_numpy(m).to(cuda_device))
+    out, ref = _on_card_and_plain(cinv_mod.cinv, m)
     assert cinv_mod.cinv.launches == before + 1
-    assert max_rel(out.cpu().numpy(), ref.cpu().numpy()) <= TOL
+    assert torch.equal(out, ref)
+
+
+def _offset_view(x):
+    """A contiguous copy of x whose storage starts 8 bytes past a 16-byte
+    boundary (the view a slice m[1:] of odd-N systems gives)."""
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = flat[1:].view(x.shape)
+    view.copy_(x)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 8
+    return view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 4, 9])
+def test_cinv_kernels_take_a_view_8_bytes_off_alignment(cuda_device, n):
+    k = 3 * 65537
+    m = torch.from_numpy(_cinv_systems(k, n, seed=70 + n)).to(cuda_device)
+    g = torch.from_numpy(systems(k, n, seed=80 + n)[0]).to(cuda_device)
+    out, ref = _on_card_and_plain(cinv_mod.cinv, _offset_view(m))
+    assert torch.equal(out, ref)
+    assert torch.equal(out, cinv_mod.cinv(m))
+    p, g_view = _offset_view(ref), _offset_view(g)
+    out, ref = _on_card_and_plain(cinv_mod.neg_ptgpt, p, g_view)
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.cuda
+def test_cinv_kernels_are_deterministic_on_card(cuda_device):
+    k, n = 3 * 65537, 4
+    m = torch.from_numpy(_cinv_systems(k, n, seed=3)).to(cuda_device)
+    g = torch.from_numpy(systems(k, n, seed=4)[0]).to(cuda_device)
+    first, second = cinv_mod.cinv(m), cinv_mod.cinv(m)
+    assert torch.equal(first, second)
+    assert torch.equal(cinv_mod.neg_ptgpt(first, g), cinv_mod.neg_ptgpt(second, g))
 
 
 @pytest.mark.cuda
@@ -81,15 +134,16 @@ def test_sos_kernel_matches_plain_on_card(cuda_device, r, scale):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [4, 12, 27])
-def test_neg_ptgpt_kernel_matches_plain_on_card(cuda_device, n):
-    m, _ = systems(1000, n, seed=n)
-    g, _ = systems(1000, n, seed=50 + n)
+@pytest.mark.parametrize("k", CINV_K)
+@pytest.mark.parametrize("n", CINV_SIZES)
+def test_neg_ptgpt_kernel_matches_plain_on_card(cuda_device, n, k):
+    m = _cinv_systems(k, n, seed=n)
+    g, _ = systems(k, n, seed=50 + n)
     p = cinv_mod.cinv(torch.from_numpy(m).to(cuda_device))
     before = cinv_mod.neg_ptgpt.launches
     out, ref = _on_card_and_plain(cinv_mod.neg_ptgpt, p, torch.from_numpy(g).to(cuda_device))
     assert cinv_mod.neg_ptgpt.launches == before + 1
-    assert max_rel(out.cpu().numpy(), ref.cpu().numpy()) <= TOL
+    assert torch.equal(out, ref)
 
 
 @pytest.mark.cuda
