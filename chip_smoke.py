@@ -18,8 +18,9 @@ Phases (any failure raises and exits non-zero, with no result line):
    the same path run with the kernels' plain versions on the card;
 3. hold each kernel against its plain version on the card, at the inputs the
    served path gave it and at the other shapes the model family uses, and
-   against a float64 numpy reference on a few systems; the inverse (B1) must
-   equal its plain version bit for bit (path, N = 12, N = 27);
+   against a float64 numpy reference on a few systems; the inverse (B1) and
+   the LU solve (B5: x, factors, pivots) must equal their plain versions bit
+   for bit (path, and N = 12, 27 for B1, N = 27 for B5);
 4. time each kernel, its plain version and the library call computing the
    same function (CUDA events around one wrapper call, L2 flushed before
    each: ``ms``), the kernel's own device time (CUDA events around the bare
@@ -49,15 +50,18 @@ Phases (any failure raises and exits non-zero, with no result line):
    decay, match the same path on the plain versions, and match the
    frequency path of the same model at the same receivers without the
    direct part (max |delta| <= 2e-3 peak, EDC within 0.01 dB over 0.5 s).
-   B7 is then held against its plain version at the path's delays, at a
-   delay set spanning 50000 samples and on a random input, and against a
-   float64 numpy recursion, and timed beside its bound and plain version.
+   B7 is then held against its plain version bit for bit at the path's
+   delays (impulse and random input), at the delay spreads whose
+   shared-memory ring fills the card's shared memory exactly and one slot
+   past it (which takes the device-memory history), and at a spread of
+   50000 samples, and against a float64 numpy recursion, and timed beside
+   its bound and plain version.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``. ``--kernel-times ROOT``
-(or its older name ``--cascade-times``) instead only times B1, B2, B3 and B4
-of the port's checkout under ROOT (so that two trees can be compared in
-turns in one call) and prints no result line.
+(or its older name ``--cascade-times``) instead only times the seven kernels
+of the port's checkout under ROOT at the paths' shapes (so that two trees
+can be compared in turns in one call) and prints no result line.
 ``--log-dir`` receives the compiler's resource report and a torch.profiler
 table of one served batch and of one training step per configuration;
 their wall time, the card's busy time within them and its idle share join
@@ -406,18 +410,18 @@ def check_kernels(inputs) -> dict:
     for label, m, b in cases:
         (x, lu, piv), (x_p, lu_p, piv_p) = both(lu_solve, m, b)
         err_x, err_lu = rel_err(x, x_p), rel_err(lu, lu_p)
-        piv_diff = int((piv != piv_p).sum())
-        require(err_x <= KERNEL_TOL and err_lu <= KERNEL_TOL,
-                f"lu {label}: rel err x {err_x}, factors {err_lu}")
-        require(piv_diff == 0, f"lu {label}: {piv_diff} pivots differ from the plain version")
+        differ = [int((o != r).sum()) for o, r in ((x, x_p), (lu, lu_p), (piv, piv_p))]
+        require(differ == [0, 0, 0], f"lu {label}: elements of x, factors and pivots differing "
+                f"from the plain version {differ}")
         m64, b64 = m[:256].cpu().numpy().astype(np.complex128), b[:256].cpu().numpy()
         x64 = np.linalg.solve(m64, b64[..., None])[..., 0]
         err64 = float(np.abs(x[:256].cpu().numpy() - x64).max() / np.abs(x64).max())
         require(err64 <= KERNEL_TOL, f"lu {label}: vs float64 numpy {err64}")
         if label == "path":
             errors["lu"] = float(torch.max(torch.abs(x - x_p)))
-        print(f"lu {label} {tuple(m.shape)}: rel err x {err_x:.3e}, factors {err_lu:.3e}, "
-              f"pivots differing {piv_diff}, vs numpy {err64:.3e}")
+        print(f"lu {label} {tuple(m.shape)}: elements differing from plain (x, factors, "
+              f"pivots) {differ}, rel err x {err_x:.3e}, factors {err_lu:.3e}, vs numpy "
+              f"{err64:.3e}")
     return errors
 
 
@@ -853,20 +857,52 @@ def ptxas_usage(log: str, fragment: str):
     return None
 
 
+def sass_counts(lib_path: Path, fragment: str):
+    """{instruction: count} of the shared-memory loads (LDS) and stores
+    (STS), the constant-bank loads (LDC by register index, ULDC into a
+    uniform register) and the fp32 products and sums (FMUL, FADD) that
+    cuobjdump's SASS shows in the first kernel whose mangled name contains
+    ``fragment``, and all its instructions, or None where cuobjdump or the
+    kernel is missing."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
+                              timeout=120, check=True).stdout
+    except (OSError, subprocess.SubprocessError):
+        return None
+    for block in sass.split("Function : ")[1:]:
+        name = block.split(None, 1)[0]
+        if fragment in name:
+            counts = {op: len(re.findall(rf"\b{op}(?:\.[A-Z0-9.]+)?\s", block))
+                      for op in ("LDS", "STS", "LDC", "ULDC", "FMUL", "FADD")}
+            counts["all"] = len(re.findall(r"/\*[0-9a-f]{4}\*/\s", block))
+            return counts
+    return None
+
+
 def kernel_times(root: Path) -> dict:
-    """B1, B2, B3 and B4 of the diffgfdn_torch package under ``root``, at
-    the fullband path's shapes, so that two trees can be compared in turns
-    in one call. B1: the seeded fullband model's loop-matrix blocks
-    (3 x 65537 systems of 4 x 4), then 65537 random systems at N = 12
-    (learned scalar coupling) and 27 (directional); B2: P from B1 and a
-    seeded G at each of those shapes. B3 (R = 96 heads, R = 12 absorption)
-    and B4: coefficients from the same model at phase 2's first batch of
-    receivers, a random G, h from B3. Per kernel and shape: the wrapper
-    call's time (``ms``), the kernel's own device time (``kernel_ms``) and
-    the bound; and ptxas's registers, spill-store and stack-frame bytes of
-    ``cinv_kernel<4>``, ``neg_ptgpt_kernel<4>`` and the cascade kernels at
-    K = 11 when this process built them. Runs any tree of the port, whether
-    its B4 reads h or recomputes it."""
+    """B1-B7 of the diffgfdn_torch package under ``root``, at the paths'
+    shapes, so that two trees can be compared in turns in one call. B1: the
+    seeded fullband model's loop-matrix blocks (3 x 65537 systems of 4 x 4),
+    then 65537 random systems at N = 12 (learned scalar coupling) and 27
+    (directional), each with ``torch.linalg.inv``'s time; B2: P from B1 and a
+    seeded G at each of those shapes, with ``-(P^H G P^H)``'s time. B3
+    (R = 96 heads, R = 12 absorption) and B4: coefficients from the same
+    model at phase 2's first batch of receivers, a random G, h from B3. B5:
+    the seeded three-room model's blocks (3 x 65537 of 4 x 4) and its input
+    gains; B6: B5's factors and a seeded g. B7: the three-room model's
+    delays, gains, feedback matrix and input gains on an impulse of 131072
+    samples and at a 50000-sample spread. Per kernel and shape:
+    the wrapper call's time (``ms``), the kernel's own device time
+    (``kernel_ms``) and the bound; and, when this process built them,
+    ptxas's registers, spill-store and stack-frame bytes of
+    ``cinv_kernel<4>``, ``neg_ptgpt_kernel<4>``, the cascade kernels at
+    K = 11, ``lu_solve_kernel<4>`` and ``<9>``, ``lut_apply_kernel<4>`` and
+    the B7 kernels at N = 12, with the shared-memory loads (LDS) cuobjdump
+    counts in the B7 kernels. Runs any tree of the port, whether its B4
+    reads h or recomputes it and whichever C entry point its B7 has."""
     import inspect
 
     sys.path.insert(0, str(root.resolve()))
@@ -877,19 +913,24 @@ def kernel_times(root: Path) -> dict:
             f"diffgfdn_torch imported from {diffgfdn_torch.__file__}, not from {root}")
     from diffgfdn_torch.config import preset_config
     from diffgfdn_torch.data.batching import arrays_from_room_dataset
-    from diffgfdn_torch.kernels import _build, cinv, sos
+    from diffgfdn_torch.kernels import _build, cinv, lu, sos, tdgfdn
     from diffgfdn_torch.models.gain_heads import svf_params_to_response
     from diffgfdn_torch.training import build_gfdn_model
 
-    # before the model's first call loads a library; empty if this checkout
+    # before a model's first call loads a library; empty if this checkout
     # built it before
-    logs = _build.build_all(("sos", "cinv"))
+    logs = _build.build_all(("sos", "cinv", "lu", "tdgfdn"))
     name = "fullband_grid_colorless"
     cfg = preset_config(name)
+    tr_cfg = preset_config("three_room_example")
     with tempfile.TemporaryDirectory() as tmp:
         room = make_room(Path(tmp), name, cfg.sample_rate, cfg.trainer_config.num_freq_bins)
         arrays = arrays_from_room_dataset(room)
+        tr_room = make_room(Path(tmp), "three_room_example", tr_cfg.sample_rate,
+                            tr_cfg.trainer_config.num_freq_bins)
     model = build_gfdn_model(cfg, room.common_decay_times, room.band_centre_hz, device=DEVICE)
+    tr_model = build_gfdn_model(tr_cfg, tr_room.common_decay_times, tr_room.band_centre_hz,
+                                device=DEVICE)
     z = torch.from_numpy(arrays.z_values).to(DEVICE)
     pos = torch.from_numpy(arrays.listener_position[:BATCH]).to(DEVICE)
     with torch.no_grad():
@@ -900,6 +941,14 @@ def kernel_times(root: Path) -> dict:
         den96 = den.reshape(-1, den.shape[-2], 3).contiguous()
         coeffs = model.feedback_loop.sos_coeffs
         num12, den12 = coeffs[..., 0].contiguous(), coeffs[..., 1].contiguous()
+        blocks = tr_model.feedback_loop.loop_matrix_blocks(z)
+        groups, f, nper = blocks.shape[0], blocks.shape[1], blocks.shape[2]
+        m_lu = blocks.reshape(-1, nper, nper).contiguous()
+        b_lu = tr_model.input_gains[:, 0].to(torch.complex64).reshape(groups, 1, nper)
+        b_lu = b_lu.expand(groups, f, nper).reshape(-1, nper).contiguous()
+        fl = tr_model.feedback_loop
+        td_args = (tr_model.delays, fl.gamma_scalar().clone(), fl.coupled_feedback_matrix(),
+                   tr_model.input_gains[:, 0].clone())
     w = (1.0 / z).to(torch.complex64)
     r, k, f = num96.shape[0], num96.shape[1], w.shape[0]
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
@@ -907,8 +956,14 @@ def kernel_times(root: Path) -> dict:
     h = sos.sos_cascade(num96, den96, w)
     reads_h = "h" in inspect.signature(sos.sos_cascade_backward).parameters
     bwd_args = (num96, den96, w, g, h) if reads_h else (num96, den96, w, g)
-    out = {"root": str(root), "b4_reads_h": reads_h, "ptxas": None}
-    if logs["sos"] or logs["cinv"]:
+    variants = hasattr(tdgfdn, "kernel_launcher")
+    out = {"root": str(root), "b4_reads_h": reads_h, "b7_variants": variants, "ptxas": None}
+    b7 = (("tdgfdn_ring_kernel<12>", "tdgfdn_ring_kernelILi12E"),
+          ("tdgfdn_hist_kernel<12>", "tdgfdn_hist_kernelILi12E"),
+          ("tdgfdn_kernel<12>", "tdgfdn_kernelILi12E"))
+    out["b7_sass"] = {label: sass_counts(_build.library_path("tdgfdn"), frag)
+                      for label, frag in b7}
+    if any(logs.values()):
         out["ptxas"] = {
             "cinv_kernel<4>": ptxas_usage(logs["cinv"], "cinv_kernelILi4E"),
             "neg_ptgpt_kernel<4>": ptxas_usage(logs["cinv"], "neg_ptgpt_kernelILi4E"),
@@ -916,6 +971,10 @@ def kernel_times(root: Path) -> dict:
                                    or ptxas_usage(logs["sos"], "sos_cascade_kernelE")),
             f"sos_bwd_partial_kernel<{k}>": ptxas_usage(logs["sos"],
                                                         f"sos_bwd_partial_kernelILi{k}E"),
+            "lu_solve_kernel<4>": ptxas_usage(logs["lu"], "lu_solve_kernelILi4E"),
+            "lu_solve_kernel<9>": ptxas_usage(logs["lu"], "lu_solve_kernelILi9E"),
+            "lut_apply_kernel<4>": ptxas_usage(logs["lu"], "lut_apply_kernelILi4E"),
+            **{label: ptxas_usage(logs["tdgfdn"], frag) for label, frag in b7},
         }
     for label, m in (("path", m_path), ("N=12", random_systems(65537, 12, gen)[0]),
                      ("N=27", random_systems(65537, 27, gen)[0])):
@@ -924,11 +983,14 @@ def kernel_times(root: Path) -> dict:
         g_p = torch.randn(p.shape, dtype=torch.complex64, device=DEVICE, generator=gen)
         out[f"cinv {label}"] = {
             "shape": list(m.shape), "ms": device_ms(lambda: cinv.cinv(m)),
-            "kernel_ms": kernel_ms(lambda: cinv.cinv(m)), "bound_ms": bound(*cinv_cost(kb, n))[0]}
+            "kernel_ms": kernel_ms(lambda: cinv.cinv(m)), "bound_ms": bound(*cinv_cost(kb, n))[0],
+            "library_ms": device_ms(lambda: torch.linalg.inv(m))}
         out[f"neg_ptgpt {label}"] = {
             "shape": list(p.shape), "ms": device_ms(lambda: cinv.neg_ptgpt(p, g_p)),
             "kernel_ms": kernel_ms(lambda: cinv.neg_ptgpt(p, g_p)),
-            "bound_ms": bound(*neg_ptgpt_cost(kb, n))[0]}
+            "bound_ms": bound(*neg_ptgpt_cost(kb, n))[0],
+            "library_ms": device_ms(lambda: -(p.mH @ g_p @ p.mH))}
+        del p, g_p
     for label, (n, d) in (("sos96", (num96, den96)), ("sos12", (num12, den12))):
         def call(n=n, d=d):
             return sos.sos_cascade_response(n, d, z)
@@ -942,6 +1004,37 @@ def kernel_times(root: Path) -> dict:
         "bound_ms": bound(*sos_backward_saved_h_cost(r, k, f))[0],
         "bound_ms_h_recomputed": bound(*sos_backward_cost(r, k, f))[0],
     }
+
+    kb, n = m_lu.shape[0], m_lu.shape[1]
+    _, factors, piv = lu.lu_solve(m_lu, b_lu)
+    g_lu = torch.randn((kb, n), dtype=torch.complex64, device=DEVICE, generator=gen)
+    out["lu_solve path"] = {
+        "shape": list(m_lu.shape), "ms": device_ms(lambda: lu.lu_solve(m_lu, b_lu)),
+        "kernel_ms": kernel_ms(lambda: lu.lu_solve(m_lu, b_lu)),
+        "bound_ms": bound(*lu_cost(kb, n))[0],
+        "library_ms": device_ms(lambda: torch.linalg.solve(m_lu, b_lu.unsqueeze(-1)))}
+    out["lut_apply path"] = {
+        "shape": list(g_lu.shape), "ms": device_ms(lambda: lu.lut_apply(factors, piv, g_lu)),
+        "kernel_ms": kernel_ms(lambda: lu.lut_apply(factors, piv, g_lu)),
+        "bound_ms": bound(*lut_apply_cost(kb, n))[0],
+        "library_ms": device_ms(lambda: torch.linalg.solve(m_lu.mH, g_lu.unsqueeze(-1)))}
+
+    t_len = 131072
+    impulse = torch.zeros(t_len, device=DEVICE)
+    impulse[0] = 1.0
+    td_in = td_args + (impulse,)
+    out["tdgfdn path"] = {
+        "delays": [int(x) for x in td_args[0]], "t_len": t_len,
+        "ms": device_ms(lambda: tdgfdn.delay_line_outputs(*td_in)),
+        "kernel_ms": kernel_ms(bare_tdgfdn(tdgfdn, *td_in)),
+        "bound_ms": bound(*tdgfdn_cost(t_len, len(td_args[0])))[0]}
+    if variants:
+        out["tdgfdn path"]["plan"] = list(tdgfdn.kernel_plan(
+            td_args[0], tdgfdn.shared_memory_limit(impulse.device)))
+    wide = tuple(int(x) for x in np.linspace(100, 50000, len(td_args[0])))
+    out["tdgfdn wide"] = {
+        "delays": [min(wide), max(wide)], "t_len": t_len,
+        "kernel_ms": kernel_ms(bare_tdgfdn(tdgfdn, wide, *td_in[1:]))}
     return out
 
 
@@ -1063,13 +1156,17 @@ def time_domain(name: str, infer, log_dir):
     return result, launches, b7_inputs
 
 
-def bare_tdgfdn(delays, g, a, b, u):
-    """A call of B7 alone: the C entry point of ``csrc/tdgfdn.cu`` on the
-    buffers ``delay_line_outputs`` would prepare (the wrapper's blocking copy
-    of the delay list to the card stays outside the timed window)."""
+def bare_tdgfdn(tdgfdn_module, delays, g, a, b, u):
+    """A call of B7 alone on the buffers ``delay_line_outputs`` would
+    prepare: through the module's ``kernel_launcher`` (this tree's
+    ``csrc/tdgfdn.cu``, the wrapper's plan), or for a tree from before it,
+    through the C entry point that took the delays as a device array (whose
+    copy to the card stays outside the timed window)."""
     import torch
 
-    from diffgfdn_torch.kernels import _build, tdgfdn
+    if hasattr(tdgfdn_module, "kernel_launcher"):
+        return tdgfdn_module.kernel_launcher(delays, g, a, b, u)[0]
+    from diffgfdn_torch.kernels import _build
 
     delays = tuple(int(x) for x in delays)
     n, t_len, m_max = len(delays), u.shape[0], max(delays)
@@ -1077,8 +1174,8 @@ def bare_tdgfdn(delays, g, a, b, u):
     bufs.append(torch.tensor(delays, dtype=torch.int32, device=u.device))
     bufs.append(torch.empty((n, t_len), dtype=torch.float32, device=u.device))
     bufs.append(torch.empty((n, t_len + m_max), dtype=torch.float32, device=u.device))
-    block = min(tdgfdn._block_size(delays), tdgfdn.MAX_THREADS)
-    lib = _build.load("tdgfdn", tdgfdn._SIGNATURES)
+    block = min(tdgfdn_module._block_size(delays), tdgfdn_module.MAX_THREADS)
+    lib = _build.load("tdgfdn", tdgfdn_module._SIGNATURES)
 
     def call():
         err = lib.diffgfdn_tdgfdn_f32(*(x.data_ptr() for x in bufs), t_len, n, m_max, block,
@@ -1088,11 +1185,14 @@ def bare_tdgfdn(delays, g, a, b, u):
 
 
 def tdgfdn_row(b7_inputs, launches: int) -> dict:
-    """Phase 6, B7: the kernel against its plain version at the path's delays
-    (impulse and random input) and at a 50000-sample delay spread, and
-    against float64 numpy; then its time beside its bound and plain version."""
+    """Phase 6, B7: the kernel against its plain version, bit for bit, at the
+    path's delays (impulse and random input), at the delay spreads whose
+    ring fills the shared memory exactly and one slot past it, and at a
+    50000-sample spread, and against float64 numpy; then its time beside
+    its bound and plain version."""
     import torch
 
+    from diffgfdn_torch.kernels import tdgfdn
     from diffgfdn_torch.kernels.dispatch import plain_versions
     from diffgfdn_torch.kernels.tdgfdn import delay_line_outputs
 
@@ -1104,15 +1204,18 @@ def tdgfdn_row(b7_inputs, launches: int) -> dict:
     impulse[0] = 1.0
     noise = torch.from_numpy(rng.randn(t_len).astype(np.float32)).to(g.device)
     wide = tuple(int(d) for d in np.linspace(100, 50000, n))
-    cases = [("path", delays, impulse), ("path_random", delays, noise), ("wide", wide, noise)]
+    limit = tdgfdn.shared_memory_limit(g.device)
+    cases = [("path", delays, impulse), ("path_random", delays, noise), ("wide", wide, noise),
+             ("ring_full", tdgfdn.ring_boundary_delays(n, 683, limit, False), noise),
+             ("ring_full_plus_one", tdgfdn.ring_boundary_delays(n, 683, limit, True), noise)]
     err_path = None
     for label, dl, u in cases:
         out = delay_line_outputs(dl, g, a, b, u)
         with plain_versions():
             ref = delay_line_outputs(dl, g, a, b, u)
         torch.cuda.synchronize()
-        err = rel_err(out, ref)
-        require(err <= KERNEL_TOL, f"tdgfdn {label}: rel err {err}")
+        differ = int((out != ref).sum())
+        require(differ == 0, f"tdgfdn {label}: {differ} elements differ from the plain version")
         head = 8192
         ref64 = td_reference_f64(dl, g.double().cpu().numpy(), a.double().cpu().numpy(),
                                  b.double().cpu().numpy(), u[:head].double().cpu().numpy())
@@ -1120,8 +1223,9 @@ def tdgfdn_row(b7_inputs, launches: int) -> dict:
         require(err64 <= KERNEL_TOL, f"tdgfdn {label}: vs float64 numpy {err64}")
         if label == "path":
             err_path = float(torch.max(torch.abs(out - ref)))
-        print(f"tdgfdn {label} T={t_len} N={n} delays {min(dl)}..{max(dl)}: rel err vs plain "
-              f"{err:.3e}, vs float64 numpy (first {head}) {err64:.3e}")
+        plan = tdgfdn.kernel_plan(dl, limit)
+        print(f"tdgfdn {label} T={t_len} N={n} delays {min(dl)}..{max(dl)} ({plan}): elements "
+              f"differing from plain {differ}, vs float64 numpy (first {head}) {err64:.3e}")
     b_ms, b_by = bound(*tdgfdn_cost(t_len, n))
     plain_args = (delays, g, a, b, impulse)
 
@@ -1135,7 +1239,7 @@ def tdgfdn_row(b7_inputs, launches: int) -> dict:
         "launches": launches, "max_abs_err": err_path,
         "ms": device_ms(lambda: delay_line_outputs(*plain_args)),
         "plain_ms": device_ms(plain, reps=5),
-        "kernel_ms": kernel_ms(bare_tdgfdn(*plain_args)),
+        "kernel_ms": kernel_ms(bare_tdgfdn(tdgfdn, *plain_args)),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
     }
 
@@ -1146,9 +1250,9 @@ def main(argv=None) -> int:
                         help="write the build log and a profile of one served batch here")
     parser.add_argument("--kernel-times", "--cascade-times", dest="kernel_times",
                         metavar="ROOT", default=None,
-                        help="only time B1, B2, B3 and B4 of the diffgfdn_torch package under "
-                             "ROOT (another checkout of the port) and print them as one JSON "
-                             "line; no result line")
+                        help="only time the kernels B1-B7 of the diffgfdn_torch package "
+                             "under ROOT (another checkout of the port) and print them as one "
+                             "JSON line; no result line")
     args = parser.parse_args(argv)
 
     import torch

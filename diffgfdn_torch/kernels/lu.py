@@ -36,7 +36,9 @@ def lu_solve_plain(
     """Plain PyTorch version of the pivoted product-form LU solve.
 
     At step k the pivot is the first row r >= k maximising |A[r][k]|^2;
-    rows k and p swap over the active columns and the RHS only.
+    rows k and p swap over the active columns and the RHS only. Every sum
+    runs in the kernel's order, so with no fused multiply-add in the kernel
+    the two agree bit for bit.
     """
     kb, n, _ = m.shape
     dev = m.device
@@ -80,15 +82,20 @@ def lu_solve_plain(
         rr[:, k + 1:] = rr[:, k + 1:] - (fr * pbr - fi * pbi)
         ri[:, k + 1:] = ri[:, k + 1:] - (fr * pbi + fi * pbr)
 
-    # back substitution: x[k] = (rhs[k] - sum_{j>k} U[k][j] x[j]) / U[k][k]
+    # back substitution: x[k] = (rhs[k] - sum_{j>k} U[k][j] x[j]) / U[k][k],
+    # the sum over ascending j from zero, as the kernel adds it
     xr = torch.zeros((kb, n), dtype=m.real.dtype, device=dev)
     xi = torch.zeros_like(xr)
     for k in range(n - 1, -1, -1):
         num_r, num_i = rr[:, k], ri[:, k]
         if k < n - 1:
-            ur, ui = lr[:, k, k + 1:], li[:, k, k + 1:]
-            num_r = num_r - torch.sum(ur * xr[:, k + 1:] - ui * xi[:, k + 1:], dim=1)
-            num_i = num_i - torch.sum(ur * xi[:, k + 1:] + ui * xr[:, k + 1:], dim=1)
+            sr, si = torch.zeros_like(num_r), torch.zeros_like(num_i)
+            for j in range(k + 1, n):
+                ur, ui = lr[:, k, j], li[:, k, j]
+                sr = sr + (ur * xr[:, j] - ui * xi[:, j])
+                si = si + (ur * xi[:, j] + ui * xr[:, j])
+            num_r = num_r - sr
+            num_i = num_i - si
         dr, di = lr[:, k, k], li[:, k, k]
         inv_den = 1.0 / (dr * dr + di * di)
         xr[:, k] = (num_r * dr + num_i * di) * inv_den
@@ -103,8 +110,8 @@ def lu_solve(
     """x = M^-1 b for K complex64 systems: (K, N, N), (K, N) -> (x, lu, piv).
 
     CPU tensors take :func:`lu_solve_plain`; CUDA tensors launch
-    ``csrc/lu.cu`` (any N <= 32, contiguous inputs), counted in
-    ``lu_solve.launches``.
+    ``csrc/lu.cu`` (any N <= 32, contiguous inputs; tiles of systems staged
+    through shared memory for N <= 8), counted in ``lu_solve.launches``.
     """
     if (m.dim() != 3 or m.shape[1] != m.shape[2] or tuple(b.shape) != tuple(m.shape[:2])
             or m.dtype != torch.complex64 or b.dtype != torch.complex64):

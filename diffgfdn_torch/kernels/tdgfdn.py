@@ -11,7 +11,9 @@ exact, not an approximation.
 * :func:`delay_line_outputs` replaces ``tdgfdn.py::_tdgfdn_kernel``: CPU
   tensors take :func:`delay_line_outputs_plain`; CUDA tensors launch
   ``csrc/tdgfdn.cu`` whatever the delays, counted in
-  ``delay_line_outputs.launches``. The JAX package picks its Pallas kernel
+  ``delay_line_outputs.launches``: its history is a ring in shared memory
+  where the ring fits, else in device memory, as :func:`kernel_plan`
+  decides from the sizes alone. The JAX package picks its Pallas kernel
   by a measured policy with a VMEM-budget fallback to its scan; both exist
   for the TPU alone, and here the tensors' device decides;
 * :func:`delay_line_outputs_filtered`: per-line SOS/IIR absorption filters
@@ -33,17 +35,105 @@ from . import _build
 from .dispatch import runs_kernel
 
 MAX_N = 32  # the kernel's template instantiations
-MAX_THREADS = 1024  # one thread block of L threads
+MAX_THREADS = 256  # one thread block (up to 255 registers a thread)
+GROUP = 2  # consecutive samples a thread of the ring variant takes at once
+WARP = 32
+# steps of the ring variant: a multiple of this many samples fills whole
+# warps evenly over an SM's 4 schedulers (where min(delay) allows)
+BALANCED_BLOCK = GROUP * WARP * 4
+MAX_KERNEL_BLOCK = 2048  # samples per step of the kernels
+# csrc/tdgfdn.cu's variants: history in device memory, a ring in shared memory
+HIST, RING = 0, 1
 _SIGNATURES = {
-    "diffgfdn_tdgfdn_f32": [ctypes.c_void_p] * 7
-    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+    "diffgfdn_tdgfdn_f32": [ctypes.c_void_p] * 4
+    + [ctypes.POINTER(ctypes.c_int), ctypes.c_longlong]
+    + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    "diffgfdn_tdgfdn_smem_limit": [ctypes.c_int],
 }
+_smem_limits = {}
 
 
 def _block_size(delays: Tuple[int, ...]) -> int:
-    """Largest power-of-two block not exceeding the minimum delay."""
+    """The plain version's block: the largest power of two not exceeding
+    the minimum delay."""
     m_min = int(min(delays))
     return 1 << max(0, (m_min.bit_length() - 1))
+
+
+class KernelPlan(NamedTuple):
+    """How ``csrc/tdgfdn.cu`` runs a delay set: ``variant`` (HIST or RING),
+    ``block`` samples per step, ``threads`` per block and ``ring`` slots
+    per line (0 for HIST)."""
+
+    variant: int
+    block: int
+    threads: int
+    ring: int
+
+
+def ring_bytes(n: int, ring: int) -> int:
+    """Shared memory of a ring of ``ring`` slots for each of n lines (and
+    GROUP more: slot R repeats slot 0, slot R + 1 keeps rows 8-byte
+    aligned)."""
+    return 4 * n * (ring + GROUP)
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def kernel_plan(delays: Tuple[int, ...], smem_limit: int) -> KernelPlan:
+    """The kernel's launch for these delays on a card granting a block
+    ``smem_limit`` bytes of shared memory.
+
+    The ring variant takes steps of L = min(delay), capped at
+    MAX_KERNEL_BLOCK and cut to a multiple of BALANCED_BLOCK (else of
+    GROUP; L need not be a power of two), GROUP consecutive samples a
+    thread (a thread takes several groups when there are more than
+    MAX_THREADS), and a ring of R slots a line, the least power of two
+    >= max(delay) + L.
+    When :func:`ring_bytes` exceeds ``smem_limit``, or min(delay) < GROUP,
+    the history goes to device memory (HIST: L = min(delay), capped, one
+    sample at a time), else it is a ring in shared memory (RING).
+    """
+    delays = tuple(int(d) for d in delays)
+    n, m_min = len(delays), min(delays)
+    cap = min(m_min, MAX_KERNEL_BLOCK)
+    block = cap // BALANCED_BLOCK * BALANCED_BLOCK or cap // GROUP * GROUP
+    ring = 1 << (max(delays) + block - 1).bit_length()
+    if block == 0 or ring_bytes(n, ring) > smem_limit:
+        return KernelPlan(HIST, cap, min(MAX_THREADS, _round_up(cap, WARP)), 0)
+    threads = min(MAX_THREADS, _round_up(block // GROUP, WARP))
+    return KernelPlan(RING, block, threads, ring)
+
+
+def ring_boundary_delays(n: int, m_min: int, smem_limit: int, past: bool) -> Tuple[int, ...]:
+    """N delays spread evenly from ``m_min`` up whose ring is the largest
+    that fits ``smem_limit`` bytes (``past``: spread to a longest delay one
+    sample more, which takes the device-memory history): the two sides of
+    :func:`kernel_plan`'s choice, for the kernel's tests."""
+    def spread(m_max):
+        return tuple(int(d) for d in np.linspace(m_min, m_max, n))
+
+    lo, hi = m_min, 1 << 30  # the ring fits at lo, not at hi
+    if kernel_plan(spread(lo), smem_limit).variant != RING:
+        raise ValueError(f"no ring of {n} lines from delay {m_min} fits {smem_limit} bytes")
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if kernel_plan(spread(mid), smem_limit).variant == RING else (lo, mid)
+    return spread(hi if past else lo)
+
+
+def shared_memory_limit(device: torch.device) -> int:
+    """The shared memory (bytes) one block may take on this card."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _smem_limits:
+        lib = _build.load("tdgfdn", _SIGNATURES)
+        limit = lib.diffgfdn_tdgfdn_smem_limit(index)
+        if limit < 0:
+            raise RuntimeError(f"tdgfdn: cannot read the shared memory limit of cuda:{index}")
+        _smem_limits[index] = limit
+    return _smem_limits[index]
 
 
 def _delay_index(delays: Tuple[int, ...], block: int, device):
@@ -111,9 +201,10 @@ def delay_line_outputs(
     ``gains``: (N,) whole-delay absorption gains; ``feedback_matrix``:
     (N, N); ``input_gains``: (N,); ``input_signal``: (T,). CPU tensors take
     :func:`delay_line_outputs_plain`; CUDA tensors launch ``csrc/tdgfdn.cu``
-    (any N <= 32, any delays >= 1), counted in ``delay_line_outputs.launches``;
-    the kernel writes each line's samples contiguously and Y is the (T, N)
-    transposed view of that (N, T) buffer.
+    (any N <= 32, any delays >= 1; the variant of :func:`kernel_plan`),
+    counted in ``delay_line_outputs.launches``; the kernel writes each
+    line's samples contiguously (a warp's stores of a line are coalesced) and Y is
+    the (T, N) transposed view of that (N, T) buffer.
     """
     delays = tuple(int(d) for d in delays)
     n = len(delays)
@@ -127,29 +218,56 @@ def delay_line_outputs(
         )
     if not runs_kernel(gains, feedback_matrix, input_gains, input_signal):
         return delay_line_outputs_plain(delays, gains, feedback_matrix, input_gains, input_signal)
-    if n > MAX_N or min(delays) < 1:
-        raise ValueError(f"tdgfdn kernel takes N <= {MAX_N} lines with delays >= 1")
-    dev = input_signal.device
-    u, g, a, b = (x.to(torch.float32).contiguous()
-                  for x in (input_signal, gains, feedback_matrix, input_gains))
-    t_len, m_max = u.shape[0], max(delays)
-    block = min(_block_size(delays), MAX_THREADS)
-    d = torch.tensor(delays, dtype=torch.int32, device=dev)
-    y = torch.empty((n, t_len), dtype=torch.float32, device=dev)
-    hist = torch.empty((n, t_len + m_max), dtype=torch.float32, device=dev)
-    lib = _build.load("tdgfdn", _SIGNATURES)
-    with torch.cuda.device(dev):
-        err = lib.diffgfdn_tdgfdn_f32(
-            u.data_ptr(), g.data_ptr(), a.data_ptr(), b.data_ptr(), d.data_ptr(),
-            y.data_ptr(), hist.data_ptr(), t_len, n, m_max, block,
-            torch.cuda.current_stream().cuda_stream,
-        )
-    _build.check(err, "delay_line_outputs")
-    delay_line_outputs.launches += 1
+    launch, y = kernel_launcher(delays, gains, feedback_matrix, input_gains, input_signal)
+    launch()
     return y.T
 
 
 delay_line_outputs.launches = 0
+
+
+def kernel_launcher(
+    delays: Tuple[int, ...],
+    gains: torch.Tensor,
+    feedback_matrix: torch.Tensor,
+    input_gains: torch.Tensor,
+    input_signal: torch.Tensor,
+):
+    """(launch, y): ``launch()`` runs ``csrc/tdgfdn.cu`` once on buffers
+    prepared here (CUDA tensors; the plan of :func:`kernel_plan`) and
+    writes y (N, T), a view of rows padded to a multiple of GROUP samples.
+    Nothing is copied between host and card per launch: the delays travel
+    in the kernel's parameters. Every launch counts in
+    ``delay_line_outputs.launches``."""
+    delays = tuple(int(d) for d in delays)
+    n = len(delays)
+    if n > MAX_N or min(delays) < 1:
+        raise ValueError(f"tdgfdn kernel takes N <= {MAX_N} lines with delays >= 1")
+    dev = input_signal.device
+    plan = kernel_plan(delays, shared_memory_limit(dev))
+    t_len = input_signal.shape[0]
+    t_pad = _round_up(t_len, GROUP)  # u zero-padded, in a fresh aligned buffer
+    u = torch.zeros(t_pad, dtype=torch.float32, device=dev)
+    u[:t_len] = input_signal
+    coef = torch.cat([feedback_matrix.reshape(-1), gains.reshape(-1),
+                      input_gains.reshape(-1)]).to(torch.float32).contiguous()
+    y = torch.empty((n, t_pad), dtype=torch.float32, device=dev)
+    hist = (torch.empty((n, t_pad + max(delays)), dtype=torch.float32, device=dev)
+            if plan.variant == HIST else y)
+    host_delays = (ctypes.c_int * n)(*delays)
+    lib = _build.load("tdgfdn", _SIGNATURES)
+
+    def launch():
+        with torch.cuda.device(dev):
+            err = lib.diffgfdn_tdgfdn_f32(
+                coef.data_ptr(), u.data_ptr(), y.data_ptr(), hist.data_ptr(), host_delays,
+                t_pad, n, plan.block, plan.threads, plan.ring, plan.variant,
+                torch.cuda.current_stream().cuda_stream,
+            )
+        _build.check(err, "delay_line_outputs")
+        delay_line_outputs.launches += 1
+
+    return launch, y[:, :t_len]
 
 
 def time_domain_gfdn(

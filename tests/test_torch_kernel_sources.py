@@ -9,7 +9,8 @@ with the plain PyTorch versions on the same inputs. With no fused
 multiply-add on either side the Gauss-Jordan inverse and its backward
 -P^H G P^H, the LU factors and pivots and the transposed solve must agree
 bit for bit; the LU solution sums its back substitution in another order
-(bound 1e-5 max |x|). The cascade kernels fuse their products with
+(now bit for bit too: the plain version adds its back substitution in the
+kernel's order). The cascade kernels fuse their products with
 ``__fmaf_rn`` (the shim's ``fmaf``, fused and correctly rounded as on the
 card) and take one reciprocal per forward output, so the forward agrees
 with the plain version's per-section quotients within SOS_SOURCE_TOL of
@@ -20,18 +21,21 @@ where the card takes the one-instruction approximation (relative error
 under 2^-22). The cascade backward's threads run one at a time through their
 device function, and their sums are added into the block's partial in
 thread order.
-The inverse and its backward (B1, B2) stage tiles of systems through
-shared memory for N <= 8, with a barrier between the copies in, the solves
-and the copies out: the harness runs each of those phases thread by thread
-over the tile, through the kernels' own copy and per-system device
-functions (the card's asynchronous copy is a plain copy on the host), and
-drives the per-system functions system by system for larger N. A further
-test holds the tile copies to moving each element once.
+The inverse and its backward (B1, B2) and the LU solve (B5) stage tiles of
+systems through shared memory for small N, with a barrier between the
+copies in, the solves and the copies out: the harness runs each of those
+phases thread by thread over the tile, through the kernels' own copy and
+per-system device functions (the card's asynchronous copy is a plain copy
+on the host), and drives the per-system functions system by system for
+larger N. Further tests hold the tile copies to moving each element once.
 The time-domain recursion (B7) cannot run thread by thread through its
 kernel: thread 0 would reach the next block of samples before thread 1 had
-written this one. Its per-sample step is a device function, which the
-harness drives block by block, then thread by thread; it must agree with
-the plain version bit for bit.
+written this one. Its step is a device function per thread, which the
+harness drives step by step, the threads of a step in a shuffled order
+(on the card they interleave in any order), for each variant: the ring in
+shared memory (including its wrap-around at R slots, and blocks L that are
+no power of two) and the history in device memory. It must agree with the
+plain version bit for bit.
 
 This checks the kernels' logic and arithmetic only: compilation for the
 card, launch configuration and memory behaviour are checked on the card
@@ -51,12 +55,16 @@ import torch
 from diffgfdn_torch.kernels.cinv import cinv_plain, neg_ptgpt_plain
 from diffgfdn_torch.kernels.lu import lu_solve_plain, lut_apply_plain
 from diffgfdn_torch.kernels.sos import sos_cascade_backward_plain, sos_cascade_plain
-from diffgfdn_torch.kernels.tdgfdn import _block_size, delay_line_outputs_plain, MAX_THREADS
+from diffgfdn_torch.kernels import tdgfdn as td
+from diffgfdn_torch.kernels.tdgfdn import delay_line_outputs_plain, kernel_plan
 from torch_port_helpers import cascade, KERNEL_TOL, max_rel, systems
 
 CSRC = Path(__file__).resolve().parents[1] / "diffgfdn_torch" / "csrc"
 SIZES = (1, 4, 9, 12, 27)
 TILE_SIZES = (1, 4, 8)  # tile-copy tests: N of the tiled kernels (N <= 8)
+LU_TILE_SIZES = (1, 4, 8)  # the tiled LU solve's N (N <= 8)
+TD_SIZES = (4, 9, 12)  # B7 host tests: N
+H100_SMEM = 232448  # the shared memory one block may take on an H100 (opt-in)
 BWD_SECTIONS = (1, 11, 16)  # the cascade backward's K in these tests
 # the forward source against the plain version's per-section quotients on
 # random cascades: max abs error / max |plain| (fused products, one reciprocal)
@@ -90,6 +98,7 @@ inline int cudaGetLastError() { return 0; }
 #define __device__
 #define __forceinline__ inline
 #define __shared__
+#define __constant__
 #define __syncthreads()
 inline float __shfl_down_sync(unsigned, float, int) { return 0.0f; }
 // the fp32 intrinsics: fmaf is fused and correctly rounded, as __fmaf_rn;
@@ -227,26 +236,128 @@ extern "C" void tile_roundtrip(const void* src, void* dst, long long k, int n,
         f"case {n}: tile_roundtrip_n<{n}>((const float2*)src, (float2*)dst, k, misplaced); "
         "break;" for n in TILE_SIZES)),
     "lu": """
+// the tiled solve (N <= kMaxTiledN) block by block, each phase thread by
+// thread as the barriers order them; larger N system by system
+template <int N>
+void emu_lu_n(const float2* m, const float2* b, float2* x, float2* lu, int* piv, long long k) {
+  if constexpr (N <= kMaxTiledN) {
+    constexpr int T = Tile<N>::kSystems, S = Tile<N>::kStride, E = N * N;
+    static float2 tile[T * S];
+    for (long long first = 0; first < k; first += T) {
+      const int systems = k - first < T ? (int)(k - first) : T;
+      for (int t = 0; t < T; ++t) {
+        threadIdx = dim3(t);
+        tile_load<N, E, 0>(m + first * E, tile, systems * E);
+        tile_load<N, N, E>(b + first * N, tile, systems * N);
+      }
+      for (int t = 0; t < systems; ++t)
+        lu_solve_system<N>(tile + t * S, tile + t * S + E, tile + t * S + E, lu, piv, first + t, k);
+      for (int t = 0; t < T; ++t) {
+        threadIdx = dim3(t);
+        tile_store<N, N, E>(tile, x + first * N, systems * N);
+      }
+    }
+  } else {
+    for (long long s = 0; s < k; ++s)
+      lu_solve_system<N>(m + s * N * N, b + s * N, x + s * N, lu, piv, s, k);
+  }
+}
+// every (block, thread, copy step) of the m and b tile loads: hits_m[e]
+// (hits_b[e]) counts the copies of element e of the K x N^2 matrices (the
+// K x N right-hand sides); bad counts copies to a slot outside the tile or
+// to a slot another copy of the same tile also took
+template <int N>
+void lu_tile_cover_n(long long k, unsigned char* hits_m, unsigned char* hits_b, long long* bad) {
+  constexpr int T = Tile<N>::kSystems, S = Tile<N>::kStride, E = N * N;
+  static unsigned char slot_hits[T * S];
+  for (long long first = 0; first < k; first += T) {
+    const int systems = k - first < T ? (int)(k - first) : T;
+    for (int i = 0; i < T * S; ++i) slot_hits[i] = 0;
+    for (int t = 0; t < T; ++t) {
+      threadIdx = dim3(t);
+      for (int c = 0; c < E; ++c) {
+        const int e = copy_element<N>(c);
+        if (e >= systems * E) continue;
+        hits_m[first * E + e] += 1;
+        const int slot = tile_slot<N, E, 0>(e);
+        if (slot < 0 || slot >= T * S || slot_hits[slot]++) *bad += 1;
+      }
+      for (int c = 0; c < N; ++c) {
+        const int e = copy_element<N>(c);
+        if (e >= systems * N) continue;
+        hits_b[first * N + e] += 1;
+        const int slot = tile_slot<N, N, E>(e);
+        if (slot < 0 || slot >= T * S || slot_hits[slot]++) *bad += 1;
+      }
+    }
+  }
+}
+// m and b through tile_load, the b slots through tile_store into dst, tile
+// by tile; misplaced counts elements that are not where the solve of their
+// system reads them (element j of the tile's system s in slot s * kStride +
+// j for m, s * kStride + N^2 + j for b)
+template <int N>
+void lu_tile_roundtrip_n(const float2* m, const float2* b, float2* dst, long long k,
+                         long long* misplaced) {
+  constexpr int T = Tile<N>::kSystems, S = Tile<N>::kStride, E = N * N;
+  static float2 tile[T * S];
+  for (long long first = 0; first < k; first += T) {
+    const int systems = k - first < T ? (int)(k - first) : T;
+    for (int t = 0; t < T; ++t) {
+      threadIdx = dim3(t);
+      tile_load<N, E, 0>(m + first * E, tile, systems * E);
+      tile_load<N, N, E>(b + first * N, tile, systems * N);
+    }
+    for (int s = 0; s < systems; ++s) {
+      for (int j = 0; j < E; ++j)
+        if (std::memcmp(&tile[s * S + j], &m[(first + s) * E + j], sizeof(float2)) != 0)
+          *misplaced += 1;
+      for (int j = 0; j < N; ++j)
+        if (std::memcmp(&tile[s * S + E + j], &b[(first + s) * N + j], sizeof(float2)) != 0)
+          *misplaced += 1;
+    }
+    for (int t = 0; t < T; ++t) {
+      threadIdx = dim3(t);
+      tile_store<N, N, E>(tile, dst + first * N, systems * N);
+    }
+  }
+}
 extern "C" void emu(const void* m, const void* b, void* x, void* lu, void* piv,
                     long long k, int n) {
   auto mi = (const float2*)m; auto bi = (const float2*)b; auto xo = (float2*)x;
   auto lo = (float2*)lu; auto po = (int*)piv;
-  for (long long s = 0; s < k; ++s) {
-    blockIdx = dim3((unsigned)s);
-    switch (n) { CASES }
-  }
-}""".replace("CASES", _CASES.replace("KERNEL", "lu_solve_kernel")
+  switch (n) { CASES }
+}""".replace("CASES", _CASES.replace("KERNEL", "emu_lu_n")
              .replace("ARGS", "mi, bi, xo, lo, po, k")) + """
 extern "C" void emu_lut(const void* lu, const void* piv, const void* g, void* y,
                         long long k, int n) {
   auto li = (const float2*)lu; auto pi = (const int*)piv; auto gi = (const float2*)g;
   auto yo = (float2*)y;
+  threadIdx = dim3(0);
   for (long long s = 0; s < k; ++s) {
     blockIdx = dim3((unsigned)s);
     switch (n) { CASES }
   }
 }""".replace("CASES", _CASES.replace("KERNEL", "lut_apply_kernel")
-             .replace("ARGS", "li, pi, gi, yo, k")),
+             .replace("ARGS", "li, pi, gi, yo, k")) + """
+extern "C" int tile_systems(int n) {
+  switch (n) { TILE_CASES }
+  return 0;
+}
+extern "C" void tile_cover(long long k, int n, void* hits_m, void* hits_b, long long* bad) {
+  switch (n) { COVER_CASES }
+}
+extern "C" void tile_roundtrip(const void* m, const void* b, void* dst, long long k, int n,
+                               long long* misplaced) {
+  switch (n) { ROUNDTRIP_CASES }
+}""".replace("TILE_CASES", " ".join(
+        f"case {n}: return Tile<{n}>::kSystems;" for n in LU_TILE_SIZES)).replace(
+    "COVER_CASES", " ".join(
+        f"case {n}: lu_tile_cover_n<{n}>(k, (unsigned char*)hits_m, (unsigned char*)hits_b, "
+        "bad); break;" for n in LU_TILE_SIZES)).replace(
+    "ROUNDTRIP_CASES", " ".join(
+        f"case {n}: lu_tile_roundtrip_n<{n}>((const float2*)m, (const float2*)b, (float2*)dst, "
+        "k, misplaced); break;" for n in LU_TILE_SIZES)),
     "sos": """
 // one thread per block, kFwdBins consecutive bins each; the section counts
 // of these tests through their own instantiations, as on the card
@@ -308,22 +419,59 @@ extern "C" void emu_bwd(const void* num, const void* den, const void* w, const v
         f"case {n}: emu_bwd_k<{n}>(nu, de, wi, gi, hi, part, rows, f, n_blocks); break;"
         for n in BWD_SECTIONS)),
     "tdgfdn": """
-extern "C" void emu(const void* u, const void* g, const void* a, const void* b,
-                    const void* d, void* y, void* hist, long long t_len, int n, int m_max,
-                    int block) {
-  auto ui = (const float*)u; auto gi = (const float*)g; auto ai = (const float*)a;
-  auto bi = (const float*)b; auto di = (const int*)d; auto yo = (float*)y;
-  auto ho = (float*)hist;
-  const long long h_len = t_len + m_max;
-  for (long long k = 0; k < (long long)n * m_max; ++k) ho[(k / m_max) * h_len + k % m_max] = 0.0f;
-  for (long long start = 0; start < t_len; start += block)
-    for (int tid = 0; tid < block; ++tid) {
-      const long long t = start + tid;
-      if (t >= t_len) continue;
-      switch (n) { CASES }
+// each variant step by step; within a step the threads run one after
+// another in the order `order` (a permutation of the block's threads)
+TdArgs make_args(const float* coef, const float* u, float* y, float* hist, long long t_len,
+                 const int* d, int n, int block, int ring) {
+  TdArgs p = {};
+  p.coef = coef; p.u = u; p.y = y; p.hist = hist; p.t_len = t_len; p.block = block; p.ring = ring;
+  for (int i = 0; i < n; ++i) {
+    p.delay[i] = d[i];
+    p.m_max = d[i] > p.m_max ? d[i] : p.m_max;
+  }
+  return p;
+}
+template <int N>
+void emu_ring_n(const TdArgs& p, float* ring, int threads, const int* order) {
+  Coef<N> c;
+  c.load(p.coef);
+  for (int k = 0; k < threads; ++k)
+    zero_floats(ring, (long long)N * ring_row(p), order[k], threads);
+  int base = 0;
+  for (long long start = 0; start < p.t_len; start += p.block) {
+    for (int k = 0; k < threads; ++k) {
+      float u_first[kGroup];
+      group_input(p, start + (long long)order[k] * kGroup, u_first);
+      ring_step<N>(p, c, ring, start, base, order[k], threads, u_first);
     }
-}""".replace("CASES", _CASES.replace("KERNEL", "tdgfdn_step")
-             .replace("ARGS", "t, ui, gi, ai, bi, di, yo, t_len, ho, h_len, m_max")),
+    base = ring_advance(base, p);
+  }
+}
+template <int N>
+void emu_hist_n(const TdArgs& p, int threads, const int* order) {
+  Coef<N> c;
+  c.load(p.coef);
+  for (int k = 0; k < threads; ++k) hist_zero(p, N, order[k], threads);
+  for (long long start = 0; start < p.t_len; start += p.block)
+    for (int k = 0; k < threads; ++k) hist_step<N>(p, c, start, order[k], threads);
+}
+// variant 0 hist (buf: the (N, T + m_max) history), 1 ring (buf: N rows of
+// ring + kGroup)
+extern "C" void emu(int variant, const void* coef, const void* u, void* y, void* buf,
+                    long long t_len, const int* d, int n, int block, int threads, int ring,
+                    const int* order) {
+  const TdArgs p = make_args((const float*)coef, (const float*)u, (float*)y,
+                             variant == 0 ? (float*)buf : nullptr, t_len, d, n, block, ring);
+  float* b = (float*)buf;
+  if (variant == 0) {
+    switch (n) { HIST_CASES }
+  } else {
+    switch (n) { RING_CASES }
+  }
+}""".replace("HIST_CASES", " ".join(
+        f"case {n}: emu_hist_n<{n}>(p, threads, order); break;" for n in TD_SIZES)).replace(
+    "RING_CASES", " ".join(
+        f"case {n}: emu_ring_n<{n}>(p, b, threads, order); break;" for n in TD_SIZES)),
 }
 
 
@@ -434,7 +582,42 @@ def test_lu_source_matches_plain(emulated, n):
     x_ref, lu_ref, piv_ref = lu_solve_plain(torch.from_numpy(m), torch.from_numpy(b))
     np.testing.assert_array_equal(piv, piv_ref.numpy())
     np.testing.assert_array_equal(lu, lu_ref.numpy())
-    assert np.abs(x - x_ref.numpy()).max() <= 1e-5 * np.abs(x_ref.numpy()).max()
+    np.testing.assert_array_equal(x, x_ref.numpy())
+
+
+@pytest.mark.parametrize("k_of_tile", [lambda t: t - 1, lambda t: t, lambda t: t + 1,
+                                       lambda t: 3 * 65537], ids=["T-1", "T", "T+1", "3x65537"])
+@pytest.mark.parametrize("n", LU_TILE_SIZES)
+def test_lu_tile_copies_cover_each_element_once(emulated, n, k_of_tile):
+    """The tiled solve's copies: over every block, thread and copy step,
+    each of the K x N^2 matrix and K x N right-hand-side elements is moved
+    once, each into its own slot of its tile (m and b never share a slot),
+    where its system's solve reads it; m and b loaded and the b slots stored
+    from bases 8 bytes past a 16-byte boundary give b's bits back and touch
+    nothing outside."""
+    lib = emulated["lu"]
+    k = k_of_tile(lib.tile_systems(ctypes.c_int(n)))
+    hits_m, hits_b = np.zeros(k * n * n, np.uint8), np.zeros(k * n, np.uint8)
+    bad, misplaced = ctypes.c_longlong(0), ctypes.c_longlong(0)
+    lib.tile_cover(ctypes.c_longlong(k), ctypes.c_int(n), _ptr(hits_m), _ptr(hits_b),
+                   ctypes.byref(bad))
+    assert bad.value == 0
+    np.testing.assert_array_equal(hits_m, 1)
+    np.testing.assert_array_equal(hits_b, 1)
+
+    def offset_buffer(count, start):
+        buf = np.arange(start, start + 2 * count + 4, dtype=np.uint32).view(np.complex64)
+        view = buf[1:-1]  # 8 bytes past the buffer's 16-byte-aligned start
+        assert view.ctypes.data % 16 == 8
+        return view
+
+    m, b = offset_buffer(k * n * n, 0), offset_buffer(k * n, 1 << 30)
+    out = np.full(k * n + 2, 7 + 7j, np.complex64)
+    lib.tile_roundtrip(_ptr(m), _ptr(b), _ptr(out[1:-1]), ctypes.c_longlong(k), ctypes.c_int(n),
+                       ctypes.byref(misplaced))
+    assert misplaced.value == 0
+    np.testing.assert_array_equal(out[1:-1].view(np.uint64), b.view(np.uint64))
+    assert out[0] == out[-1] == 7 + 7j
 
 
 def _emulate_sos(lib, num, den, w):
@@ -566,6 +749,39 @@ def test_sos_backward_source_matches_plain_at_other_section_counts(emulated, k):
     _sos_backward_source_check(emulated["sos"], k)
 
 
+def _td_inputs(n, t_len, seed):
+    rng = np.random.RandomState(seed)
+    a = (np.linalg.qr(rng.randn(n, n))[0] * 0.999).astype(np.float32)
+    g = rng.uniform(0.9, 0.999, n).astype(np.float32)
+    b = rng.randn(n).astype(np.float32)
+    u = rng.randn(t_len).astype(np.float32)
+    return g, a, b, u
+
+
+def _emulate_td(lib, delays, g, a, b, u, variant, block, threads, ring, seed=0):
+    """y (N, T) of csrc/tdgfdn.cu's variant on u zero-padded to a multiple
+    of td.GROUP samples, as the wrapper pads it, each step's threads in a
+    shuffled order (seed None: in descending order)."""
+    n, t_len = len(delays), len(u)
+    t_pad = -(-t_len // td.GROUP) * td.GROUP
+    u_pad = np.zeros(t_pad, np.float32)
+    u_pad[:t_len] = u
+    coef = np.concatenate([a.reshape(-1), g, b]).astype(np.float32)
+    d = np.asarray(delays, np.int32)
+    y = np.full((n, t_pad), np.nan, np.float32)  # line-major, as the kernel writes it
+    # the kernel zeroes what it reads before t = 0; NaN elsewhere shows stray reads
+    if variant == td.HIST:
+        buf = np.full((n, t_pad + max(delays)), np.nan, np.float32)
+    else:
+        buf = np.full(n * (ring + td.GROUP), np.nan, np.float32)
+    order = (np.arange(threads)[::-1] if seed is None
+             else np.random.RandomState(seed).permutation(threads)).astype(np.int32)
+    lib.emu(ctypes.c_int(variant), _ptr(coef), _ptr(u_pad), _ptr(y), _ptr(buf),
+            ctypes.c_longlong(t_pad), _ptr(d), ctypes.c_int(n), ctypes.c_int(block),
+            ctypes.c_int(threads), ctypes.c_int(ring), _ptr(order))
+    return y[:, :t_len]
+
+
 @pytest.mark.parametrize(
     "delays,t_len,seed",
     [((37, 41, 43, 53), 1000, 1), ((5, 9, 11, 17, 23, 29, 31, 37, 41), 777, 2),
@@ -573,17 +789,107 @@ def test_sos_backward_source_matches_plain_at_other_section_counts(emulated, k):
     ids=["n4", "n9_ragged", "n12_wide"],
 )
 def test_tdgfdn_source_matches_plain_bitwise(emulated, delays, t_len, seed):
-    n = len(delays)
-    rng = np.random.RandomState(seed)
-    a = (np.linalg.qr(rng.randn(n, n))[0] * 0.999).astype(np.float32)
-    g = rng.uniform(0.9, 0.999, n).astype(np.float32)
-    b = rng.randn(n).astype(np.float32)
-    u = rng.randn(t_len).astype(np.float32)
-    d = np.asarray(delays, np.int32)
-    y = np.empty((n, t_len), np.float32)  # line-major, as the kernel writes it
-    hist = np.full((n, t_len + max(delays)), np.nan, np.float32)  # the kernel zeroes its prefix
-    emulated["tdgfdn"].emu(_ptr(u), _ptr(g), _ptr(a), _ptr(b), _ptr(d), _ptr(y), _ptr(hist),
-                           ctypes.c_longlong(t_len), ctypes.c_int(n), ctypes.c_int(max(delays)),
-                           ctypes.c_int(min(_block_size(delays), MAX_THREADS)))
+    """The variant the wrapper picks on an H100 (the ring; the history in
+    device memory for the 50000-sample spread, whose ring does not fit)."""
+    g, a, b, u = _td_inputs(len(delays), t_len, seed)
+    plan = kernel_plan(delays, H100_SMEM)
+    assert plan.variant == (td.HIST if max(delays) > 10000 else td.RING)
+    y = _emulate_td(emulated["tdgfdn"], delays, g, a, b, u, *plan)
     ref = delay_line_outputs_plain(delays, *(torch.from_numpy(x) for x in (g, a, b, u)))
     np.testing.assert_array_equal(y.T, ref.numpy())
+
+
+def _three_room_delays():
+    from diffgfdn_torch.config import preset_config
+
+    return tuple(int(d) for d in preset_config("three_room_example").delay_length_samps)
+
+
+@pytest.mark.parametrize("variant", ["hist", "ring", "ring_one_warp"])
+@pytest.mark.parametrize("case", ["three_room", "long_block", "n4_short"])
+def test_tdgfdn_source_variants_match_plain_bitwise(emulated, case, variant):
+    """Every variant of csrc/tdgfdn.cu, step by step with shuffled threads:
+    at the three-room path's delays (L = 512 for the ring variants, 683 for
+    the device-memory history; the ring of R = 2048 slots wraps around 9
+    times in 20000 samples), at delays from 1100 (L = 1024:
+    512 groups of 2 samples a step, two for each of the 256 threads), and at
+    N = 4 (L = 36), with the plan's threads and with one warp (many groups
+    a thread)."""
+    if case == "three_room":
+        delays, t_len = _three_room_delays(), 20000
+    elif case == "long_block":
+        delays, t_len = tuple(int(d) for d in np.linspace(1100, 2300, 12)), 9000
+    else:
+        delays, t_len = (37, 41, 43, 53), 1000
+    n = len(delays)
+    kind = td.HIST if variant == "hist" else td.RING
+    # no shared memory sends any delay set to the device-memory history
+    plan = kernel_plan(delays, 0 if kind == td.HIST else H100_SMEM)
+    assert plan.variant == kind
+    if case == "three_room":
+        assert (plan.block, plan.threads, plan.ring) == (
+            (683, 256, 0) if kind == td.HIST else (512, 256, 2048))
+    if case == "long_block":
+        assert (plan.block, plan.threads) == ((1100, 256) if kind == td.HIST else (1024, 256))
+    threads = td.WARP if variant == "ring_one_warp" else plan.threads
+    g, a, b, u = _td_inputs(n, t_len, seed=n)
+    y = _emulate_td(emulated["tdgfdn"], delays, g, a, b, u, plan.variant, plan.block, threads,
+                    plan.ring, seed=1)
+    ref = delay_line_outputs_plain(delays, *(torch.from_numpy(x) for x in (g, a, b, u)))
+    np.testing.assert_array_equal(y.T, ref.numpy())
+
+
+def test_tdgfdn_ring_needs_its_last_slot(emulated):
+    """Why R >= m_max + L: at delays whose m_max + L is one past a power of
+    two, the ring of that power of two (one slot short) lets a step's last
+    group overwrite history its first group has yet to read when it runs
+    first (the threads in descending order, as they may run on the card),
+    and the result changes."""
+    delays, t_len = (37, 41, 43, 93), 1000
+    g, a, b, u = _td_inputs(4, t_len, seed=5)
+    plan = kernel_plan(delays, H100_SMEM)
+    assert max(delays) + plan.block == plan.ring // 2 + 1
+    ref = delay_line_outputs_plain(delays, *(torch.from_numpy(x) for x in (g, a, b, u))).numpy()
+    args = (emulated["tdgfdn"], delays, g, a, b, u, td.RING, plan.block, plan.threads)
+    np.testing.assert_array_equal(_emulate_td(*args, plan.ring, seed=None).T, ref)
+    short = _emulate_td(*args, plan.ring // 2, seed=None)
+    assert not np.array_equal(short.T, ref)
+
+
+@pytest.mark.parametrize("delays,block,threads", [((683, 1000, 1447), 512, 256),
+                                                  ((2000, 2001, 2500), 1792, 256),
+                                                  ((4, 9), 4, 32)])
+def test_tdgfdn_plan_picks_the_ring_by_size(delays, block, threads):
+    """The ring variant exactly while its shared memory fits the card's;
+    one byte less and the history goes to device memory. Its steps are a
+    multiple of td.BALANCED_BLOCK samples where min(delay) allows, and its
+    ring is a power of two."""
+    n = len(delays)
+    ring = 1 << (max(delays) + block - 1).bit_length()
+    need = td.ring_bytes(n, ring)
+    assert kernel_plan(delays, need) == (td.RING, block, threads, ring)
+    assert kernel_plan(delays, need - 1).variant == td.HIST
+
+
+@pytest.mark.parametrize("past", [False, True], ids=["ring_full", "ring_full_plus_one"])
+def test_tdgfdn_source_at_the_ring_boundary_matches_plain_bitwise(emulated, past):
+    """At 12 delays from 683 whose ring is the largest that fits an H100's
+    shared memory the ring runs; spread to a longest delay one sample more,
+    the history goes to device memory. Both bit for bit."""
+    delays = td.ring_boundary_delays(12, 683, H100_SMEM, past)
+    other = td.ring_boundary_delays(12, 683, H100_SMEM, not past)
+    assert delays[-1] == other[-1] + (1 if past else -1)
+    plan = kernel_plan(delays, H100_SMEM)
+    assert plan.variant == (td.HIST if past else td.RING)
+    if not past:
+        assert td.ring_bytes(12, plan.ring) <= H100_SMEM < td.ring_bytes(12, 2 * plan.ring)
+    g, a, b, u = _td_inputs(12, 9000, seed=6)
+    y = _emulate_td(emulated["tdgfdn"], delays, g, a, b, u, *plan, seed=2)
+    ref = delay_line_outputs_plain(delays, *(torch.from_numpy(x) for x in (g, a, b, u)))
+    np.testing.assert_array_equal(y.T, ref.numpy())
+
+
+def test_tdgfdn_plan_sends_delays_below_a_group_to_device_memory():
+    """min(delay) < GROUP leaves no whole group in a step: HIST, one sample
+    a thread, whatever the shared memory."""
+    assert kernel_plan((1, 5), 1 << 30) == (td.HIST, 1, 32, 0)

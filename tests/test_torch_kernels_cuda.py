@@ -8,18 +8,23 @@ where only PyTorch is installed; from the repository root:
 
 (``--noconftest`` skips tests/conftest.py, which configures JAX.)
 Bound: max abs error <= 1e-4 max |plain|; identical LU pivots. The inverse
-(B1 ``cinv``) and its backward (B2 ``neg_ptgpt``) must equal their plain
-versions bit for bit, at every N of the model family, on ragged K around
-the 128 systems of a block, on a contiguous view 8 bytes past a 16-byte
-boundary, and on two launches alike. The cascade
+(B1 ``cinv``), its backward (B2 ``neg_ptgpt``) and the LU solve (B5
+``lu_solve``: x, factors and pivots) must equal their plain versions bit
+for bit, at every N of the model family, on ragged K around the systems of
+a block, on a contiguous view 8 bytes past a 16-byte boundary, and on two
+launches alike. The cascade
 forward (B3) also runs with every section scaled by 1e4 and 1e-4, where the
 unscaled product of |Q_k|^2 leaves float32, and its backward (B4), given
 the forward's response, must give the same bits on two launches. The
 backward kernels (B2 ``neg_ptgpt``, B6 ``lut_apply``, B4
 ``sos_cascade_backward``) are also driven through autograd with a
 non-contiguous gradient, which the autograd functions make contiguous.
-B7 ``delay_line_outputs`` runs at the served path's delays and length
-(T = 131072), at a delay set spanning 50000 samples, and on a random input.
+B7 ``delay_line_outputs`` must equal its plain version bit for bit at the
+served path's delays and length (T = 131072), impulse and random input
+(the shared-memory ring the wrapper picks there), at a delay spread whose
+ring fills the card's shared memory exactly and at one a sample longer
+(which takes the device-memory history), at a spread of 50000 samples, and
+on two launches alike.
 """
 
 import numpy as np
@@ -107,16 +112,40 @@ def test_cinv_kernels_are_deterministic_on_card(cuda_device):
     assert torch.equal(cinv_mod.neg_ptgpt(first, g), cinv_mod.neg_ptgpt(second, g))
 
 
+# csrc/lu.cu tiles 128 systems a block at N <= 4 (32 at N = 8) and runs one
+# system a thread at N > 8
+LU_SIZES = (1, 4, 8, 9, 12, 27)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [4, 12, 27])
-def test_lu_kernel_matches_plain_on_card(cuda_device, n):
-    m, b = systems(1000, n, seed=n)
+@pytest.mark.parametrize("k", CINV_K)
+@pytest.mark.parametrize("n", LU_SIZES)
+def test_lu_kernel_matches_plain_on_card(cuda_device, n, k):
+    m, b = systems(k, n, seed=n)
+    if n == 1:
+        m[:, 0, 0] += 1.0
+    before = lu_mod.lu_solve.launches
     (x, lu, piv), (x_p, lu_p, piv_p) = _on_card_and_plain(
         lu_mod.lu_solve, torch.from_numpy(m).to(cuda_device), torch.from_numpy(b).to(cuda_device)
     )
-    assert max_rel(x.cpu().numpy(), x_p.cpu().numpy()) <= TOL
-    assert max_rel(lu.cpu().numpy(), lu_p.cpu().numpy()) <= TOL
+    assert lu_mod.lu_solve.launches == before + 1
+    assert torch.equal(x, x_p)
+    assert torch.equal(lu, lu_p)
     assert torch.equal(piv, piv_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4, 9])
+def test_lu_kernel_takes_a_view_8_bytes_off_alignment_and_repeats(cuda_device, n):
+    k = 3 * 65537
+    m, b = (torch.from_numpy(x).to(cuda_device) for x in systems(k, n, seed=90 + n))
+    out = lu_mod.lu_solve(_offset_view(m), _offset_view(b))
+    again = lu_mod.lu_solve(m, b)
+    torch.cuda.synchronize()
+    with plain_versions():
+        ref = lu_mod.lu_solve(m, b)
+    for a, c, r in zip(out, again, ref):
+        assert torch.equal(a, r) and torch.equal(c, r)
 
 
 @pytest.mark.cuda
@@ -254,19 +283,36 @@ def _path_delays():
     return tuple(int(d) for d in preset_config("three_room_example").delay_length_samps)
 
 
+def _spread(m_min, m_max, n=12):
+    return tuple(int(d) for d in np.linspace(m_min, m_max, n))
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["path_impulse", "path_random", "wide_random"])
+@pytest.mark.parametrize("case", ["path_impulse", "path_random", "wide_random", "ring_full",
+                                  "ring_full_plus_one"])
 def test_tdgfdn_kernel_matches_plain_on_card(cuda_device, case):
+    limit = td_mod.shared_memory_limit(cuda_device)
     if case.startswith("path"):
         delays, t_len = _path_delays(), 131072
-    else:
-        delays, t_len = tuple(int(d) for d in np.linspace(100, 50000, 12)), 8192
+    elif case == "wide_random":
+        delays, t_len = _spread(100, 50000), 8192
+    else:  # the largest ring that fits the shared memory, then one sample more
+        delays = td_mod.ring_boundary_delays(12, 683, limit, case == "ring_full_plus_one")
+        t_len = 32768
+    plan = td_mod.kernel_plan(delays, limit)
+    if case == "ring_full":
+        assert td_mod.ring_bytes(12, plan.ring) <= limit
+    expected = td_mod.HIST if case in ("wide_random", "ring_full_plus_one") else td_mod.RING
+    assert plan.variant == expected
     args = [x.to(cuda_device) for x in _td_inputs(delays, t_len, case == "path_impulse", seed=7)]
     before = td_mod.delay_line_outputs.launches
     out, ref = _on_card_and_plain(lambda *a: td_mod.delay_line_outputs(delays, *a), *args)
     assert td_mod.delay_line_outputs.launches == before + 1
     assert out.shape == (t_len, len(delays))
-    assert max_rel(out.cpu().numpy(), ref.cpu().numpy()) <= TOL
+    assert torch.equal(out, ref)
+    again = td_mod.delay_line_outputs(delays, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(again, ref)
 
 
 @pytest.mark.cuda
