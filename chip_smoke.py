@@ -55,7 +55,31 @@ Phases (any failure raises and exits non-zero, with no result line):
    shared-memory ring fills the card's shared memory exactly and one slot
    past it (which takes the device-memory history), and at a spread of
    50000 samples, and against a float64 numpy recursion, and timed beside
-   its bound and plain version.
+   its bound and plain version;
+7. train the eight octave bands of the subband presets at full width
+   (``create_config``'s per-band MLPs: three architecture groups of 2, 4 and
+   2 bands; N = 12, G = 3, nfft 131072, batch 32, fs 32 kHz, scalar heads,
+   GEQ absorption, the colorless loss) for 2 epochs on phase 2's synthetic
+   dataset through the user entry point ``training_band_parallel`` (the
+   subband CLI's ``--band-parallel``). Each kernel's launch count is set to
+   0 just before and read just after: B1, B3 and B5 must have launched once
+   per optimizer step and validation batch of each group, B2 and B6 once
+   per step, B4 (the absorption cascades take no gradient) and B7 never;
+   the losses must be finite and each band's last checkpoint must load into
+   its own model. Per group, one band-stacked step then runs on the kernels
+   and on the plain versions (losses 1e-6 relative, every band's gradients
+   1e-3 relative L2), timed steps must launch each of B1, B2, B3, B5, B6
+   exactly once, and the phase prints steps/s and peak memory. At the
+   4-band group, B1-B6 are held against their plain versions at that
+   step's band-stacked inputs (B1, B2, B5 bit for bit) and timed, and its
+   last band's step against the sequential ``GFDNTrainer``'s (loss 1e-5,
+   gradients 1e-3). One band-parallel step of every group and one
+   sequential step of every band are timed in turns. Finally the trained
+   bands are merged into 96 broadband RIRs through ``infer_all_octave_bands``
+   (finite; kernels vs plain versions rel L2 1e-3, EDC 0.01 dB over 0.5 s)
+   and ``broadband_edc_errors_device`` is held to the same errors computed
+   on the host from those RIRs (within 0.2 dB + 2 %: circular against
+   linear band filtering, as the JAX package's own test).
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``. ``--kernel-times ROOT``
@@ -63,9 +87,10 @@ as its last line ``{"ok": true, "device": {...}}``. ``--kernel-times ROOT``
 of the port's checkout under ROOT at the paths' shapes (so that two trees
 can be compared in turns in one call) and prints no result line.
 ``--log-dir`` receives the compiler's resource report and a torch.profiler
-table of one served batch and of one training step per configuration;
-their wall time, the card's busy time within them and its idle share join
-the configuration's phase-2 and phase-5 lines.
+table of one served batch and of one training step per configuration (and
+of one band-parallel step per group); their wall time, the card's busy
+time within them and its idle share join the phase-2, phase-5 and phase-7
+lines.
 """
 
 import argparse
@@ -182,7 +207,7 @@ def edc_db(x: np.ndarray) -> np.ndarray:
 
 
 def make_room(tmp: Path, name: str, fs: float, nfft: int):
-    """Synthetic 3-room dataset; per-band decay times for the GEQ config."""
+    """Synthetic 3-room dataset; per-band decay times for the GEQ configs."""
     from diffgfdn_torch.data import ThreeRoomDataset, generate_three_room_pickle
 
     rng = np.random.RandomState(SEED)
@@ -192,7 +217,7 @@ def make_room(tmp: Path, name: str, fs: float, nfft: int):
         rir_len_s=2.0, decay_times=tuple(base), seed=SEED,
     )
     room = ThreeRoomDataset(path, nfft=nfft)
-    if name == "fullband_grid_colorless":
+    if name != "three_room_example":
         room.common_decay_times = base[None, :] * np.linspace(1.2, 0.8, 8)[:, None]
         room.band_centre_hz = [63.0, 125.0, 250.0, 500.0, 1000.0, 2000.0, 4000.0, 8000.0]
     return room
@@ -584,13 +609,16 @@ def time_kernels(inputs, errors, launches) -> list:
 
 
 @contextlib.contextmanager
-def recording_kernel_inputs(store: dict):
-    """Within the block, the wrappers of B5 and of the backward kernels keep
-    a copy of the inputs of their first call, under the kernel's name."""
+def recording_kernel_inputs(store: dict, forward: bool = False):
+    """Within the block, the wrappers of B5 and of the backward kernels (with
+    ``forward``, of B1 and B3 too) keep a copy of the inputs of their first
+    call, under the kernel's name."""
     from diffgfdn_torch.kernels import cinv, lu, sos
 
     patched = [(cinv, "neg_ptgpt", "neg_ptgpt"), (lu, "lut_apply", "lut_apply"),
                (lu, "lu_solve", "lu"), (sos, "sos_cascade_backward", "sos_backward")]
+    if forward:
+        patched += [(cinv, "cinv", "cinv"), (sos, "sos_cascade", "sos")]
     originals = [getattr(mod, attr) for mod, attr, _ in patched]
 
     def recorder(fn, name):
@@ -1244,6 +1272,351 @@ def tdgfdn_row(b7_inputs, launches: int) -> dict:
     }
 
 
+# ----------------------------- phase 7: subband -------------------------------
+
+# the kernels a band-parallel step launches, once each for all bands of a group:
+# B1 / B2 in the colorless loss, B3 for the GEQ absorption (fixed buffers: no
+# B4), B5 / B6 in the scalar heads' drive
+SUBBAND_KERNELS = ("cinv", "neg_ptgpt", "sos", "lu", "lut_apply")
+SUBBAND_GROUP_SIZES = [2, 4, 2]  # the architecture groups of the eight default bands
+BAND_SEQ_LOSS_TOL = 1e-5  # a band of the band-parallel step vs the sequential trainer
+MERGE_EDC_ATOL_DB = 0.2   # device broadband EDC errors vs the host path: circular vs
+MERGE_EDC_RTOL = 0.02     # linear band filtering (as the JAX package's own test)
+TURNS = 4  # rounds of band-parallel and sequential steps, in turns
+SUBBAND_FS = 32000.0  # create_config's sample rate and nfft
+SUBBAND_NFFT = 131072
+
+
+def band_rows(inputs: dict, launches: dict, bands: int) -> list:
+    """Phase 7, kernels: each kernel of the band-parallel step against its plain
+    version at the inputs that step gave it (B1, B2, B5 bit for bit), timed
+    beside its bound, plain version and library call; B4 at the band-stacked
+    cascades (off the path: the absorption cascades take no gradient)."""
+    import torch
+
+    from diffgfdn_torch.kernels import sos as sos_mod
+    from diffgfdn_torch.kernels.cinv import cinv, neg_ptgpt
+    from diffgfdn_torch.kernels.dispatch import plain_versions
+    from diffgfdn_torch.kernels.lu import lu_solve, lut_apply
+
+    def both(fn, *args):
+        out = fn(*args)
+        with plain_versions():
+            ref = fn(*args)
+        torch.cuda.synchronize()
+        return out, ref
+
+    def plain(fn, *args):
+        with plain_versions():
+            return fn(*args)
+
+    def row(name, source, replaces, launch_key, err, call, plain_call, kernel_call, cost,
+            library, shape):
+        b_ms, b_by = bound(*cost)
+        return {
+            "name": f"{name} [{bands}-band group]", "route": "cuda",
+            "source": f"diffgfdn_torch/csrc/{source}", "replaces": replaces,
+            "launches": launches[launch_key], "max_abs_err": err,
+            "ms": device_ms(call), "plain_ms": device_ms(plain_call),
+            "kernel_ms": kernel_ms(kernel_call), "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None if library is None else device_ms(library),
+            "shape": list(shape),
+        }
+
+    rows = []
+    (m,) = inputs["cinv"]
+    out, ref = both(cinv, m)
+    differ = int((out != ref).sum())
+    require(differ == 0, f"band cinv {tuple(m.shape)}: {differ} elements differ from plain")
+    k, n = m.shape[0], m.shape[1]
+    rows.append(row("cinv", "cinv.cu", "diffgfdn_tpu/kernels/pallas_cinv.py:34", "cinv",
+                    float(torch.max(torch.abs(out - ref))), lambda: cinv(m),
+                    lambda: plain(cinv, m), lambda: cinv(m), cinv_cost(k, n),
+                    lambda: torch.linalg.inv(m), m.shape))
+    p, g = inputs["neg_ptgpt"]
+    out, ref = both(neg_ptgpt, p, g)
+    differ_b2 = int((out != ref).sum())
+    require(differ_b2 == 0, f"band neg_ptgpt {tuple(p.shape)}: {differ_b2} elements differ")
+    rows.append(row("neg_ptgpt", "cinv.cu", "diffgfdn_tpu/kernels/pallas_cinv.py:146",
+                    "neg_ptgpt", float(torch.max(torch.abs(out - ref))),
+                    lambda: neg_ptgpt(p, g), lambda: plain(neg_ptgpt, p, g),
+                    lambda: neg_ptgpt(p, g), neg_ptgpt_cost(p.shape[0], p.shape[1]),
+                    lambda: -(p.mH @ g @ p.mH), p.shape))
+    num, den, w = inputs["sos"]
+    out, ref = both(sos_mod.sos_cascade, num, den, w)
+    err_b3 = rel_err(out, ref)
+    require(err_b3 <= KERNEL_TOL, f"band sos {tuple(num.shape)}: rel err {err_b3}")
+    rows.append(row("sos_cascade_response", "sos.cu", "diffgfdn_tpu/kernels/pallas_sos.py:47",
+                    "sos", float(torch.max(torch.abs(out - ref))),
+                    lambda: sos_mod.sos_cascade(num, den, w),
+                    lambda: plain(sos_mod.sos_cascade, num, den, w),
+                    lambda: sos_mod.sos_cascade(num, den, w),
+                    sos_cost(num.shape[0], num.shape[1], w.shape[0]), None, num.shape))
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    g4 = torch.randn(out.shape, dtype=torch.complex64, device=DEVICE, generator=gen)
+    h = out
+    (dn, dd), (dn_p, dd_p) = both(sos_mod.sos_cascade_backward, num, den, w, g4, h)
+    err_b4 = max(rel_err(dn, dn_p), rel_err(dd, dd_p))
+    require(err_b4 <= KERNEL_TOL, f"band sos_cascade_backward {tuple(num.shape)}: {err_b4}")
+    rows.append(row("sos_cascade_backward", "sos.cu", "diffgfdn_tpu/kernels/pallas_sos.py:64",
+                    "sos_backward",
+                    float(max(torch.max(torch.abs(dn - dn_p)), torch.max(torch.abs(dd - dd_p)))),
+                    lambda: sos_mod.sos_cascade_backward(num, den, w, g4, h),
+                    lambda: plain(sos_mod.sos_cascade_backward, num, den, w, g4, h),
+                    lambda: sos_mod.sos_cascade_backward(num, den, w, g4, h),
+                    sos_backward_saved_h_cost(num.shape[0], num.shape[1], w.shape[0]), None,
+                    num.shape))
+    m, b = inputs["lu"]
+    (x, lu, piv), (x_p, lu_p, piv_p) = both(lu_solve, m, b)
+    differ_b5 = [int((o != r).sum()) for o, r in ((x, x_p), (lu, lu_p), (piv, piv_p))]
+    require(differ_b5 == [0, 0, 0], f"band lu {tuple(m.shape)}: elements differing {differ_b5}")
+    k, n = m.shape[0], m.shape[1]
+    rows.append(row("lu_solve", "lu.cu", "diffgfdn_tpu/kernels/pallas_lu.py:46", "lu",
+                    float(torch.max(torch.abs(x - x_p))), lambda: lu_solve(m, b),
+                    lambda: plain(lu_solve, m, b), lambda: lu_solve(m, b), lu_cost(k, n),
+                    lambda: torch.linalg.solve(m, b.unsqueeze(-1)), m.shape))
+    lu, piv, g6 = inputs["lut_apply"]
+    out, ref = both(lut_apply, lu, piv, g6)
+    err_b6 = rel_err(out, ref)
+    require(err_b6 <= KERNEL_TOL, f"band lut_apply {tuple(g6.shape)}: rel err {err_b6}")
+    rows.append(row("lut_apply", "lu.cu", "diffgfdn_tpu/kernels/pallas_lu.py:142",
+                    "lut_apply", float(torch.max(torch.abs(out - ref))),
+                    lambda: lut_apply(lu, piv, g6), lambda: plain(lut_apply, lu, piv, g6),
+                    lambda: lut_apply(lu, piv, g6), lut_apply_cost(g6.shape[0], g6.shape[1]),
+                    lambda: torch.linalg.solve(m.mH, g6.unsqueeze(-1)), g6.shape))
+    print(f"phase 7 kernels at the {bands}-band group: B1 {tuple(m.shape)} and B2 differ "
+          f"from plain in {differ} / {differ_b2} elements, B3 {tuple(num.shape)} rel err "
+          f"{err_b3:.3e}, B4 {err_b4:.3e}, B5 (x, factors, pivots) {differ_b5}, B6 "
+          f"{err_b6:.3e}")
+    return rows
+
+
+def sequential_trainers(configs, room, arrays, spe: int) -> list:
+    """One sequential GFDNTrainer per band, ready to step (as fit_indexed sets
+    them up): the user path without --band-parallel."""
+    from diffgfdn_torch.training import build_gfdn_model, GFDNTrainer, make_optimizer
+    from diffgfdn_torch.training.solver import subband_resp
+
+    out = []
+    for cfg in configs:
+        model = build_gfdn_model(cfg, room.common_decay_times, room.band_centre_hz,
+                                 device=DEVICE)
+        trainer = GFDNTrainer(model, cfg.trainer_config, spe,
+                              common_decay_times=room.common_decay_times,
+                              subband_filter_resp=subband_resp(cfg),
+                              sample_rate=cfg.sample_rate, device=DEVICE)
+        trainer.upload_arrays(arrays)
+        trainer.optimizer, trainer.scheduler = make_optimizer(cfg.trainer_config, model, spe)
+        out.append(trainer)
+    return out
+
+
+def subband(tmp: Path, log_dir):
+    """Phase 7: 8-band subband training and broadband reconstruction.
+    Returns (result, kernel rows)."""
+    import torch
+
+    from diffgfdn_torch.cli import run_subband_training as rst
+    from diffgfdn_torch.data.batching import arrays_from_room_dataset, train_valid_split
+    from diffgfdn_torch.inference import broadband_edc_errors_device, infer_all_octave_bands
+    from diffgfdn_torch.kernels.dispatch import plain_versions
+    from diffgfdn_torch.training import build_gfdn_model, GFDNTrainer, load_checkpoint
+    from diffgfdn_torch.training.solver import steps_per_epoch, subband_resp
+    from diffgfdn_torch.utils.params import load_jax_params
+
+    fs, nfft = SUBBAND_FS, SUBBAND_NFFT
+    room = make_room(tmp, "subband", fs, nfft)
+    configs = [
+        rst.create_config(f, str(tmp / "subband" / "srirs.pkl"), str(tmp / "subband" / "train"),
+                          nfft, sample_rate=fs, max_epochs=TRAIN_EPOCHS, batch_size=BATCH)
+        for f in rst.DEFAULT_FREQS
+    ]
+    groups = rst.architecture_groups(configs)
+    require([len(g) for g in groups] == SUBBAND_GROUP_SIZES,
+            f"subband architecture groups {[len(g) for g in groups]}")
+    arrays = arrays_from_room_dataset(room)
+    splits = [train_valid_split(np.arange(arrays.num_items),
+                                g[0].trainer_config.train_valid_split, seed=g[0].seed)
+              for g in groups]
+
+    # the main path: training_band_parallel as the CLI's --band-parallel runs it
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    histories = rst.training_band_parallel(configs, room, device=DEVICE)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = launch_counts()
+    peak_run = torch.cuda.max_memory_allocated()
+    steps = valid = 0
+    for (tr, va), hist in zip(splits, histories):
+        steps += hist.shape[0] * steps_per_epoch(len(tr), BATCH)
+        valid += hist.shape[0] * -(-len(va) // min(BATCH, len(va)))
+    for kernel in ("neg_ptgpt", "lut_apply"):
+        require(launches[kernel] == steps, f"subband: {kernel} launched {launches[kernel]} "
+                f"times in {steps} steps of {len(groups)} groups")
+    for kernel in ("cinv", "sos", "lu"):
+        require(launches[kernel] == steps + valid, f"subband: {kernel} launched "
+                f"{launches[kernel]} times in {steps} steps and {valid} validation batches")
+    require(launches["sos_backward"] == 0 and launches["tdgfdn"] == 0,
+            f"subband: kernels off the path launched {launches}")
+    require(all(np.isfinite(h).all() and h.shape == (TRAIN_EPOCHS, len(g))
+                for h, g in zip(histories, groups)), f"subband: train losses {histories}")
+    for cfg in configs:
+        tree = load_checkpoint(cfg.trainer_config.train_dir, TRAIN_EPOCHS - 1)
+        model = build_gfdn_model(cfg, room.common_decay_times, room.band_centre_hz,
+                                 device=DEVICE)
+        load_jax_params(model, tree)  # strict: the band's own architecture
+        require(all(bool(torch.isfinite(p).all()) for p in model.parameters()),
+                f"subband: non-finite checkpoint of {cfg.trainer_config.train_dir}")
+
+    # per group: one step on kernels vs plain versions and, for the largest
+    # group, one band against the sequential trainer; then timed steps
+    idx = torch.arange(BATCH, device=DEVICE)
+    group_results, trainers, rows = [], [], []
+    for group, (tr, _) in zip(groups, splits):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        trainer = rst.band_parallel_trainer(group, room, arrays, tr, DEVICE)
+        freqs = [c.trainer_config.subband_process_config.centre_frequency for c in group]
+        inputs = {}
+        with recording_kernel_inputs(inputs, forward=True):
+            loss_k, _ = trainer.loss_and_grads(idx)
+        grads_k = {n: p.grad.clone() for n, p in trainer.params.items()}
+        with plain_versions():
+            loss_p, _ = trainer.loss_and_grads(idx)
+        grads_p = {n: p.grad.clone() for n, p in trainer.params.items()}
+        loss_rel = float(torch.max(torch.abs(loss_k - loss_p) / torch.abs(loss_p)))
+        grad_errs = {(n, b): rel_l2(grads_k[n][b], grads_p[n][b])
+                     for n in grads_k for b in range(len(group))}
+        worst = max(grad_errs, key=grad_errs.get)
+        require(loss_rel <= LOSS_TOL, f"subband {freqs}: step loss kernels vs plain {loss_rel}")
+        require(grad_errs[worst] <= GRAD_TOL, f"subband {freqs}: gradient {worst} kernels "
+                f"vs plain {grad_errs[worst]}")
+        result = {"bands_hz": freqs, "step_loss_rel_vs_plain": loss_rel,
+                  "max_grad_rel_l2_vs_plain": grad_errs[worst]}
+        if len(group) == max(SUBBAND_GROUP_SIZES):
+            rows = band_rows(inputs, launches, len(group))
+            b = len(group) - 1  # the group's last band: its own delays, not the first's
+            cfg = group[b]
+            model = build_gfdn_model(cfg, room.common_decay_times, room.band_centre_hz,
+                                     device=DEVICE)
+            seq = GFDNTrainer(model, cfg.trainer_config, 1,
+                              common_decay_times=room.common_decay_times,
+                              subband_filter_resp=subband_resp(cfg), sample_rate=fs,
+                              device=DEVICE)
+            seq.features = {k: v[b] for k, v in trainer.band_feats.items()}
+            seq.upload_arrays(arrays)
+            loss_s, _ = seq.loss_and_grads(seq.gather(idx))
+            seq_loss = abs(float(loss_s) - float(loss_k[b])) / abs(float(loss_s))
+            seq_grad = max(rel_l2(grads_k[n][b], p.grad) for n, p in model.named_parameters())
+            require(seq_loss <= BAND_SEQ_LOSS_TOL and seq_grad <= GRAD_TOL,
+                    f"subband band {freqs[b]} Hz vs sequential: loss {seq_loss}, "
+                    f"gradient {seq_grad}")
+            result.update(sequential_band_hz=freqs[b], loss_rel_vs_sequential=seq_loss,
+                          max_grad_rel_l2_vs_sequential=seq_grad)
+            del seq, model, inputs
+        trainer.step(idx)  # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        times = []
+        for _ in range(TIMED_STEPS):
+            t0 = time.perf_counter()
+            trainer.step(idx)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        per_step = {k: launch_counts()[k] / TIMED_STEPS for k in SUBBAND_KERNELS}
+        require(all(v == 1 for v in per_step.values()),
+                f"subband {freqs}: launches per step {per_step}")
+        step_s = float(np.median(times))
+        result.update(step_ms=step_s * 1e3, steps_per_s=1.0 / step_s,
+                      step_ms_all=[t * 1e3 for t in times], launches_per_step=per_step,
+                      peak_mem_mb=torch.cuda.max_memory_allocated() / 2 ** 20)
+        if log_dir is not None:
+            wall, busy, ours = profile_once(
+                lambda trainer=trainer: trainer.step(idx), "band_step",
+                Path(log_dir) / f"profile_subband_{len(group)}_bands_{freqs[0]:.0f}Hz.txt")
+            result.update(profiled_step_ms=wall, profiled_device_busy_ms=busy,
+                          profiled_kernels_ms=ours, profiled_idle_share=1.0 - busy / wall)
+        group_results.append(result)
+        trainers.append(trainer)
+
+    # every band's step: the groups' band-parallel steps against the eight
+    # sequential trainers' steps, in turns
+    seqs = sequential_trainers(configs, room, arrays, steps_per_epoch(len(splits[0][0]), BATCH))
+    for seq in seqs:
+        seq.fit_step(idx)  # warm-up
+    parallel_s, sequential_s = [], []
+    for turn in range(TURNS):
+        order = ("parallel", "sequential") if turn % 2 == 0 else ("sequential", "parallel")
+        for kind in order:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for step in ([t.step for t in trainers] if kind == "parallel"
+                         else [s.fit_step for s in seqs]):
+                step(idx)
+            torch.cuda.synchronize()
+            (parallel_s if kind == "parallel" else sequential_s).append(time.perf_counter() - t0)
+    del seqs, trainers
+
+    # broadband reconstruction from the trained bands' checkpoints
+    rec = np.arange(NUM_RECEIVERS)
+    infer_all_octave_bands(configs, room, rec[:BATCH], device=DEVICE)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rirs = infer_all_octave_bands(configs, room, rec, device=DEVICE)
+    torch.cuda.synchronize()
+    merge_s = time.perf_counter() - t0
+    with plain_versions():
+        plain_rirs = infer_all_octave_bands(configs, room, rec, device=DEVICE)
+    require(rirs.shape == (NUM_RECEIVERS, nfft) and bool(np.isfinite(rirs).all()),
+            f"subband: broadband RIRs {rirs.shape}, finite {np.isfinite(rirs).all()}")
+    mix = int(0.02 * fs)
+    merge_rel = float(np.linalg.norm(rirs - plain_rirs) / np.linalg.norm(plain_rirs))
+    merge_rel_late = float(np.linalg.norm(rirs[:, mix:] - plain_rirs[:, mix:])
+                           / np.linalg.norm(plain_rirs[:, mix:]))
+    merge_edc = float(np.abs(edc_db(rirs) - edc_db(plain_rirs))[:, : int(0.5 * fs)].max())
+    require(merge_rel <= RIR_TOL and merge_rel_late <= RIR_TOL and merge_edc <= EDC_TOL_DB,
+            f"subband: broadband RIRs vs plain rel L2 {merge_rel}, late {merge_rel_late}, "
+            f"EDC {merge_edc} dB")
+    broadband_edc_errors_device(configs, room, rec[:BATCH], BATCH, device=DEVICE)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    errs = broadband_edc_errors_device(configs, room, rec, BATCH, device=DEVICE)
+    device_edc_s = time.perf_counter() - t0
+    end = min(int(float(np.max(room.common_decay_times)) * fs), nfft)
+    target = np.zeros((NUM_RECEIVERS, nfft), np.float32)
+    t_len = min(nfft, arrays.target_rir_time.shape[1])
+    target[:, :t_len] = arrays.target_rir_time[:, :t_len]
+
+    def edc_np(x):  # ops.basic.db of the Schroeder integral, in float64
+        e = np.cumsum((x[..., mix:end].astype(np.float64) ** 2)[..., ::-1], axis=-1)[..., ::-1]
+        eps = float(np.finfo(np.float32).eps)
+        return np.maximum(10.0 * np.log10(np.abs(e) + eps), -200.0)
+
+    errs_host = np.mean(np.abs(edc_np(rirs) - edc_np(target)), axis=-1)
+    edc_gap = float(np.max(np.abs(errs - errs_host) - MERGE_EDC_RTOL * np.abs(errs_host)))
+    require(errs.shape == (NUM_RECEIVERS,) and bool(np.isfinite(errs).all())
+            and edc_gap <= MERGE_EDC_ATOL_DB,
+            f"subband: device EDC errors vs host: worst excess {edc_gap} dB")
+    result = {
+        "bands": len(configs), "groups": [len(g) for g in groups], "epochs": TRAIN_EPOCHS,
+        "batch": BATCH, "nfft": nfft, "run_s": run_s, "peak_mem_run_mb": peak_run / 2 ** 20,
+        "train_loss_last_epoch": [h[-1].tolist() for h in histories],
+        "launches": {k: launches[k] for k in SUBBAND_KERNELS + ("sos_backward",)},
+        "steps": steps, "valid_batches": valid, "group_steps": group_results,
+        "all_bands_step_ms_parallel": [t * 1e3 for t in parallel_s],
+        "all_bands_step_ms_sequential": [t * 1e3 for t in sequential_s],
+        "merge_s": merge_s, "merged_rirs_per_s": NUM_RECEIVERS / merge_s,
+        "merge_rel_l2_vs_plain": merge_rel, "merge_rel_l2_late_vs_plain": merge_rel_late,
+        "merge_edc_max_abs_db_vs_plain": merge_edc,
+        "device_edc_s": device_edc_s, "device_edc_mean_db": float(np.mean(errs)),
+        "device_edc_max_abs_db_vs_host": float(np.max(np.abs(errs - errs_host))),
+    }
+    return result, rows
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--log-dir", default=None,
@@ -1324,6 +1697,10 @@ def main(argv=None) -> int:
                 rows.append(tdgfdn_row(b7_inputs, counts["tdgfdn"]))
         del served
         print("phase 6: B7 matches its plain version and numpy")
+        t0 = time.perf_counter()
+        result, band_kernel_rows = subband(tmp, log_dir)
+        rows += band_kernel_rows
+        print(f"phase 7: subband in {time.perf_counter() - t0:.1f} s: " + json.dumps(result))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({

@@ -1,4 +1,4 @@
-"""The serving slice's two configurations as Python mappings.
+"""The ported configurations as Python mappings.
 
 Each mapping is exactly what ``yaml.safe_load`` returns for its file, so
 ``chip_smoke.py`` needs no YAML parser on the card:
@@ -127,9 +127,41 @@ THREE_ROOM_EXAMPLE = {
     "colorless_fdn_config": {"use_colorless_prototype": False},
 }
 
+# the per-band MLP (hidden layers, neurons) of the subband presets
+SUBBAND_MLP = {63: (3, 64), 125: (3, 64), 250: (3, 128), 500: (3, 128), 1000: (3, 128),
+               2000: (3, 128), 4000: (4, 128), 8000: (4, 128)}
+
+
+def _subband_preset(freq: int) -> dict:
+    """``configs/presets/subband/subband_<freq>Hz.yml``."""
+    raw = copy.deepcopy(FULLBAND_GRID_COLORLESS)
+    layers, neurons = SUBBAND_MLP[freq]
+    raw["output_filter_config"].update(
+        num_fourier_features=10, num_hidden_layers=layers, num_neurons_per_layer=neurons,
+        use_svfs=False,
+    )
+    raw["room_dataset_path"] = f"resources/Georg_3room_FDTD/srirs_band_centre={freq}Hz.pkl"
+    raw["seed"] = 235 + freq
+    raw["trainer_config"].update(
+        coupling_angle_lr=0.001, hold_out_test_set=None, io_lr=0.001,
+        ir_dir=f"output/subband/band_{freq}Hz/audio/", lr=0.001, max_epochs=20,
+        save_true_irs=False,
+        subband_process_config={
+            "centre_frequency": float(freq),
+            "frequency_range": [63.0, 16000.0],
+            "num_fraction_octaves": 1,
+            "use_amp_preserving_filterbank": True,
+        },
+        train_dir=f"output/subband/band_{freq}Hz/", use_asym_spectral_loss=False,
+        use_edc_mask=False,
+    )
+    return raw
+
+
 PRESETS: Dict[str, dict] = {
     "fullband_grid_colorless": FULLBAND_GRID_COLORLESS,
     "three_room_example": THREE_ROOM_EXAMPLE,
+    **{f"subband_{f}Hz": _subband_preset(f) for f in SUBBAND_MLP},
 }
 
 

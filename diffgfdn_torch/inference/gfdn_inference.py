@@ -5,6 +5,12 @@ and dataset receiver indices, run the model over the receivers' positions
 and irfft the transfer function to RIRs of shape (B, nfft)
 (:class:`InferDiffGFDN`), or run the loop in the time domain with no time
 aliasing (:func:`make_time_domain_synthesis_fn`).
+
+Subband models (one per octave band) are merged into broadband RIRs by
+their reconstructing filterbank (:func:`infer_all_octave_bands`), or
+compared with the measured RIRs' EDCs on the card without any RIR reaching
+the host (:func:`broadband_edc_errors_device`). Their time-domain synthesis
+and merge are not ported yet (ROADMAP A11).
 """
 
 from typing import Callable, Dict, List, Optional, Union
@@ -19,8 +25,11 @@ from ..data.room_dataset import RoomDataset
 from ..kernels.tdgfdn import delay_line_outputs, delay_line_outputs_filtered, filter_bank_from_sos
 from ..models import DiffGFDNVarReceiverPos
 from ..models.gain_heads import expand_groups_to_delay_lines
+from ..ops.basic import db, ms_to_samps, schroeder_backward_int
+from ..ops.filterbanks import reconstructing_fractional_octave_bands
 from ..training.build import build_gfdn_model
 from ..training.checkpoints import load_latest_checkpoint
+from ..training.trainer import target_rirs, upload_model_inputs
 from ..utils.device import resolve_device
 from ..utils.params import load_jax_params
 
@@ -147,10 +156,6 @@ class InferDiffGFDN:
     ):
         self.device = resolve_device(device)
         tc = config.trainer_config
-        if tc.subband_process_config is not None:
-            raise NotImplementedError(
-                "subband models (subband_process_config) are not ported yet (ROADMAP A11)"
-            )
         self.config = config
         self.room_data = room_data
         self.model = build_gfdn_model(
@@ -174,6 +179,19 @@ class InferDiffGFDN:
                 None if tc.reduced_pole_radius == 1.0 else 1.0 / tc.reduced_pole_radius
             ),
         )
+        # a subband model trained against band-filtered targets: its output is
+        # scaled by the band filter's energy (subband_energy_compensation)
+        self.subband_filter_norm_factor = 1.0
+        spc = tc.subband_process_config
+        if spc is not None:
+            filters, centers = reconstructing_fractional_octave_bands(
+                num_fractions=spc.num_fraction_octaves,
+                frequency_range=spc.frequency_range,
+                n_samples=2 ** 12,
+                sampling_rate=room_data.sample_rate,
+            )
+            band = filters[int(np.argmin(np.abs(centers - spc.centre_frequency)))]
+            self.subband_filter_norm_factor = subband_energy_compensation(band)
 
     def _device_batch(self, idx: np.ndarray) -> Dict[str, torch.Tensor]:
         """The model's inputs only: the late and full target planes are never read."""
@@ -204,7 +222,7 @@ class InferDiffGFDN:
                 args = (torch.from_numpy(amp).to(self.device),)
             rir = synth(self._device_batch(idx), *args)
             outs.append(rir[:n_real].cpu().numpy())
-        return np.concatenate(outs, axis=0)
+        return self.subband_filter_norm_factor * np.concatenate(outs, axis=0)
 
     def rirs_at(self, rec_indices: np.ndarray, batch_size: int = 32) -> np.ndarray:
         """Synthesize RIRs (len(rec_indices), nfft) at the dataset receiver indices."""
@@ -269,3 +287,110 @@ def merge_subband_rirs(band_rirs: List[np.ndarray], band_filters: np.ndarray) ->
         filtered = fftconvolve(rirs, band_filters[b].reshape(shape), mode="full", axes=-1)
         out += filtered[..., delay : delay + t_len]
     return out
+
+
+def band_reconstruction_filters(
+    configs: List[DiffGFDNConfig], sample_rate: float, fir_len: int
+) -> np.ndarray:
+    """The reconstructing octave filter (fir_len,) of each config's band,
+    matched by the nearest centre frequency: (len(configs), fir_len)."""
+    centre_freqs = [c.trainer_config.subband_process_config.centre_frequency for c in configs]
+    filters, centers = reconstructing_fractional_octave_bands(
+        num_fractions=1,
+        frequency_range=configs[0].trainer_config.subband_process_config.frequency_range,
+        n_samples=fir_len,
+        sampling_rate=sample_rate,
+    )
+    return filters[[int(np.argmin(np.abs(centers - fc))) for fc in centre_freqs]]
+
+
+def infer_all_octave_bands(
+    configs: List[DiffGFDNConfig],
+    room_data: RoomDataset,
+    rec_indices: np.ndarray,
+    variant: str = "var_receiver",
+    fir_len: int = 2 ** 12,
+    device: Union[str, torch.device] = "cuda",
+) -> np.ndarray:
+    """Broadband RIRs (len(rec_indices), nfft) from one subband model per
+    octave band: each band model's RIRs (from its newest checkpoint), band
+    filtered by the reconstructing filterbank and summed on the host
+    (:func:`merge_subband_rirs`)."""
+    filters = band_reconstruction_filters(configs, room_data.sample_rate, fir_len)
+    band_rirs = [
+        InferDiffGFDN(cfg, room_data, variant=variant, device=device).rirs_at(rec_indices)
+        for cfg in configs
+    ]
+    return merge_subband_rirs(band_rirs, filters)
+
+
+@torch.no_grad()
+def broadband_edc_errors_device(
+    configs: List[DiffGFDNConfig],
+    room_data: RoomDataset,
+    rec_indices: Optional[np.ndarray] = None,
+    batch_size: int = 32,
+    fir_len: int = 2 ** 12,
+    params_per_band: Optional[List[Dict]] = None,
+    device: Union[str, torch.device] = "cuda",
+) -> np.ndarray:
+    """Per-receiver mean |delta EDC| (dB) of the broadband reconstruction,
+    computed on the device: (len(rec_indices),).
+
+    The dataset's model inputs and target RIRs are uploaded once and each
+    receiver batch is gathered on the device. Per batch every band model's
+    H is multiplied by its delay-compensated reconstructing filter's
+    response (the frequency-domain counterpart of
+    :func:`infer_all_octave_bands`' convolution and group-delay trim) and
+    by its energy compensation, summed over the bands and irfft'd; its
+    Schroeder EDC from 20 ms to the longest decay time is compared with the
+    target's. The errors stay on the device until the one read at the end.
+    ``params_per_band``: flax trees to use instead of each band's newest
+    checkpoint.
+    """
+    dev = resolve_device(device)
+    if rec_indices is None:
+        rec_indices = np.arange(room_data.num_rec)
+    rec_indices = np.asarray(rec_indices)
+    fs = room_data.sample_rate
+    nfft = room_data.num_freq_bins
+    f = nfft // 2 + 1
+    filters = band_reconstruction_filters(configs, fs, fir_len)
+    delay = filters.shape[-1] // 2
+    fresp = np.fft.rfft(filters, nfft, axis=-1) * np.exp(2j * np.pi * np.arange(f) * delay / nfft)
+    infers = [
+        InferDiffGFDN(cfg, room_data,
+                      params=None if params_per_band is None else params_per_band[b], device=dev)
+        for b, cfg in enumerate(configs)
+    ]
+    # each band's filter response times its energy compensation, (bands, F)
+    band_fr = torch.as_tensor(
+        (np.stack([i.subband_filter_norm_factor for i in infers])[:, None] * fresp)
+        .astype(np.complex64), device=dev,
+    )
+    arrays = infers[0].arrays
+    data = upload_model_inputs(arrays, dev)
+    targets = target_rirs(arrays, nfft, dev)
+    mix = ms_to_samps(20.0, fs)
+    end = min(ms_to_samps(float(np.max(room_data.common_decay_times)) * 1e3, fs), nfft)
+    rpr = configs[0].trainer_config.reduced_pole_radius
+    growth = None
+    if rpr != 1.0:
+        growth = torch.pow(torch.tensor(1.0 / rpr, dtype=torch.float32),
+                           torch.arange(nfft, dtype=torch.float32)).to(dev)
+    n = len(rec_indices)
+    pad = (-n) % batch_size
+    idx_all = torch.as_tensor(
+        np.concatenate([rec_indices, rec_indices[:1].repeat(pad)]), dtype=torch.long, device=dev
+    )
+    errs = []
+    for idx in idx_all.reshape(-1, batch_size):
+        batch = {k: v if k == "z_values" else v[idx] for k, v in data.items()}
+        h = sum(infer.model(batch) * band_fr[b] for b, infer in enumerate(infers))
+        rir = torch.fft.irfft(h, nfft, dim=-1)
+        if growth is not None:
+            rir = rir * growth
+        a_edc = db(schroeder_backward_int(rir[..., mix:end]), is_squared=True)
+        t_edc = db(schroeder_backward_int(targets[idx][..., mix:end]), is_squared=True)
+        errs.append(torch.mean(torch.abs(a_edc - t_edc), dim=-1))
+    return torch.cat(errs).cpu().numpy()[:n]

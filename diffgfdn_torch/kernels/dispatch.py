@@ -5,7 +5,9 @@ the hand-written kernel, or the wrapper raises. No wrapper falls back from
 one to the other. The only way to run a plain version on CUDA tensors is to
 ask for it explicitly with :func:`plain_versions`, which the comparison runs
 of ``chip_smoke.py`` and the CUDA tests use to hold each kernel against its
-plain version on the same device.
+plain version on the same device. Under ``torch.func.vmap``, the autograd
+functions fold the vmap axis into the system axis (:func:`fold_vmap_axis`),
+so a wrapper sees every vmapped slice in one call.
 """
 
 import contextlib
@@ -43,3 +45,12 @@ def runs_kernel(*tensors: torch.Tensor) -> bool:
     if device.type == "cuda":
         return not _plain_on_card
     raise ValueError(f"no kernel for device {device}")
+
+
+def fold_vmap_axis(x: torch.Tensor, bdim, batch_size: int) -> torch.Tensor:
+    """An input of an autograd function's ``vmap`` rule with its vmap axis
+    (``bdim``) moved first and folded into the leading (system) axis, so that
+    one launch serves every vmapped slice; an input without a vmap axis
+    (``bdim`` None) is repeated over it."""
+    x = x.expand(batch_size, *x.shape) if bdim is None else x.movedim(bdim, 0)
+    return x.reshape(-1, *x.shape[2:]).contiguous()

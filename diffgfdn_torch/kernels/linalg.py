@@ -14,9 +14,12 @@ cotangent):
 
 Both go through the kernel wrappers, which take the plain PyTorch version for
 CPU tensors and the hand-written kernel for CUDA tensors, forward and
-backward alike. :func:`cinv_with` and :func:`csolve1_with` take the
-implementations as arguments, so the tests run the same autograd functions
-on the plain versions in complex128.
+backward alike. Under ``torch.func.vmap`` each autograd function folds the
+vmap axis into its system axis (the band axis of the band-parallel
+trainer), so one launch serves every band, forward and backward.
+:func:`cinv_with` and :func:`csolve1_with` take the implementations as
+arguments, so the tests run the same autograd functions on the plain
+versions in complex128.
 """
 
 from typing import Callable
@@ -25,37 +28,71 @@ import torch
 
 from . import cinv as _cinv
 from . import lu as _lu
+from .dispatch import fold_vmap_axis as _fold
+
+
+def _unfold(x: torch.Tensor, batch_size: int) -> torch.Tensor:
+    return x.reshape(batch_size, -1, *x.shape[1:])
 
 
 class _Inverse(torch.autograd.Function):
+    """P = M^-1 over (K, N, N), backward -P^H G P^H.
+
+    Under ``torch.func.vmap`` the vmap axis is folded into K, so that one
+    launch of each kernel serves every vmapped system (the band axis of the
+    band-parallel trainer)."""
+
     @staticmethod
-    def forward(ctx, m, inverse: Callable, vjp: Callable):
-        p = inverse(m)
-        ctx.save_for_backward(p)
-        ctx.vjp = vjp
-        return p
+    def forward(m, inverse: Callable, vjp: Callable):
+        return inverse(m)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(output)
+        ctx.vjp = inputs[2]
 
     @staticmethod
     def backward(ctx, g):
         (p,) = ctx.saved_tensors
         return ctx.vjp(p, g.contiguous()), None, None
 
+    @staticmethod
+    def vmap(info, in_dims, m, inverse, vjp):
+        p = _Inverse.apply(_fold(m, in_dims[0], info.batch_size), inverse, vjp)
+        return _unfold(p, info.batch_size), 0
+
 
 class _Solve1(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, m, b, solve: Callable, transposed_solve: Callable):
-        x, lu, piv = solve(m, b)
-        ctx.save_for_backward(lu, piv, x)
-        ctx.transposed_solve = transposed_solve
-        return x
+    """x = M^-1 b over (K, N, N) x (K, N); vmapped as :class:`_Inverse`."""
 
     @staticmethod
-    def backward(ctx, g):
+    def forward(m, b, solve: Callable, transposed_solve: Callable):
+        x, lu, piv = solve(m, b)
+        return x, lu, piv
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, lu, piv = output
+        ctx.save_for_backward(lu, piv, x)
+        ctx.transposed_solve = inputs[3]
+        ctx.mark_non_differentiable(lu, piv)
+
+    @staticmethod
+    def backward(ctx, g, _g_lu, _g_piv):
         lu, piv, x = ctx.saved_tensors
         y = ctx.transposed_solve(lu, piv, g.contiguous())
         dm = -(y[:, :, None] * x.conj()[:, None, :]) if ctx.needs_input_grad[0] else None
         db = y if ctx.needs_input_grad[1] else None
         return dm, db, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, m, b, solve, transposed_solve):
+        n = info.batch_size
+        x, lu, piv = _Solve1.apply(
+            _fold(m, in_dims[0], n), _fold(b, in_dims[1], n), solve, transposed_solve
+        )
+        # the factors are bins-last, (N, N, K) and (N, K): only x unfolds
+        return (_unfold(x, n), lu, piv), (0, None, None)
 
 
 def cinv_with(m: torch.Tensor, inverse: Callable, vjp: Callable) -> torch.Tensor:
@@ -72,7 +109,7 @@ def csolve1_with(
     (M, b) -> (x, lu, piv) and backward (lu, piv, G) -> M^-H G."""
     n = m.shape[-1]
     bc = torch.broadcast_to(b, m.shape[:-1])
-    x = _Solve1.apply(
+    x, _, _ = _Solve1.apply(
         m.reshape(-1, n, n).contiguous(), bc.reshape(-1, n).contiguous(), solve,
         transposed_solve,
     )

@@ -28,7 +28,7 @@ from typing import Callable, Tuple
 import torch
 
 from . import _build
-from .dispatch import runs_kernel
+from .dispatch import fold_vmap_axis, runs_kernel
 
 MAX_SECTIONS = 16  # the backward kernel's template instantiations
 BWD_THREADS = 256  # kThreads of csrc/sos.cu
@@ -187,16 +187,21 @@ class _Cascade(torch.autograd.Function):
     Saves num, den, w and the response h, which the backward reads (the
     autograd version counter raises if a caller wrote into h in place), and
     nothing when neither coefficient set needs a gradient. No gradient flows
-    to w.
+    to w. Under ``torch.func.vmap`` the vmap axis of the coefficients is
+    folded into R, so that one launch serves every vmapped cascade (the band
+    axis of the band-parallel trainer); w takes no vmap axis.
     """
 
     @staticmethod
-    def forward(ctx, num, den, w, response: Callable, backward: Callable):
-        h = response(num, den, w)
+    def forward(num, den, w, response: Callable, backward: Callable):
+        return response(num, den, w)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        num, den, w, _, backward = inputs
         if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
-            ctx.save_for_backward(num, den, w, h)
+            ctx.save_for_backward(num, den, w, output)
             ctx.backward_fn = backward
-        return h
 
     @staticmethod
     def backward(ctx, g):
@@ -206,6 +211,15 @@ class _Cascade(torch.autograd.Function):
         num, den, w, h = ctx.saved_tensors
         dnum, dden = ctx.backward_fn(num, den, w, g.contiguous(), h)
         return (dnum if need_num else None), (dden if need_den else None), None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, num, den, w, response, backward):
+        if in_dims[2] is not None:
+            raise ValueError("sos_cascade_response: z (w) cannot carry a vmap axis")
+        n = info.batch_size
+        h = _Cascade.apply(fold_vmap_axis(num, in_dims[0], n),
+                           fold_vmap_axis(den, in_dims[1], n), w, response, backward)
+        return h.reshape(n, -1, h.shape[-1]), 0
 
 
 def cascade_with(

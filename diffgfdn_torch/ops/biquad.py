@@ -2,7 +2,8 @@
 
 * :func:`svf_to_biquad` — state-variable-filter parameters -> biquad
   coefficients for whole cascades at once (torch, batched);
-* the host numpy designers the GEQ fit needs.
+* the host numpy designers the GEQ fit needs, and the host cascade response
+  :func:`sos_response_np` of the subband filters' Butterworth design.
 
 The cascade response at complex points z (the JAX package's
 ``sos_frequency_response``) is ``kernels.sos.sos_cascade_response``, which
@@ -133,6 +134,19 @@ def peak_filter_np(
     b = np.array([sg + gain_lin * t, -2.0 * sg * np.cos(omega), sg - gain_lin * t])
     a = np.array([sg + t, -2.0 * sg * np.cos(omega), sg - t])
     return b, a
+
+
+def sos_response_np(sos: np.ndarray, freqs_hz: np.ndarray, fs: float) -> np.ndarray:
+    """Exact cascade response at arbitrary frequencies (host-side).
+
+    ``sos``: (n_sections, 6). Returns complex response at ``freqs_hz``.
+    """
+    z = np.exp(1j * 2.0 * np.pi * np.asarray(freqs_hz) / fs)
+    zinv = 1.0 / z
+    zpow = np.stack([np.ones_like(zinv), zinv, zinv ** 2], axis=0)
+    num = sos[:, :3] @ zpow
+    den = sos[:, 3:] @ zpow
+    return np.prod(num / den, axis=0)
 
 
 def probe_sos_np(

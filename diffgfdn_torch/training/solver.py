@@ -6,9 +6,12 @@ trains through :class:`GFDNTrainer.fit_indexed` and exports the parameters,
 loss curves and (optionally) RIR wavs. It runs on CUDA unless the caller
 passes ``device="cpu"``.
 
+A config with ``subband_process_config`` trains one octave band: the
+trainer multiplies H by the band filter's response on the training grid
+(:func:`subband_resp`), as the JAX solver does.
+
 Not ported yet, each raising NotImplementedError: the colorless prototype
-(ROADMAP A10), the MLP hyper-parameter search (ROADMAP A10) and subband
-processing (ROADMAP A11, raised by the trainer).
+(ROADMAP A10) and the MLP hyper-parameter search (ROADMAP A10).
 """
 
 import logging
@@ -28,6 +31,7 @@ from ..data.batching import (
     train_valid_split,
 )
 from ..data.room_dataset import RoomDataset, ThreeRoomDataset
+from ..ops.filterbanks import subband_filter_response
 from ..utils.device import resolve_device
 from .build import build_gfdn_model
 from .save_results import save_diff_gfdn_parameters, save_loss
@@ -45,6 +49,24 @@ def check_sample_rate(config: DiffGFDNConfig, dataset) -> None:
             f"config.sample_rate={config.sample_rate:g} Hz but the dataset is sampled at "
             f"{ds_fs:g} Hz: set sample_rate to match the dataset"
         )
+
+
+def subband_resp(config: DiffGFDNConfig, num_freq_bins: Optional[int] = None
+                 ) -> Optional[np.ndarray]:
+    """The band filter's response (F,) complex on the training grid of a
+    subband config, None for a fullband one. ``num_freq_bins`` overrides the
+    config's nfft (the grid the loss evaluates on)."""
+    sb = config.trainer_config.subband_process_config
+    if sb is None:
+        return None
+    return subband_filter_response(
+        sb.centre_frequency,
+        sb.frequency_range,
+        sb.num_fraction_octaves,
+        config.sample_rate,
+        num_freq_bins or config.trainer_config.num_freq_bins,
+        use_amp_preserving=sb.use_amp_preserving_filterbank,
+    )
 
 
 def steps_per_epoch(num_train: int, batch_size: int) -> int:
@@ -101,8 +123,8 @@ def run_training_var_receiver_pos(
 
     trainer = GFDNTrainer(
         model, tc, steps_per_epoch=steps_per_epoch(len(train_idx), tc.batch_size),
-        common_decay_times=room_data.common_decay_times, sample_rate=config.sample_rate,
-        device=dev,
+        common_decay_times=room_data.common_decay_times,
+        subband_filter_resp=subband_resp(config), sample_rate=config.sample_rate, device=dev,
     )
     t = time.time()
     trainer.precompute_target_features(arrays)

@@ -14,6 +14,11 @@ The precomputed-target path of the JAX trainer, which
 * the sub-FDN energy normalization runs under ``no_grad``, before every step
   for scalar heads and once per epoch for SVF heads, as in the JAX trainer.
 
+A subband config's trainer (``subband_filter_resp``) multiplies H by the
+band filter's response before the losses, against the dataset's own
+targets, as the JAX trainer does; the band-parallel trainer
+(``parallel/band_parallel.py``) shares :func:`gfdn_losses` with it.
+
 Each step's gradients run through the hand-written backward kernels: B2
 (``neg_ptgpt``) behind ``block_responses`` and ``sub_fdn_output``, B4
 (``sos_cascade_backward``) behind the SVF heads, B6 (``lut_apply``) behind
@@ -71,6 +76,91 @@ def exact_valid_batches(idx: np.ndarray, batch_size: int):
     return full, idx[(n // batch_size) * batch_size :]
 
 
+def gfdn_losses(
+    model: torch.nn.Module,
+    cfg: TrainerConfig,
+    batch: Batch,
+    mixing: int,
+    max_len: int,
+    edr_win: int,
+    edr_hop: int,
+    band_resp: Optional[torch.Tensor] = None,
+    mask: Optional[torch.Tensor] = None,
+) -> Dict[str, torch.Tensor]:
+    """The weighted losses of one batch against its precomputed target
+    features (JAX ``GFDNTrainer._losses``' fast path, and the band loss of
+    ``parallel/band_parallel.py``): EDC from sample ``mixing`` to ``max_len``
+    (with the time ``mask`` when given), EDR, and with the colorless loss the
+    sub-FDNs' spectral and sparsity terms. ``band_resp`` (F,) complex, when
+    given, multiplies H (subband training); the sub-FDN terms take the
+    unfiltered loop.
+    """
+    h = model(batch)
+    if band_resp is not None:
+        h = h * band_resp
+    n = 2 * (h.shape[-1] - 1)
+    rir = torch.fft.irfft(h, n, dim=-1)
+    end = min(max_len, n)
+    losses = {
+        "edc_loss": cfg.edc_loss_weight
+        * edc_loss_from_rir(batch["target_edc_db"], rir[..., mixing:end], mask)
+    }
+    rir_env = rir
+    if cfg.reduced_pole_radius != 1.0:
+        rir_env = rir * torch.pow(
+            1.0 / cfg.reduced_pole_radius,
+            torch.arange(n, dtype=torch.float32, device=rir.device),
+        )
+    losses["edr_loss"] = cfg.edr_loss_weight * edr_loss_from_rir(
+        batch["target_edr_db"], batch["target_edr_abs_sum"], rir_env,
+        win_size=edr_win, hop_size=edr_hop,
+    )
+    if cfg.use_colorless_loss:
+        h_out, _ = model.sub_fdn_output(batch["z_values"])  # (F, G)
+        spectral_fn = amse_loss if cfg.use_asym_spectral_loss else mse_loss
+        spectral = 0.0
+        for k in range(model.num_groups):
+            spectral = spectral + cfg.spectral_loss_weight * spectral_fn(
+                h_out[..., k], torch.ones_like(h_out[..., k].real)
+            )
+        ortho = model.feedback_loop.orthogonal_blocks()
+        losses["spectral_loss"] = spectral
+        losses["sparsity_loss"] = cfg.sparsity_loss_weight * sparsity_loss(ortho[-1])
+    return losses
+
+
+@torch.no_grad()
+def upload_model_inputs(arrays, device: torch.device) -> Batch:
+    """The model's inputs for every receiver on the device, from one upload:
+    z, the positions and the early spectra (rfft of the early segments there)."""
+    nfft = 2 * (arrays.z_values.shape[0] - 1)
+    early = torch.as_tensor(arrays.target_early_time, dtype=torch.float32, device=device)
+    return {
+        "z_values": torch.as_tensor(arrays.z_values, device=device),
+        "listener_position": torch.as_tensor(arrays.listener_position, device=device),
+        "norm_listener_position": torch.as_tensor(arrays.norm_listener_position, device=device),
+        "target_early_response": torch.fft.rfft(early, n=nfft, dim=-1),
+    }
+
+
+@torch.no_grad()
+def target_features(rirs: torch.Tensor, mixing: int, max_len: int, edr_win: int,
+                    edr_hop: int) -> Batch:
+    """Target EDC (dB) from sample ``mixing`` to ``max_len``, target EDR (dB)
+    and its |.| sum of a chunk of RIRs (..., nfft)."""
+    edc = db(schroeder_backward_int(rirs[..., mixing:min(max_len, rirs.shape[-1])]),
+             is_squared=True)
+    edr = edr_from_stft(stft(rirs, edr_win, edr_hop))
+    return {"target_edc_db": edc, "target_edr_db": edr,
+            "target_edr_abs_sum": torch.sum(torch.abs(edr), dim=(-2, -1))}
+
+
+def target_rirs(arrays, nfft: int, device: torch.device) -> torch.Tensor:
+    """The dataset's target RIRs (R, nfft) on the device, zero padded or cut."""
+    rirs = torch.as_tensor(arrays.target_rir_time, dtype=torch.float32, device=device)
+    return torch.nn.functional.pad(rirs[:, :nfft], (0, max(0, nfft - rirs.shape[1])))
+
+
 class GFDNTrainer:
     """Trainer for position-conditioned (grid) GFDNs.
 
@@ -87,6 +177,7 @@ class GFDNTrainer:
         trainer_config: TrainerConfig,
         steps_per_epoch: int,
         common_decay_times: Optional[np.ndarray] = None,
+        subband_filter_resp: Optional[np.ndarray] = None,
         sample_rate: Optional[float] = None,
         device: Union[str, torch.device] = "cuda",
     ):
@@ -99,10 +190,6 @@ class GFDNTrainer:
             raise NotImplementedError(
                 "frequency weighting and the ERB-grouped EDR loss are not ported yet "
                 "(ROADMAP A5)"
-            )
-        if cfg.subband_process_config is not None:
-            raise NotImplementedError(
-                "subband training (subband_process_config) is not ported yet (ROADMAP A11)"
             )
         self.device = resolve_device(device)
         self.model = model.to(self.device)
@@ -118,6 +205,13 @@ class GFDNTrainer:
         time_len = cfg.num_freq_bins if cfg.num_freq_bins is not None else 2 ** 17
         self.edr_win = min(2 ** 12, 2 ** int(np.log2(max(time_len // 4, 8))))
         self.edr_hop = self.edr_win // 2
+
+        # subband training: H is multiplied by the band filter's response on
+        # the training grid (F,); the targets are the dataset's own
+        self.subband_filter_resp = (
+            None if subband_filter_resp is None
+            else torch.as_tensor(np.asarray(subband_filter_resp, np.complex64), device=self.device)
+        )
 
         self.train_loss: List[float] = []
         self.valid_loss: List[float] = []
@@ -139,43 +233,18 @@ class GFDNTrainer:
         ``edc_mask_values``: the EDC time mask to use when ``use_edc_mask`` is
         on; None draws one from ``mask_generator``.
         """
+        mask = None
+        if self.cfg.use_edc_mask:
+            mask = edc_mask_values
+            if mask is None:
+                n = 2 * (batch["z_values"].shape[0] - 1)
+                length = min(self.max_ir_len_samps, n) - self.mixing_time_samps
+                mask = edc_mask(length, self.mask_generator, self.device)
         with self.model.feedback_loop.sharing_orthogonal_blocks():
-            cfg = self.cfg
-            h = self.model(batch)
-            n = 2 * (h.shape[-1] - 1)
-            rir = torch.fft.irfft(h, n, dim=-1)
-            mix, end = self.mixing_time_samps, min(self.max_ir_len_samps, n)
-            mask = None
-            if cfg.use_edc_mask:
-                mask = edc_mask_values
-                if mask is None:
-                    mask = edc_mask(end - mix, self.mask_generator, rir.device)
-            losses = {
-                "edc_loss": cfg.edc_loss_weight
-                * edc_loss_from_rir(batch["target_edc_db"], rir[..., mix:end], mask)
-            }
-            rir_env = rir
-            if cfg.reduced_pole_radius != 1.0:
-                rir_env = rir * torch.pow(
-                    1.0 / cfg.reduced_pole_radius,
-                    torch.arange(n, dtype=torch.float32, device=rir.device),
-                )
-            losses["edr_loss"] = cfg.edr_loss_weight * edr_loss_from_rir(
-                batch["target_edr_db"], batch["target_edr_abs_sum"], rir_env,
-                win_size=self.edr_win, hop_size=self.edr_hop,
+            return gfdn_losses(
+                self.model, self.cfg, batch, self.mixing_time_samps, self.max_ir_len_samps,
+                self.edr_win, self.edr_hop, self.subband_filter_resp, mask,
             )
-            if cfg.use_colorless_loss:
-                h_out, _ = self.model.sub_fdn_output(batch["z_values"])  # (F, G)
-                spectral_fn = amse_loss if cfg.use_asym_spectral_loss else mse_loss
-                spectral = 0.0
-                for k in range(self.model.num_groups):
-                    spectral = spectral + cfg.spectral_loss_weight * spectral_fn(
-                        h_out[..., k], torch.ones_like(h_out[..., k].real)
-                    )
-                ortho = self.model.feedback_loop.orthogonal_blocks()
-                losses["spectral_loss"] = spectral
-                losses["sparsity_loss"] = cfg.sparsity_loss_weight * sparsity_loss(ortho[-1])
-            return losses
 
     def loss_and_grads(self, batch: Batch, edc_mask_values: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -207,22 +276,13 @@ class GFDNTrainer:
         """Target EDC (dB) after truncation, target EDR (dB) and its |.| sum per
         receiver, computed once on the device from the time-domain RIRs (zero
         padded or cut to nfft) and kept there."""
-        nfft = 2 * (arrays.z_values.shape[0] - 1)
-        rirs = torch.as_tensor(arrays.target_rir_time, dtype=torch.float32, device=self.device)
-        rirs = torch.nn.functional.pad(rirs[:, :nfft], (0, max(0, nfft - rirs.shape[1])))
-        mix, end = self.mixing_time_samps, min(self.max_ir_len_samps, nfft)
-        edcs, edrs, sums = [], [], []
-        for k in range(0, rirs.shape[0], chunk):
-            rir = rirs[k : k + chunk]
-            edcs.append(db(schroeder_backward_int(rir[..., mix:end]), is_squared=True))
-            edr = edr_from_stft(stft(rir, self.edr_win, self.edr_hop))
-            edrs.append(edr)
-            sums.append(torch.sum(torch.abs(edr), dim=(-2, -1)))
-        self.features = {
-            "target_edc_db": torch.cat(edcs),
-            "target_edr_db": torch.cat(edrs),
-            "target_edr_abs_sum": torch.cat(sums),
-        }
+        rirs = target_rirs(arrays, 2 * (arrays.z_values.shape[0] - 1), self.device)
+        chunks = [
+            target_features(rirs[k : k + chunk], self.mixing_time_samps, self.max_ir_len_samps,
+                            self.edr_win, self.edr_hop)
+            for k in range(0, rirs.shape[0], chunk)
+        ]
+        self.features = {k: torch.cat([c[k] for c in chunks]) for k in chunks[0]}
         self.data = None
 
     @torch.no_grad()
@@ -232,16 +292,7 @@ class GFDNTrainer:
         device) and the precomputed target features."""
         if self.features is None:
             self.precompute_target_features(arrays)
-        dev = self.device
-        nfft = 2 * (arrays.z_values.shape[0] - 1)
-        early = torch.as_tensor(arrays.target_early_time, dtype=torch.float32, device=dev)
-        self.data = {
-            "z_values": torch.as_tensor(arrays.z_values, device=dev),
-            "listener_position": torch.as_tensor(arrays.listener_position, device=dev),
-            "norm_listener_position": torch.as_tensor(arrays.norm_listener_position, device=dev),
-            "target_early_response": torch.fft.rfft(early, n=nfft, dim=-1),
-            **self.features,
-        }
+        self.data = {**upload_model_inputs(arrays, self.device), **self.features}
         return self.data
 
     def gather(self, idx: torch.Tensor) -> Batch:

@@ -15,6 +15,12 @@ optionally under a top-level ``"params"`` key) maps onto the port's
 Gradients map by the same rules (:func:`jax_grads_from_torch`), and the
 optimizer's parameter groups are labelled on the flax path
 (:func:`flax_path`), as the JAX package labels its tree.
+
+Band-stacked parameters (the band-parallel trainer's, and JAX's
+``BandParallelTrainer``'s) carry a leading band axis on every leaf; the
+rules transpose only the last two axes, so they map such trees as they map
+one band's. :func:`stack_jax_trees` and :func:`unstack_jax_tree` turn
+per-band trees (per-band checkpoints) into one band-stacked tree and back.
 """
 
 from typing import Dict, Iterable, List, Tuple
@@ -33,7 +39,7 @@ def torch_state_from_jax(tree: Dict) -> Dict[str, torch.Tensor]:
         for key, val in node.items():
             if key.startswith("Dense_"):
                 i = key.split("_")[1]
-                state[f"{prefix}dense.{i}.weight"] = _tensor(np.asarray(val["kernel"]).T)
+                state[f"{prefix}dense.{i}.weight"] = _tensor(np.swapaxes(val["kernel"], -1, -2))
                 state[f"{prefix}dense.{i}.bias"] = _tensor(val["bias"])
             elif key.startswith("LayerNorm_"):
                 i = key.split("_")[1]
@@ -86,8 +92,29 @@ def _flax_tree(named: Iterable[Tuple[str, torch.Tensor]]) -> Dict:
         node = tree
         for k in keys[:-1]:
             node = node.setdefault(k, {})
-        node[keys[-1]] = np.ascontiguousarray(arr.T if transpose else arr)
+        node[keys[-1]] = np.ascontiguousarray(np.swapaxes(arr, -1, -2) if transpose else arr)
     return {"params": tree}
+
+
+def band_params_as_jax(named: Iterable[Tuple[str, torch.Tensor]]) -> Dict:
+    """Named band-stacked parameters (port names) as one flax tree whose
+    leaves carry the band axis first."""
+    return _flax_tree(named)
+
+
+def stack_jax_trees(trees: List[Dict]) -> Dict:
+    """Per-band flax trees of one architecture -> one tree with a leading
+    band axis on every leaf."""
+    if isinstance(trees[0], dict):
+        return {k: stack_jax_trees([t[k] for t in trees]) for k in trees[0]}
+    return np.stack([np.asarray(t) for t in trees])
+
+
+def unstack_jax_tree(tree: Dict, band: int) -> Dict:
+    """One band's flax tree out of a band-stacked one."""
+    if isinstance(tree, dict):
+        return {k: unstack_jax_tree(v, band) for k, v in tree.items()}
+    return np.ascontiguousarray(np.asarray(tree)[band])
 
 
 def jax_params_from_torch(model: nn.Module) -> Dict:

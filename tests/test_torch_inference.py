@@ -87,10 +87,28 @@ def test_missing_checkpoint_raises(tmp_path):
 
 
 def test_subband_configs_raise_naming_the_roadmap_item(tmp_path):
+    """A subband config serves (ROADMAP A11, ported: its RIRs carry the band
+    filter's energy compensation); what A11 leaves raises naming its item:
+    the directional octave-band merge (A10)."""
+    from diffgfdn_torch.inference import infer_all_octave_bands
+    from diffgfdn_torch.training import build_gfdn_model
+    from diffgfdn_torch.utils.params import jax_params_from_torch
+
     raw = raw_config(tmp_path, svf=False, nfft=1024)
     raw["trainer_config"]["subband_process_config"] = {
-        "centre_frequency": 500.0, "frequency_range": [63.0, 8000.0]
+        "centre_frequency": 500.0, "frequency_range": [63.0, 4000.0]
     }
     _, port_room = rooms(tmp_path, False, 1024)
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        InferDiffGFDN(DiffGFDNConfig.from_dict(raw), port_room, device="cpu")
+    cfg = DiffGFDNConfig.from_dict(raw)
+    params = jax_params_from_torch(build_gfdn_model(cfg, port_room.common_decay_times,
+                                                    device="cpu"))
+    infer = InferDiffGFDN(cfg, port_room, params=params, device="cpu")
+    assert 0.0 < infer.subband_filter_norm_factor < 1.0
+    plain = InferDiffGFDN(DiffGFDNConfig.from_dict(
+        dict(raw, trainer_config=dict(raw["trainer_config"], subband_process_config=None))),
+        port_room, params=params, device="cpu")
+    np.testing.assert_allclose(infer.rirs_at([0, 1]),
+                               infer.subband_filter_norm_factor * plain.rirs_at([0, 1]),
+                               rtol=1e-6, atol=1e-9)
+    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+        infer_all_octave_bands([cfg], port_room, [0], variant="directional", device="cpu")

@@ -27,6 +27,8 @@ ring fills the card's shared memory exactly and at one a sample longer
 on two launches alike.
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -323,3 +325,101 @@ def test_tdgfdn_kernel_raises_for_mixed_devices(cuda_device):
     with pytest.raises(ValueError, match="different devices"):
         td_mod.delay_line_outputs(delays, g.to(cuda_device), a, b.to(cuda_device), u)
     assert td_mod.delay_line_outputs.launches == before
+
+
+# the band-parallel trainer's shapes: the 4-band group of the eight octave
+# bands stacks 4 x 3 x 65537 loop blocks of 4 x 4 and 4 x 12 absorption cascades
+BANDS = 4
+
+
+def _vmapped_launches(fn, leaves, g, counters):
+    """fn vmapped over the leading (band) axis of the leaves, forward and
+    backward, on the kernels and on the plain versions; returns the launches
+    of each counter in the kernels' run, and (outputs, grads) of both runs."""
+    runs = []
+    for plain in (False, True):
+        xs = [x.detach().clone().requires_grad_() for x in leaves]
+        before = [c.launches for c in counters]
+        with plain_versions() if plain else contextlib.nullcontext():
+            y = torch.func.vmap(fn)(*xs)
+            y.backward(g)
+        torch.cuda.synchronize()
+        if not plain:
+            launched = [c.launches - b for c, b in zip(counters, before)]
+        runs.append((y.detach(), [x.grad for x in xs]))
+    return launched, runs
+
+
+@pytest.mark.cuda
+def test_band_stacked_inverse_launches_b1_and_b2_once(cuda_device):
+    m = torch.from_numpy(_cinv_systems(BANDS * 3 * 65537, 4, seed=7)).to(cuda_device)
+    m = m.reshape(BANDS, 3, 65537, 4, 4)
+    g = torch.randn(m.shape, dtype=torch.complex64, device=cuda_device)
+    launched, ((p, (dm,)), (p_p, (dm_p,))) = _vmapped_launches(
+        linalg.cinv, [m], g, [cinv_mod.cinv, cinv_mod.neg_ptgpt])
+    assert launched == [1, 1]
+    assert torch.equal(p, p_p) and torch.equal(dm, dm_p)
+
+
+@pytest.mark.cuda
+def test_band_stacked_solve_launches_b5_and_b6_once(cuda_device):
+    m, b = systems(BANDS * 3 * 65537, 4, seed=8)
+    m = torch.from_numpy(m).to(cuda_device).reshape(BANDS, 3, 65537, 4, 4)
+    b = torch.from_numpy(b).to(cuda_device).reshape(BANDS, 3, 65537, 4)
+    g = torch.randn(b.shape, dtype=torch.complex64, device=cuda_device)
+    launched, ((x, (dm, db)), (x_p, (dm_p, db_p))) = _vmapped_launches(
+        linalg.csolve1, [m, b], g, [lu_mod.lu_solve, lu_mod.lut_apply])
+    assert launched == [1, 1]
+    assert torch.equal(x, x_p)
+    for out, ref in ((dm, dm_p), (db, db_p)):
+        assert max_rel(out.cpu().numpy(), ref.cpu().numpy()) <= TOL
+
+
+@pytest.mark.cuda
+def test_band_stacked_cascade_launches_b3_and_b4_once(cuda_device):
+    num, den, z = cascade(BANDS * 12, 11, 65537, seed=9)
+    num, den = (torch.from_numpy(x).to(cuda_device).reshape(BANDS, 12, 11, 3)
+                for x in (num, den))
+    z = torch.from_numpy(z).to(cuda_device)
+    g = torch.randn((BANDS, 12, 65537), dtype=torch.complex64, device=cuda_device)
+    launched, ((h, (dn, dd)), (h_p, (dn_p, dd_p))) = _vmapped_launches(
+        lambda a, d: sos_mod.sos_cascade_response(a, d, z), [num, den], g,
+        [sos_mod.sos_cascade_response, sos_mod.sos_cascade_backward])
+    assert launched == [1, 1]
+    for out, ref in ((h, h_p), (dn, dn_p), (dd, dd_p)):
+        assert max_rel(out.cpu().numpy(), ref.cpu().numpy()) <= TOL
+
+
+@pytest.mark.cuda
+def test_band_parallel_step_on_kernels_matches_plain_versions(cuda_device, tmp_path):
+    """One step of a 2-band group at nfft 2^14 (scalar heads, GEQ absorption,
+    the colorless loss): each kernel launches once, and the losses (1e-6
+    relative) and gradients (1e-3 relative L2) match the plain versions'."""
+    from diffgfdn_torch.cli import run_subband_training as rst
+    from diffgfdn_torch.data import arrays_from_room_dataset, synthetic_three_room_dataset
+
+    nfft = 2 ** 14
+    room = synthetic_three_room_dataset(tmp_path, fs=32000.0, nfft=nfft, num_rec_per_room=4,
+                                        rir_len_s=0.5)
+    room.common_decay_times = np.array([[0.3, 0.4, 0.35]] * 4) * np.linspace(1.2, 0.8, 4)[:, None]
+    room.band_centre_hz = [250.0, 500.0, 1000.0, 2000.0]
+    group = [rst.create_config(f, "unused", str(tmp_path), nfft, batch_size=8)
+             for f in (500.0, 1000.0)]
+    arrays = arrays_from_room_dataset(room)
+    trainer = rst.band_parallel_trainer(group, room, arrays, np.arange(8), cuda_device)
+    idx = torch.arange(8, device=cuda_device)
+    counters = [cinv_mod.cinv, cinv_mod.neg_ptgpt, sos_mod.sos_cascade_response,
+                lu_mod.lu_solve, lu_mod.lut_apply]
+    before = [c.launches for c in counters]
+    loss, _ = trainer.loss_and_grads(idx)
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counters, before)] == [1] * 5
+    grads = {k: p.grad.clone() for k, p in trainer.params.items()}
+    with plain_versions():
+        loss_p, _ = trainer.loss_and_grads(idx)
+    assert torch.all(torch.abs(loss - loss_p) <= 1e-6 * torch.abs(loss_p))
+    for k, p in trainer.params.items():
+        for b in range(2):
+            err = float(torch.linalg.vector_norm(grads[k][b] - p.grad[b])
+                        / torch.linalg.vector_norm(p.grad[b]))
+            assert err <= 1e-3, (k, b, err)

@@ -32,6 +32,7 @@ ROOT = Path(__file__).resolve().parents[1]
 PRESET_FILES = {
     "fullband_grid_colorless": ROOT / "configs/presets/fullband/fullband_grid_colorless.yml",
     "three_room_example": ROOT / "configs/three_room_example.yml",
+    **{p.stem: p for p in sorted((ROOT / "configs/presets/subband").glob("subband_*Hz.yml"))},
 }
 # computed fields of the JAX schema, not stored in YAML
 _COMPUTED = ("delay_length_samps", "load_fixed_parameters", "network_type")

@@ -109,3 +109,53 @@ def rel_l2(a, b) -> float:
 def edc_db(x: np.ndarray) -> np.ndarray:
     e = np.cumsum((np.asarray(x, np.float64) ** 2)[..., ::-1], axis=-1)[..., ::-1]
     return 10.0 * np.log10(e + 1e-300)
+
+
+# subband tests: three octave bands in two architecture groups (500 and 1000 Hz
+# share a 1 x 16 MLP, 2000 Hz has 2 x 16), scalar heads, GEQ absorption and
+# the colorless loss as the subband presets set them
+SUBBAND_FREQS = (500.0, 1000.0, 2000.0)
+SUBBAND_MLP = {500.0: (1, 16), 1000.0: (1, 16), 2000.0: (2, 16)}
+SUBBAND_NFFT = 2 ** 12
+
+
+def subband_room_path(tmp_path):
+    """A synthetic 24-receiver dataset at 8 kHz with the long decays above."""
+    from diffgfdn_tpu.data import generate_three_room_pickle
+
+    return generate_three_room_pickle(tmp_path / "srirs.pkl", fs=FS, num_rec_per_room=8,
+                                      rir_len_s=0.5, decay_times=DECAY_TIMES)
+
+
+def subband_rooms(path, nfft: int = SUBBAND_NFFT):
+    """(JAX dataset, port dataset) with per-band decay times (GEQ absorption)."""
+    from diffgfdn_torch.data import ThreeRoomDataset
+    from diffgfdn_tpu.data import ThreeRoomDataset as JaxThreeRoomDataset
+
+    cdt = np.stack([np.array(DECAY_TIMES)] * len(BANDS)) * np.linspace(
+        1.2, 0.8, len(BANDS))[:, None]
+    out = (JaxThreeRoomDataset(path, nfft=nfft), ThreeRoomDataset(path, nfft=nfft))
+    for room in out:
+        room.common_decay_times = cdt
+        room.band_centre_hz = BANDS
+    return out
+
+
+def subband_configs(monkeypatch, path, train_dir, nfft: int = SUBBAND_NFFT,
+                    freqs=SUBBAND_FREQS, spectral_weight=None, **kw):
+    """(JAX configs, port configs) of the bands from each package's
+    ``create_config``, with the narrow MLPs above; ``spectral_weight`` replaces
+    the colorless spectral term's weight."""
+    from diffgfdn_torch.cli import run_subband_training as port_cli
+    from diffgfdn_tpu.cli import run_subband_training as jax_cli
+
+    out = []
+    for cli in (jax_cli, port_cli):
+        monkeypatch.setattr(cli, "BAND_MLP_PARAMS", dict(SUBBAND_MLP))
+        cfgs = [cli.create_config(f, str(path), str(train_dir), nfft, sample_rate=FS,
+                                  batch_size=8, **kw) for f in freqs]
+        if spectral_weight is not None:
+            for cfg in cfgs:
+                cfg.trainer_config.spectral_loss_weight = spectral_weight
+        out.append(cfgs)
+    return out
