@@ -78,8 +78,9 @@ Phases (any failure raises and exits non-zero, with no result line):
    bands are merged into 96 broadband RIRs through ``infer_all_octave_bands``
    (finite; kernels vs plain versions rel L2 1e-3, EDC 0.01 dB over 0.5 s)
    and ``broadband_edc_errors_device`` is held to the same errors computed
-   on the host from those RIRs (within 0.2 dB + 2 %: circular against
-   linear band filtering, as the JAX package's own test).
+   on the host from those RIRs (within 0.01 dB: at nfft 131072 the circular
+   band filtering on the card and the linear one on the host agree; a
+   shrunken nfft, as in a CPU rehearsal, does not hold this limit).
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``. ``--kernel-times ROOT``
@@ -1280,8 +1281,6 @@ def tdgfdn_row(b7_inputs, launches: int) -> dict:
 SUBBAND_KERNELS = ("cinv", "neg_ptgpt", "sos", "lu", "lut_apply")
 SUBBAND_GROUP_SIZES = [2, 4, 2]  # the architecture groups of the eight default bands
 BAND_SEQ_LOSS_TOL = 1e-5  # a band of the band-parallel step vs the sequential trainer
-MERGE_EDC_ATOL_DB = 0.2   # device broadband EDC errors vs the host path: circular vs
-MERGE_EDC_RTOL = 0.02     # linear band filtering (as the JAX package's own test)
 TURNS = 4  # rounds of band-parallel and sequential steps, in turns
 SUBBAND_FS = 32000.0  # create_config's sample rate and nfft
 SUBBAND_NFFT = 131072
@@ -1596,10 +1595,10 @@ def subband(tmp: Path, log_dir):
         return np.maximum(10.0 * np.log10(np.abs(e) + eps), -200.0)
 
     errs_host = np.mean(np.abs(edc_np(rirs) - edc_np(target)), axis=-1)
-    edc_gap = float(np.max(np.abs(errs - errs_host) - MERGE_EDC_RTOL * np.abs(errs_host)))
+    edc_gap = float(np.max(np.abs(errs - errs_host)))
     require(errs.shape == (NUM_RECEIVERS,) and bool(np.isfinite(errs).all())
-            and edc_gap <= MERGE_EDC_ATOL_DB,
-            f"subband: device EDC errors vs host: worst excess {edc_gap} dB")
+            and edc_gap <= EDC_TOL_DB,
+            f"subband: device EDC errors vs host: {edc_gap} dB")
     result = {
         "bands": len(configs), "groups": [len(g) for g in groups], "epochs": TRAIN_EPOCHS,
         "batch": BATCH, "nfft": nfft, "run_s": run_s, "peak_mem_run_mb": peak_run / 2 ** 20,
@@ -1612,7 +1611,7 @@ def subband(tmp: Path, log_dir):
         "merge_rel_l2_vs_plain": merge_rel, "merge_rel_l2_late_vs_plain": merge_rel_late,
         "merge_edc_max_abs_db_vs_plain": merge_edc,
         "device_edc_s": device_edc_s, "device_edc_mean_db": float(np.mean(errs)),
-        "device_edc_max_abs_db_vs_host": float(np.max(np.abs(errs - errs_host))),
+        "device_edc_max_abs_db_vs_host": edc_gap,
     }
     return result, rows
 

@@ -145,7 +145,7 @@ def training_band_parallel(configs, room_data=None,
     from ..training.checkpoints import save_checkpoint
     from ..training.solver import check_sample_rate
     from ..utils.device import resolve_device
-    from ..utils.params import unstack_jax_tree
+    from ..utils.params import flax_tree, unstack_jax_tree
 
     dev = resolve_device(device)
     room_data = _room(configs, room_data)
@@ -161,7 +161,7 @@ def training_band_parallel(configs, room_data=None,
         trainer = band_parallel_trainer(group, room_data, arrays, train_idx, dev)
 
         def on_epoch(epoch, trainer, train_losses, valid_losses, trained, group=group):
-            tree = trainer.band_params_as_jax()  # one read of every band's parameters
+            tree = flax_tree(trainer.params.items())  # one read of every band's parameters
             for b, cfg in enumerate(group):
                 if trained[b] or epoch == 0:
                     save_checkpoint(cfg.trainer_config.train_dir, epoch, unstack_jax_tree(tree, b))

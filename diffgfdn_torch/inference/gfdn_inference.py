@@ -331,7 +331,6 @@ def broadband_edc_errors_device(
     rec_indices: Optional[np.ndarray] = None,
     batch_size: int = 32,
     fir_len: int = 2 ** 12,
-    params_per_band: Optional[List[Dict]] = None,
     device: Union[str, torch.device] = "cuda",
 ) -> np.ndarray:
     """Per-receiver mean |delta EDC| (dB) of the broadband reconstruction,
@@ -345,8 +344,6 @@ def broadband_edc_errors_device(
     by its energy compensation, summed over the bands and irfft'd; its
     Schroeder EDC from 20 ms to the longest decay time is compared with the
     target's. The errors stay on the device until the one read at the end.
-    ``params_per_band``: flax trees to use instead of each band's newest
-    checkpoint.
     """
     dev = resolve_device(device)
     if rec_indices is None:
@@ -358,11 +355,7 @@ def broadband_edc_errors_device(
     filters = band_reconstruction_filters(configs, fs, fir_len)
     delay = filters.shape[-1] // 2
     fresp = np.fft.rfft(filters, nfft, axis=-1) * np.exp(2j * np.pi * np.arange(f) * delay / nfft)
-    infers = [
-        InferDiffGFDN(cfg, room_data,
-                      params=None if params_per_band is None else params_per_band[b], device=dev)
-        for b, cfg in enumerate(configs)
-    ]
+    infers = [InferDiffGFDN(cfg, room_data, device=dev) for cfg in configs]
     # each band's filter response times its energy compensation, (bands, F)
     band_fr = torch.as_tensor(
         (np.stack([i.subband_filter_norm_factor for i in infers])[:, None] * fresp)

@@ -91,8 +91,10 @@ class _Solve1(torch.autograd.Function):
         x, lu, piv = _Solve1.apply(
             _fold(m, in_dims[0], n), _fold(b, in_dims[1], n), solve, transposed_solve
         )
-        # the factors are bins-last, (N, N, K) and (N, K): only x unfolds
-        return (_unfold(x, n), lu, piv), (0, None, None)
+        # the factors are bins-last, (N, N, n K) and (N, n K): their vmap axis
+        # unfolds in front of the system axis
+        return ((_unfold(x, n), lu.reshape(*lu.shape[:-1], n, -1),
+                 piv.reshape(*piv.shape[:-1], n, -1)), (0, 2, 1))
 
 
 def cinv_with(m: torch.Tensor, inverse: Callable, vjp: Callable) -> torch.Tensor:

@@ -25,6 +25,26 @@ from .feedback_loop import FeedbackLoop
 from .gain_heads import expand_groups_to_delay_lines, GainsFromMLP, SVFFromMLP
 
 
+BIN_CHUNK = 1024
+
+
+def _sum_over_lines(c: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """h[b, f] = sum_n c[b, n] q[f, n]: (B, N), (F, N) -> (B, F).
+
+    The bins are cut into S chunks of at most ``BIN_CHUNK`` and c is repeated over
+    them, so c's gradient is S short products summed, not one product whose
+    reduction runs over all F bins. Under ``torch.func.vmap`` the long one
+    becomes a batched product that runs on a few blocks (2.9 ms at 65537 bins
+    against 0.05 unbatched on the H100)."""
+    f, n = q.shape
+    s = -(-f // BIN_CHUNK)
+    size = -(-f // s)
+    qs = nn.functional.pad(q, (0, 0, 0, s * size - f)).reshape(s, size, n)
+    cs = c.expand(s, *c.shape)
+    h = torch.matmul(cs, qs.transpose(1, 2))  # (S, B, size)
+    return h.transpose(0, 1).reshape(c.shape[0], s * size)[:, :f]
+
+
 def _io_gains(n: int, generator: Optional[torch.Generator]) -> nn.Parameter:
     """(2 * randn - 1) / N, shape (N, 1), as the JAX package initializes b and c."""
     return nn.Parameter((2.0 * torch.randn((n, 1), generator=generator) - 1.0) / n)
@@ -136,8 +156,8 @@ class DiffGFDN(nn.Module):
 
         ``c_scalars``: (batch, N) per-line output scalars; ``b_scalars``: (N,).
         """
-        q = self.feedback_loop.drive(z, b_scalars).T
-        h = torch.matmul(c_scalars.to(torch.complex64), q)  # (B, F)
+        q = self.feedback_loop.drive(z, b_scalars)  # (F, N)
+        h = _sum_over_lines(c_scalars.to(torch.complex64), q)
         return h if direct is None else h + direct
 
 

@@ -48,7 +48,6 @@ from ..training.trainer import (
     upload_model_inputs,
 )
 from ..utils.device import resolve_device
-from ..utils.params import band_params_as_jax
 
 logger = logging.getLogger("diffgfdn_torch")
 
@@ -146,10 +145,6 @@ class BandParallelTrainer:
         """The band-stacked parameters under the single model's names (the
         optimizer labels its groups by them)."""
         return iter(self.params.items())
-
-    def band_params_as_jax(self) -> Dict:
-        """The parameters as one flax tree with a leading band axis."""
-        return band_params_as_jax(self.params.items())
 
     @torch.no_grad()
     def load_band_params(self, state: Dict[str, torch.Tensor]) -> None:

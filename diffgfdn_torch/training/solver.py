@@ -51,11 +51,9 @@ def check_sample_rate(config: DiffGFDNConfig, dataset) -> None:
         )
 
 
-def subband_resp(config: DiffGFDNConfig, num_freq_bins: Optional[int] = None
-                 ) -> Optional[np.ndarray]:
+def subband_resp(config: DiffGFDNConfig) -> Optional[np.ndarray]:
     """The band filter's response (F,) complex on the training grid of a
-    subband config, None for a fullband one. ``num_freq_bins`` overrides the
-    config's nfft (the grid the loss evaluates on)."""
+    subband config, None for a fullband one."""
     sb = config.trainer_config.subband_process_config
     if sb is None:
         return None
@@ -64,7 +62,7 @@ def subband_resp(config: DiffGFDNConfig, num_freq_bins: Optional[int] = None
         sb.frequency_range,
         sb.num_fraction_octaves,
         config.sample_rate,
-        num_freq_bins or config.trainer_config.num_freq_bins,
+        config.trainer_config.num_freq_bins,
         use_amp_preserving=sb.use_amp_preserving_filterbank,
     )
 

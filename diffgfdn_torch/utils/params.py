@@ -84,7 +84,9 @@ def flax_path(name: str) -> Tuple[List[str], bool]:
     return keys, transpose
 
 
-def _flax_tree(named: Iterable[Tuple[str, torch.Tensor]]) -> Dict:
+def flax_tree(named: Iterable[Tuple[str, torch.Tensor]]) -> Dict:
+    """Named tensors (port names) as a flax tree ``{"params": ...}`` of numpy
+    arrays; band-stacked tensors give leaves that carry the band axis first."""
     tree: Dict = {}
     for name, value in named:
         keys, transpose = flax_path(name)
@@ -94,12 +96,6 @@ def _flax_tree(named: Iterable[Tuple[str, torch.Tensor]]) -> Dict:
             node = node.setdefault(k, {})
         node[keys[-1]] = np.ascontiguousarray(np.swapaxes(arr, -1, -2) if transpose else arr)
     return {"params": tree}
-
-
-def band_params_as_jax(named: Iterable[Tuple[str, torch.Tensor]]) -> Dict:
-    """Named band-stacked parameters (port names) as one flax tree whose
-    leaves carry the band axis first."""
-    return _flax_tree(named)
 
 
 def stack_jax_trees(trees: List[Dict]) -> Dict:
@@ -120,14 +116,14 @@ def unstack_jax_tree(tree: Dict, band: int) -> Dict:
 def jax_params_from_torch(model: nn.Module) -> Dict:
     """The port's parameters as a flax tree ``{"params": ...}`` of numpy arrays,
     in the layout a JAX checkpoint holds (the inverse of :func:`torch_state_from_jax`)."""
-    return _flax_tree(model.state_dict().items())
+    return flax_tree(model.state_dict().items())
 
 
 def jax_grads_from_torch(model: nn.Module) -> Dict:
     """The port's ``.grad``s as a flax tree, mapped by the same rules as the
     parameters (Dense kernels transposed); parameters without a gradient are
     left out."""
-    return _flax_tree(
+    return flax_tree(
         (name, p.grad) for name, p in model.named_parameters() if p.grad is not None
     )
 

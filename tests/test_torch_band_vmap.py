@@ -7,7 +7,9 @@ complex128 / float64: ``torch.autograd.gradcheck`` of each vmapped function
 (its default tolerances), its outputs and gradients equal to the unbatched
 function's band by band (1e-12), one call of each implementation per
 vmapped forward and backward, and inputs without a vmap axis (a right-hand
-side or a denominator shared by every band) repeated over it.
+side or a denominator shared by every band) repeated over it. Also the
+scalar heads' chunked sum over the delay lines, vmapped, against the plain
+batched product (1e-12).
 """
 
 import numpy as np
@@ -116,3 +118,35 @@ def test_vmapped_cascade_rejects_a_vmapped_w():
     with pytest.raises(ValueError, match="vmap axis"):
         torch.func.vmap(lambda a, d, x: sos_mod.cascade_with(
             a, d, x, sos_mod.sos_cascade_plain, sos_mod.sos_cascade_backward_plain))(num, den, ws)
+
+
+def test_vmapped_solve_returns_each_bands_own_factors():
+    m = _systems((BANDS, 2), 4, 6)
+    b = torch.randn((BANDS, 2, 4), dtype=torch.complex128,
+                    generator=torch.Generator().manual_seed(6))
+
+    def solve(x, y):
+        return linalg._Solve1.apply(x, y, lu_mod.lu_solve_plain, lu_mod.lut_apply_plain)
+
+    outs = torch.func.vmap(solve)(m, b)
+    for band in range(BANDS):
+        for batched, plain in zip(outs, lu_mod.lu_solve_plain(m[band], b[band])):
+            assert torch.equal(batched[band], plain)
+
+
+@pytest.mark.parametrize("bins", [1, 1024, 1025, 2049])
+def test_chunked_line_sum_equals_the_product_under_vmap(bins):
+    from diffgfdn_torch.models.gfdn import _sum_over_lines
+
+    g = torch.Generator().manual_seed(bins)
+    c = torch.randn((BANDS, 5, 4), dtype=torch.complex128, generator=g)
+    q = torch.randn((BANDS, bins, 4), dtype=torch.complex128, generator=g)
+    grads = []
+    for fn in (torch.func.vmap(_sum_over_lines), lambda x, y: x @ y.transpose(1, 2)):
+        xs = [c.clone().requires_grad_(), q.clone().requires_grad_()]
+        h = fn(*xs)
+        assert h.shape == (BANDS, 5, bins)
+        (h.abs() ** 2).sum().backward()
+        grads.append([h.detach()] + [x.grad for x in xs])
+    for a, b in zip(*grads):  # c's gradient sums over the bins in another order
+        torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-12)

@@ -30,7 +30,7 @@ from diffgfdn_torch.parallel import BandParallelTrainer
 from diffgfdn_torch.training import build_gfdn_model, GFDNTrainer
 from diffgfdn_torch.training.solver import subband_resp
 from diffgfdn_torch.utils.params import (
-    band_params_as_jax,
+    flax_tree,
     jax_grads_from_torch,
     load_jax_params,
     stack_jax_trees,
@@ -209,7 +209,7 @@ def test_band_stacked_parameters_round_trip(tmp_path, monkeypatch):
     state = torch_state_from_jax(stacked)
     for name, p in models[1].named_parameters():
         assert torch.equal(state[name][1], p.detach())
-    back = band_params_as_jax(state.items())
+    back = flax_tree(state.items())
     for b, tree in enumerate(trees):
         one = unstack_jax_tree(back, b)
         for (pa, a), (pb, c) in zip(jax.tree_util.tree_leaves_with_path(one),
