@@ -80,7 +80,31 @@ Phases (any failure raises and exits non-zero, with no result line):
    and ``broadband_edc_errors_device`` is held to the same errors computed
    on the host from those RIRs (within 0.01 dB: at nfft 131072 the circular
    band filtering on the card and the linear one on the host agree; a
-   shrunken nfft, as in a CPU rehearsal, does not hold this limit).
+   shrunken nfft, as in a CPU rehearsal, does not hold this limit);
+8. train the directional preset ``directional_1000Hz_res0.6m`` at full
+   width (ambi order 2: N = 27 lines in 3 groups of 9, zero coupling,
+   scalar absorption; a 10 x 128 skip-connection MLP with 20 Fourier
+   features and the max-directivity beamformer; nfft 131072, batch 32; the
+   directional EDC loss with its mask, the colorless losses, the 1 kHz
+   band's response in the loss) for 2 epochs through the user entry point
+   ``run_training_anisotropic_decay_var_receiver_pos`` on the synthetic
+   spatial dataset at 32 kHz (a 0.3 m grid: 847 receivers, 12 directions,
+   9 SH channels, 0.5 s SRIRs, decay times 1.2 / 2.2 / 1.6 s, so nfft
+   131072) with the preset's 0.6 m split (232 train, 615 valid). Each
+   kernel's launch count is set to 0 just before and read just after: B1
+   and B5 once per step and validation batch, B2 and B6 once per step, B3,
+   B4, B7 never; the losses must be finite and the last checkpoint must
+   read back. One step then runs on the kernels and on the plain versions
+   (loss 1e-6 relative, gradients 1e-3 relative L2); B1, B2, B5 and B6 are
+   held bit for bit to their plain versions at that step's 9 x 9 inputs
+   and timed; timed steps must launch each exactly once. ``InferDiffGFDN``
+   with ``variant="directional"`` then serves 96 receivers' SH-domain RIRs
+   (96, 9, 131072) from the trained checkpoint (vs plain rel L2 1e-3, EDC
+   0.01 dB over 0.5 s), and ``make_time_domain_synthesis_fn`` synthesizes
+   them with one launch of B7 at N = 27 on the transposed feedback matrix
+   (vs plain, and vs the frequency path within 2e-3 of the peak and 0.01 dB
+   of EDC); B7 there is held bit for bit to its plain version and to
+   float64 numpy.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``. ``--kernel-times ROOT``
@@ -89,9 +113,9 @@ of the port's checkout under ROOT at the paths' shapes (so that two trees
 can be compared in turns in one call) and prints no result line.
 ``--log-dir`` receives the compiler's resource report and a torch.profiler
 table of one served batch and of one training step per configuration (and
-of one band-parallel step per group); their wall time, the card's busy
-time within them and its idle share join the phase-2, phase-5 and phase-7
-lines.
+of one band-parallel step per group, and of one directional step); their
+wall time, the card's busy time within them and its idle share join the
+phase-2, phase-5, phase-7 and phase-8 lines.
 """
 
 import argparse
@@ -1286,6 +1310,23 @@ SUBBAND_FS = 32000.0  # create_config's sample rate and nfft
 SUBBAND_NFFT = 131072
 
 
+def timed_row(name, source, replaces, launches, err, call, plain_call, kernel_call, cost,
+              library, shape) -> dict:
+    """A kernel's JSON row: one wrapper call (``ms``), its plain version, the
+    kernel alone (``kernel_ms``), the bound of ``cost`` (bytes, operations)
+    and the library call, timed on the card."""
+    b_ms, b_by = bound(*cost)
+    return {
+        "name": name, "route": "cuda",
+        "source": f"diffgfdn_torch/csrc/{source}", "replaces": replaces,
+        "launches": launches, "max_abs_err": err,
+        "ms": device_ms(call), "plain_ms": device_ms(plain_call),
+        "kernel_ms": kernel_ms(kernel_call), "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None if library is None else device_ms(library),
+        "shape": list(shape),
+    }
+
+
 def band_rows(inputs: dict, launches: dict, bands: int) -> list:
     """Phase 7, kernels: each kernel of the band-parallel step against its plain
     version at the inputs that step gave it (B1, B2, B5 bit for bit), timed
@@ -1311,16 +1352,9 @@ def band_rows(inputs: dict, launches: dict, bands: int) -> list:
 
     def row(name, source, replaces, launch_key, err, call, plain_call, kernel_call, cost,
             library, shape):
-        b_ms, b_by = bound(*cost)
-        return {
-            "name": f"{name} [{bands}-band group]", "route": "cuda",
-            "source": f"diffgfdn_torch/csrc/{source}", "replaces": replaces,
-            "launches": launches[launch_key], "max_abs_err": err,
-            "ms": device_ms(call), "plain_ms": device_ms(plain_call),
-            "kernel_ms": kernel_ms(kernel_call), "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None if library is None else device_ms(library),
-            "shape": list(shape),
-        }
+        return timed_row(f"{name} [{bands}-band group]", source, replaces,
+                         launches[launch_key], err, call, plain_call, kernel_call, cost,
+                         library, shape)
 
     rows = []
     (m,) = inputs["cinv"]
@@ -1616,6 +1650,355 @@ def subband(tmp: Path, log_dir):
     return result, rows
 
 
+# ----------------------------- phase 8: directional ----------------------------
+
+# the directional preset at full width: ambi order 2, N = 27 lines in 3 groups
+# of 9 (B1, B2, B5, B6 on 9 x 9 blocks), a 10 x 128 skip MLP, 20 Fourier
+# features, nfft 131072, batch 32; the synthetic spatial dataset at 32 kHz
+DIRECTIONAL_PRESET = "directional_1000Hz_res0.6m"
+DIRECTIONAL_GRID_M = 0.3  # 847 receivers (the Treble grid: 838)
+DIRECTIONAL_DECAYS = (1.2, 2.2, 1.6)  # nfft 131072, as the preset's
+DIRECTIONAL_RIR_S = 0.5
+DIRECTIONAL_RECEIVERS = 847
+# B1 / B2 in the colorless loss (one sub-FDN inverse a step, shared with the
+# per-step normalization), B5 / B6 in the transposed drive
+DIRECTIONAL_KERNELS = ("cinv", "neg_ptgpt", "lu", "lut_apply")
+
+
+def directional_rows(inputs: dict, launches: dict) -> list:
+    """Phase 8, kernels: B1, B2, B5 and B6 against their plain versions (bit
+    for bit) at the 9 x 9 inputs one directional training step gave them,
+    timed beside their bounds, plain versions and library calls."""
+    import torch
+
+    from diffgfdn_torch.kernels.cinv import cinv, neg_ptgpt
+    from diffgfdn_torch.kernels.dispatch import plain_versions
+    from diffgfdn_torch.kernels.lu import lu_solve, lut_apply
+
+    def both(fn, *args):
+        out = fn(*args)
+        with plain_versions():
+            ref = fn(*args)
+        torch.cuda.synchronize()
+        return out, ref
+
+    def plain(fn, *args):
+        with plain_versions():
+            return fn(*args)
+
+    def row(name, source, replaces, key, err, fn, args, cost, library, shape):
+        return timed_row(f"{name} [directional]", source, replaces, launches[key], err,
+                         lambda: fn(*args), lambda: plain(fn, *args), lambda: fn(*args), cost,
+                         library, shape)
+
+    (m,) = inputs["cinv"]
+    out, ref = both(cinv, m)
+    differ = [int((out != ref).sum())]
+    k, n = m.shape[0], m.shape[1]
+    rows = [row("cinv", "cinv.cu", "diffgfdn_tpu/kernels/pallas_cinv.py:34", "cinv",
+                float(torch.max(torch.abs(out - ref))), cinv, (m,), cinv_cost(k, n),
+                lambda: torch.linalg.inv(m), m.shape)]
+    p, g = inputs["neg_ptgpt"]
+    out, ref = both(neg_ptgpt, p, g)
+    differ.append(int((out != ref).sum()))
+    rows.append(row("neg_ptgpt", "cinv.cu", "diffgfdn_tpu/kernels/pallas_cinv.py:146",
+                    "neg_ptgpt", float(torch.max(torch.abs(out - ref))), neg_ptgpt, (p, g),
+                    neg_ptgpt_cost(p.shape[0], p.shape[1]), lambda: -(p.mH @ g @ p.mH),
+                    p.shape))
+    m5, b5 = inputs["lu"]
+    (x, lu, piv), (x_p, lu_p, piv_p) = both(lu_solve, m5, b5)
+    differ_b5 = [int((o != r).sum()) for o, r in ((x, x_p), (lu, lu_p), (piv, piv_p))]
+    rows.append(row("lu_solve", "lu.cu", "diffgfdn_tpu/kernels/pallas_lu.py:46", "lu",
+                    float(torch.max(torch.abs(x - x_p))), lu_solve, (m5, b5),
+                    lu_cost(m5.shape[0], m5.shape[1]),
+                    lambda: torch.linalg.solve(m5, b5.unsqueeze(-1)), m5.shape))
+    lu6, piv6, g6 = inputs["lut_apply"]
+    out, ref = both(lut_apply, lu6, piv6, g6)
+    differ.append(int((out != ref).sum()))
+    rows.append(row("lut_apply", "lu.cu", "diffgfdn_tpu/kernels/pallas_lu.py:142",
+                    "lut_apply", float(torch.max(torch.abs(out - ref))), lut_apply,
+                    (lu6, piv6, g6), lut_apply_cost(g6.shape[0], g6.shape[1]),
+                    lambda: torch.linalg.solve(m5.mH, g6.unsqueeze(-1)), g6.shape))
+    # B5's factors are those of the transposed blocks, B6 solves with them:
+    # float64 numpy on a few systems
+    m64, b64, g64 = (t[:256].cpu().numpy().astype(np.complex128) for t in (m5, b5, g6))
+    x64 = np.linalg.solve(m64, b64[..., None])[..., 0]
+    y64 = np.linalg.solve(np.conj(np.swapaxes(m64, -1, -2)), g64[..., None])[..., 0]
+    err64 = max(float(np.abs(x[:256].cpu().numpy() - x64).max() / np.abs(x64).max()),
+                float(np.abs(out[:256].cpu().numpy() - y64).max() / np.abs(y64).max()))
+    print(f"phase 8 kernels: B1 {tuple(m.shape)}, B2, B6 differ from plain in {differ} "
+          f"elements, B5 {tuple(m5.shape)} (x, factors, pivots) in {differ_b5}; B5 / B6 vs "
+          f"float64 numpy {err64:.3e}")
+    require(differ == [0, 0, 0] and differ_b5 == [0, 0, 0] and err64 <= KERNEL_TOL,
+            f"directional kernels vs plain: B1, B2, B6 {differ}, B5 {differ_b5}, f64 {err64}")
+    return rows
+
+
+def directional_b7_row(model, launches: int) -> dict:
+    """Phase 8, B7 at N = 27 on the transposed feedback matrix: against its
+    plain version bit for bit (impulse and random input) and float64 numpy,
+    timed beside its bound and plain version. The plan's ring (4096 slots at
+    steps of 512) does not fit the shared memory, so the history is in
+    device memory."""
+    import torch
+
+    from diffgfdn_torch.kernels import tdgfdn
+    from diffgfdn_torch.kernels.dispatch import plain_versions
+    from diffgfdn_torch.kernels.tdgfdn import delay_line_outputs
+
+    fl = model.feedback_loop
+    with torch.no_grad():
+        delays, g = model.delays, fl.gamma_scalar().clone()
+        a = fl.coupled_feedback_matrix().T.contiguous()
+        b = model.input_gains[:, 0].clone()
+    n, t_len = len(delays), 131072
+    impulse = torch.zeros(t_len, device=g.device)
+    impulse[0] = 1.0
+    noise = torch.from_numpy(np.random.RandomState(SEED).randn(t_len).astype(np.float32))
+    plan = tdgfdn.kernel_plan(delays, tdgfdn.shared_memory_limit(g.device))
+    err_path = None
+    for label, u in (("path", impulse), ("path_random", noise.to(g.device))):
+        out = delay_line_outputs(delays, g, a, b, u)
+        with plain_versions():
+            ref = delay_line_outputs(delays, g, a, b, u)
+        torch.cuda.synchronize()
+        differ = int((out != ref).sum())
+        head = 8192
+        ref64 = td_reference_f64(delays, g.double().cpu().numpy(), a.double().cpu().numpy(),
+                                 b.double().cpu().numpy(), u[:head].double().cpu().numpy())
+        err64 = float(np.abs(out[:head].cpu().numpy() - ref64).max() / np.abs(ref64).max())
+        require(differ == 0 and err64 <= KERNEL_TOL,
+                f"directional tdgfdn {label}: {differ} elements differ, f64 {err64}")
+        if label == "path":
+            err_path = float(torch.max(torch.abs(out - ref)))
+        print(f"tdgfdn directional {label} T={t_len} N={n} ({plan}): elements differing from "
+              f"plain {differ}, vs float64 numpy (first {head}) {err64:.3e}")
+    args = (delays, g, a, b, impulse)
+
+    def plain():
+        with plain_versions():
+            return delay_line_outputs(*args)
+
+    row = timed_row("tdgfdn [directional, N = 27]", "tdgfdn.cu",
+                    "diffgfdn_tpu/kernels/tdgfdn.py:167", launches, err_path,
+                    lambda: delay_line_outputs(*args), plain, bare_tdgfdn(tdgfdn, *args),
+                    tdgfdn_cost(t_len, n), None, (t_len, n))
+    row["plan"] = list(plan)
+    print(f"tdgfdn directional: the plan {plan} {row['kernel_ms']:.4f} ms")
+    return row
+
+
+def directional(tmp: Path, log_dir):
+    """Phase 8: the directional preset trained, served and synthesized in
+    the time domain at full width. Returns (result, kernel rows)."""
+    import torch
+
+    from diffgfdn_torch.config import preset_config
+    from diffgfdn_torch.data import (
+        generate_spatial_three_room_pickle,
+        SpatialThreeRoomDataset,
+        split_by_grid_resolution,
+    )
+    from diffgfdn_torch.inference import (
+        InferDiffGFDN,
+        make_rir_synthesis_fn,
+        make_time_domain_synthesis_fn,
+    )
+    from diffgfdn_torch.kernels.dispatch import plain_versions
+    from diffgfdn_torch.losses import edc_mask
+    from diffgfdn_torch.training import load_checkpoint
+    from diffgfdn_torch.training import run_training_anisotropic_decay_var_receiver_pos
+    from diffgfdn_torch.training.solver import steps_per_epoch
+    from diffgfdn_torch.utils.params import torch_state_from_jax
+
+    cfg = preset_config(DIRECTIONAL_PRESET)
+    tc = cfg.trainer_config
+    tc.train_dir = str(tmp / "directional" / "train")
+    tc.max_epochs = TRAIN_EPOCHS
+    fs = cfg.sample_rate
+    t0 = time.perf_counter()
+    path = generate_spatial_three_room_pickle(
+        tmp / "directional" / "srirs.pkl", fs=fs, grid_spacing_m=DIRECTIONAL_GRID_M,
+        rir_len_s=DIRECTIONAL_RIR_S, decay_times=DIRECTIONAL_DECAYS, seed=SEED)
+    room = SpatialThreeRoomDataset(path)
+    data_s = time.perf_counter() - t0
+    nfft = room.num_freq_bins
+    require(room.num_rec == DIRECTIONAL_RECEIVERS and nfft == tc.num_freq_bins,
+            f"directional dataset: {room.num_rec} receivers, nfft {nfft}")
+    train_idx, valid_idx = split_by_grid_resolution(room, tc.grid_resolution_m)
+
+    # the main path: the directional solver, as the CLI runs a preset with ambi_order
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer, model = run_training_anisotropic_decay_var_receiver_pos(cfg, room, device=DEVICE)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = launch_counts()
+    peak_run = torch.cuda.max_memory_allocated()
+    steps = TRAIN_EPOCHS * steps_per_epoch(len(train_idx), BATCH)
+    valid = TRAIN_EPOCHS * -(-len(valid_idx) // min(BATCH, len(valid_idx)))
+    for kernel in ("neg_ptgpt", "lut_apply"):
+        require(launches[kernel] == steps, f"directional: {kernel} launched "
+                f"{launches[kernel]} times in {steps} steps")
+    for kernel in ("cinv", "lu"):
+        require(launches[kernel] == steps + valid, f"directional: {kernel} launched "
+                f"{launches[kernel]} times in {steps} steps and {valid} validation batches")
+    require(launches["sos"] == launches["sos_backward"] == launches["tdgfdn"] == 0,
+            f"directional: kernels off the path launched {launches}")
+    losses = trainer.train_loss + trainer.valid_loss
+    require(len(trainer.train_loss) == TRAIN_EPOCHS and bool(np.isfinite(losses).all()),
+            f"directional: training losses {losses}")
+    saved = torch_state_from_jax(load_checkpoint(tc.train_dir, TRAIN_EPOCHS - 1))
+    for key, value in model.state_dict().items():
+        require(torch.equal(saved[key], value.cpu()), f"directional: checkpoint differs at {key}")
+
+    # one step on the kernels and on the plain versions (same parameters,
+    # batch and EDC mask); the kernels' step keeps each kernel's inputs
+    idx = torch.arange(BATCH, device=DEVICE)
+    batch = trainer.gather(idx)
+    mask = edc_mask(trainer.edc_mask_length(batch["z_values"].shape[0]),
+                    torch.Generator(device=DEVICE).manual_seed(SEED), idx.device)
+    inputs = {}
+    with recording_kernel_inputs(inputs, forward=True):
+        loss_k, _ = trainer.loss_and_grads(batch, mask)
+    grads_k = {n: p.grad.clone() for n, p in model.named_parameters()}
+    with plain_versions():
+        loss_p, _ = trainer.loss_and_grads(batch, mask)
+    grads_p = {n: p.grad.clone() for n, p in model.named_parameters()}
+    loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    grad_errs = {n: rel_l2(grads_k[n], grads_p[n]) for n in grads_k}
+    worst = max(grad_errs, key=grad_errs.get)
+    require(loss_rel <= LOSS_TOL, f"directional: step loss kernels vs plain {loss_rel}")
+    require(grad_errs[worst] <= GRAD_TOL, f"directional: gradient of {worst} kernels vs "
+            f"plain {grad_errs[worst]}")
+    rows = directional_rows(inputs, launches)
+    del inputs
+
+    # step time, as fit_indexed runs a step: warm-up, then timed steps
+    trainer.fit_step(idx)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    times = []
+    for _ in range(TIMED_STEPS):
+        t0 = time.perf_counter()
+        trainer.fit_step(idx)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    per_step = {k: launch_counts()[k] / TIMED_STEPS for k in DIRECTIONAL_KERNELS}
+    require(all(v == 1 for v in per_step.values()),
+            f"directional: launches per step {per_step}")
+    peak_step = torch.cuda.max_memory_allocated()
+    with plain_versions():
+        t0 = time.perf_counter()
+        trainer.fit_step(idx)
+        torch.cuda.synchronize()
+        plain_step_s = time.perf_counter() - t0
+    profiled = {}
+    if log_dir is not None:
+        wall, busy, ours = profile_once(lambda: trainer.fit_step(idx), "directional_step",
+                                        Path(log_dir) / "profile_train_directional.txt")
+        profiled = {"profiled_step_ms": wall, "profiled_device_busy_ms": busy,
+                    "profiled_kernels_ms": ours, "profiled_idle_share": 1.0 - busy / wall}
+    step_s = float(np.median(times))
+    for row, kernel in zip(rows, DIRECTIONAL_KERNELS):
+        row["launches_per_step"] = per_step[kernel]
+    train_loss, valid_loss = trainer.train_loss, trainer.valid_loss
+    del trainer, batch
+
+    # serving: InferDiffGFDN from the trained checkpoint, as a user serves SRIRs
+    rec = np.arange(NUM_RECEIVERS)
+    infer = InferDiffGFDN(cfg, room, variant="directional", device=DEVICE)
+    infer.rirs_at(rec[:BATCH], BATCH)  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    rirs = infer.rirs_at(rec, BATCH)
+    serve_launches = launch_counts()
+    n_ch = (cfg.ambi_order + 1) ** 2
+    require(serve_launches["lu"] == NUM_RECEIVERS // BATCH,
+            f"directional serving: B5 launched {serve_launches['lu']} times")
+    require(rirs.shape == (NUM_RECEIVERS, n_ch, nfft) and bool(np.isfinite(rirs).all()),
+            f"directional: served SRIRs {rirs.shape}, finite {np.isfinite(rirs).all()}")
+    edc = edc_db(rirs)
+    drop = edc[..., int(0.05 * fs)] - edc[..., int(1.0 * fs)]
+    require(bool((drop > 10.0).all()), f"directional: SRIRs do not decay (min {drop.min()} dB)")
+    with plain_versions():
+        plain = infer.rirs_at(rec, BATCH)
+    half_s = int(0.5 * fs)
+    serve_rel = rel_l2(torch.from_numpy(rirs), torch.from_numpy(plain))
+    serve_edc = float(np.abs(edc - edc_db(plain))[..., :half_s].max())
+    require(serve_rel <= RIR_TOL and serve_edc <= EDC_TOL_DB,
+            f"directional: served SRIRs vs plain rel L2 {serve_rel}, EDC {serve_edc} dB")
+    del plain
+    serve_times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        infer.rirs_at(rec, BATCH)
+        torch.cuda.synchronize()
+        serve_times.append(time.perf_counter() - t0)
+
+    # time domain: B7 once on the transposed feedback matrix, then the SH mix
+    batches = [infer._device_batch(rec[k:k + BATCH]) for k in range(0, NUM_RECEIVERS, BATCH)]
+
+    def mix(synth):
+        return np.concatenate([synth(b).cpu().numpy() for b in batches])
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    synth = make_time_domain_synthesis_fn(infer.model, nfft)
+    torch.cuda.synchronize()
+    factory_s = time.perf_counter() - t0
+    td = mix(synth)
+    td_launches = launch_counts()
+    require(td_launches["tdgfdn"] == 1, f"directional time domain: B7 launched "
+            f"{td_launches['tdgfdn']} times")
+    require(td.shape == rirs.shape and bool(np.isfinite(td).all()),
+            f"directional time domain: {td.shape}")
+    with plain_versions():
+        td_plain = mix(make_time_domain_synthesis_fn(infer.model, nfft))
+    td_rel = rel_l2(torch.from_numpy(td), torch.from_numpy(td_plain))
+    require(td_rel <= RIR_TOL, f"directional time domain vs plain rel L2 {td_rel}")
+    del td_plain
+    freq = mix(make_rir_synthesis_fn(infer.model, tc.reduced_pole_radius))
+    freq_err = float(np.abs(td - freq).max() / np.abs(freq).max())
+    td_edc = float(np.abs(edc_db(td) - edc_db(freq))[..., :half_s].max())
+    require(freq_err <= TD_FREQ_TOL and td_edc <= EDC_TOL_DB,
+            f"directional time domain vs frequency path {freq_err} of peak, EDC {td_edc} dB")
+    del freq, td
+    mix_times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        mix(synth)
+        torch.cuda.synchronize()
+        mix_times.append(time.perf_counter() - t0)
+    rows.append(directional_b7_row(infer.model, td_launches["tdgfdn"]))
+
+    result = {
+        "preset": DIRECTIONAL_PRESET, "receivers": room.num_rec, "train": len(train_idx),
+        "valid": len(valid_idx), "delay_lines": len(cfg.delay_length_samps), "nfft": nfft,
+        "batch": BATCH, "epochs": TRAIN_EPOCHS, "data_s": data_s, "run_s": run_s,
+        "train_loss": train_loss, "valid_loss": valid_loss,
+        "launches": {k: launches[k] for k in DIRECTIONAL_KERNELS},
+        "steps": steps, "valid_batches": valid,
+        "step_loss_rel_vs_plain": loss_rel, "max_grad_rel_l2_vs_plain": grad_errs[worst],
+        "step_ms": step_s * 1e3, "step_ms_all": [t * 1e3 for t in times],
+        "steps_per_s": 1.0 / step_s, "plain_step_ms": plain_step_s * 1e3,
+        "launches_per_step": per_step, "peak_mem_run_mb": peak_run / 2 ** 20,
+        "peak_mem_step_mb": peak_step / 2 ** 20, **profiled,
+        "served_rirs_per_s": NUM_RECEIVERS / float(np.median(serve_times)),
+        "serve_s": serve_times, "serve_rel_l2_vs_plain": serve_rel,
+        "serve_edc_max_abs_db_vs_plain": serve_edc,
+        "td_factory_ms": factory_s * 1e3, "td_mix_ms": float(np.median(mix_times)) * 1e3,
+        "td_rirs_per_s": NUM_RECEIVERS / float(np.median(mix_times)),
+        "td_rel_l2_vs_plain": td_rel, "td_max_abs_over_peak_vs_freq_path": freq_err,
+        "td_edc_max_abs_db_vs_freq_path": td_edc,
+    }
+    return result, rows
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--log-dir", default=None,
@@ -1700,6 +2083,10 @@ def main(argv=None) -> int:
         result, band_kernel_rows = subband(tmp, log_dir)
         rows += band_kernel_rows
         print(f"phase 7: subband in {time.perf_counter() - t0:.1f} s: " + json.dumps(result))
+        t0 = time.perf_counter()
+        result, directional_kernel_rows = directional(tmp, log_dir)
+        rows += directional_kernel_rows
+        print(f"phase 8: directional in {time.perf_counter() - t0:.1f} s: " + json.dumps(result))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({

@@ -3,10 +3,12 @@
     python -m diffgfdn_torch.cli.run_model -c <config.yml | preset name> [--resume]
 
 ``-c`` takes a YAML file or the name of a preset in ``config/presets.py``
-(``fullband_grid_colorless``, ``three_room_example``), which needs no YAML
-parser. Trains on CUDA unless ``--device cpu`` is given. Grid-of-receivers
-training only: single-position fits (``ir_path``) and directional FDNs
-(``ambi_order``) raise NotImplementedError (ROADMAP A10).
+(``fullband_grid_colorless``, ``three_room_example``, ``subband_<f>Hz``,
+``directional_<f>Hz_res<r>m``), which needs no YAML parser. Trains on CUDA
+unless ``--device cpu`` is given. A config with ``ambi_order`` trains a
+directional FDN on the spatial dataset at ``room_dataset_path``; any other
+trains on the receiver grid. Single-position fits (``ir_path``) raise
+NotImplementedError (ROADMAP A10).
 """
 
 import argparse
@@ -50,8 +52,6 @@ def main(argv=None) -> None:
     np.random.seed(config.seed)
     if config.ir_path is not None:
         raise NotImplementedError("single-position fits (ir_path) are not ported yet (ROADMAP A10)")
-    if config.ambi_order is not None:
-        raise NotImplementedError("directional FDNs (ambi_order) are not ported yet (ROADMAP A10)")
 
     train_dir = Path(config.trainer_config.train_dir)
     if args.wipe_train_dir and train_dir.exists():
@@ -60,9 +60,19 @@ def main(argv=None) -> None:
     with open(train_dir / "config_args.pickle", "wb") as f:
         pickle.dump(dataclasses.asdict(config), f)
 
-    from ..training.solver import run_training_var_receiver_pos
+    from ..training.solver import (
+        run_training_anisotropic_decay_var_receiver_pos,
+        run_training_var_receiver_pos,
+    )
 
-    run_training_var_receiver_pos(config, export_irs=True, resume=args.resume, device=device)
+    if config.ambi_order is not None:
+        from ..data.spatial_dataset import SpatialThreeRoomDataset
+
+        room_data = SpatialThreeRoomDataset(config.room_dataset_path)
+        run_training_anisotropic_decay_var_receiver_pos(config, room_data, resume=args.resume,
+                                                        device=device)
+    else:
+        run_training_var_receiver_pos(config, export_irs=True, resume=args.resume, device=device)
 
 
 if __name__ == "__main__":

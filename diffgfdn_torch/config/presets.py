@@ -7,7 +7,11 @@ Each mapping is exactly what ``yaml.safe_load`` returns for its file, so
   (SVF output heads, GEQ-fitted SOS absorption, 10 x 64 MLP, 20 Fourier
   features, nfft 131072, batch 32);
 * ``three_room_example``: ``configs/three_room_example.yml`` (scalar heads
-  and scalar absorption, 3 x 128 MLP, 10 Fourier features).
+  and scalar absorption, 3 x 128 MLP, 10 Fourier features);
+* ``subband_<f>Hz``: ``configs/presets/subband/subband_<f>Hz.yml``;
+* ``directional_<f>Hz_res<r>m``: ``configs/presets/directional/`` (ambi
+  order 2, 27 lines in 3 groups, a skip-connection MLP, the
+  max-directivity beamformer, the band's response in the loss).
 """
 
 import copy
@@ -158,10 +162,56 @@ def _subband_preset(freq: int) -> dict:
     return raw
 
 
+# what differs between the directional presets: per (band, grid resolution)
+# the seed and max_epochs, per band the MLP's hidden layers and Fourier features
+DIRECTIONAL_RUNS = {
+    (63, 0.6): (123637, 15), (63, 0.9): (123637, 15),
+    (125, 0.6): (12335, 15), (125, 0.9): (12335, 15),
+    (250, 0.6): (23644, 15), (250, 0.9): (23644, 15),
+    (500, 0.6): (27359, 15), (500, 0.9): (27360, 20),
+    (1000, 0.6): (23649, 15), (1000, 0.9): (23680, 20),
+    (2000, 0.6): (25647, 15), (2000, 0.9): (25647, 20),
+    (4000, 0.6): (23649, 15), (4000, 0.9): (23645, 15),
+    (8000, 0.6): (26854, 15), (8000, 0.9): (26854, 15),
+}
+DIRECTIONAL_MLP = {63: (5, 20), 125: (5, 20), 250: (5, 20), 500: (10, 20), 1000: (10, 20),
+                   2000: (10, 20), 4000: (10, 20), 8000: (10, 10)}
+
+
+def _directional_preset(freq: int, res: float) -> dict:
+    """``configs/presets/directional/directional_<freq>Hz_res<res>m.yml``."""
+    raw = copy.deepcopy(FULLBAND_GRID_COLORLESS)
+    seed, epochs = DIRECTIONAL_RUNS[(freq, res)]
+    layers, fourier = DIRECTIONAL_MLP[freq]
+    out = f"output/directional_fdn/band_{freq}Hz/grid_resolution={res}m/"
+    raw.update(ambi_order=2, num_delay_lines=27, seed=seed,
+               room_dataset_path=f"resources/Georg_3room_FDTD/srirs_spatial_band_centre={freq}Hz.pkl")
+    raw["decay_filter_config"]["use_absorption_filters"] = False
+    raw["output_filter_config"].update(
+        beamformer_type="max_directivity", num_fourier_features=fourier,
+        num_hidden_layers=layers, num_neurons_per_layer=128, use_skip_connections=True,
+        use_svfs=False,
+    )
+    raw["trainer_config"].update(
+        coupling_angle_lr=0.01, edc_loss_weight=10.0, grid_resolution_m=res,
+        hold_out_test_set=None, io_lr=0.001, ir_dir=out + "audio/", lr=0.01,
+        max_epochs=epochs, save_true_irs=True, sparsity_loss_weight=2.0,
+        subband_process_config={
+            "centre_frequency": float(freq),
+            "frequency_range": [63.0, 8000.0],
+            "num_fraction_octaves": 1,
+            "use_amp_preserving_filterbank": True,
+        },
+        train_dir=out, train_valid_split=None, use_asym_spectral_loss=True, use_edc_mask=True,
+    )
+    return raw
+
+
 PRESETS: Dict[str, dict] = {
     "fullband_grid_colorless": FULLBAND_GRID_COLORLESS,
     "three_room_example": THREE_ROOM_EXAMPLE,
     **{f"subband_{f}Hz": _subband_preset(f) for f in SUBBAND_MLP},
+    **{f"directional_{f}Hz_res{r}m": _directional_preset(f, r) for f, r in DIRECTIONAL_RUNS},
 }
 
 

@@ -4,13 +4,15 @@ Given a checkpoint (the JAX package's format, ``training/checkpoints.py``)
 and dataset receiver indices, run the model over the receivers' positions
 and irfft the transfer function to RIRs of shape (B, nfft)
 (:class:`InferDiffGFDN`), or run the loop in the time domain with no time
-aliasing (:func:`make_time_domain_synthesis_fn`).
+aliasing (:func:`make_time_domain_synthesis_fn`). A directional model
+serves SH-domain RIRs (B, (ambi_order + 1)^2, nfft) from a spatial dataset.
 
 Subband models (one per octave band) are merged into broadband RIRs by
 their reconstructing filterbank (:func:`infer_all_octave_bands`), or
 compared with the measured RIRs' EDCs on the card without any RIR reaching
 the host (:func:`broadband_edc_errors_device`). Their time-domain synthesis
-and merge are not ported yet (ROADMAP A11).
+and merge are not ported yet (ROADMAP A11), nor the octave-band merge of
+directional models (ROADMAP A10, with A12's common-slopes synthesis).
 """
 
 from typing import Callable, Dict, List, Optional, Union
@@ -22,8 +24,9 @@ import torch
 from ..config.schema import DiffGFDNConfig
 from ..data.batching import arrays_from_room_dataset
 from ..data.room_dataset import RoomDataset
+from ..data.spatial_dataset import arrays_from_spatial_dataset
 from ..kernels.tdgfdn import delay_line_outputs, delay_line_outputs_filtered, filter_bank_from_sos
-from ..models import DiffGFDNVarReceiverPos
+from ..models import DiffDirectionalFDNVarReceiverPos, DiffGFDNVarReceiverPos
 from ..models.gain_heads import expand_groups_to_delay_lines
 from ..ops.basic import db, ms_to_samps, schroeder_backward_int
 from ..ops.filterbanks import reconstructing_fractional_octave_bands
@@ -36,13 +39,16 @@ from ..utils.params import load_jax_params
 # the batch entries DiffGFDNVarReceiverPos reads
 MODEL_INPUTS = ("z_values", "listener_position", "norm_listener_position",
                 "target_early_response")
+# the batch entries DiffDirectionalFDNVarReceiverPos reads
+DIRECTIONAL_INPUTS = ("z_values", "listener_position", "norm_listener_position")
 
 
 def make_rir_synthesis_fn(
     model: torch.nn.Module, reduced_pole_radius: float = 1.0,
     external_amplitudes: bool = False,
 ) -> Callable[..., torch.Tensor]:
-    """``synth(batch) -> RIRs (B, nfft)`` float32, on the batch's device.
+    """``synth(batch) -> RIRs (B, nfft)`` float32, on the batch's device
+    ((B, L, nfft) SH-domain RIRs for a directional model).
 
     irffts the model's transfer function and undoes sampling outside the
     unit circle with a growing exponential. Forward only: no autograd graph.
@@ -82,22 +88,28 @@ def make_time_domain_synthesis_fn(
 
     * scalar heads: the per-position mix is one (B, N) x (N, T) product;
     * SVF heads: the per-group output filters (short IIRs) are applied by a
-      zero-padded rFFT product at nfft2 = next_pow2(num_samples + 4096).
+      zero-padded rFFT product at nfft2 = next_pow2(num_samples + 4096);
+    * directional models: the loop runs on the TRANSPOSED feedback matrix
+      (the model reads q = P^T b, and P^T = (D Gamma^-1 - A^T)^-1 since the
+      delay and absorption part is diagonal), and each position's SH weights
+      mix the line outputs per SH channel: (B, L, num_samples) SRIRs.
 
     The direct part is not added (renderers splice it separately). ``batch``
     holds ``listener_position`` and ``norm_listener_position`` (B, 3) on the
     model's device.
     """
-    if not isinstance(model, DiffGFDNVarReceiverPos):
+    directional = isinstance(model, DiffDirectionalFDNVarReceiverPos)
+    if not (directional or isinstance(model, DiffGFDNVarReceiverPos)):
         raise NotImplementedError(
-            f"time-domain synthesis of {type(model).__name__} (directional and other "
-            "GFDN variants) is not ported yet (ROADMAP A10)"
+            f"time-domain synthesis of {type(model).__name__} is not ported yet (ROADMAP A10)"
         )
     fl = model.feedback_loop
     nper = model.num_delay_lines_per_group
     delays = model.delays
     with torch.no_grad():
         a = fl.coupled_feedback_matrix()
+        if directional:
+            a = a.T.contiguous()
         b = model.input_gains[:, 0]
         impulse = torch.zeros(num_samples, dtype=torch.float32, device=b.device)
         impulse[0] = 1.0
@@ -106,6 +118,16 @@ def make_time_domain_synthesis_fn(
             y = delay_line_outputs_filtered(delays, bank, a, b, impulse)
         else:
             y = delay_line_outputs(delays, fl.gamma_scalar(), a, b, impulse)  # (T, N)
+
+    if directional:
+        y_gl = y.reshape(num_samples, model.num_groups, nper)
+
+        @torch.no_grad()
+        def synth(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+            # rir_sh[b, l, t] = sum_g w[b, g, l] y[t, g, l]
+            return torch.einsum("bgl,tgl->blt", model.sh_weights(batch), y_gl)
+
+        return synth
 
     if not model.use_svf_in_output:
         @torch.no_grad()
@@ -143,7 +165,10 @@ class InferDiffGFDN:
     ``params``: a flax-layout parameter tree (as a checkpoint holds it);
     None loads the newest checkpoint under ``trainer_config.train_dir``.
     ``device`` defaults to CUDA and raises without a card unless the caller
-    passes ``device="cpu"``.
+    passes ``device="cpu"``. ``variant="directional"`` takes a spatial
+    dataset and builds the model as the directional solver does, for the
+    dataset's directions: it serves (B, L, nfft) SH-domain RIRs. (The JAX
+    package's class cannot build that model: it passes no directions.)
     """
 
     def __init__(
@@ -158,12 +183,14 @@ class InferDiffGFDN:
         tc = config.trainer_config
         self.config = config
         self.room_data = room_data
+        directional = variant == "directional"
         self.model = build_gfdn_model(
             config,
             common_decay_times=room_data.common_decay_times,
             band_centre_hz=room_data.band_centre_hz,
             variant=variant,
             device=self.device,
+            desired_directions=room_data.desired_directions if directional else None,
         )
         if params is None:
             params = load_latest_checkpoint(tc.train_dir, tc.max_epochs)
@@ -173,7 +200,9 @@ class InferDiffGFDN:
         self.model.eval()
         self._synth = make_rir_synthesis_fn(self.model, tc.reduced_pole_radius)
         self._amp_synth = None  # built on the first rirs_with_amplitudes call
-        self.arrays = arrays_from_room_dataset(
+        self._inputs = DIRECTIONAL_INPUTS if directional else MODEL_INPUTS
+        to_arrays = arrays_from_spatial_dataset if directional else arrays_from_room_dataset
+        self.arrays = to_arrays(
             room_data,
             new_sampling_radius=(
                 None if tc.reduced_pole_radius == 1.0 else 1.0 / tc.reduced_pole_radius
@@ -195,7 +224,7 @@ class InferDiffGFDN:
 
     def _device_batch(self, idx: np.ndarray) -> Dict[str, torch.Tensor]:
         """The model's inputs only: the late and full target planes are never read."""
-        batch = {k: getattr(self.arrays, k)[idx] for k in MODEL_INPUTS if k != "z_values"}
+        batch = {k: getattr(self.arrays, k)[idx] for k in self._inputs if k != "z_values"}
         batch["z_values"] = self.arrays.z_values  # shared by every receiver
         return {k: torch.from_numpy(v).to(self.device) for k, v in batch.items()}
 
@@ -225,7 +254,8 @@ class InferDiffGFDN:
         return self.subband_filter_norm_factor * np.concatenate(outs, axis=0)
 
     def rirs_at(self, rec_indices: np.ndarray, batch_size: int = 32) -> np.ndarray:
-        """Synthesize RIRs (len(rec_indices), nfft) at the dataset receiver indices."""
+        """Synthesize RIRs (len(rec_indices), nfft) at the dataset receiver
+        indices ((len(rec_indices), L, nfft) for a directional model)."""
         return self._batched_synth(self._synth, rec_indices, batch_size)
 
     def rirs_with_amplitudes(
@@ -237,7 +267,7 @@ class InferDiffGFDN:
         head's per-group gains (driving a trained GFDN from a common-slopes
         model's amplitude predictions). Scalar-head models only.
         """
-        if self.model.use_svf_in_output:
+        if not isinstance(self.model, DiffGFDNVarReceiverPos) or self.model.use_svf_in_output:
             raise ValueError(
                 "direct CS-amplitude injection needs a scalar-head model "
                 "(use_svf_in_output=False)"
@@ -315,7 +345,12 @@ def infer_all_octave_bands(
     """Broadband RIRs (len(rec_indices), nfft) from one subband model per
     octave band: each band model's RIRs (from its newest checkpoint), band
     filtered by the reconstructing filterbank and summed on the host
-    (:func:`merge_subband_rirs`)."""
+    (:func:`merge_subband_rirs`). Omnidirectional band models only."""
+    if variant != "var_receiver":
+        raise NotImplementedError(
+            f"the octave-band merge of {variant!r} models is not ported yet (ROADMAP A10, "
+            "with A12's common-slopes synthesis)"
+        )
     filters = band_reconstruction_filters(configs, room_data.sample_rate, fir_len)
     band_rirs = [
         InferDiffGFDN(cfg, room_data, variant=variant, device=device).rirs_at(rec_indices)

@@ -1,7 +1,9 @@
 """GFDN training losses against precomputed targets (port of ``losses/gfdn.py``).
 
 The trainer precomputes the parameter-independent target EDC and EDR once
-per dataset; these losses compare the model's RIRs with them. The random EDC
+per dataset; these losses compare the model's RIRs with them. The
+directional EDC loss compares a directional model's beamformed EDCs with
+the common-slope amplitudes times decay envelopes. The random EDC
 time mask is an explicit tensor, or drawn from a ``torch.Generator``
 (probabilities ~ U(0, 1), then Bernoulli): ``jax.random`` bits cannot be
 reproduced, so tests hand both packages the same mask.
@@ -64,3 +66,60 @@ def edr_loss_from_rir(
     if target_edr_db.dim() == 3:
         return torch.sum(torch.sum(freq_loss, dim=-1) / target_edr_abs_sum)
     return torch.sum(freq_loss) / target_edr_abs_sum
+
+
+def _directional_edc_from_rir(
+    pred_rir: torch.Tensor,
+    amps_true: torch.Tensor,
+    envelopes: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Mean |dB| error between the Schroeder EDCs of directional RIRs
+    (B, J, T) and the envelopes (num_slopes, >= T) weighted by the
+    common-slope amplitudes (B, J, num_slopes); ``mask`` as in
+    :func:`edc_loss_from_rir`."""
+    edc_pred = schroeder_backward_int(pred_rir)
+    t = edc_pred.shape[-1]
+    edc_true = torch.matmul(amps_true.to(torch.float32), envelopes[:, :t])
+    err = torch.abs(db(edc_true, is_squared=True) - db(edc_pred, is_squared=True))
+    if mask is None:
+        return torch.mean(err)
+    items = err.numel() // err.shape[-1]
+    return torch.sum(err * mask) / (torch.sum(mask) * items + 1e-9)
+
+
+def directional_edc_loss(
+    h_pred: torch.Tensor,
+    amps_true: torch.Tensor,
+    envelopes: torch.Tensor,
+    mixing_time_samps: int,
+    edc_len_samps: int,
+    mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """EDC error of directional transfer functions (B, J, F) from sample
+    ``mixing_time_samps`` on, ``edc_len_samps`` long."""
+    n = 2 * (h_pred.shape[-1] - 1)
+    pred_rir = torch.fft.irfft(h_pred, n, dim=-1)[
+        ..., mixing_time_samps:edc_len_samps + mixing_time_samps
+    ]
+    return _directional_edc_from_rir(pred_rir, amps_true, envelopes, mask)
+
+
+def directional_edc_loss_from_sh(
+    h_sh: torch.Tensor,
+    analysis_matrix: torch.Tensor,
+    amps_true: torch.Tensor,
+    envelopes: torch.Tensor,
+    mixing_time_samps: int,
+    edc_len_samps: int,
+    mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The same loss fed the SH-domain response (B, L, F): the L SH channels
+    are irfft'd, cut to the window, and beamformed to the J directions by the
+    analysis matrix (J, L) as a real product (the matrix commutes with the
+    irfft), so no (B, J, F) complex intermediate is made."""
+    n = 2 * (h_sh.shape[-1] - 1)
+    hi = min(edc_len_samps + mixing_time_samps, n)
+    rir_sh = torch.fft.irfft(h_sh, n, dim=-1)[..., mixing_time_samps:hi]
+    pred_rir = torch.matmul(analysis_matrix.to(torch.float32), rir_sh)  # (B, J, T)
+    return _directional_edc_from_rir(pred_rir, amps_true, envelopes, mask)

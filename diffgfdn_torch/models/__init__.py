@@ -1,6 +1,7 @@
-"""GFDN models: MLP heads, the feedback loop and DiffGFDNVarReceiverPos."""
+"""GFDN models: MLP heads, the feedback loop, DiffGFDNVarReceiverPos and the
+directional DiffDirectionalFDNVarReceiverPos."""
 
 from .feedback_loop import FeedbackLoop
-from .gfdn import DiffGFDN, DiffGFDNVarReceiverPos
+from .gfdn import DiffDirectionalFDNVarReceiverPos, DiffGFDN, DiffGFDNVarReceiverPos
 
-__all__ = ["DiffGFDN", "DiffGFDNVarReceiverPos", "FeedbackLoop"]
+__all__ = ["DiffDirectionalFDNVarReceiverPos", "DiffGFDN", "DiffGFDNVarReceiverPos", "FeedbackLoop"]

@@ -1,4 +1,4 @@
-"""DNN building blocks (port of ``diffgfdn_tpu/models/dnn.py``, serving subset).
+"""DNN building blocks (port of ``diffgfdn_tpu/models/dnn.py``: the MLPs and the encoding).
 
 Layer order, initializers and LayerNorm epsilon follow the flax modules so
 that parameters carried over from the JAX package (``utils/params.py``)
@@ -86,3 +86,46 @@ class MLP(nn.Module):
         for dense, norm in zip(self.dense[:-1], self.norm):
             h = torch.relu(norm(dense(h)))
         return self.dense[-1](h).reshape(x.shape[0], *self.out_shape)
+
+
+class ResidualBlock(nn.Module):
+    """Linear + LayerNorm + ReLU with an additive skip (width kept)."""
+
+    def __init__(self, num_neurons: int, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.dense = nn.ModuleList([_kaiming_uniform_linear(num_neurons, num_neurons, generator)])
+        self.norm = nn.ModuleList([nn.LayerNorm(num_neurons, eps=LAYER_NORM_EPS)])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.relu(self.norm[0](self.dense[0](x))) + x
+
+
+class MLPSkipConnections(nn.Module):
+    """ResNet-style MLP emitting (B, G, K, P): an input layer, then
+    ``num_hidden_layers`` residual blocks, then the output layer."""
+
+    def __init__(
+        self,
+        in_features: int,
+        num_hidden_layers: int,
+        num_neurons: int,
+        num_groups: int,
+        num_biquads: int = 1,
+        num_params: int = 1,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        self.out_shape = (num_groups, num_biquads, num_params)
+        first = _kaiming_uniform_linear(in_features, num_neurons, generator)
+        self.norm = nn.ModuleList([nn.LayerNorm(num_neurons, eps=LAYER_NORM_EPS)])
+        self.blocks = nn.ModuleList(
+            [ResidualBlock(num_neurons, generator) for _ in range(num_hidden_layers)]
+        )
+        out = num_groups * num_biquads * num_params
+        self.dense = nn.ModuleList([first, _kaiming_uniform_linear(num_neurons, out, generator)])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = torch.relu(self.norm[0](self.dense[0](x)))
+        for block in self.blocks:
+            h = block(h)
+        return self.dense[1](h).reshape(x.shape[0], *self.out_shape)

@@ -189,13 +189,19 @@ class FeedbackLoop(nn.Module):
             p[:, s:s + nper, s:s + nper] = p_blocks[k]
         return p
 
-    def drive(self, z: torch.Tensor, b_vec: torch.Tensor) -> torch.Tensor:
-        """q(z) = P(z) b, shape (F, N) complex64, by the single-RHS LU solve."""
+    def drive(self, z: torch.Tensor, b_vec: torch.Tensor, transpose: bool = False) -> torch.Tensor:
+        """q(z) = P(z) b, or P(z)^T b with ``transpose``, shape (F, N) complex64,
+        by the single-RHS LU solve (with the transposed blocks, which the
+        solve makes contiguous before its launch)."""
         b_c = b_vec.to(torch.complex64)
         f = z.shape[0]
         if self.is_block_diagonal:
             g, nper = self.num_groups, self.num_delay_lines_per_group
             b_g = b_c.reshape(g, nper)
-            q = csolve1(self.loop_matrix_blocks(z), b_g[:, None, :].expand(g, f, nper))
+            m = self.loop_matrix_blocks(z)
+            if transpose:
+                m = m.transpose(-1, -2)
+            q = csolve1(m, b_g[:, None, :].expand(g, f, nper))
             return q.transpose(0, 1).reshape(f, self.num_delays)
-        return csolve1(self.loop_matrix(z), b_c)
+        m = self.loop_matrix(z)
+        return csolve1(m.transpose(-1, -2) if transpose else m, b_c)

@@ -7,7 +7,9 @@ rFFT bins at once.
   forms (general, per-group filter heads, frequency-independent heads) and
   the lossless per-group responses ``sub_fdn_output``;
 * :class:`DiffGFDNVarReceiverPos` — output gains (scalar heads) or SVF
-  filters (SVF heads) conditioned on the listener position via an MLP.
+  filters (SVF heads) conditioned on the listener position via an MLP;
+* :class:`DiffDirectionalFDNVarReceiverPos` — SH-domain output gains for
+  directional (ambisonic) FDNs: (B, (ambi_order + 1)^2, F) per position.
 
 ``forward`` returns H alone: the trainer calls ``sub_fdn_output`` itself
 when the colorless loss is on, so serving never computes it.
@@ -23,6 +25,7 @@ from ..config.schema import CouplingMatrixType, FeatureEncodingType
 from ..kernels.linalg import cinv
 from .feedback_loop import FeedbackLoop
 from .gain_heads import expand_groups_to_delay_lines, GainsFromMLP, SVFFromMLP
+from .spatial import DirectionalBeamformerWeightsMLP
 
 
 BIN_CHUNK = 1024
@@ -83,20 +86,29 @@ class DiffGFDN(nn.Module):
             generator=generator,
         )
 
-    def sub_fdn_output(self, z: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Lossless response of each sub-FDN (no absorption, no coupling).
-
-        Each group's loop is diag(z^m) - ortho(M_g), inverted per bin through
-        the Gauss-Jordan kernel. Returns (Hout (F, G), Hout_per_del
-        (G, Nper, F)): the per-group output and the per-delay-line
-        contributions c_n (P b)_n.
-        """
+    def sub_fdn_inverse(self, z: torch.Tensor) -> torch.Tensor:
+        """P_g(z) = (diag(z^m) - ortho(M_g))^-1 of each lossless sub-FDN,
+        (G, F, Nper, Nper), through the Gauss-Jordan kernel. It depends on M
+        alone, not on the io gains."""
         g, nper = self.num_groups, self.num_delay_lines_per_group
         fl = self.feedback_loop
         delays = fl.delays.reshape(g, nper)
         o = fl.orthogonal_blocks().to(torch.complex64)  # (G, Nper, Nper)
         d = (z[None, :, None] ** delays[:, None, :]).to(torch.complex64)  # (G, F, Nper)
-        p = cinv(torch.diag_embed(d) - o[:, None])  # (G, F, Nper, Nper)
+        return cinv(torch.diag_embed(d) - o[:, None])
+
+    def sub_fdn_output(
+        self, z: torch.Tensor, p: Optional[torch.Tensor] = None
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Lossless response of each sub-FDN (no absorption, no coupling).
+
+        Returns (Hout (F, G), Hout_per_del (G, Nper, F)): the per-group output
+        and the per-delay-line contributions c_n (P b)_n, with P the given
+        :meth:`sub_fdn_inverse` at z or, when None, computed here.
+        """
+        g, nper = self.num_groups, self.num_delay_lines_per_group
+        if p is None:
+            p = self.sub_fdn_inverse(z)
         c = self.output_gains.reshape(g, nper).to(torch.complex64)
         b = self.input_gains.reshape(g, nper).to(torch.complex64)
         h_per_del = c[:, :, None] * torch.einsum("gfnm,gm->gnf", p, b)
@@ -225,3 +237,67 @@ class DiffGFDNVarReceiverPos(DiffGFDN):
             _, params = self.output_filters(x, return_params=True)
             return params
         return {"gains": self.output_scalars(x)}
+
+
+class DiffDirectionalFDNVarReceiverPos(DiffGFDN):
+    """Directional (ambisonic) FDN with SH-domain output gains from an MLP.
+
+    Each group has (ambi_order + 1)^2 delay lines, one per SH channel;
+    ``forward`` returns (B, (ambi_order + 1)^2, F). ``analysis_matrix``
+    (J, (ambi_order + 1)^2) beamforms SH responses to J directions.
+    """
+
+    use_svf_in_output = False  # frequency-independent heads: per-step normalization
+
+    def __init__(
+        self,
+        *args,
+        ambi_order: int = 2,
+        num_fourier_features: int = 10,
+        num_hidden_layers: int = 3,
+        num_neurons: int = 128,
+        use_skip_connections: bool = False,
+        analysis_matrix: Optional[np.ndarray] = None,
+        generator: Optional[torch.Generator] = None,
+        **kwargs,
+    ):
+        super().__init__(*args, generator=generator, **kwargs)
+        if self.num_delay_lines_per_group != (ambi_order + 1) ** 2:
+            raise ValueError("delay lines per group must equal the number of ambisonic channels")
+        self.ambi_order = ambi_order
+        self.sh_output_scalars = DirectionalBeamformerWeightsMLP(
+            num_groups=self.num_groups, ambi_order=ambi_order,
+            num_fourier_features=num_fourier_features, num_hidden_layers=num_hidden_layers,
+            num_neurons=num_neurons, use_skip_connections=use_skip_connections,
+            generator=generator,
+        )
+        self.register_buffer(
+            "analysis_matrix",
+            None if analysis_matrix is None
+            else torch.as_tensor(np.asarray(analysis_matrix, np.float32)),
+            persistent=False,
+        )
+
+    def sh_weights(self, x: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """(B, G, L) per-line output weights: the normalized SH gains of each
+        position times the output gains."""
+        g, nper = self.num_groups, self.num_delay_lines_per_group
+        sh_gains = self.sh_output_scalars(x, normalise=True)
+        return sh_gains * self.output_gains.reshape(g, nper)[None]
+
+    def forward(self, x: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """(B, L, F) complex SH-domain transfer functions at the batch's positions.
+
+        The drive reads the transposed loop, q = P(z)^T b, solved once for
+        all positions; each group's L lines then mix with the position's
+        weights, summed over the groups: h[b, a, f] = sum_g w[b, g, a] q[g, a, f].
+        """
+        z = x["z_values"]
+        g, nper, f = self.num_groups, self.num_delay_lines_per_group, z.shape[0]
+        q = self.feedback_loop.drive(z, self.input_gains[:, 0], transpose=True)
+        q = q.T.reshape(g, nper, f)
+        return torch.einsum("bga,gaf->baf", self.sh_weights(x).to(torch.complex64), q)
+
+    def directional_response(self, h_sh: torch.Tensor) -> torch.Tensor:
+        """SH-domain responses (B, L, K) -> directional (B, J, K) by the analysis matrix."""
+        return torch.einsum("jl,blk->bjk", self.analysis_matrix.to(h_sh.dtype), h_sh)

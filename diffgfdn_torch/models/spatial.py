@@ -1,0 +1,76 @@
+"""Directional beamforming heads (port of ``diffgfdn_tpu/models/spatial.py``, subset).
+
+:func:`build_analysis_matrix` designs the SH-domain analysis matrix on the
+host (``ops/sph.py``); :class:`DirectionalBeamformerWeightsMLP` maps a
+receiver position to per-group SH beamforming weights. The common-slopes
+CNN and omni heads wait for ROADMAP A12.
+"""
+
+from typing import Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..config.schema import BeamformerType
+from ..ops.sph import design_sph_filterbank, modal_weights
+from .dnn import MLP, MLPSkipConnections, SinusoidalEncoding
+
+
+def build_analysis_matrix(
+    ambi_order: int,
+    desired_directions: np.ndarray,
+    beamformer_type: Optional[BeamformerType],
+) -> np.ndarray:
+    """SH-domain analysis (beamforming) matrix (num_directions, (N+1)^2) float32.
+
+    ``desired_directions``: (2, J) (azimuth, elevation) in radians; the
+    design takes the colatitude pi/2 - elevation.
+    """
+    c_n = modal_weights(beamformer_type, ambi_order)
+    azi = desired_directions[0]
+    colat = np.pi / 2 - desired_directions[1]
+    analysis, _ = design_sph_filterbank(ambi_order, azi, colat, c_n, mode="energy")
+    return analysis.astype(np.float32)
+
+
+def normalise_weights(weights: torch.Tensor) -> torch.Tensor:
+    """Unit-energy normalization along the SH-component axis."""
+    return weights / (torch.linalg.vector_norm(weights, dim=-1, keepdim=True) + 1e-6)
+
+
+class DirectionalBeamformerWeightsMLP(nn.Module):
+    """MLP: receiver position -> SH beamforming weights (B, num_groups, (ambi_order+1)^2).
+
+    The MLP is ``skip_mlp`` (residual blocks) with ``use_skip_connections``,
+    else ``mlp``: the names the parameter mapping (``utils/params.py``) gives
+    the flax modules ``MLPSkipConnections_0`` and ``MLP_0``.
+    """
+
+    def __init__(
+        self,
+        num_groups: int,
+        ambi_order: int,
+        num_fourier_features: int,
+        num_hidden_layers: int,
+        num_neurons: int,
+        use_skip_connections: bool = False,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        self.num_groups = num_groups
+        self.num_out = (ambi_order + 1) ** 2
+        self.encoding = SinusoidalEncoding(num_fourier_features)
+        args = (3 * num_fourier_features * 2, num_hidden_layers, num_neurons, num_groups, 1,
+                self.num_out)
+        if use_skip_connections:
+            self.skip_mlp = MLPSkipConnections(*args, generator=generator)
+        else:
+            self.mlp = MLP(*args, generator=generator)
+
+    def forward(self, x: dict, normalise: bool = False) -> torch.Tensor:
+        position = x["norm_listener_position"]
+        net = self.skip_mlp if hasattr(self, "skip_mlp") else self.mlp
+        out = net(self.encoding(position))
+        weights = out.reshape(position.shape[0], self.num_groups, self.num_out)
+        return normalise_weights(weights) if normalise else weights

@@ -66,3 +66,20 @@ def hann_fade_windows(win_len_samps: int) -> Tuple[np.ndarray, np.ndarray]:
     half = win_len_samps // 2
     window = np.hanning(win_len_samps)
     return window[:half], window[win_len_samps - half:]
+
+
+def decay_kernel(decay_times, time_axis, normalize_envelope: bool = False) -> np.ndarray:
+    """Common-slopes energy-decay envelopes (host numpy, float32).
+
+    Columns ``exp(-t * ln(1e6) / T_k)`` over ``time_axis`` in seconds: shape
+    ``(len(time_axis), num_slopes)``; ``normalize_envelope`` scales each
+    column to unit L2 norm. Computed in float32 as the JAX package's numpy
+    branch does.
+    """
+    t = np.asarray(time_axis, dtype=np.float32).reshape(-1)
+    T = np.asarray(decay_times, dtype=np.float32).reshape(-1)
+    env = np.exp(-t[:, None] * (LOG10E6 / T[None, :]))
+    if normalize_envelope:
+        norm = np.sqrt(np.sum(env ** 2, axis=0, keepdims=True))
+        env = env / (norm + _EPS_F32)
+    return env

@@ -1,4 +1,4 @@
-"""Model construction, checkpoints and grid-of-receivers training."""
+"""Model construction, checkpoints, grid-of-receivers and directional training."""
 
 from .build import absorption_arrays, build_gfdn_model
 from .checkpoints import (
@@ -11,10 +11,11 @@ from .checkpoints import (
 )
 from .optim import make_optimizer, param_labels
 from .save_results import gfdn_param_dict, save_diff_gfdn_parameters, save_loss
-from .solver import run_training_var_receiver_pos
-from .trainer import exact_valid_batches, GFDNTrainer, padded_batches
+from .solver import run_training_anisotropic_decay_var_receiver_pos, run_training_var_receiver_pos
+from .trainer import DirectionalGFDNTrainer, exact_valid_batches, GFDNTrainer, padded_batches
 
 __all__ = [
+    "DirectionalGFDNTrainer",
     "GFDNTrainer",
     "absorption_arrays",
     "build_gfdn_model",
@@ -27,6 +28,7 @@ __all__ = [
     "make_optimizer",
     "padded_batches",
     "param_labels",
+    "run_training_anisotropic_decay_var_receiver_pos",
     "run_training_var_receiver_pos",
     "save_checkpoint",
     "save_diff_gfdn_parameters",

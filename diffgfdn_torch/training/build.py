@@ -1,8 +1,10 @@
 """Model construction from a config and dataset metadata (port of ``training/build.py``).
 
 Host-side: fits the absorption filters (GEQ) or gains once, then builds a
-:class:`DiffGFDNVarReceiverPos` with parameters drawn from a seeded
-``torch.Generator`` and moves it to the device.
+:class:`DiffGFDNVarReceiverPos` (``variant="var_receiver"``) or a
+:class:`DiffDirectionalFDNVarReceiverPos` (``variant="directional"``, with
+the analysis matrix designed for the dataset's directions) with parameters
+drawn from a seeded ``torch.Generator``, and moves it to the device.
 """
 
 from typing import Optional, Union
@@ -11,7 +13,8 @@ import numpy as np
 import torch
 
 from ..config.schema import CouplingMatrixType, DiffGFDNConfig
-from ..models import DiffGFDNVarReceiverPos
+from ..models import DiffDirectionalFDNVarReceiverPos, DiffGFDNVarReceiverPos
+from ..models.spatial import build_analysis_matrix
 from ..ops.absorption import (
     decay_times_to_gain_filters_geq,
     decay_times_to_gain_per_sample,
@@ -69,15 +72,17 @@ def build_gfdn_model(
     band_centre_hz: Optional[np.ndarray] = None,
     variant: str = "var_receiver",
     device: Union[str, torch.device] = "cuda",
-) -> DiffGFDNVarReceiverPos:
+    desired_directions: Optional[np.ndarray] = None,
+) -> Union[DiffGFDNVarReceiverPos, DiffDirectionalFDNVarReceiverPos]:
     """Build the configured model on ``device``, parameters drawn from a
-    ``torch.Generator`` seeded with ``config.seed``.
+    ``torch.Generator`` seeded with ``config.seed``. The directional variant
+    needs ``desired_directions`` (2, J), the dataset's (azimuth, elevation).
 
-    Raises NotImplementedError, naming the ROADMAP item, for what this slice
-    does not port yet.
+    Raises NotImplementedError, naming the ROADMAP item, for what is not
+    ported yet.
     """
     dev = resolve_device(device)
-    if variant != "var_receiver":
+    if variant not in ("var_receiver", "directional"):
         raise NotImplementedError(f"model variant {variant!r} is not ported yet (ROADMAP A10)")
     if config.colorless_fdn_config.use_colorless_prototype:
         raise NotImplementedError(
@@ -91,20 +96,34 @@ def build_gfdn_model(
         )
     kw = absorption_arrays(config, common_decay_times, band_centre_hz)
     out_cfg = config.output_filter_config
-    generator = torch.Generator().manual_seed(config.seed)
-    model = DiffGFDNVarReceiverPos(
+    common = dict(
         sample_rate=config.sample_rate,
         num_groups=config.num_groups,
         delays=config.delay_length_samps,
         coupling_matrix_type=fl_cfg.coupling_matrix_type,
         use_zero_coupling=fl_cfg.use_zero_coupling,
-        use_svf_in_output=out_cfg.use_svfs,
         num_fourier_features=out_cfg.num_fourier_features,
         num_hidden_layers=out_cfg.num_hidden_layers,
         num_neurons=out_cfg.num_neurons_per_layer,
-        encoding_type=out_cfg.encoding_type,
-        compress_pole_factor=out_cfg.compress_pole_factor,
-        generator=generator,
+        generator=torch.Generator().manual_seed(config.seed),
         **kw,
     )
+    if variant == "directional":
+        if desired_directions is None:
+            raise ValueError("the directional variant needs the dataset's desired_directions")
+        model = DiffDirectionalFDNVarReceiverPos(
+            ambi_order=config.ambi_order,
+            use_skip_connections=out_cfg.use_skip_connections,
+            analysis_matrix=build_analysis_matrix(
+                config.ambi_order, desired_directions, out_cfg.beamformer_type
+            ),
+            **common,
+        )
+    else:
+        model = DiffGFDNVarReceiverPos(
+            use_svf_in_output=out_cfg.use_svfs,
+            encoding_type=out_cfg.encoding_type,
+            compress_pole_factor=out_cfg.compress_pole_factor,
+            **common,
+        )
     return model.to(dev)

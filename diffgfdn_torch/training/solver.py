@@ -1,10 +1,15 @@
-"""Grid-of-receivers training entry point (port of ``training/solver.py``).
+"""Grid-of-receivers training entry points (port of ``training/solver.py``).
 
 :func:`run_training_var_receiver_pos` parses the dataset, builds the model,
 draws the same test / train / valid splits as the JAX package for the seed,
 trains through :class:`GFDNTrainer.fit_indexed` and exports the parameters,
 loss curves and (optionally) RIR wavs. It runs on CUDA unless the caller
 passes ``device="cpu"``.
+
+:func:`run_training_anisotropic_decay_var_receiver_pos` trains a
+directional FDN on a spatial dataset: the model built for the dataset's
+directions, the grid-resolution split (or the seeded random one), the decay
+envelopes of the common decay times, and :class:`DirectionalGFDNTrainer`.
 
 A config with ``subband_process_config`` trains one octave band: the
 trainer multiplies H by the band filter's response on the training grid
@@ -31,11 +36,18 @@ from ..data.batching import (
     train_valid_split,
 )
 from ..data.room_dataset import RoomDataset, ThreeRoomDataset
+from ..data.spatial_dataset import (
+    arrays_from_spatial_dataset,
+    SpatialRoomDataset,
+    split_by_grid_resolution,
+)
+from ..losses.spatial import make_decay_envelopes
+from ..ops.basic import ms_to_samps
 from ..ops.filterbanks import subband_filter_response
 from ..utils.device import resolve_device
 from .build import build_gfdn_model
 from .save_results import save_diff_gfdn_parameters, save_loss
-from .trainer import GFDNTrainer
+from .trainer import DirectionalGFDNTrainer, GFDNTrainer
 
 logger = logging.getLogger("diffgfdn_torch")
 
@@ -51,9 +63,12 @@ def check_sample_rate(config: DiffGFDNConfig, dataset) -> None:
         )
 
 
-def subband_resp(config: DiffGFDNConfig) -> Optional[np.ndarray]:
+def subband_resp(config: DiffGFDNConfig, num_freq_bins: Optional[int] = None
+                 ) -> Optional[np.ndarray]:
     """The band filter's response (F,) complex on the training grid of a
-    subband config, None for a fullband one."""
+    subband config, None for a fullband one. ``num_freq_bins`` (nfft)
+    replaces the config's where the dataset sets the grid (a spatial
+    dataset's nfft follows its decay times)."""
     sb = config.trainer_config.subband_process_config
     if sb is None:
         return None
@@ -62,7 +77,7 @@ def subband_resp(config: DiffGFDNConfig) -> Optional[np.ndarray]:
         sb.frequency_range,
         sb.num_fraction_octaves,
         config.sample_rate,
-        config.trainer_config.num_freq_bins,
+        num_freq_bins or config.trainer_config.num_freq_bins,
         use_amp_preserving=sb.use_amp_preserving_filterbank,
     )
 
@@ -142,6 +157,57 @@ def run_training_var_receiver_pos(
         )
         if tc.save_true_irs:
             _save_true_irs(room_data, indices, tc.ir_dir)
+    return trainer, model
+
+
+def run_training_anisotropic_decay_var_receiver_pos(
+    config: DiffGFDNConfig,
+    room_data: SpatialRoomDataset,
+    resume: bool = False,
+    device: Union[str, torch.device] = "cuda",
+) -> Tuple[DirectionalGFDNTrainer, torch.nn.Module]:
+    """Directional FDN over a spatial receiver grid; returns (trainer, model).
+
+    The dataset sets nfft (from its longest decay time) and the beamformer's
+    directions. ``resume=True`` continues an interrupted run from the newest
+    checkpoint in the training directory.
+    """
+    dev = resolve_device(device)
+    _check_ported(config)
+    check_sample_rate(config, room_data)
+    tc = config.trainer_config
+    model = build_gfdn_model(
+        config, common_decay_times=room_data.common_decay_times,
+        band_centre_hz=room_data.band_centre_hz, variant="directional", device=dev,
+        desired_directions=room_data.desired_directions,
+    )
+    arrays = arrays_from_spatial_dataset(
+        room_data,
+        new_sampling_radius=None if tc.reduced_pole_radius == 1.0 else 1.0 / tc.reduced_pole_radius,
+    )
+    if tc.grid_resolution_m is not None:
+        train_idx, valid_idx = split_by_grid_resolution(room_data, tc.grid_resolution_m)
+    else:
+        train_idx, valid_idx = train_valid_split(
+            np.arange(arrays.num_items), tc.train_valid_split, seed=config.seed
+        )
+    cdt = np.asarray(room_data.common_decay_times)
+    envelopes = make_decay_envelopes(
+        cdt.reshape(-1)[: config.num_groups],
+        ms_to_samps(float(np.max(cdt)) * 1e3, config.sample_rate),
+        config.sample_rate,
+    )
+    trainer = DirectionalGFDNTrainer(
+        model, tc, steps_per_epoch=steps_per_epoch(len(train_idx), tc.batch_size),
+        common_decay_times=cdt,
+        subband_filter_resp=subband_resp(config, room_data.num_freq_bins),
+        sample_rate=config.sample_rate, device=dev, directional_envelopes=envelopes,
+    )
+    t = time.time()
+    trainer.fit_indexed(arrays, train_idx, valid_idx, seed=config.seed, resume=resume)
+    logger.info("fit_indexed total: %.1fs", time.time() - t)
+    save_diff_gfdn_parameters(model, tc.train_dir)
+    save_loss(trainer.train_loss, trainer.valid_loss, tc.train_dir)
     return trainer, model
 
 

@@ -19,10 +19,26 @@ band filter's response before the losses, against the dataset's own
 targets, as the JAX trainer does; the band-parallel trainer
 (``parallel/band_parallel.py``) shares :func:`gfdn_losses` with it.
 
+The sub-FDN terms (the per-step normalization and the colorless spectral
+loss) skip the DC bin when each group has an odd number of lines (the
+directional presets' 9): every orthogonal exp(skew(M)) of odd order has the
+eigenvalue 1, so diag(z^m) - ortho(M) is singular at z = 1 whatever M is,
+and its inverse there is set by rounding alone. The JAX trainer keeps that
+bin (ROADMAP C10): its value dominates both terms, and on the card a
+directional run's inverse there turned NaN within two epochs.
+
+A directional model's trainer (:class:`DirectionalGFDNTrainer`) takes the
+directional EDC loss of its SH responses against the common-slope
+amplitudes times the decay envelopes: it uploads the positions and
+amplitudes only, and precomputes no target feature. Where the io gains are normalized before every step and the
+colorless loss is on, the step evaluates the sub-FDN inverse once for both
+(it depends on M alone, not on the gains), as the JAX trainer's two
+evaluations give the same values.
+
 Each step's gradients run through the hand-written backward kernels: B2
 (``neg_ptgpt``) behind ``block_responses`` and ``sub_fdn_output``, B4
 (``sos_cascade_backward``) behind the SVF heads, B6 (``lut_apply``) behind
-the scalar heads' ``drive``.
+the scalar heads' and the directional model's ``drive``.
 """
 
 import logging
@@ -35,8 +51,8 @@ import torch
 
 from ..config.schema import TrainerConfig
 from ..data.audio import write_wav
-from ..losses import amse_loss, edc_loss_from_rir, edc_mask, edr_loss_from_rir, mse_loss
-from ..losses import sparsity_loss
+from ..losses import amse_loss, directional_edc_loss_from_sh, edc_loss_from_rir, edc_mask
+from ..losses import edr_loss_from_rir, mse_loss, sparsity_loss
 from ..ops.basic import db, ms_to_samps, schroeder_backward_int
 from ..ops.stft import edr_from_stft, stft
 from ..utils.device import resolve_device
@@ -86,6 +102,8 @@ def gfdn_losses(
     edr_hop: int,
     band_resp: Optional[torch.Tensor] = None,
     mask: Optional[torch.Tensor] = None,
+    envelopes: Optional[torch.Tensor] = None,
+    sub_inverse: Optional[torch.Tensor] = None,
 ) -> Dict[str, torch.Tensor]:
     """The weighted losses of one batch against its precomputed target
     features (JAX ``GFDNTrainer._losses``' fast path, and the band loss of
@@ -93,11 +111,47 @@ def gfdn_losses(
     (with the time ``mask`` when given), EDR, and with the colorless loss the
     sub-FDNs' spectral and sparsity terms. ``band_resp`` (F,) complex, when
     given, multiplies H (subband training); the sub-FDN terms take the
-    unfiltered loop.
+    unfiltered loop at :func:`sub_fdn_bins`, through ``sub_inverse`` when
+    given (the model's ``sub_fdn_inverse`` there). With decay ``envelopes``
+    (num_slopes, T) the model is directional and its EDC loss is the
+    directional one, from sample ``mixing`` on, ``max_len`` long, against
+    the batch's common-slope amplitudes; there is no EDR loss then.
     """
     h = model(batch)
     if band_resp is not None:
         h = h * band_resp
+    if envelopes is not None:
+        losses = {"edc_loss": cfg.edc_loss_weight * directional_edc_loss_from_sh(
+            h, model.analysis_matrix, batch["target_common_slope_amps"], envelopes, mixing,
+            max_len, mask)}
+    else:
+        losses = _omni_losses(cfg, batch, h, mixing, max_len, edr_win, edr_hop, mask)
+    if cfg.use_colorless_loss:
+        h_out, _ = model.sub_fdn_output(sub_fdn_bins(model, batch["z_values"]),
+                                        sub_inverse)  # (F, G)
+        spectral_fn = amse_loss if cfg.use_asym_spectral_loss else mse_loss
+        spectral = 0.0
+        for k in range(model.num_groups):
+            spectral = spectral + cfg.spectral_loss_weight * spectral_fn(
+                h_out[..., k], torch.ones_like(h_out[..., k].real)
+            )
+        ortho = model.feedback_loop.orthogonal_blocks()
+        losses["spectral_loss"] = spectral
+        losses["sparsity_loss"] = cfg.sparsity_loss_weight * sparsity_loss(ortho[-1])
+    return losses
+
+
+def sub_fdn_bins(model: torch.nn.Module, z: torch.Tensor) -> torch.Tensor:
+    """The z at which the trainer evaluates the lossless sub-FDNs: all bins,
+    or all but the DC bin z[0] when the groups have an odd number of lines
+    (their loops are singular there, ROADMAP C10)."""
+    return z[1:] if model.num_delay_lines_per_group % 2 else z
+
+
+def _omni_losses(cfg: TrainerConfig, batch: Batch, h: torch.Tensor, mixing: int, max_len: int,
+                 edr_win: int, edr_hop: int, mask: Optional[torch.Tensor]
+                 ) -> Dict[str, torch.Tensor]:
+    """EDC and EDR of the responses h (B, F) against the batch's target features."""
     n = 2 * (h.shape[-1] - 1)
     rir = torch.fft.irfft(h, n, dim=-1)
     end = min(max_len, n)
@@ -115,17 +169,6 @@ def gfdn_losses(
         batch["target_edr_db"], batch["target_edr_abs_sum"], rir_env,
         win_size=edr_win, hop_size=edr_hop,
     )
-    if cfg.use_colorless_loss:
-        h_out, _ = model.sub_fdn_output(batch["z_values"])  # (F, G)
-        spectral_fn = amse_loss if cfg.use_asym_spectral_loss else mse_loss
-        spectral = 0.0
-        for k in range(model.num_groups):
-            spectral = spectral + cfg.spectral_loss_weight * spectral_fn(
-                h_out[..., k], torch.ones_like(h_out[..., k].real)
-            )
-        ortho = model.feedback_loop.orthogonal_blocks()
-        losses["spectral_loss"] = spectral
-        losses["sparsity_loss"] = cfg.sparsity_loss_weight * sparsity_loss(ortho[-1])
     return losses
 
 
@@ -170,6 +213,8 @@ class GFDNTrainer:
 
     patience: int = 5
     early_stop_tol: float = 1e-3
+    # (num_slopes, T) decay envelopes of a directional trainer's EDC loss
+    directional_envelopes: Optional[torch.Tensor] = None
 
     def __init__(
         self,
@@ -226,33 +271,40 @@ class GFDNTrainer:
 
     # ----------------------------- loss assembly -----------------------------
 
-    def _losses(self, batch: Batch, edc_mask_values: Optional[torch.Tensor] = None
-                ) -> Dict[str, torch.Tensor]:
+    def edc_mask_length(self, num_bins: int) -> int:
+        """Samples of the EDC window (and of its time mask) at ``num_bins`` bins."""
+        return min(self.max_ir_len_samps, 2 * (num_bins - 1)) - self.mixing_time_samps
+
+    def _losses(self, batch: Batch, edc_mask_values: Optional[torch.Tensor] = None,
+                sub_inverse: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         """The weighted losses of one batch, as the JAX trainer's fast path.
 
         ``edc_mask_values``: the EDC time mask to use when ``use_edc_mask`` is
-        on; None draws one from ``mask_generator``.
+        on; None draws one from ``mask_generator``. ``sub_inverse``: the
+        sub-FDN inverse at the batch's :func:`sub_fdn_bins`, when already
+        evaluated this step.
         """
         mask = None
         if self.cfg.use_edc_mask:
             mask = edc_mask_values
             if mask is None:
-                n = 2 * (batch["z_values"].shape[0] - 1)
-                length = min(self.max_ir_len_samps, n) - self.mixing_time_samps
+                length = self.edc_mask_length(batch["z_values"].shape[0])
                 mask = edc_mask(length, self.mask_generator, self.device)
         with self.model.feedback_loop.sharing_orthogonal_blocks():
             return gfdn_losses(
                 self.model, self.cfg, batch, self.mixing_time_samps, self.max_ir_len_samps,
                 self.edr_win, self.edr_hop, self.subband_filter_resp, mask,
+                self.directional_envelopes, sub_inverse,
             )
 
-    def loss_and_grads(self, batch: Batch, edc_mask_values: Optional[torch.Tensor] = None
+    def loss_and_grads(self, batch: Batch, edc_mask_values: Optional[torch.Tensor] = None,
+                       sub_inverse: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Zero the gradients, then the total loss of one batch and its
         backward: the parameters' ``.grad`` hold the step's gradients."""
         for p in self.model.parameters():
             p.grad = None
-        losses = self._losses(batch, edc_mask_values)
+        losses = self._losses(batch, edc_mask_values, sub_inverse)
         total = sum(losses.values())
         total.backward()
         return total.detach(), {k: v.detach() for k, v in losses.items()}
@@ -262,9 +314,10 @@ class GFDNTrainer:
         tensor): the per-step normalization of scalar heads, then the
         optimizer step on the gathered batch. Returns the device-resident
         losses (no host sync)."""
+        sub_inverse = None
         if not self.model.use_svf_in_output:
-            self._normalize_params()
-        total, aux = self.loss_and_grads(self.gather(idx))
+            sub_inverse = self._normalize_params(keep_inverse=self.cfg.use_colorless_loss)
+        total, aux = self.loss_and_grads(self.gather(idx), sub_inverse=sub_inverse)
         self.optimizer.step()
         self.scheduler.step()
         return total, aux
@@ -301,15 +354,25 @@ class GFDNTrainer:
 
     # ---------------------------- normalization ------------------------------
 
-    @torch.no_grad()
-    def _normalize_params(self) -> None:
+    def _normalize_params(self, keep_inverse: bool = False) -> Optional[torch.Tensor]:
         """Scale b and c so each sub-FDN has unit average energy: divide each
-        group's io gains by E[|H_sub_g|^2]^(1/4), in place."""
-        h_sub, _ = self.model.sub_fdn_output(self.data["z_values"])
-        scale = torch.pow(torch.mean(torch.abs(h_sub) ** 2, dim=0), 0.25)  # (G,)
-        per_line = torch.repeat_interleave(scale, self.model.num_delay_lines_per_group)[:, None]
-        self.model.input_gains.div_(per_line)
-        self.model.output_gains.div_(per_line)
+        group's io gains by E[|H_sub_g|^2]^(1/4), in place.
+
+        ``keep_inverse``: evaluate the sub-FDN inverse with its autograd graph
+        and return it, for the step's colorless loss to reuse (the gains
+        rescaled here do not enter it); else return None.
+        """
+        z = sub_fdn_bins(self.model, self.data["z_values"])
+        with torch.set_grad_enabled(keep_inverse):
+            p = self.model.sub_fdn_inverse(z)
+        with torch.no_grad():
+            h_sub, _ = self.model.sub_fdn_output(z, p.detach())
+            scale = torch.pow(torch.mean(torch.abs(h_sub) ** 2, dim=0), 0.25)  # (G,)
+            per_line = torch.repeat_interleave(
+                scale, self.model.num_delay_lines_per_group)[:, None]
+            self.model.input_gains.div_(per_line)
+            self.model.output_gains.div_(per_line)
+        return p if keep_inverse else None
 
     # ------------------------------- training --------------------------------
 
@@ -449,3 +512,41 @@ class GFDNTrainer:
             for rir, pos in zip(rirs, batch["listener_position"].cpu().numpy()):
                 name = f"{filename_prefix}_({pos[0]:.2f}, {pos[1]:.2f}, {pos[2]:.2f}).wav"
                 write_wav(os.path.join(directory, name), rir, self.sample_rate)
+
+
+class DirectionalGFDNTrainer(GFDNTrainer):
+    """Trainer of a directional FDN: SH responses -> the directional EDC loss.
+
+    Construct with ``directional_envelopes`` (num_slopes, T) from
+    :func:`diffgfdn_torch.losses.make_decay_envelopes`. Its targets are the
+    receivers' common-slope amplitudes: it uploads those and the positions,
+    and has no target feature to precompute.
+    """
+
+    def __init__(self, *args, directional_envelopes: Union[np.ndarray, torch.Tensor], **kwargs):
+        super().__init__(*args, **kwargs)
+        self.directional_envelopes = torch.as_tensor(
+            directional_envelopes, dtype=torch.float32, device=self.device)
+
+    def edc_mask_length(self, num_bins: int) -> int:
+        """Samples of the directional EDC window (``max_ir_len_samps`` from
+        the mixing time) at ``num_bins`` bins."""
+        n = 2 * (num_bins - 1)
+        return min(self.max_ir_len_samps + self.mixing_time_samps, n) - self.mixing_time_samps
+
+    def precompute_target_features(self, arrays, chunk: int = 32) -> None:
+        """No target feature: the targets are the common-slope amplitudes."""
+        self.features, self.data = {}, None
+
+    @torch.no_grad()
+    def upload_arrays(self, arrays) -> Batch:
+        """z, the positions and the common-slope amplitudes on the device."""
+        self.data = {
+            "z_values": torch.as_tensor(arrays.z_values, device=self.device),
+            "listener_position": torch.as_tensor(arrays.listener_position, device=self.device),
+            "norm_listener_position": torch.as_tensor(arrays.norm_listener_position,
+                                                      device=self.device),
+            "target_common_slope_amps": torch.as_tensor(
+                arrays.target_common_slope_amps, dtype=torch.float32, device=self.device),
+        }
+        return self.data

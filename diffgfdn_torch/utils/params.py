@@ -4,13 +4,14 @@ A flax tree (as a JAX checkpoint holds it: nested dicts of numpy arrays,
 optionally under a top-level ``"params"`` key) maps onto the port's
 ``state_dict`` names by these rules:
 
-* ``MLP_0`` -> ``mlp``;
+* ``MLP_0`` -> ``mlp``; ``MLPSkipConnections_0`` -> ``skip_mlp``;
+  ``ResidualBlock_i`` -> ``blocks.i``;
 * ``Dense_i/kernel`` (in, out) -> ``dense.i.weight`` (out, in), transposed;
   ``Dense_i/bias`` -> ``dense.i.bias``;
 * ``LayerNorm_i/scale`` -> ``norm.i.weight``; ``LayerNorm_i/bias`` -> ``norm.i.bias``;
 * every other key keeps its name (``input_gains``, ``output_gains``,
   ``feedback_loop/M``, ``feedback_loop/alpha``, ``output_filters``,
-  ``output_scalars``).
+  ``output_scalars``, ``sh_output_scalars``).
 
 Gradients map by the same rules (:func:`jax_grads_from_torch`), and the
 optimizer's parameter groups are labelled on the flax path
@@ -30,6 +31,11 @@ import torch
 from torch import nn
 
 
+# flax module names -> the port's attribute names
+_MODULES = {"MLP_0": "mlp", "MLPSkipConnections_0": "skip_mlp"}
+_FLAX_MODULES = {v: k for k, v in _MODULES.items()}
+
+
 def torch_state_from_jax(tree: Dict) -> Dict[str, torch.Tensor]:
     """Flax parameter tree -> the port's ``state_dict`` (float32 tensors)."""
     params = tree.get("params", tree)
@@ -45,8 +51,10 @@ def torch_state_from_jax(tree: Dict) -> Dict[str, torch.Tensor]:
                 i = key.split("_")[1]
                 state[f"{prefix}norm.{i}.weight"] = _tensor(val["scale"])
                 state[f"{prefix}norm.{i}.bias"] = _tensor(val["bias"])
+            elif key.startswith("ResidualBlock_"):
+                walk(val, f"{prefix}blocks.{key.split('_')[1]}.")
             elif isinstance(val, dict):
-                walk(val, prefix + ("mlp" if key == "MLP_0" else key) + ".")
+                walk(val, prefix + _MODULES.get(key, key) + ".")
             else:
                 state[prefix + key] = _tensor(val)
 
@@ -79,7 +87,11 @@ def flax_path(name: str) -> Tuple[List[str], bool]:
                 keys += [f"LayerNorm_{layer}", "scale" if leaf == "weight" else "bias"]
             i += 3
             continue
-        keys.append("MLP_0" if part == "mlp" else part)
+        if part == "blocks":
+            keys.append(f"ResidualBlock_{parts[i + 1]}")
+            i += 2
+            continue
+        keys.append(_FLAX_MODULES.get(part, part))
         i += 1
     return keys, transpose
 

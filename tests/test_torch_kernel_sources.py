@@ -871,6 +871,19 @@ def test_tdgfdn_plan_picks_the_ring_by_size(delays, block, threads):
     assert kernel_plan(delays, need - 1).variant == td.HIST
 
 
+def test_tdgfdn_plan_sends_the_directional_delays_to_device_memory():
+    """The directional presets' 27 delays (691-1601 samples at 32 kHz) need
+    a ring of 4096 slots at steps of 512 (442 KB, over an H100's 227 KB):
+    the history goes to device memory, in steps of min(delay). (A ring of
+    2048 slots at steps of 256 would fit; on the H100 it took longer.)"""
+    from diffgfdn_torch.config import preset_config
+
+    delays = tuple(preset_config("directional_1000Hz_res0.6m").delay_length_samps)
+    assert (min(delays), max(delays), len(delays)) == (691, 1601, 27)
+    assert kernel_plan(delays, H100_SMEM) == (td.HIST, 691, 256, 0)
+    assert td.ring_bytes(27, 2048) <= H100_SMEM < td.ring_bytes(27, 4096)
+
+
 @pytest.mark.parametrize("past", [False, True], ids=["ring_full", "ring_full_plus_one"])
 def test_tdgfdn_source_at_the_ring_boundary_matches_plain_bitwise(emulated, past):
     """At 12 delays from 683 whose ring is the largest that fits an H100's

@@ -114,10 +114,26 @@ def test_unported_options_raise_naming_the_roadmap_item(override, item):
 
 
 def test_other_variants_raise():
+    """The single-position and source-conditioned variants still raise
+    naming ROADMAP A10; the directional one builds (its parity with JAX is
+    in test_torch_directional_model.py)."""
     cfg = DiffGFDNConfig.from_dict(dict(seed=3, sample_rate=8000.0, num_delay_lines=6,
                                         delay_range_ms=[20.0, 45.0]))
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        build_gfdn_model(cfg, np.array([0.5, 0.6, 0.7]), variant="directional", device="cpu")
+    for variant in ("single_pos", "var_source_receiver"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+            build_gfdn_model(cfg, np.array([0.5, 0.6, 0.7]), variant=variant, device="cpu")
+    directional = DiffGFDNConfig.from_dict(dict(
+        seed=3, sample_rate=8000.0, ambi_order=1, delay_range_ms=[20.0, 45.0],
+        decay_filter_config=dict(use_absorption_filters=False),
+        output_filter_config=dict(use_svfs=False, num_hidden_layers=1,
+                                  num_neurons_per_layer=8, num_fourier_features=2)))
+    directions = np.stack([np.linspace(-3.0, 3.0, 12), np.linspace(-1.0, 1.0, 12)])
+    model = build_gfdn_model(directional, np.array([0.5, 0.6, 0.7]), variant="directional",
+                             device="cpu", desired_directions=directions)
+    assert model.num_delay_lines == 12 and tuple(model.analysis_matrix.shape) == (12, 4)
+    with pytest.raises(ValueError, match="desired_directions"):
+        build_gfdn_model(directional, np.array([0.5, 0.6, 0.7]), variant="directional",
+                         device="cpu")
 
 
 @pytest.mark.parametrize("zero_coupling", [True, False], ids=["zero_coupling", "learned_alpha"])

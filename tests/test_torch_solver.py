@@ -18,7 +18,9 @@ import yaml
 
 from diffgfdn_torch.cli.run_model import main as cli_main
 from diffgfdn_torch.config.schema import DiffGFDNConfig
+from diffgfdn_torch.data import spatial_dataset
 from diffgfdn_torch.training import run_training_var_receiver_pos
+from diffgfdn_torch.training import solver as port_solver
 from diffgfdn_torch.utils.params import jax_params_from_torch
 from diffgfdn_tpu.config.schema import DiffGFDNConfig as JaxDiffGFDNConfig
 from diffgfdn_tpu.data.batching import arrays_from_room_dataset, gather_batch
@@ -96,7 +98,7 @@ def test_resumed_run_ends_where_an_uninterrupted_run_ends(tmp_path):
         np.testing.assert_allclose(got[path], leaf, rtol=1e-5, atol=1e-7)
 
 
-def test_cli_trains_from_yaml_and_refuses_unported_variants(tmp_path):
+def test_cli_trains_from_yaml_and_refuses_unported_variants(tmp_path, monkeypatch):
     raw = small_run_config(tmp_path, svf=False, epochs=1)
     rooms(tmp_path, False, NFFT)
     raw["room_dataset_path"] = str(tmp_path / "srirs.pkl")
@@ -106,8 +108,16 @@ def test_cli_trains_from_yaml_and_refuses_unported_variants(tmp_path):
     train_dir = tmp_path / "train_svfFalse_zcTrue"
     assert (train_dir / "checkpoints" / "model_e0.ckpt").exists()
     assert (train_dir / "config_args.pickle").exists()
-    for key, value in (("ir_path", "rir.wav"), ("ambi_order", 1)):
-        bad = dict(raw, **{key: value})
-        path.write_text(yaml.safe_dump(bad))
-        with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-            cli_main(["-c", str(path), "--device", "cpu"])
+    path.write_text(yaml.safe_dump(dict(raw, ir_path="rir.wav")))
+    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+        cli_main(["-c", str(path), "--device", "cpu"])
+    # a config with ambi_order goes to the directional solver on the spatial
+    # dataset (trained end to end in test_torch_directional_solver.py)
+    calls = []
+    monkeypatch.setattr(port_solver, "run_training_anisotropic_decay_var_receiver_pos",
+                        lambda cfg, room, **kw: calls.append((cfg.ambi_order, room, kw)))
+    monkeypatch.setattr(spatial_dataset, "SpatialThreeRoomDataset", lambda p: p)
+    path.write_text(yaml.safe_dump(dict(raw, ambi_order=1)))
+    cli_main(["-c", str(path), "--device", "cpu"])
+    assert calls == [(1, raw["room_dataset_path"], {"resume": False,
+                                                    "device": torch.device("cpu")})]

@@ -159,3 +159,67 @@ def subband_configs(monkeypatch, path, train_dir, nfft: int = SUBBAND_NFFT,
                 cfg.trainer_config.spectral_loss_weight = spectral_weight
         out.append(cfgs)
     return out
+
+
+# directional tests: the synthetic spatial dataset (the 12 t-design directions,
+# 9 SH channels) on a coarse grid, models at fs 8 kHz
+SPATIAL_GRID_M = 1.2  # 44 receivers
+
+
+def directional_raw_config(tmp_path, ambi_order: int, nfft: int = 1024, batch: int = 4,
+                           **trainer) -> dict:
+    """A narrow DiffDirectionalFDNVarReceiverPos config: skip-connection MLP
+    (2 x 16, 4 Fourier features), max-directivity beamformer, scalar
+    absorption, the colorless loss on; ``trainer`` updates the trainer config."""
+    return dict(
+        seed=11, num_groups=3, sample_rate=FS, ambi_order=ambi_order,
+        delay_range_ms=[20.0, 45.0],
+        trainer_config={
+            **dict(batch_size=batch, num_freq_bins=nfft, max_epochs=1, use_colorless_loss=True,
+                   use_asym_spectral_loss=True, edc_loss_weight=10.0, sparsity_loss_weight=2.0,
+                   train_dir=str(tmp_path / f"train_dir{ambi_order}")),
+            **trainer,
+        },
+        output_filter_config=dict(
+            use_svfs=False, num_hidden_layers=2, num_neurons_per_layer=16,
+            num_fourier_features=4, use_skip_connections=True,
+            beamformer_type="max_directivity",
+        ),
+        decay_filter_config=dict(use_absorption_filters=False),
+        colorless_fdn_config=dict(use_colorless_prototype=False),
+    )
+
+
+def spatial_rooms(tmp_path, fs: float = FS, decay_times=DECAY_TIMES, rir_len_s: float = 0.25):
+    """(JAX dataset, port dataset) parsed from one synthetic spatial pickle."""
+    from diffgfdn_torch.data import SpatialThreeRoomDataset
+    from diffgfdn_tpu.data.spatial_dataset import generate_spatial_three_room_pickle
+    from diffgfdn_tpu.data.spatial_dataset import (
+        SpatialThreeRoomDataset as JaxSpatialThreeRoomDataset,
+    )
+
+    path = generate_spatial_three_room_pickle(
+        tmp_path / "spatial.pkl", fs=fs, grid_spacing_m=SPATIAL_GRID_M, rir_len_s=rir_len_s,
+        decay_times=decay_times,
+    )
+    return JaxSpatialThreeRoomDataset(path), SpatialThreeRoomDataset(path)
+
+
+def jax_directional_model_and_params(cfg, room, batch: int, inference_solve: bool = False):
+    """JAX DiffDirectionalFDNVarReceiverPos (XLA path on CPU), built as its
+    solver builds it, and its initial params."""
+    import jax
+
+    from diffgfdn_tpu.data.batching import init_example_batch
+    from diffgfdn_tpu.data.spatial_dataset import arrays_from_spatial_dataset
+    from diffgfdn_tpu.training.build import build_gfdn_model
+    from diffgfdn_tpu.utils.cio import init_with_batch
+
+    model = build_gfdn_model(
+        cfg, common_decay_times=room.common_decay_times, band_centre_hz=room.band_centre_hz,
+        desired_directions=room.desired_directions, variant="directional",
+        inference_solve=inference_solve, use_pallas_inverse=False,
+    )
+    arrays = arrays_from_spatial_dataset(room)
+    params = init_with_batch(model, jax.random.PRNGKey(3), init_example_batch(arrays, batch))
+    return model, params
