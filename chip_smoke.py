@@ -947,11 +947,13 @@ def kernel_times(root: Path) -> dict:
     the seeded three-room model's blocks (3 x 65537 of 4 x 4) and its input
     gains; B6: B5's factors and a seeded g. B7: the three-room model's
     delays, gains, feedback matrix and input gains on an impulse of 131072
-    samples and at a 50000-sample spread. Per kernel and shape:
-    the wrapper call's time (``ms``), the kernel's own device time
-    (``kernel_ms``) and the bound; and, when this process built them,
-    ptxas's registers, spill-store and stack-frame bytes of
-    ``cinv_kernel<4>``, ``neg_ptgpt_kernel<4>``, the cascade kernels at
+    samples and at a 50000-sample spread. B1 and B2 also run at the
+    directional step's sub-FDN shape (3 x 65536 random systems of 9 x 9).
+    Per kernel and shape: the wrapper call's time (``ms``), the kernel's own
+    device time (``kernel_ms``) and the bound (B1 / B2: the plain version's
+    time too, median of 5); and, when this process built
+    them, ptxas's registers, spill-store and stack-frame bytes of
+    ``cinv_kernel`` and ``neg_ptgpt_kernel`` at N = 4, 8, 9, 12 and 27, the cascade kernels at
     K = 11, ``lu_solve_kernel<4>`` and ``<9>``, ``lut_apply_kernel<4>`` and
     the B7 kernels at N = 12, with the shared-memory loads (LDS) cuobjdump
     counts in the B7 kernels. Runs any tree of the port, whether its B4
@@ -1018,8 +1020,8 @@ def kernel_times(root: Path) -> dict:
                       for label, frag in b7}
     if any(logs.values()):
         out["ptxas"] = {
-            "cinv_kernel<4>": ptxas_usage(logs["cinv"], "cinv_kernelILi4E"),
-            "neg_ptgpt_kernel<4>": ptxas_usage(logs["cinv"], "neg_ptgpt_kernelILi4E"),
+            **{f"{kern}<{n}>": ptxas_usage(logs["cinv"], f"{kern}ILi{n}E")
+               for kern in ("cinv_kernel", "neg_ptgpt_kernel") for n in (4, 8, 9, 12, 27)},
             "sos_cascade_kernel": (ptxas_usage(logs["sos"], f"sos_cascade_kernelILi{k}E")
                                    or ptxas_usage(logs["sos"], "sos_cascade_kernelE")),
             f"sos_bwd_partial_kernel<{k}>": ptxas_usage(logs["sos"],
@@ -1029,7 +1031,9 @@ def kernel_times(root: Path) -> dict:
             "lut_apply_kernel<4>": ptxas_usage(logs["lu"], "lut_apply_kernelILi4E"),
             **{label: ptxas_usage(logs["tdgfdn"], frag) for label, frag in b7},
         }
-    for label, m in (("path", m_path), ("N=12", random_systems(65537, 12, gen)[0]),
+    for label, m in (("path", m_path),
+                     ("directional", random_systems(DIRECTIONAL_SUB_FDN_SYSTEMS, 9, gen)[0]),
+                     ("N=12", random_systems(65537, 12, gen)[0]),
                      ("N=27", random_systems(65537, 27, gen)[0])):
         kb, n = m.shape[0], m.shape[1]
         p = cinv.cinv(m)
@@ -1037,11 +1041,13 @@ def kernel_times(root: Path) -> dict:
         out[f"cinv {label}"] = {
             "shape": list(m.shape), "ms": device_ms(lambda: cinv.cinv(m)),
             "kernel_ms": kernel_ms(lambda: cinv.cinv(m)), "bound_ms": bound(*cinv_cost(kb, n))[0],
+            "plain_ms": device_ms(lambda: cinv.cinv_plain(m), reps=5),
             "library_ms": device_ms(lambda: torch.linalg.inv(m))}
         out[f"neg_ptgpt {label}"] = {
             "shape": list(p.shape), "ms": device_ms(lambda: cinv.neg_ptgpt(p, g_p)),
             "kernel_ms": kernel_ms(lambda: cinv.neg_ptgpt(p, g_p)),
             "bound_ms": bound(*neg_ptgpt_cost(kb, n))[0],
+            "plain_ms": device_ms(lambda: cinv.neg_ptgpt_plain(p, g_p), reps=5),
             "library_ms": device_ms(lambda: -(p.mH @ g_p @ p.mH))}
         del p, g_p
     for label, (n, d) in (("sos96", (num96, den96)), ("sos12", (num12, den12))):
@@ -1660,6 +1666,9 @@ DIRECTIONAL_GRID_M = 0.3  # 847 receivers (the Treble grid: 838)
 DIRECTIONAL_DECAYS = (1.2, 2.2, 1.6)  # nfft 131072, as the preset's
 DIRECTIONAL_RIR_S = 0.5
 DIRECTIONAL_RECEIVERS = 847
+# B1 / B2 systems of a directional step: 3 sub-FDNs of 9 lines at the 65536
+# bins above DC (C10)
+DIRECTIONAL_SUB_FDN_SYSTEMS = 3 * 65536
 # B1 / B2 in the colorless loss (one sub-FDN inverse a step, shared with the
 # per-step normalization), B5 / B6 in the transposed drive
 DIRECTIONAL_KERNELS = ("cinv", "neg_ptgpt", "lu", "lut_apply")
@@ -2036,6 +2045,15 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     logs = _build.build_all()
     print(f"phase 1: built {sorted(logs)} in {time.perf_counter() - t0:.1f} s")
+    if logs.get("cinv"):
+        # the row kernels of B1 / B2 keep each lane's row in registers: a
+        # stack frame would be a system left in local memory
+        rows = {f"{kern}<{n}>": ptxas_usage(logs["cinv"], f"{kern}ILi{n}E")
+                for kern in ("cinv_kernel", "neg_ptgpt_kernel") for n in (9, 12, 27)}
+        print("phase 1: ptxas " + json.dumps(rows))
+        require(all(u is not None and u["stack_frame"] == 0 and u["spill_stores"] == 0
+                    for label, u in rows.items() if label.endswith("<9>")),
+                f"B1 / B2 at N = 9 left in local memory: {rows}")
     if log_dir is not None:
         (log_dir / "nvcc.log").write_text(
             "\n".join(f"==== {k}\n{v}" for k, v in logs.items())

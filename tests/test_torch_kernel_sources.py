@@ -26,8 +26,15 @@ systems through shared memory for small N, with a barrier between the
 copies in, the solves and the copies out: the harness runs each of those
 phases thread by thread over the tile, through the kernels' own copy and
 per-system device functions (the card's asynchronous copy is a plain copy
-on the host), and drives the per-system functions system by system for
-larger N. Further tests hold the tile copies to moving each element once.
+on the host), and drives B5's per-system function system by system for
+larger N. Above N = 8, B1 and B2 give each lane of a warp one row of a
+system and exchange pivots and rows through shared memory between
+__syncwarp()s: the harness runs their copies thread by thread and each
+phase between two barriers lane by lane, the lanes in an order shuffled
+anew for every phase (on the card a warp's lanes diverge), with shared
+memory NaN at the start of each block; with the barrier between B1's pivot
+and elimination phases removed the result must change. Further tests hold
+the tile copies and the row kernels' copies to moving each element once.
 The time-domain recursion (B7) cannot run thread by thread through its
 kernel: thread 0 would reach the next block of samples before thread 1 had
 written this one. Its step is a device function per thread, which the
@@ -57,11 +64,13 @@ from diffgfdn_torch.kernels.lu import lu_solve_plain, lut_apply_plain
 from diffgfdn_torch.kernels.sos import sos_cascade_backward_plain, sos_cascade_plain
 from diffgfdn_torch.kernels import tdgfdn as td
 from diffgfdn_torch.kernels.tdgfdn import delay_line_outputs_plain, kernel_plan
-from torch_port_helpers import cascade, KERNEL_TOL, max_rel, systems
+from torch_port_helpers import (cascade, CINV_BLOCK_SYSTEMS, cinv_systems, KERNEL_TOL, max_rel,
+                                systems)
 
 CSRC = Path(__file__).resolve().parents[1] / "diffgfdn_torch" / "csrc"
 SIZES = (1, 4, 9, 12, 27)
 TILE_SIZES = (1, 4, 8)  # tile-copy tests: N of the tiled kernels (N <= 8)
+ROW_SIZES = (9, 12, 27)  # copy tests of the row kernels (N > 8)
 LU_TILE_SIZES = (1, 4, 8)  # the tiled LU solve's N (N <= 8)
 TD_SIZES = (4, 9, 12)  # B7 host tests: N
 H100_SMEM = 232448  # the shared memory one block may take on an H100 (opt-in)
@@ -100,6 +109,7 @@ inline int cudaGetLastError() { return 0; }
 #define __shared__
 #define __constant__
 #define __syncthreads()
+#define __syncwarp()
 inline float __shfl_down_sync(unsigned, float, int) { return 0.0f; }
 // the fp32 intrinsics: fmaf is fused and correctly rounded, as __fmaf_rn;
 // __frcp_rn is the IEEE round-to-nearest reciprocal, as 1.0f / x
@@ -116,10 +126,55 @@ namespace { float4 coef4[1 << 14]; }  // the cascade's dynamic shared memory
 _CASES = " ".join(f"case {n}: KERNEL<{n}>(ARGS); break;" for n in SIZES)
 HARNESSES = {
     "cinv": """
+// The lanes of each phase run in an order that a xorshift generator,
+// seeded by the caller, shuffles anew for every phase.
+static unsigned lane_rng = 1;
+void shuffle(int* order, int n) {
+  for (int i = 0; i < n; ++i) order[i] = i;
+  for (int i = n - 1; i > 0; --i) {
+    lane_rng ^= lane_rng << 13;
+    lane_rng ^= lane_rng >> 17;
+    lane_rng ^= lane_rng << 5;
+    const int j = (int)(lane_rng % (unsigned)(i + 1));
+    const int t = order[i];
+    order[i] = order[j];
+    order[j] = t;
+  }
+}
+// the row kernels' steps K.. (N > kMaxTiledN): each phase between two
+// __syncwarp()s lane by lane in a shuffled order; `fused` runs each lane's
+// pivot and elimination phases back to back, as if the barrier between
+// them were missing
+template <int N, int K>
+void emu_gj_steps(const RowLane* lanes, GjRow<N>* a, float* mag, float2* piv, float2* tile,
+                  int* order, bool fused) {
+  constexpr int H = Rows<N>::kThreads, S = Rows<N>::kStride;
+  shuffle(order, H);
+  for (int i = 0; i < H; ++i) {
+    const RowLane& l = lanes[order[i]];
+    if (!l.active) continue;
+    gj_row_pivot<N, K>(mag + l.system * N, piv + l.system * 2 * N, a[order[i]]);
+    if (fused)
+      gj_row_eliminate<N, K>(piv + l.system * 2 * N, mag + l.system * N, tile + l.system * S,
+                             a[order[i]]);
+  }
+  if (!fused) {
+    shuffle(order, H);
+    for (int i = 0; i < H; ++i) {
+      const RowLane& l = lanes[order[i]];
+      if (l.active)
+        gj_row_eliminate<N, K>(piv + l.system * 2 * N, mag + l.system * N, tile + l.system * S,
+                               a[order[i]]);
+    }
+  }
+  if constexpr (K + 1 < N) emu_gj_steps<N, K + 1>(lanes, a, mag, piv, tile, order, fused);
+}
 // the tiled kernels (N <= kMaxTiledN) block by block, each phase thread by
-// thread as the barriers order them; the others system by system
+// thread as the barriers order them; the row kernels block by block, the
+// copies thread by thread, each phase between barriers lane by lane; shared
+// memory starts each block as NaN
 template <int N>
-void emu_cinv_n(const float2* m, float2* o, long long k) {
+void emu_cinv_n(const float2* m, float2* o, long long k, bool fused) {
   if constexpr (N <= kMaxTiledN) {
     constexpr int T = Tile<N>::kSystems, E = Tile<N>::kElems, S = Tile<N>::kStride;
     static float2 tile[T * S];
@@ -136,7 +191,34 @@ void emu_cinv_n(const float2* m, float2* o, long long k) {
       }
     }
   } else {
-    for (long long s = 0; s < k; ++s) gj_inverse<N>(m + s * N * N, o + s * N * N);
+    constexpr int T = Rows<N>::kSystems, E = Rows<N>::kElems, S = Rows<N>::kStride;
+    constexpr int H = Rows<N>::kThreads;
+    static float2 tile[T * S], piv[T * 2 * N];
+    static float mag[T * N];
+    static GjRow<N> a[H];
+    RowLane lanes[H];
+    int order[H];
+    for (long long first = 0; first < k; first += T) {
+      const int systems = k - first < T ? (int)(k - first) : T;
+      std::memset(tile, 0xff, sizeof tile);
+      std::memset(piv, 0xff, sizeof piv);
+      std::memset(mag, 0xff, sizeof mag);
+      for (int t = 0; t < H; ++t) {
+        threadIdx = dim3(t);
+        rows_load<N>(m + first * E, tile, systems * E);
+        lanes[t] = row_lane<N>(t, systems);
+      }
+      shuffle(order, H);
+      for (int i = 0; i < H; ++i) {
+        const RowLane& l = lanes[order[i]];
+        if (l.active) gj_row_start<N>(tile + l.system * S, l.row, mag + l.system * N, a[order[i]]);
+      }
+      emu_gj_steps<N, 0>(lanes, a, mag, piv, tile, order, fused);
+      for (int t = 0; t < H; ++t) {
+        threadIdx = dim3(t);
+        rows_store<N>(tile, o + first * E, systems * E);
+      }
+    }
   }
 }
 template <int N>
@@ -159,8 +241,39 @@ void emu_ptgpt_n(const float2* p, const float2* g, float2* o, long long k) {
       }
     }
   } else {
-    for (long long s = 0; s < k; ++s)
-      neg_ptgpt_system<N>(p + s * N * N, g + s * N * N, o + s * N * N);
+    constexpr int T = Rows<N>::kSystems, E = Rows<N>::kElems, S = Rows<N>::kStride;
+    constexpr int H = Rows<N>::kThreads;
+    static float2 tile_p[T * S], tile_g[T * S];
+    static PtgptRow<N> out_rows[H];
+    RowLane lanes[H];
+    int order[H];
+    for (long long first = 0; first < k; first += T) {
+      const int systems = k - first < T ? (int)(k - first) : T;
+      std::memset(tile_p, 0xff, sizeof tile_p);
+      std::memset(tile_g, 0xff, sizeof tile_g);
+      for (int t = 0; t < H; ++t) {
+        threadIdx = dim3(t);
+        rows_load<N>(p + first * E, tile_p, systems * E);
+        rows_load<N>(g + first * E, tile_g, systems * E);
+        lanes[t] = row_lane<N>(t, systems);
+      }
+      for (int phase = 0; phase < 3; ++phase) {
+        shuffle(order, H);
+        for (int i = 0; i < H; ++i) {
+          const RowLane& l = lanes[order[i]];
+          if (!l.active) continue;
+          float2* sys_p = tile_p + l.system * S;
+          float2* sys_t = tile_g + l.system * S;
+          if (phase == 0) ptgpt_row_t<N>(sys_p, sys_t, l.row);
+          if (phase == 1) ptgpt_row_out<N>(sys_p, sys_t, l.row, out_rows[order[i]]);
+          if (phase == 2) ptgpt_row_store<N>(sys_p, l.row, out_rows[order[i]]);
+        }
+      }
+      for (int t = 0; t < H; ++t) {
+        threadIdx = dim3(t);
+        rows_store<N>(tile_p, o + first * E, systems * E);
+      }
+    }
   }
 }
 // every (block, thread, copy step): hits[e] counts the copies of element e
@@ -209,12 +322,60 @@ void tile_roundtrip_n(const float2* src, float2* dst, long long k, long long* mi
     }
   }
 }
-extern "C" void emu(const void* m, void* out, long long k, int n) {
+// the row kernels' copies (N > kMaxTiledN), as tile_cover_n
+template <int N>
+void rows_cover_n(long long k, unsigned char* hits, long long* bad) {
+  constexpr int T = Rows<N>::kSystems, E = Rows<N>::kElems, S = Rows<N>::kStride;
+  static unsigned char slot_hits[T * S];
+  for (long long first = 0; first < k; first += T) {
+    const int systems = k - first < T ? (int)(k - first) : T;
+    for (int i = 0; i < T * S; ++i) slot_hits[i] = 0;
+    for (int t = 0; t < Rows<N>::kThreads; ++t) {
+      threadIdx = dim3(t);
+      for (int c = 0; c < Rows<N>::kCopies; ++c) {
+        const int e = rows_element<N>(c);
+        if (e >= systems * E) continue;
+        hits[first * E + e] += 1;
+        const int slot = rows_slot<N>(e);
+        if (slot < 0 || slot >= T * S || slot_hits[slot]++) *bad += 1;
+      }
+    }
+  }
+}
+// src through rows_load and rows_store, as tile_roundtrip_n; element (r, c)
+// of the block's system s must be where its lane reads it, at
+// s * kStride + r * kRowStride + c
+template <int N>
+void rows_roundtrip_n(const float2* src, float2* dst, long long k, long long* misplaced) {
+  constexpr int T = Rows<N>::kSystems, E = Rows<N>::kElems, S = Rows<N>::kStride;
+  static float2 tile[T * S];
+  for (long long first = 0; first < k; first += T) {
+    const int systems = k - first < T ? (int)(k - first) : T;
+    for (int t = 0; t < Rows<N>::kThreads; ++t) {
+      threadIdx = dim3(t);
+      rows_load<N>(src + first * E, tile, systems * E);
+    }
+    for (int s = 0; s < systems; ++s)
+      for (int j = 0; j < E; ++j) {
+        const float2 a = tile[s * S + (j / N) * Rows<N>::kRowStride + j % N];
+        const float2 b = src[(first + s) * E + j];
+        if (std::memcmp(&a, &b, sizeof a) != 0) *misplaced += 1;
+      }
+    for (int t = 0; t < Rows<N>::kThreads; ++t) {
+      threadIdx = dim3(t);
+      rows_store<N>(tile, dst + first * E, systems * E);
+    }
+  }
+}
+extern "C" void emu(const void* m, void* out, long long k, int n, unsigned seed, int fused) {
   auto mi = (const float2*)m; auto o = (float2*)out;
+  lane_rng = seed | 1u;
   switch (n) { CASES }
-}""".replace("CASES", _CASES.replace("KERNEL", "emu_cinv_n").replace("ARGS", "mi, o, k")) + """
-extern "C" void emu_ptgpt(const void* p, const void* g, void* out, long long k, int n) {
+}""".replace("CASES", _CASES.replace("KERNEL", "emu_cinv_n").replace("ARGS", "mi, o, k, fused")) + """
+extern "C" void emu_ptgpt(const void* p, const void* g, void* out, long long k, int n,
+                          unsigned seed) {
   auto pi = (const float2*)p; auto gi = (const float2*)g; auto o = (float2*)out;
+  lane_rng = seed | 1u;
   switch (n) { CASES }
 }""".replace("CASES", _CASES.replace("KERNEL", "emu_ptgpt_n").replace("ARGS", "pi, gi, o, k")) + """
 extern "C" int tile_systems(int n) {
@@ -228,13 +389,13 @@ extern "C" void tile_roundtrip(const void* src, void* dst, long long k, int n,
                                long long* misplaced) {
   switch (n) { ROUNDTRIP_CASES }
 }""".replace("TILE_CASES", " ".join(
-        f"case {n}: return Tile<{n}>::kSystems;" for n in TILE_SIZES)).replace(
+        f"case {n}: return block_systems<{n}>();" for n in sorted(set(TILE_SIZES + SIZES)))).replace(
     "COVER_CASES", " ".join(
-        f"case {n}: tile_cover_n<{n}>(k, (unsigned char*)hits, bad); break;"
-        for n in TILE_SIZES)).replace(
+        f"case {n}: {'tile' if n <= 8 else 'rows'}_cover_n<{n}>(k, (unsigned char*)hits, bad); "
+        "break;" for n in TILE_SIZES + ROW_SIZES)).replace(
     "ROUNDTRIP_CASES", " ".join(
-        f"case {n}: tile_roundtrip_n<{n}>((const float2*)src, (float2*)dst, k, misplaced); "
-        "break;" for n in TILE_SIZES)),
+        f"case {n}: {'tile' if n <= 8 else 'rows'}_roundtrip_n<{n}>((const float2*)src, "
+        "(float2*)dst, k, misplaced); break;" for n in TILE_SIZES + ROW_SIZES)),
     "lu": """
 // the tiled solve (N <= kMaxTiledN) block by block, each phase thread by
 // thread as the barriers order them; larger N system by system
@@ -529,14 +690,69 @@ def _ptr(a: np.ndarray):
     return a.ctypes.data_as(ctypes.c_void_p)
 
 
+def _emulate_cinv(lib, m, seed=0, fused=False):
+    out = np.empty_like(m)
+    lib.emu(_ptr(m), _ptr(out), ctypes.c_longlong(len(m)), ctypes.c_int(m.shape[-1]),
+            ctypes.c_uint(seed), ctypes.c_int(fused))
+    return out
+
+
+def _emulate_ptgpt(lib, p, g, seed=0):
+    out = np.empty_like(p)
+    lib.emu_ptgpt(_ptr(p), _ptr(g), _ptr(out), ctypes.c_longlong(len(p)),
+                  ctypes.c_int(p.shape[-1]), ctypes.c_uint(seed))
+    return out
+
+
 @pytest.mark.parametrize("n", SIZES)
 def test_cinv_source_matches_plain_bitwise(emulated, n):
-    m, _ = systems(150, n, seed=n)
-    if n == 1:
-        m[:, 0, 0] += 1.0  # a 1 x 1 system has no row to pivot to
-    out = np.empty_like(m)
-    emulated["cinv"].emu(_ptr(m), _ptr(out), ctypes.c_longlong(len(m)), ctypes.c_int(n))
+    """150 systems; above N = 8 the row kernel's phases lane by lane, the
+    lanes of each phase in a shuffled order."""
+    m = cinv_systems(150, n, seed=n)
+    out = _emulate_cinv(emulated["cinv"], m, seed=n)
     np.testing.assert_array_equal(out, cinv_plain(torch.from_numpy(m)).numpy())
+
+
+def test_cinv_block_systems_are_those_the_card_tests_take(emulated):
+    """tests/test_torch_kernels_cuda.py sets its K around csrc/cinv.cu's
+    systems a block; they must be the source's."""
+    for n, systems_a_block in CINV_BLOCK_SYSTEMS.items():
+        assert emulated["cinv"].tile_systems(ctypes.c_int(n)) == systems_a_block
+
+
+# the row kernel at N = 9 (12 systems a block, 3 a warp): a single system,
+# a last block one short, one past a block, and a last block whose second
+# warp holds one system
+ROW_PARTIAL_K = {"1": 1, "T-1": 11, "T+1": 13, "T+4": 16}
+
+
+@pytest.mark.parametrize("k", ROW_PARTIAL_K.values(), ids=ROW_PARTIAL_K.keys())
+def test_cinv_row_kernel_partial_last_block_matches_plain_bitwise(emulated, k):
+    assert CINV_BLOCK_SYSTEMS[9] == 12
+    m = cinv_systems(k, 9, seed=500 + k)
+    out = _emulate_cinv(emulated["cinv"], m, seed=k)
+    np.testing.assert_array_equal(out, cinv_plain(torch.from_numpy(m)).numpy())
+
+
+@pytest.mark.parametrize("k", ROW_PARTIAL_K.values(), ids=ROW_PARTIAL_K.keys())
+def test_neg_ptgpt_row_kernel_partial_last_block_matches_plain_bitwise(emulated, k):
+    p, _ = systems(k, 9, seed=600 + k)
+    g, _ = systems(k, 9, seed=700 + k)
+    out = _emulate_ptgpt(emulated["cinv"], p, g, seed=k)
+    np.testing.assert_array_equal(out, neg_ptgpt_plain(torch.from_numpy(p),
+                                                       torch.from_numpy(g)).numpy())
+
+
+@pytest.mark.parametrize("n", [9, 27])
+def test_cinv_row_kernel_needs_its_barriers(emulated, n):
+    """Why each step has two phases: with each lane's pivot and elimination
+    run back to back (the __syncwarp between them missing), a lane that runs
+    before its system's pivot lane eliminates with a pivot row not yet
+    published, and the result changes."""
+    m = cinv_systems(24, n, seed=n)
+    ref = cinv_plain(torch.from_numpy(m)).numpy()
+    np.testing.assert_array_equal(_emulate_cinv(emulated["cinv"], m, seed=3), ref)
+    assert not np.array_equal(_emulate_cinv(emulated["cinv"], m, seed=3, fused=True), ref)
 
 
 @pytest.mark.parametrize("k_of_tile", [lambda t: t - 1, lambda t: t, lambda t: t + 1,
@@ -551,6 +767,34 @@ def test_cinv_tile_copies_cover_each_element_once(emulated, n, k_of_tile):
     16-byte boundary gives the same bits and touches nothing outside."""
     lib = emulated["cinv"]
     k = k_of_tile(lib.tile_systems(ctypes.c_int(n)))
+    count = k * n * n
+    hits = np.zeros(count, np.uint8)
+    bad, misplaced = ctypes.c_longlong(0), ctypes.c_longlong(0)
+    lib.tile_cover(ctypes.c_longlong(k), ctypes.c_int(n), _ptr(hits), ctypes.byref(bad))
+    assert bad.value == 0
+    np.testing.assert_array_equal(hits, 1)
+    buf = np.arange(2 * count + 4, dtype=np.uint32).view(np.complex64)  # distinct bits
+    src = buf[1:-1]  # 8 bytes past the buffer's 16-byte-aligned start
+    assert src.ctypes.data % 16 == 8
+    out = np.full(count + 2, 7 + 7j, np.complex64)
+    lib.tile_roundtrip(_ptr(src), _ptr(out[1:-1]), ctypes.c_longlong(k), ctypes.c_int(n),
+                       ctypes.byref(misplaced))
+    assert misplaced.value == 0
+    np.testing.assert_array_equal(out[1:-1].view(np.uint64), src.view(np.uint64))
+    assert out[0] == out[-1] == 7 + 7j
+
+
+@pytest.mark.parametrize("k_of_block", [lambda t: t - 1, lambda t: t, lambda t: t + 1,
+                                        lambda t: 1000], ids=["T-1", "T", "T+1", "1000"])
+@pytest.mark.parametrize("n", ROW_SIZES)
+def test_cinv_row_copies_cover_each_element_once(emulated, n, k_of_block):
+    """The row kernels' copies (N > 8): over every block, thread and copy
+    step, each of the K x N^2 elements is moved once, into its own slot of
+    the block's tile, where the lane of its row reads it; a round trip
+    through rows_load and rows_store from a base 8 bytes past a 16-byte
+    boundary gives the same bits and touches nothing outside."""
+    lib = emulated["cinv"]
+    k = k_of_block(lib.tile_systems(ctypes.c_int(n)))
     count = k * n * n
     hits = np.zeros(count, np.uint8)
     bad, misplaced = ctypes.c_longlong(0), ctypes.c_longlong(0)
@@ -699,9 +943,7 @@ def test_sos_source_polynomials_round_as_the_plain_version(emulated, tmp_path, r
 def test_neg_ptgpt_source_matches_plain_bitwise(emulated, n):
     p, _ = systems(150, n, seed=200 + n)
     g, _ = systems(150, n, seed=300 + n)
-    out = np.empty_like(p)
-    emulated["cinv"].emu_ptgpt(_ptr(p), _ptr(g), _ptr(out), ctypes.c_longlong(len(p)),
-                               ctypes.c_int(n))
+    out = _emulate_ptgpt(emulated["cinv"], p, g, seed=n)
     ref = neg_ptgpt_plain(torch.from_numpy(p), torch.from_numpy(g)).numpy()
     np.testing.assert_array_equal(out, ref)
 

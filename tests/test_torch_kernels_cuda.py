@@ -11,7 +11,8 @@ Bound: max abs error <= 1e-4 max |plain|; identical LU pivots. The inverse
 (B1 ``cinv``), its backward (B2 ``neg_ptgpt``) and the LU solve (B5
 ``lu_solve``: x, factors and pivots) must equal their plain versions bit
 for bit, at every N of the model family, on ragged K around the systems of
-a block, on a contiguous view 8 bytes past a 16-byte boundary, and on two
+a block (csrc/cinv.cu: 128 at N <= 4, 12 at N = 9, 8 at N = 12, 2 at
+N = 27; csrc/lu.cu: 128), on a contiguous view 8 bytes past a 16-byte boundary, and on two
 launches alike. The cascade
 forward (B3) also runs with every section scaled by 1e4 and 1e-4, where the
 unscaled product of |Q_k|^2 leaves float32, and its backward (B4), given
@@ -37,7 +38,8 @@ from diffgfdn_torch.kernels import cinv as cinv_mod
 from diffgfdn_torch.kernels import lu as lu_mod, sos as sos_mod, tdgfdn as td_mod
 from diffgfdn_torch.kernels.dispatch import plain_versions
 from diffgfdn_torch.kernels import linalg
-from torch_port_helpers import cascade, KERNEL_TOL as TOL, max_rel, systems
+from torch_port_helpers import (cascade, CINV_BLOCK_SYSTEMS, cinv_systems, KERNEL_TOL as TOL,
+                                max_rel, systems)
 
 
 @pytest.fixture
@@ -55,25 +57,22 @@ def _on_card_and_plain(fn, *args):
     return out, ref
 
 
-# csrc/cinv.cu runs 128 systems a block at each N below (one tile at N <= 4,
-# one system a thread at N > 8); K = 3 x 65537 is the fullband path's
+# csrc/cinv.cu runs CINV_BLOCK_SYSTEMS[n] systems a block (a tile of 128 at
+# N <= 4; floor(32 / N) a warp at N > 8): K around that count, 1000, and
+# K = 3 x 65537, the fullband path's
 CINV_SIZES = (1, 4, 9, 12, 27)
-CINV_BLOCK = 128
-CINV_K = (1, CINV_BLOCK - 1, CINV_BLOCK, CINV_BLOCK + 1, 1000, 3 * 65537)
-
-
-def _cinv_systems(k, n, seed):
-    m, _ = systems(k, n, seed=seed)
-    if n == 1:
-        m[:, 0, 0] += 1.0  # a 1 x 1 system has no row to pivot to
-    return m
+CINV_CASES = [(n, k) for n in CINV_SIZES
+              for t in (CINV_BLOCK_SYSTEMS[n],)
+              for k in (1, t - 1, t, t + 1, 1000, 3 * 65537)]
+# csrc/lu.cu runs 128 systems a block at each N it is tested at
+LU_BLOCK = 128
+LU_K = (1, LU_BLOCK - 1, LU_BLOCK, LU_BLOCK + 1, 1000, 3 * 65537)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", CINV_K)
-@pytest.mark.parametrize("n", CINV_SIZES)
+@pytest.mark.parametrize("n,k", CINV_CASES)
 def test_cinv_kernel_matches_plain_on_card(cuda_device, n, k):
-    m = torch.from_numpy(_cinv_systems(k, n, seed=n)).to(cuda_device)
+    m = torch.from_numpy(cinv_systems(k, n, seed=n)).to(cuda_device)
     before = cinv_mod.cinv.launches
     out, ref = _on_card_and_plain(cinv_mod.cinv, m)
     assert cinv_mod.cinv.launches == before + 1
@@ -94,7 +93,7 @@ def _offset_view(x):
 @pytest.mark.parametrize("n", [1, 4, 9])
 def test_cinv_kernels_take_a_view_8_bytes_off_alignment(cuda_device, n):
     k = 3 * 65537
-    m = torch.from_numpy(_cinv_systems(k, n, seed=70 + n)).to(cuda_device)
+    m = torch.from_numpy(cinv_systems(k, n, seed=70 + n)).to(cuda_device)
     g = torch.from_numpy(systems(k, n, seed=80 + n)[0]).to(cuda_device)
     out, ref = _on_card_and_plain(cinv_mod.cinv, _offset_view(m))
     assert torch.equal(out, ref)
@@ -105,9 +104,10 @@ def test_cinv_kernels_take_a_view_8_bytes_off_alignment(cuda_device, n):
 
 
 @pytest.mark.cuda
-def test_cinv_kernels_are_deterministic_on_card(cuda_device):
-    k, n = 3 * 65537, 4
-    m = torch.from_numpy(_cinv_systems(k, n, seed=3)).to(cuda_device)
+@pytest.mark.parametrize("n", [4, 9])
+def test_cinv_kernels_are_deterministic_on_card(cuda_device, n):
+    k = 3 * 65537
+    m = torch.from_numpy(cinv_systems(k, n, seed=3)).to(cuda_device)
     g = torch.from_numpy(systems(k, n, seed=4)[0]).to(cuda_device)
     first, second = cinv_mod.cinv(m), cinv_mod.cinv(m)
     assert torch.equal(first, second)
@@ -120,7 +120,7 @@ LU_SIZES = (1, 4, 8, 9, 12, 27)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", CINV_K)
+@pytest.mark.parametrize("k", LU_K)
 @pytest.mark.parametrize("n", LU_SIZES)
 def test_lu_kernel_matches_plain_on_card(cuda_device, n, k):
     m, b = systems(k, n, seed=n)
@@ -165,10 +165,9 @@ def test_sos_kernel_matches_plain_on_card(cuda_device, r, scale):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", CINV_K)
-@pytest.mark.parametrize("n", CINV_SIZES)
+@pytest.mark.parametrize("n,k", CINV_CASES)
 def test_neg_ptgpt_kernel_matches_plain_on_card(cuda_device, n, k):
-    m = _cinv_systems(k, n, seed=n)
+    m = cinv_systems(k, n, seed=n)
     g, _ = systems(k, n, seed=50 + n)
     p = cinv_mod.cinv(torch.from_numpy(m).to(cuda_device))
     before = cinv_mod.neg_ptgpt.launches
@@ -352,7 +351,7 @@ def _vmapped_launches(fn, leaves, g, counters):
 
 @pytest.mark.cuda
 def test_band_stacked_inverse_launches_b1_and_b2_once(cuda_device):
-    m = torch.from_numpy(_cinv_systems(BANDS * 3 * 65537, 4, seed=7)).to(cuda_device)
+    m = torch.from_numpy(cinv_systems(BANDS * 3 * 65537, 4, seed=7)).to(cuda_device)
     m = m.reshape(BANDS, 3, 65537, 4, 4)
     g = torch.randn(m.shape, dtype=torch.complex64, device=cuda_device)
     launched, ((p, (dm,)), (p_p, (dm_p,))) = _vmapped_launches(

@@ -12,6 +12,10 @@ BANDS = [250.0, 500.0, 1000.0, 2000.0]
 DECAY_TIMES = (1.0, 1.5, 1.2)  # long enough that the first 0.5 s stays far above
 #                                the float32 rounding floor of the irfft
 KERNEL_TOL = 1e-4  # kernel level: max abs error / max |reference|
+# systems a block of csrc/cinv.cu's kernels at the N the tests take: one a
+# thread in a tile at N <= 8, floor(32 / N) a warp at N > 8 (4 warps a block
+# to N = 16, 2 above); test_torch_kernel_sources.py holds it to the source
+CINV_BLOCK_SYSTEMS = {1: 128, 4: 128, 8: 32, 9: 12, 12: 8, 27: 2}
 
 
 def systems(k: int, n: int, seed: int):
@@ -23,6 +27,15 @@ def systems(k: int, n: int, seed: int):
     m[: k // 3, 0, 0] = 0.0
     b = (rng.randn(k, n) + 1j * rng.randn(k, n)).astype(np.complex64)
     return m, b
+
+
+def cinv_systems(k: int, n: int, seed: int):
+    """The matrices of :func:`systems`, with the 1 x 1 ones kept off zero
+    (a 1 x 1 system has no row to pivot to)."""
+    m, _ = systems(k, n, seed=seed)
+    if n == 1:
+        m[:, 0, 0] += 1.0
+    return m
 
 
 def cascade(r: int, k: int, f: int, seed: int):
