@@ -8,7 +8,10 @@ Run from the repository root on a machine with one CUDA card:
 
 Phases (any failure raises and exits non-zero, with no result line):
 
-1. build the kernels of ``diffgfdn_torch/csrc`` (one ``nvcc`` per source);
+1. build the kernels of ``diffgfdn_torch/csrc`` (one ``nvcc`` per source)
+   and hold ptxas's report of the directional shapes' kernels: no stack
+   frame and no spill stores in B1 / B2 and B5 at N = 9, no spill stores in
+   B7 at N = 27;
 2. serve both slice configurations at full width through the user entry
    point ``InferDiffGFDN.rirs_at``: a synthetic 3-room dataset at 32 kHz
    (96 receivers, 3 batches of 32, nfft 131072), seeded parameters written
@@ -954,10 +957,16 @@ def kernel_times(root: Path) -> dict:
     time too, median of 5); and, when this process built
     them, ptxas's registers, spill-store and stack-frame bytes of
     ``cinv_kernel`` and ``neg_ptgpt_kernel`` at N = 4, 8, 9, 12 and 27, the cascade kernels at
-    K = 11, ``lu_solve_kernel<4>`` and ``<9>``, ``lut_apply_kernel<4>`` and
-    the B7 kernels at N = 12, with the shared-memory loads (LDS) cuobjdump
-    counts in the B7 kernels. Runs any tree of the port, whether its B4
-    reads h or recomputes it and whichever C entry point its B7 has."""
+    K = 11, ``lu_solve_kernel`` at N = 4, 9, 12 and 27, ``lut_apply_kernel``
+    at N = 4 and 9 and the B7 kernels at N = 12 and 27, with the
+    shared-memory loads (LDS) cuobjdump counts in the B7 kernels. B5 and
+    B6 also run at the directional step's shape (3 x 65537 random systems
+    of 9 x 9) and at N = 27 (65537), with the plain version's time (median
+    of 5) and ``torch.linalg.solve``'s beside each, and B7 at the
+    directional preset's 27 delays (random orthogonal A, gains of a 1.2 s
+    decay, an impulse of 131072 samples). Runs any tree of the port,
+    whether its B4 reads h or recomputes it and whichever C entry point its
+    B7 has."""
     import inspect
 
     sys.path.insert(0, str(root.resolve()))
@@ -1015,7 +1024,9 @@ def kernel_times(root: Path) -> dict:
     out = {"root": str(root), "b4_reads_h": reads_h, "b7_variants": variants, "ptxas": None}
     b7 = (("tdgfdn_ring_kernel<12>", "tdgfdn_ring_kernelILi12E"),
           ("tdgfdn_hist_kernel<12>", "tdgfdn_hist_kernelILi12E"),
-          ("tdgfdn_kernel<12>", "tdgfdn_kernelILi12E"))
+          ("tdgfdn_kernel<12>", "tdgfdn_kernelILi12E"),
+          ("tdgfdn_hist_kernel<27>", "tdgfdn_hist_kernelILi27E"),
+          ("tdgfdn_lines_kernel<27>", "tdgfdn_lines_kernelILi27E"))
     out["b7_sass"] = {label: sass_counts(_build.library_path("tdgfdn"), frag)
                       for label, frag in b7}
     if any(logs.values()):
@@ -1026,9 +1037,10 @@ def kernel_times(root: Path) -> dict:
                                    or ptxas_usage(logs["sos"], "sos_cascade_kernelE")),
             f"sos_bwd_partial_kernel<{k}>": ptxas_usage(logs["sos"],
                                                         f"sos_bwd_partial_kernelILi{k}E"),
-            "lu_solve_kernel<4>": ptxas_usage(logs["lu"], "lu_solve_kernelILi4E"),
-            "lu_solve_kernel<9>": ptxas_usage(logs["lu"], "lu_solve_kernelILi9E"),
-            "lut_apply_kernel<4>": ptxas_usage(logs["lu"], "lut_apply_kernelILi4E"),
+            **{f"lu_solve_kernel<{n}>": ptxas_usage(logs["lu"], f"lu_solve_kernelILi{n}E")
+               for n in (4, 9, 12, 27)},
+            **{f"lut_apply_kernel<{n}>": ptxas_usage(logs["lu"], f"lut_apply_kernelILi{n}E")
+               for n in (4, 9)},
             **{label: ptxas_usage(logs["tdgfdn"], frag) for label, frag in b7},
         }
     for label, m in (("path", m_path),
@@ -1094,6 +1106,40 @@ def kernel_times(root: Path) -> dict:
     out["tdgfdn wide"] = {
         "delays": [min(wide), max(wide)], "t_len": t_len,
         "kernel_ms": kernel_ms(bare_tdgfdn(tdgfdn, wide, *td_in[1:]))}
+
+    for label, n, kb in (("directional", 9, 3 * 65537), ("N=27", 27, 65537)):
+        m5, b5 = random_systems(kb, n, gen)
+        _, factors, piv = lu.lu_solve(m5, b5)
+        g5 = torch.randn((kb, n), dtype=torch.complex64, device=DEVICE, generator=gen)
+        out[f"lu_solve {label}"] = {
+            "shape": list(m5.shape), "ms": device_ms(lambda: lu.lu_solve(m5, b5)),
+            "kernel_ms": kernel_ms(lambda: lu.lu_solve(m5, b5)),
+            "bound_ms": bound(*lu_cost(kb, n))[0],
+            "plain_ms": device_ms(lambda: lu.lu_solve_plain(m5, b5), reps=5),
+            "library_ms": device_ms(lambda: torch.linalg.solve(m5, b5.unsqueeze(-1)))}
+        out[f"lut_apply {label}"] = {
+            "shape": list(g5.shape), "ms": device_ms(lambda: lu.lut_apply(factors, piv, g5)),
+            "kernel_ms": kernel_ms(lambda: lu.lut_apply(factors, piv, g5)),
+            "bound_ms": bound(*lut_apply_cost(kb, n))[0],
+            "plain_ms": device_ms(lambda: lu.lut_apply_plain(factors, piv, g5), reps=5),
+            "library_ms": device_ms(lambda: torch.linalg.solve(m5.mH, g5.unsqueeze(-1)))}
+        del m5, b5, factors, piv, g5
+
+    d_cfg = preset_config(DIRECTIONAL_PRESET)
+    delays27 = tuple(int(x) for x in d_cfg.delay_length_samps)
+    rng = np.random.RandomState(SEED)
+    a27 = np.linalg.qr(rng.randn(27, 27))[0].astype(np.float32)
+    g27 = (10.0 ** (-3.0 * np.asarray(delays27) / (1.2 * d_cfg.sample_rate))).astype(np.float32)
+    b27 = rng.randn(27).astype(np.float32)
+    td27 = tuple(torch.from_numpy(x).to(DEVICE) for x in (g27, a27, b27)) + (impulse,)
+    out["tdgfdn directional"] = {
+        "delays": [min(delays27), max(delays27)], "n": 27, "t_len": t_len,
+        "ms": device_ms(lambda: tdgfdn.delay_line_outputs(delays27, *td27)),
+        "kernel_ms": kernel_ms(bare_tdgfdn(tdgfdn, delays27, *td27)),
+        "bound_ms": bound(*tdgfdn_cost(t_len, 27))[0]}
+    if variants:
+        out["tdgfdn directional"]["plan"] = list(tdgfdn.kernel_plan(
+            delays27, tdgfdn.shared_memory_limit(impulse.device)))
     return out
 
 
@@ -1746,9 +1792,9 @@ def directional_rows(inputs: dict, launches: dict) -> list:
 def directional_b7_row(model, launches: int) -> dict:
     """Phase 8, B7 at N = 27 on the transposed feedback matrix: against its
     plain version bit for bit (impulse and random input) and float64 numpy,
-    timed beside its bound and plain version. The plan's ring (4096 slots at
-    steps of 512) does not fit the shared memory, so the history is in
-    device memory."""
+    timed beside its bound and plain version. The plan is the lines
+    variant: the coefficients in shared memory, the history in device
+    memory."""
     import torch
 
     from diffgfdn_torch.kernels import tdgfdn
@@ -2045,15 +2091,27 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     logs = _build.build_all()
     print(f"phase 1: built {sorted(logs)} in {time.perf_counter() - t0:.1f} s")
+    # the row kernels of B1 / B2 and B5 keep each lane's row in registers: a
+    # stack frame would be a system left in local memory; B7 at N = 27 keeps
+    # its coefficients in shared memory: a spill would put a sample's
+    # outputs in local memory
+    rows = {}
     if logs.get("cinv"):
-        # the row kernels of B1 / B2 keep each lane's row in registers: a
-        # stack frame would be a system left in local memory
-        rows = {f"{kern}<{n}>": ptxas_usage(logs["cinv"], f"{kern}ILi{n}E")
-                for kern in ("cinv_kernel", "neg_ptgpt_kernel") for n in (9, 12, 27)}
+        rows.update({f"{kern}<{n}>": ptxas_usage(logs["cinv"], f"{kern}ILi{n}E")
+                     for kern in ("cinv_kernel", "neg_ptgpt_kernel") for n in (9, 12, 27)})
+    if logs.get("lu"):
+        rows.update({f"lu_solve_kernel<{n}>": ptxas_usage(logs["lu"], f"lu_solve_kernelILi{n}E")
+                     for n in (9, 12, 27)})
+    if logs.get("tdgfdn"):
+        rows["tdgfdn_lines_kernel<27>"] = ptxas_usage(logs["tdgfdn"], "tdgfdn_lines_kernelILi27E")
+    if rows:
         print("phase 1: ptxas " + json.dumps(rows))
-        require(all(u is not None and u["stack_frame"] == 0 and u["spill_stores"] == 0
-                    for label, u in rows.items() if label.endswith("<9>")),
-                f"B1 / B2 at N = 9 left in local memory: {rows}")
+    require(all(u is not None and u["stack_frame"] == 0 and u["spill_stores"] == 0
+                for label, u in rows.items() if label.endswith("<9>")),
+            f"B1 / B2 / B5 at N = 9 left in local memory: {rows}")
+    if logs.get("tdgfdn"):
+        b7 = rows["tdgfdn_lines_kernel<27>"]
+        require(b7 is not None and b7["spill_stores"] == 0, f"B7 at N = 27 spills: {b7}")
     if log_dir is not None:
         (log_dir / "nvcc.log").write_text(
             "\n".join(f"==== {k}\n{v}" for k, v in logs.items())

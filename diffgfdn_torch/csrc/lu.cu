@@ -30,9 +30,11 @@
 // Bound on an H100: at the serving shape (K = 3 x 65537, N = 4) the kernel
 // reads m and b and writes x, lu and piv: K x (N^2 x 16 + N x 20) B = 66 MB,
 // 20 us at 3.35 TB/s, against about 8 N^3 / 3 FLOP per system: memory bound.
+// So is the directional shape (K = 3 x 65537 systems of 9 x 9): 290 MB, 87 us,
+// against 0.4 GFLOP, 6 us at 67 TFLOP/s.
 //
-// Design. Each thread solves one system in registers. For N <= 8 (the
-// served and trained N = 4) the block stages its tile of T consecutive
+// Design. For N <= 8 (the served and trained N = 4) each thread solves one
+// system in registers, and the block stages its tile of T consecutive
 // systems, m and b, through shared memory with asynchronous 8-byte copies,
 // so that device memory sees whole coalesced lines: copy step c of thread t
 // moves element c * T + t of the tile, neighbouring threads on neighbouring
@@ -47,21 +49,43 @@
 // slot, and the block stores the x tile back coalesced. The factors and
 // pivots go straight from registers to device memory bins-last: a warp's
 // stores are coalesced without staging. The last tile is partial: the
-// copies mask by element, the solves by system. N = 9 (the directional
-// presets' blocks) is not tiled: unrolled, its 9 x 9 complex system needs
-// more than the 255 registers a thread has (ptxas: 255 registers and a
-// 720-byte stack frame on an H100), so for N > 8 each thread reads its own
-// system directly and keeps the arrays in local memory (the L1 merges its
-// contiguous 8 N^2 bytes), as before. On an H100 80GB HBM3 at 700 W
-// (chip_smoke.py --kernel-times) the serving shape takes 0.029 ms, against
-// 0.060 ms with each thread reading its own system (PERF.md).
+// copies mask by element, the solves by system. On an H100 80GB HBM3 at
+// 700 W (chip_smoke.py --kernel-times) the serving shape takes 0.029 ms,
+// against 0.060 ms with each thread reading its own system (PERF.md).
+//
+// For N > 8 (the directional presets' 9 x 9 blocks) a thread's registers
+// cannot hold a system (ptxas: 792 bytes of stack at N = 9 for a system a
+// thread), so each lane holds one ROW of [M | b]: floor(32 / N) systems a
+// warp (3 at N = 9), every loop over a row's entries unrolled, the steps a
+// template recursion, so no row sits in local memory. The block stages its
+// systems through shared memory with coalesced asynchronous copies, rows
+// N | 1 float2 apart and systems an odd number apart, so the lanes reading
+// their rows, and the threads reading one entry of consecutive systems, hit
+// distinct banks. Step k runs in two phases between __syncwarp()s: every
+// lane has published |a[row][k]|^2; every lane takes the same pivot p from
+// the published values in the serial order, rows k and p swap their labels,
+// and the lane now holding row k publishes its active part (columns k..,
+// U's row k, final) and its right-hand side over the system's slot; then
+// every lane below eliminates with it, writes its multiplier f_k[row] into
+// the slot at (row, k), where it stays (later swaps move only columns right
+// of their step), and publishes |a[row][k + 1]|^2. Relabelling alone is the
+// partial swap: the multipliers left of column k are in the slot, not in
+// the lanes. Back substitution takes N more phases, x[k] by the lane holding
+// row k from its registers and the x[j > k] published before it, each sum in
+// ascending j from zero. The block then stores x, and the factors and pivots
+// bins-last from the slots: element e of the block's N^2 (N) planes is
+// system e % T of plane e / T, so a warp stores runs of the T consecutive
+// systems of a plane. Each element sees the operations of the serial order,
+// so x, the factors and the pivots are bit for bit those of the plain
+// version.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kMaxTiledN = 8;
-constexpr int kThreads = 128;  // threads per block of the untiled kernels
+constexpr int kThreads = 128;  // threads per block of the transposed solve
+constexpr int kWarp = 32;
 
 // Systems per tile (also the block's thread count) and the shared-memory
 // layout of the tiled solve (N <= kMaxTiledN): a slot holds a system's m
@@ -72,12 +96,39 @@ struct Tile {
   static constexpr int kSystems = N <= 4 ? 128 : (N <= 6 ? 64 : 32);
 };
 
+// The row solve (N > kMaxTiledN): lane l of a warp holds row l % N of the
+// warp's system l / N (lanes from kPerWarp * N on idle). A system's matrix
+// slot in shared memory is kStride float2 long, its rows kRowStride apart;
+// its vector slots (b, x), magnitudes and pivots N apart.
+template <int N>
+struct Rows {
+  static constexpr int kPerWarp = kWarp / N;                 // systems a warp
+  static constexpr int kWarps = N <= 24 ? 8 : 4;             // static shared memory < 48 KB
+  static constexpr int kSystems = kWarps * kPerWarp;         // systems a block
+  static constexpr int kThreads = kWarps * kWarp;
+  static constexpr int kRowStride = N | 1;                   // odd
+  static constexpr int kStride = (N * kRowStride) | 1;       // odd
+  // a thread's copy steps for the matrices (N^2 a system), the vectors and
+  // pivots (N a system)
+  static constexpr int kMatCopies = (kSystems * N * N + kThreads - 1) / kThreads;
+  static constexpr int kVecCopies = (kSystems * N + kThreads - 1) / kThreads;
+};
+
 template <int N>
 constexpr int solve_threads() {
   if constexpr (N <= kMaxTiledN) {
     return Tile<N>::kSystems;
   } else {
-    return kThreads;
+    return Rows<N>::kThreads;
+  }
+}
+
+template <int N>
+constexpr int solve_systems() {
+  if constexpr (N <= kMaxTiledN) {
+    return Tile<N>::kSystems;
+  } else {
+    return Rows<N>::kSystems;
   }
 }
 
@@ -138,23 +189,22 @@ __device__ __forceinline__ void tile_store(const float2* tile, float2* __restric
   }
 }
 
-// The solve of system s of k_sys: a_in holds its N x N float2 matrix
-// row-major, b_in its N right-hand-side entries; writes x_out (N float2,
-// which may be b_in: b is read whole first), the factors lu[(r N + c) k_sys
-// + s] and the pivots piv[k k_sys + s]. For N <= kMaxTiledN the loops unroll
+// The solve of system s of k_sys (N <= kMaxTiledN): a_in holds its N x N
+// float2 matrix row-major, b_in its N right-hand-side entries; writes x_out
+// (N float2, which may be b_in: b is read whole first), the factors
+// lu[(r N + c) k_sys + s] and the pivots piv[k k_sys + s]. The loops unroll
 // completely, so every array index is a constant and the arrays stay in
-// registers; larger N keep them in local memory.
+// registers.
 template <int N>
 __device__ __forceinline__ void lu_solve_system(const float2* a_in, const float2* b_in,
                                                 float2* x_out, float2* __restrict__ lu,
                                                 int* __restrict__ piv, long long s,
                                                 long long k_sys) {
-  constexpr bool kUnrolled = N <= kMaxTiledN;
-  constexpr int U = kUnrolled ? N : 1;
+  static_assert(N <= kMaxTiledN, "larger systems take the row solve");
   float lr[N][N], li[N][N], rr[N], ri[N];
-#pragma unroll U
+#pragma unroll
   for (int r = 0; r < N; ++r) {
-#pragma unroll U
+#pragma unroll
     for (int c = 0; c < N; ++c) {
       const float2 v = a_in[r * N + c];
       lr[r][c] = v.x;
@@ -165,12 +215,12 @@ __device__ __forceinline__ void lu_solve_system(const float2* a_in, const float2
     ri[r] = v.y;
   }
 
-#pragma unroll U
+#pragma unroll
   for (int k = 0; k < N; ++k) {
     // pivot: the first row r >= k with the largest |a[r][k]|^2
     int p = k;
     float best = lr[k][k] * lr[k][k] + li[k][k] * li[k][k];
-#pragma unroll U
+#pragma unroll
     for (int r = k + 1; r < N; ++r) {
       const float mag = lr[r][k] * lr[r][k] + li[r][k] * li[r][k];
       if (mag > best) {
@@ -180,41 +230,22 @@ __device__ __forceinline__ void lu_solve_system(const float2* a_in, const float2
     }
     piv[k * k_sys + s] = p;
     // swap rows k and p over the active columns and the RHS only
-    if constexpr (kUnrolled) {
 #pragma unroll
-      for (int r = k + 1; r < N; ++r) {
-        const bool swap = r == p;
+    for (int r = k + 1; r < N; ++r) {
+      const bool swap = r == p;
 #pragma unroll
-        for (int c = k; c < N; ++c) {
-          const float kr = lr[k][c], ki = li[k][c], xr = lr[r][c], xi = li[r][c];
-          lr[k][c] = swap ? xr : kr;
-          li[k][c] = swap ? xi : ki;
-          lr[r][c] = swap ? kr : xr;
-          li[r][c] = swap ? ki : xi;
-        }
-        const float kr = rr[k], ki = ri[k], xr = rr[r], xi = ri[r];
-        rr[k] = swap ? xr : kr;
-        ri[k] = swap ? xi : ki;
-        rr[r] = swap ? kr : xr;
-        ri[r] = swap ? ki : xi;
+      for (int c = k; c < N; ++c) {
+        const float kr = lr[k][c], ki = li[k][c], xr = lr[r][c], xi = li[r][c];
+        lr[k][c] = swap ? xr : kr;
+        li[k][c] = swap ? xi : ki;
+        lr[r][c] = swap ? kr : xr;
+        li[r][c] = swap ? ki : xi;
       }
-    } else {
-      for (int r = k + 1; r < N; ++r) {
-        if (r == p) {
-          for (int c = k; c < N; ++c) {
-            const float tr = lr[k][c], ti = li[k][c];
-            lr[k][c] = lr[r][c];
-            li[k][c] = li[r][c];
-            lr[r][c] = tr;
-            li[r][c] = ti;
-          }
-          const float tr = rr[k], ti = ri[k];
-          rr[k] = rr[r];
-          ri[k] = ri[r];
-          rr[r] = tr;
-          ri[r] = ti;
-        }
-      }
+      const float kr = rr[k], ki = ri[k], xr = rr[r], xi = ri[r];
+      rr[k] = swap ? xr : kr;
+      ri[k] = swap ? xi : ki;
+      rr[r] = swap ? kr : xr;
+      ri[r] = swap ? ki : xi;
     }
     if (k == N - 1) break;
     // multipliers f = a[i][k] / pivot, stored below the diagonal
@@ -222,7 +253,7 @@ __device__ __forceinline__ void lu_solve_system(const float2* a_in, const float2
     const float inv_den = 1.0f / (pr * pr + pi * pi);
     const float ipr = pr * inv_den;
     const float ipi = -pi * inv_den;
-#pragma unroll U
+#pragma unroll
     for (int i = k + 1; i < N; ++i) {
       const float c1r = lr[i][k], c1i = li[i][k];
       const float fr = c1r * ipr - c1i * ipi;
@@ -230,7 +261,7 @@ __device__ __forceinline__ void lu_solve_system(const float2* a_in, const float2
       lr[i][k] = fr;
       li[i][k] = fi;
       // trailing update of row i and of its RHS entry
-#pragma unroll U
+#pragma unroll
       for (int j = k + 1; j < N; ++j) {
         const float ur = lr[k][j], ui = li[k][j];
         lr[i][j] = lr[i][j] - (fr * ur - fi * ui);
@@ -244,10 +275,10 @@ __device__ __forceinline__ void lu_solve_system(const float2* a_in, const float2
   // back substitution: x[k] = (rhs[k] - sum_{j>k} U[k][j] x[j]) / U[k][k],
   // the sum taken over ascending j from zero
   float xr[N], xi[N];
-#pragma unroll U
+#pragma unroll
   for (int k = N - 1; k >= 0; --k) {
     float sr = 0.0f, si = 0.0f;
-#pragma unroll U
+#pragma unroll
     for (int j = k + 1; j < N; ++j) {
       sr = sr + (lr[k][j] * xr[j] - li[k][j] * xi[j]);
       si = si + (lr[k][j] * xi[j] + li[k][j] * xr[j]);
@@ -260,13 +291,268 @@ __device__ __forceinline__ void lu_solve_system(const float2* a_in, const float2
     xi[k] = (num_i * dr - num_r * di) * inv_den;
   }
 
-#pragma unroll U
+#pragma unroll
   for (int r = 0; r < N; ++r) {
     x_out[r] = make_float2(xr[r], xi[r]);
-#pragma unroll U
+#pragma unroll
     for (int c = 0; c < N; ++c) {
       lu[(r * N + c) * k_sys + s] = make_float2(lr[r][c], li[r][c]);
     }
+  }
+}
+
+// ---- the row solve (N > kMaxTiledN) ----
+
+// Copy step c of this thread (of a row solve's block) moves element
+// c * threads + threadIdx.x of the block's elements.
+template <int N>
+__device__ __forceinline__ int rows_element(int c) {
+  return c * Rows<N>::kThreads + static_cast<int>(threadIdx.x);
+}
+
+// Element (r, c) of the block's system s lives in this slot of shared
+// memory: first the matrix's, then the factor's.
+template <int N>
+__device__ __forceinline__ int factor_slot(int s, int r, int c) {
+  return s * Rows<N>::kStride + r * Rows<N>::kRowStride + c;
+}
+
+// Matrix element e of the block: element j = e % N^2 of system e / N^2, row
+// j / N, column j % N.
+template <int N>
+__device__ __forceinline__ int rows_slot(int e) {
+  const int j = e % (N * N);
+  return factor_slot<N>(e / (N * N), j / N, j % N);
+}
+
+// Starts the copies of the first `count` matrix elements of src (the
+// block's systems, contiguous) into their slots, and of the first
+// `count_b` right-hand-side entries into the vector slots (entry e of the
+// block at vec[e]); copy_wait() and a barrier make them visible.
+template <int N>
+__device__ __forceinline__ void rows_load(const float2* __restrict__ m, const float2* __restrict__ b,
+                                          float2* mat, float2* vec, int count, int count_b) {
+#pragma unroll
+  for (int c = 0; c < Rows<N>::kMatCopies; ++c) {
+    const int e = rows_element<N>(c);
+    if (e < count) copy_to_shared(mat + rows_slot<N>(e), m + e);
+  }
+#pragma unroll
+  for (int c = 0; c < Rows<N>::kVecCopies; ++c) {
+    const int e = rows_element<N>(c);
+    if (e < count_b) copy_to_shared(vec + e, b + e);
+  }
+}
+
+// Plane element e of the block's factors (or pivots): system e % T of
+// plane e / T, T the block's systems; its destination is plane * k_sys +
+// first + system, so a warp stores runs of consecutive systems.
+struct PlaneElement {
+  int plane, system;
+};
+
+template <int N>
+__device__ __forceinline__ PlaneElement plane_element(int e) {
+  return {e / Rows<N>::kSystems, e % Rows<N>::kSystems};
+}
+
+// After the solve: x from the vector slots (the first `systems` * N
+// entries, contiguous), the factors and pivots from the slots to their
+// planes, bins-last, for the block's first `systems` systems.
+template <int N>
+__device__ __forceinline__ void rows_store(const float2* mat, const float2* vec, const int* pv,
+                                           float2* __restrict__ x, float2* __restrict__ lu,
+                                           int* __restrict__ piv, long long first,
+                                           long long k_sys, int systems) {
+#pragma unroll
+  for (int c = 0; c < Rows<N>::kVecCopies; ++c) {
+    const int e = rows_element<N>(c);
+    if (e < systems * N) x[first * N + e] = vec[e];
+  }
+#pragma unroll
+  for (int c = 0; c < Rows<N>::kMatCopies; ++c) {
+    const PlaneElement q = plane_element<N>(rows_element<N>(c));
+    if (q.plane < N * N && q.system < systems) {
+      lu[q.plane * k_sys + first + q.system] = mat[factor_slot<N>(q.system, q.plane / N, q.plane % N)];
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < Rows<N>::kVecCopies; ++c) {
+    const PlaneElement q = plane_element<N>(rows_element<N>(c));
+    if (q.plane < N && q.system < systems) {
+      piv[q.plane * k_sys + first + q.system] = pv[q.system * N + q.plane];
+    }
+  }
+}
+
+// What thread t of a row solve's block works on: row `row` of the block's
+// system `system`; idle if that system is past the `systems` of the block
+// or the lane past the warp's last system.
+struct RowLane {
+  int system, row;
+  bool active;
+};
+
+template <int N>
+__device__ __forceinline__ RowLane row_lane(int t, int systems) {
+  const int lane = t % kWarp;
+  const int system = (t / kWarp) * Rows<N>::kPerWarp + lane / N;
+  return {system, lane % N, lane < Rows<N>::kPerWarp * N && system < systems};
+}
+
+// A system's shared slots: its matrix, then factors (a, rows kRowStride
+// apart); its vector (v: b, then the pivot rows' right-hand sides, then x);
+// the published magnitudes (mag) and its pivots (pv).
+struct LuSlot {
+  float2* a;
+  float2* v;
+  float* mag;
+  int* pv;
+};
+
+template <int N>
+__device__ __forceinline__ LuSlot lu_slot(float2* mat, float2* vec, float* mag, int* pv,
+                                          int system) {
+  return {mat + system * Rows<N>::kStride, vec + system * N, mag + system * N, pv + system * N};
+}
+
+// One lane's row of [M | b]. Rows are never moved: a pivot swap exchanges
+// the logical indices `row` of two lanes; entries left of the current step
+// are no longer read.
+template <int N>
+struct LuRow {
+  float re[N], im[N];
+  float rr, ri;
+  int row;
+};
+
+// Publishes |a[row][K]|^2 at mag[row].
+template <int N, int K>
+__device__ __forceinline__ void lu_row_publish(const LuRow<N>& a, const LuSlot& q) {
+  q.mag[a.row] = a.re[K] * a.re[K] + a.im[K] * a.im[K];
+}
+
+// Phase 0: this lane takes row r of its system's [M | b] from the slots
+// and publishes it for step 0.
+template <int N>
+__device__ __forceinline__ void lu_row_start(const LuSlot& q, int r, LuRow<N>& a) {
+#pragma unroll
+  for (int c = 0; c < N; ++c) {
+    const float2 v = q.a[r * Rows<N>::kRowStride + c];
+    a.re[c] = v.x;
+    a.im[c] = v.y;
+  }
+  const float2 v = q.v[r];
+  a.rr = v.x;
+  a.ri = v.y;
+  a.row = r;
+  lu_row_publish<N, 0>(a, q);
+}
+
+// Step K, first phase (every row >= K has published |a[.][K]|^2): the
+// pivot p is the first row >= K with the largest, compared in the serial
+// order; rows K and p swap labels; the lane now holding row K writes the
+// pivot p, its columns K.. (row K of U, final) and its right-hand side
+// over the slot.
+template <int N, int K>
+__device__ __forceinline__ void lu_row_pivot(const LuSlot& q, LuRow<N>& a) {
+  int p = K;
+  float best = q.mag[K];
+#pragma unroll
+  for (int r = K + 1; r < N; ++r) {
+    const float m = q.mag[r];
+    if (m > best) {
+      best = m;
+      p = r;
+    }
+  }
+  if (a.row == p) {
+    a.row = K;
+  } else if (a.row == K) {
+    a.row = p;
+  }
+  if (a.row == K) {
+    q.pv[K] = p;
+#pragma unroll
+    for (int c = K; c < N; ++c) q.a[K * Rows<N>::kRowStride + c] = make_float2(a.re[c], a.im[c]);
+    q.v[K] = make_float2(a.rr, a.ri);
+  }
+}
+
+// Step K < N - 1, second phase (the pivot row published): every row below
+// takes its multiplier f = a[row][K] * conj(pivot) / |pivot|^2, writes it at
+// (row, K) of the slot, where it stays, updates its columns K + 1.. and its
+// right-hand side, and publishes |a[row][K + 1]|^2.
+template <int N, int K>
+__device__ __forceinline__ void lu_row_eliminate(const LuSlot& q, LuRow<N>& a) {
+  if (a.row <= K) return;
+  constexpr int RS = Rows<N>::kRowStride;
+  const float2 d = q.a[K * RS + K];
+  const float inv_den = 1.0f / (d.x * d.x + d.y * d.y);
+  const float ipr = d.x * inv_den;
+  const float ipi = -d.y * inv_den;
+  const float c1r = a.re[K], c1i = a.im[K];
+  const float fr = c1r * ipr - c1i * ipi;
+  const float fi = c1r * ipi + c1i * ipr;
+  q.a[a.row * RS + K] = make_float2(fr, fi);
+#pragma unroll
+  for (int j = K + 1; j < N; ++j) {
+    const float2 u = q.a[K * RS + j];
+    a.re[j] = a.re[j] - (fr * u.x - fi * u.y);
+    a.im[j] = a.im[j] - (fr * u.y + fi * u.x);
+  }
+  const float2 w = q.v[K];
+  a.rr = a.rr - (fr * w.x - fi * w.y);
+  a.ri = a.ri - (fr * w.y + fi * w.x);
+  lu_row_publish<N, K + 1>(a, q);
+}
+
+// Back substitution, step K (x[j] published for every j > K): the lane
+// holding row K takes x[K] = (rhs[K] - sum_{j>K} U[K][j] x[j]) / U[K][K],
+// the sum over ascending j from zero, U from its registers, and publishes it
+// at v[K].
+template <int N, int K>
+__device__ __forceinline__ void lu_row_back(const LuSlot& q, const LuRow<N>& a) {
+  if (a.row != K) return;
+  float num_r = a.rr, num_i = a.ri;
+  if constexpr (K < N - 1) {
+    float sr = 0.0f, si = 0.0f;
+#pragma unroll
+    for (int j = K + 1; j < N; ++j) {
+      const float2 x = q.v[j];
+      sr = sr + (a.re[j] * x.x - a.im[j] * x.y);
+      si = si + (a.re[j] * x.y + a.im[j] * x.x);
+    }
+    num_r = num_r - sr;
+    num_i = num_i - si;
+  }
+  const float dr = a.re[K], di = a.im[K];
+  const float inv_den = 1.0f / (dr * dr + di * di);
+  q.v[K] = make_float2((num_r * dr + num_i * di) * inv_den, (num_i * dr - num_r * di) * inv_den);
+}
+
+// Steps K.. of the factorization, then the back substitution from step
+// N - 1 down, each phase ended by __syncwarp(): a lane's row is read by no
+// other lane, the shared slots only after the barrier that follows their
+// writes.
+template <int N, int K>
+__device__ __forceinline__ void lu_row_back_steps(const RowLane& l, const LuSlot& q,
+                                                  const LuRow<N>& a) {
+  if (l.active) lu_row_back<N, K>(q, a);
+  __syncwarp();
+  if constexpr (K > 0) lu_row_back_steps<N, K - 1>(l, q, a);
+}
+
+template <int N, int K>
+__device__ __forceinline__ void lu_row_steps(const RowLane& l, const LuSlot& q, LuRow<N>& a) {
+  if (l.active) lu_row_pivot<N, K>(q, a);
+  __syncwarp();
+  if constexpr (K + 1 < N) {
+    if (l.active) lu_row_eliminate<N, K>(q, a);
+    __syncwarp();
+    lu_row_steps<N, K + 1>(l, q, a);
+  } else {
+    lu_row_back_steps<N, N - 1>(l, q, a);
   }
 }
 
@@ -275,11 +561,12 @@ __global__ void __launch_bounds__(solve_threads<N>())
 lu_solve_kernel(const float2* __restrict__ m, const float2* __restrict__ b,
                 float2* __restrict__ x, float2* __restrict__ lu, int* __restrict__ piv,
                 long long k_sys) {
+  constexpr int T = N <= kMaxTiledN ? Tile<N>::kSystems : Rows<N>::kSystems;
+  const long long first = blockIdx.x * static_cast<long long>(T);
+  const int systems = k_sys - first < T ? static_cast<int>(k_sys - first) : T;
   if constexpr (N <= kMaxTiledN) {
-    constexpr int T = Tile<N>::kSystems, E = N * N;
+    constexpr int E = N * N;
     __shared__ float2 tile[T * Tile<N>::kStride];
-    const long long first = blockIdx.x * static_cast<long long>(T);
-    const int systems = k_sys - first < T ? static_cast<int>(k_sys - first) : T;
     tile_load<N, E, 0>(m + first * E, tile, systems * E);
     tile_load<N, N, E>(b + first * N, tile, systems * N);
     copy_wait();
@@ -291,15 +578,27 @@ lu_solve_kernel(const float2* __restrict__ m, const float2* __restrict__ b,
     __syncthreads();
     tile_store<N, N, E>(tile, x + first * N, systems * N);
   } else {
-    const long long s = blockIdx.x * static_cast<long long>(kThreads) + threadIdx.x;
-    if (s >= k_sys) return;
-    lu_solve_system<N>(m + s * N * N, b + s * N, x + s * N, lu, piv, s, k_sys);
+    __shared__ float2 mat[T * Rows<N>::kStride];
+    __shared__ float2 vec[T * N];
+    __shared__ float mag[T * N];
+    __shared__ int pv[T * N];
+    rows_load<N>(m + first * N * N, b + first * N, mat, vec, systems * N * N, systems * N);
+    copy_wait();
+    __syncthreads();
+    const RowLane l = row_lane<N>(threadIdx.x, systems);
+    const LuSlot q = lu_slot<N>(mat, vec, mag, pv, l.system);
+    LuRow<N> a;
+    if (l.active) lu_row_start<N>(q, l.row, a);
+    __syncwarp();
+    lu_row_steps<N, 0>(l, q, a);
+    __syncthreads();
+    rows_store<N>(mat, vec, pv, x, lu, piv, first, k_sys, systems);
   }
 }
 
 template <int N>
 unsigned solve_blocks(long long k_sys) {
-  return static_cast<unsigned>((k_sys + solve_threads<N>() - 1) / solve_threads<N>());
+  return static_cast<unsigned>((k_sys + solve_systems<N>() - 1) / solve_systems<N>());
 }
 
 // Backward of the solve: y = M^-H g from the packed factors and pivots that

@@ -39,7 +39,8 @@
 // * The delays and sizes travel by value in the kernel's parameters
 //   (TdArgs): no copy between host and card per launch; the wrapper pads T
 //   to a multiple of 2 (u with zeros, y with rows nobody reads).
-// Two variants, picked by the wrapper from the sizes:
+// Three variants, picked by the wrapper from the sizes (ring and hist up to
+// N = 12, lines above):
 // * ring (tdgfdn_ring_kernel): ONE block of threads walks the steps of L
 //   samples in order (the loop inside the block replaces the TPU's
 //   sequential grid). Each line's last R >= m_max + L samples of x live in
@@ -58,6 +59,24 @@
 //   history is a line-major (N, T + m_max) float32 scratch in device
 //   memory, hist[i][m_max + t] = x_i[t], that the wrapper allocates and this
 //   kernel zeroes up to m_max; one sample at a time. Any delay set runs.
+// * lines (tdgfdn_lines_kernel), for N > 12 (the directional presets' 27
+//   lines): N^2 + 2N coefficients do not fit a thread's registers (Coef<27>
+//   spilled 2.8 KB a thread, so each of a sample's 729 products waited on a
+//   local load). The coefficients live in shared memory instead, A's rows
+//   padded to a multiple of 4 floats (LinesCoef), and each thread reads row
+//   j of A as 16-byte broadcasts (every lane of a warp reads the same
+//   address), about one shared-memory load per 4 products and no local
+//   memory. One sample a thread: the thread keeps its sample's N outputs
+//   y_i in registers (every loop over i unrolled) and takes the lines j
+//   three at a time (the loop over j unrolled by 3, not fully: N^2 unrolled
+//   terms would outgrow the instruction cache). The history stays in device
+//   memory as hist's (the 50 MB L2 holds its 14 MB at T = 131072, N = 27),
+//   so steps take L = min(delay) samples, capped at kLinesThreads; a ring of
+//   m_max + L slots a line in shared memory would fit the card's 227 KB only
+//   at L <= 512 (27 lines of 1601-sample delays), with more steps and so
+//   more barriers. Two to four samples a thread (each load of A serving
+//   each of them, at 384 to 192 threads) were not faster on the H100, nor
+//   was the loop over j unrolled by 9 (PERF.md).
 //
 // History reads and writes and y writes of one line are consecutive across
 // threads, so each warp access is conflict-free (shared) or coalesced
@@ -86,13 +105,17 @@ struct TdArgs {
                        // line
 };
 
+// The most lines whose coefficients the ring and hist variants hold in
+// registers; larger N take the lines variant.
+constexpr int kRegisterLines = 12;
+
 // The loop's coefficients, read once from device memory into registers
 // (every index below is a compile-time constant for the template N, so the
 // array stays in registers while N^2 + 2N plus the step's working set fit
-// the 255 registers a thread has: N <= 12; larger N keep it in local
-// memory, which L1 caches).
+// the 255 registers a thread has: N <= kRegisterLines).
 template <int N>
 struct Coef {
+  static_assert(N <= kRegisterLines, "larger N take the lines variant");
   float v[N * N + 2 * N];
   __device__ __forceinline__ void load(const float* __restrict__ src) {
 #pragma unroll
@@ -238,6 +261,76 @@ __device__ __forceinline__ void hist_step(const TdArgs& p, const Coef<N>& c, lon
   }
 }
 
+// The lines variant's coefficients in shared memory: A's N rows, then g,
+// then b, each padded to kRow floats (a multiple of 4, zeros in the padding)
+// so that a row loads as 16-byte vectors.
+template <int N>
+struct LinesCoef {
+  static constexpr int kRow = (N + 3) / 4 * 4;
+  static constexpr int kFloats = (N + 2) * kRow;
+};
+
+// Thread tid of nthreads copies its share of coef (A, g, b) into the padded
+// rows.
+template <int N>
+__device__ __forceinline__ void lines_stage(const float* __restrict__ coef, float* rows, int tid,
+                                            int nthreads) {
+  constexpr int R = LinesCoef<N>::kRow;
+  for (int k = tid; k < LinesCoef<N>::kFloats; k += nthreads) {
+    const int r = k / R, c = k % R;
+    rows[k] = c < N ? coef[r * N + c] : 0.0f;  // g and b follow A in coef, N apart
+  }
+}
+
+// sum_i row[i] y[i] over ascending i from row[0] y[0], row 16-byte aligned.
+template <int N>
+__device__ __forceinline__ float lines_dot(const float* row, const float (&y)[N]) {
+  float acc = 0.0f;
+#pragma unroll
+  for (int q = 0; q < LinesCoef<N>::kRow / 4; ++q) {
+    const float4 w = reinterpret_cast<const float4*>(row)[q];
+    const float wv[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int i = 4 * q + c;
+      if (i == 0) {
+        acc = wv[0] * y[0];
+      } else if (i < N) {
+        acc = acc + wv[c] * y[i];
+      }
+    }
+  }
+  return acc;
+}
+
+// One step of the lines variant for thread tid of nthreads (one sample at a
+// time): y_i = g_i x_i[t - m_i] from the history, written out and kept in
+// registers; then x_j[t] = sum_i A[j][i] y_i + b_j u[t] into the history,
+// three lines at a time (their sums interleave).
+template <int N>
+__device__ __forceinline__ void lines_step(const TdArgs& p, const float* rows, long long start,
+                                           int tid, int nthreads) {
+  constexpr int R = LinesCoef<N>::kRow;
+  const long long h_len = p.t_len + p.m_max;
+  for (int s = tid; s < p.block; s += nthreads) {
+    const long long t = start + s;
+    if (t >= p.t_len) return;
+    float yv[N];
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      yv[i] = rows[N * R + i] * p.hist[i * h_len + (t + p.m_max - p.delay[i])];
+    }
+#pragma unroll
+    for (int i = 0; i < N; ++i) p.y[i * p.t_len + t] = yv[i];
+    const float u = p.u[t];
+#pragma unroll 3
+    for (int j = 0; j < N; ++j) {
+      const float acc = lines_dot<N>(rows + j * R, yv);
+      p.hist[j * h_len + t + p.m_max] = acc + rows[(N + 1) * R + j] * u;
+    }
+  }
+}
+
 // Zero the hist variant's history before t = 0 (its first m_max columns).
 __device__ __forceinline__ void hist_zero(const TdArgs& p, int n, int tid, int nthreads) {
   const long long h_len = p.t_len + p.m_max;
@@ -290,21 +383,44 @@ __global__ void __launch_bounds__(kMaxThreads) tdgfdn_hist_kernel(__grid_constan
   }
 }
 
-enum Variant { kHist = 0, kRing = 1 };
+constexpr int kLinesThreads = 768;  // up to 85 registers a thread
+
+template <int N>
+__global__ void __launch_bounds__(kLinesThreads)
+tdgfdn_lines_kernel(__grid_constant__ const TdArgs p) {
+  __shared__ __align__(16) float rows[LinesCoef<N>::kFloats];
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  hist_zero(p, N, tid, nthreads);
+  lines_stage<N>(p.coef, rows, tid, nthreads);
+  __syncthreads();
+  for (long long start = 0; start < p.t_len; start += p.block) {
+    lines_step<N>(p, rows, start, tid, nthreads);
+    __syncthreads();
+  }
+}
+
+enum Variant { kHist = 0, kRing = 1, kLines = 2 };
 
 template <int N>
 cudaError_t launch_n(const TdArgs& p, int variant, int threads, cudaStream_t st) {
-  if (variant == kHist) {
-    tdgfdn_hist_kernel<N><<<1, threads, 0, st>>>(p);
+  if constexpr (N > kRegisterLines) {
+    if (variant != kLines || threads > kLinesThreads) return cudaErrorInvalidValue;
+    tdgfdn_lines_kernel<N><<<1, threads, 0, st>>>(p);
+    return cudaGetLastError();
+  } else {
+    if (threads > kMaxThreads) return cudaErrorInvalidValue;
+    if (variant == kHist) {
+      tdgfdn_hist_kernel<N><<<1, threads, 0, st>>>(p);
+      return cudaGetLastError();
+    }
+    if (variant != kRing || p.block % kGroup || p.t_len % kGroup) return cudaErrorInvalidValue;
+    const size_t smem = sizeof(float) * N * static_cast<size_t>(p.ring + kGroup);
+    const cudaError_t err = cudaFuncSetAttribute(
+        tdgfdn_ring_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    tdgfdn_ring_kernel<N><<<1, threads, smem, st>>>(p);
     return cudaGetLastError();
   }
-  if (variant != kRing || p.block % kGroup || p.t_len % kGroup) return cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * N * static_cast<size_t>(p.ring + kGroup);
-  const cudaError_t err = cudaFuncSetAttribute(
-      tdgfdn_ring_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  tdgfdn_ring_kernel<N><<<1, threads, smem, st>>>(p);
-  return cudaGetLastError();
 }
 
 #endif  // __CUDACC__
@@ -320,19 +436,20 @@ cudaError_t launch_n(const TdArgs& p, int variant, int threads, cudaStream_t st)
 
 // coef: A (N x N row-major), g (N), b (N) as N^2 + 2N contiguous float32 on
 // the device; u (T,) and y (N, T) float32 device pointers, 8-byte aligned;
-// hist: (N, T + m_max) float32 device scratch for variant 0, else unused;
-// delays (N,) int32 in HOST memory (copied into the kernel's parameters);
-// block: samples per step, 1 <= block <= min(delays); threads: 1..256;
-// ring: for variant 1, slots per line, a power of two >= m_max + block,
-// with block and T multiples of kGroup = 2 and N (ring + 2) floats of
-// shared memory a block; variant: 0 hist, 1 ring; stream: a cudaStream_t.
+// hist: (N, T + m_max) float32 device scratch for variants 0 and 2, else
+// unused; delays (N,) int32 in HOST memory (copied into the kernel's
+// parameters); block: samples per step, 1 <= block <= min(delays); threads:
+// 1..256 (variant 2: 1..768); ring: for variant 1, slots per line, a power
+// of two >= m_max + block, with block and T multiples of kGroup = 2 and
+// N (ring + 2) floats of shared memory a block; variant: 0 hist or 1 ring
+// for N <= 12, 2 lines for N > 12; stream: a cudaStream_t.
 // Returns the launch's CUDA error (cudaErrorInvalidValue for an
 // unsupported N, variant or size).
 extern "C" int diffgfdn_tdgfdn_f32(const void* coef, const void* u, void* y, void* hist,
                                    const int* delays, long long t_len, int n, int block,
                                    int threads, int ring, int variant, void* stream) {
   if (t_len <= 0) return cudaSuccess;
-  if (n < 1 || n > kMaxLines || threads < 1 || threads > kMaxThreads || block < 1) {
+  if (n < 1 || n > kMaxLines || threads < 1 || block < 1) {
     return cudaErrorInvalidValue;
   }
   TdArgs p = {};

@@ -12,8 +12,9 @@ exact, not an approximation.
   tensors take :func:`delay_line_outputs_plain`; CUDA tensors launch
   ``csrc/tdgfdn.cu`` whatever the delays, counted in
   ``delay_line_outputs.launches``: its history is a ring in shared memory
-  where the ring fits, else in device memory, as :func:`kernel_plan`
-  decides from the sizes alone. The JAX package picks its Pallas kernel
+  where the ring fits, else in device memory, and above N = 12 lines its
+  coefficients are in shared memory, as :func:`kernel_plan` decides from
+  the sizes alone. The JAX package picks its Pallas kernel
   by a measured policy with a VMEM-budget fallback to its scan; both exist
   for the TPU alone, and here the tensors' device decides;
 * :func:`delay_line_outputs_filtered`: per-line SOS/IIR absorption filters
@@ -42,8 +43,14 @@ WARP = 32
 # warps evenly over an SM's 4 schedulers (where min(delay) allows)
 BALANCED_BLOCK = GROUP * WARP * 4
 MAX_KERNEL_BLOCK = 2048  # samples per step of the kernels
-# csrc/tdgfdn.cu's variants: history in device memory, a ring in shared memory
-HIST, RING = 0, 1
+# csrc/tdgfdn.cu's variants: history in device memory, a ring in shared
+# memory (both with the coefficients in registers), and the history in
+# device memory with the coefficients in shared memory
+HIST, RING, LINES = 0, 1, 2
+# the most lines whose N^2 + 2N coefficients fit a thread's registers (the
+# ring and hist variants; csrc/tdgfdn.cu kRegisterLines)
+REGISTER_LINES = 12
+LINES_THREADS = 768  # one block of the LINES variant (up to 85 registers a thread)
 _SIGNATURES = {
     "diffgfdn_tdgfdn_f32": [ctypes.c_void_p] * 4
     + [ctypes.POINTER(ctypes.c_int), ctypes.c_longlong]
@@ -61,9 +68,9 @@ def _block_size(delays: Tuple[int, ...]) -> int:
 
 
 class KernelPlan(NamedTuple):
-    """How ``csrc/tdgfdn.cu`` runs a delay set: ``variant`` (HIST or RING),
-    ``block`` samples per step, ``threads`` per block and ``ring`` slots
-    per line (0 for HIST)."""
+    """How ``csrc/tdgfdn.cu`` runs a delay set: ``variant`` (HIST, RING or
+    LINES), ``block`` samples per step, ``threads`` per block and ``ring``
+    slots per line (0 but for RING)."""
 
     variant: int
     block: int
@@ -94,10 +101,16 @@ def kernel_plan(delays: Tuple[int, ...], smem_limit: int) -> KernelPlan:
     >= max(delay) + L.
     When :func:`ring_bytes` exceeds ``smem_limit``, or min(delay) < GROUP,
     the history goes to device memory (HIST: L = min(delay), capped, one
-    sample at a time), else it is a ring in shared memory (RING).
+    sample at a time), else it is a ring in shared memory (RING). Above
+    REGISTER_LINES lines the coefficients do not fit a thread's registers:
+    LINES keeps them in shared memory and the history in device memory, one
+    sample a thread, L = min(delay) capped at LINES_THREADS.
     """
     delays = tuple(int(d) for d in delays)
     n, m_min = len(delays), min(delays)
+    if n > REGISTER_LINES:
+        block = min(m_min, LINES_THREADS)
+        return KernelPlan(LINES, block, _round_up(block, WARP), 0)
     cap = min(m_min, MAX_KERNEL_BLOCK)
     block = cap // BALANCED_BLOCK * BALANCED_BLOCK or cap // GROUP * GROUP
     ring = 1 << (max(delays) + block - 1).bit_length()
@@ -253,7 +266,7 @@ def kernel_launcher(
                       input_gains.reshape(-1)]).to(torch.float32).contiguous()
     y = torch.empty((n, t_pad), dtype=torch.float32, device=dev)
     hist = (torch.empty((n, t_pad + max(delays)), dtype=torch.float32, device=dev)
-            if plan.variant == HIST else y)
+            if plan.variant in (HIST, LINES) else y)
     host_delays = (ctypes.c_int * n)(*delays)
     lib = _build.load("tdgfdn", _SIGNATURES)
 

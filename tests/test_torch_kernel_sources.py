@@ -26,23 +26,24 @@ systems through shared memory for small N, with a barrier between the
 copies in, the solves and the copies out: the harness runs each of those
 phases thread by thread over the tile, through the kernels' own copy and
 per-system device functions (the card's asynchronous copy is a plain copy
-on the host), and drives B5's per-system function system by system for
-larger N. Above N = 8, B1 and B2 give each lane of a warp one row of a
-system and exchange pivots and rows through shared memory between
-__syncwarp()s: the harness runs their copies thread by thread and each
-phase between two barriers lane by lane, the lanes in an order shuffled
-anew for every phase (on the card a warp's lanes diverge), with shared
-memory NaN at the start of each block; with the barrier between B1's pivot
-and elimination phases removed the result must change. Further tests hold
-the tile copies and the row kernels' copies to moving each element once.
+on the host). Above N = 8, B1, B2 and B5 give each lane of a warp one row
+of a system and exchange pivots, rows and (B5) x through shared memory
+between __syncwarp()s: the harness runs their copies thread by thread and
+each phase between two barriers lane by lane, the lanes in an order
+shuffled anew for every phase (on the card a warp's lanes diverge), with
+shared memory NaN at the start of each block; with the barrier between
+B1's or B5's pivot and elimination phases removed the result must change.
+Further tests hold the tile copies, the row kernels' copies and B5's
+bins-last factor stores to moving each element once.
 The time-domain recursion (B7) cannot run thread by thread through its
 kernel: thread 0 would reach the next block of samples before thread 1 had
 written this one. Its step is a device function per thread, which the
 harness drives step by step, the threads of a step in a shuffled order
 (on the card they interleave in any order), for each variant: the ring in
 shared memory (including its wrap-around at R slots, and blocks L that are
-no power of two) and the history in device memory. It must agree with the
-plain version bit for bit.
+no power of two), the history in device memory, and above N = 12 the
+coefficients in shared memory. It must agree with the plain version bit
+for bit.
 
 This checks the kernels' logic and arithmetic only: compilation for the
 card, launch configuration and memory behaviour are checked on the card
@@ -64,15 +65,16 @@ from diffgfdn_torch.kernels.lu import lu_solve_plain, lut_apply_plain
 from diffgfdn_torch.kernels.sos import sos_cascade_backward_plain, sos_cascade_plain
 from diffgfdn_torch.kernels import tdgfdn as td
 from diffgfdn_torch.kernels.tdgfdn import delay_line_outputs_plain, kernel_plan
-from torch_port_helpers import (cascade, CINV_BLOCK_SYSTEMS, cinv_systems, KERNEL_TOL, max_rel,
-                                systems)
+from torch_port_helpers import (cascade, CINV_BLOCK_SYSTEMS, cinv_systems, KERNEL_TOL,
+                                LU_BLOCK_SYSTEMS, max_rel, systems)
 
 CSRC = Path(__file__).resolve().parents[1] / "diffgfdn_torch" / "csrc"
 SIZES = (1, 4, 9, 12, 27)
 TILE_SIZES = (1, 4, 8)  # tile-copy tests: N of the tiled kernels (N <= 8)
 ROW_SIZES = (9, 12, 27)  # copy tests of the row kernels (N > 8)
 LU_TILE_SIZES = (1, 4, 8)  # the tiled LU solve's N (N <= 8)
-TD_SIZES = (4, 9, 12)  # B7 host tests: N
+TD_SIZES = (4, 9, 12)  # B7 host tests: N of the ring and hist variants
+TD_LINES_SIZES = (16, 27)  # and of the lines variant (N > 12)
 H100_SMEM = 232448  # the shared memory one block may take on an H100 (opt-in)
 BWD_SECTIONS = (1, 11, 16)  # the cascade backward's K in these tests
 # the forward source against the plain version's per-section quotients on
@@ -397,10 +399,66 @@ extern "C" void tile_roundtrip(const void* src, void* dst, long long k, int n,
         f"case {n}: {'tile' if n <= 8 else 'rows'}_roundtrip_n<{n}>((const float2*)src, "
         "(float2*)dst, k, misplaced); break;" for n in TILE_SIZES + ROW_SIZES)),
     "lu": """
+// The lanes of each phase run in an order that a xorshift generator,
+// seeded by the caller, shuffles anew for every phase.
+static unsigned lane_rng = 1;
+void shuffle(int* order, int n) {
+  for (int i = 0; i < n; ++i) order[i] = i;
+  for (int i = n - 1; i > 0; --i) {
+    lane_rng ^= lane_rng << 13;
+    lane_rng ^= lane_rng >> 17;
+    lane_rng ^= lane_rng << 5;
+    const int j = (int)(lane_rng % (unsigned)(i + 1));
+    const int t = order[i];
+    order[i] = order[j];
+    order[j] = t;
+  }
+}
+// the row solve's back substitution, steps K..0, each phase lane by lane in
+// a shuffled order
+template <int N, int K>
+void emu_lu_back(const RowLane* lanes, const LuSlot* slots, LuRow<N>* a, int* order) {
+  constexpr int H = Rows<N>::kThreads;
+  shuffle(order, H);
+  for (int i = 0; i < H; ++i)
+    if (lanes[order[i]].active) lu_row_back<N, K>(slots[order[i]], a[order[i]]);
+  if constexpr (K > 0) emu_lu_back<N, K - 1>(lanes, slots, a, order);
+}
+// the row solve's steps K.. (N > kMaxTiledN): each phase between two
+// __syncwarp()s lane by lane in a shuffled order; `fused` runs each lane's
+// pivot and elimination phases back to back, as if the barrier after the
+// pivot's publication were missing
+template <int N, int K>
+void emu_lu_steps(const RowLane* lanes, const LuSlot* slots, LuRow<N>* a, int* order,
+                  bool fused) {
+  constexpr int H = Rows<N>::kThreads;
+  shuffle(order, H);
+  for (int i = 0; i < H; ++i) {
+    const int t = order[i];
+    if (!lanes[t].active) continue;
+    lu_row_pivot<N, K>(slots[t], a[t]);
+    if constexpr (K + 1 < N) {
+      if (fused) lu_row_eliminate<N, K>(slots[t], a[t]);
+    }
+  }
+  if constexpr (K + 1 < N) {
+    if (!fused) {
+      shuffle(order, H);
+      for (int i = 0; i < H; ++i)
+        if (lanes[order[i]].active) lu_row_eliminate<N, K>(slots[order[i]], a[order[i]]);
+    }
+    emu_lu_steps<N, K + 1>(lanes, slots, a, order, fused);
+  } else {
+    emu_lu_back<N, N - 1>(lanes, slots, a, order);
+  }
+}
 // the tiled solve (N <= kMaxTiledN) block by block, each phase thread by
-// thread as the barriers order them; larger N system by system
+// thread as the barriers order them; the row solve block by block, the
+// copies thread by thread, each phase between barriers lane by lane; shared
+// memory starts each block as NaN (the pivots as -1)
 template <int N>
-void emu_lu_n(const float2* m, const float2* b, float2* x, float2* lu, int* piv, long long k) {
+void emu_lu_n(const float2* m, const float2* b, float2* x, float2* lu, int* piv, long long k,
+              bool fused) {
   if constexpr (N <= kMaxTiledN) {
     constexpr int T = Tile<N>::kSystems, S = Tile<N>::kStride, E = N * N;
     static float2 tile[T * S];
@@ -419,8 +477,122 @@ void emu_lu_n(const float2* m, const float2* b, float2* x, float2* lu, int* piv,
       }
     }
   } else {
-    for (long long s = 0; s < k; ++s)
-      lu_solve_system<N>(m + s * N * N, b + s * N, x + s * N, lu, piv, s, k);
+    constexpr int T = Rows<N>::kSystems, S = Rows<N>::kStride, H = Rows<N>::kThreads;
+    static float2 mat[T * S], vec[T * N];
+    static float mag[T * N];
+    static int pv[T * N];
+    static LuRow<N> a[H];
+    static RowLane lanes[H];
+    static LuSlot slots[H];
+    int order[H];
+    for (long long first = 0; first < k; first += T) {
+      const int systems = k - first < T ? (int)(k - first) : T;
+      std::memset(mat, 0xff, sizeof mat);
+      std::memset(vec, 0xff, sizeof vec);
+      std::memset(mag, 0xff, sizeof mag);
+      std::memset(pv, 0xff, sizeof pv);
+      for (int t = 0; t < H; ++t) {
+        threadIdx = dim3(t);
+        rows_load<N>(m + first * N * N, b + first * N, mat, vec, systems * N * N, systems * N);
+        lanes[t] = row_lane<N>(t, systems);
+        slots[t] = lu_slot<N>(mat, vec, mag, pv, lanes[t].system);
+      }
+      shuffle(order, H);
+      for (int i = 0; i < H; ++i)
+        if (lanes[order[i]].active) lu_row_start<N>(slots[order[i]], lanes[order[i]].row, a[order[i]]);
+      emu_lu_steps<N, 0>(lanes, slots, a, order, fused);
+      for (int t = 0; t < H; ++t) {
+        threadIdx = dim3(t);
+        rows_store<N>(mat, vec, pv, x, lu, piv, first, k, systems);
+      }
+    }
+  }
+}
+// the row solve's copies (N > kMaxTiledN) over every block, thread and copy
+// step: hits_m / hits_b count the loads of each element of the K x N^2
+// matrices and K x N right-hand sides, hits_x / hits_lu / hits_piv the
+// stores of each element of x (K, N), the factors (N, N, K) and the pivots
+// (N, K); bad counts loads to a slot outside the block's or taken twice, and
+// stores from a slot outside or read twice
+template <int N>
+void lu_rows_cover_n(long long k, unsigned char* hits_m, unsigned char* hits_b,
+                     unsigned char* hits_x, unsigned char* hits_lu, unsigned char* hits_piv,
+                     long long* bad) {
+  constexpr int T = Rows<N>::kSystems, S = Rows<N>::kStride;
+  static unsigned char mat_hits[T * S], vec_hits[T * N], mat_reads[T * S], vec_reads[T * N],
+      pv_reads[T * N];
+  auto take = [&](unsigned char* used, int slot, int size) {
+    if (slot < 0 || slot >= size || used[slot]++) *bad += 1;
+  };
+  for (long long first = 0; first < k; first += T) {
+    const int systems = k - first < T ? (int)(k - first) : T;
+    std::memset(mat_hits, 0, sizeof mat_hits);
+    std::memset(vec_hits, 0, sizeof vec_hits);
+    std::memset(mat_reads, 0, sizeof mat_reads);
+    std::memset(vec_reads, 0, sizeof vec_reads);
+    std::memset(pv_reads, 0, sizeof pv_reads);
+    for (int t = 0; t < Rows<N>::kThreads; ++t) {
+      threadIdx = dim3(t);
+      for (int c = 0; c < Rows<N>::kMatCopies; ++c) {
+        const int e = rows_element<N>(c);
+        if (e < systems * N * N) {
+          hits_m[first * N * N + e] += 1;
+          take(mat_hits, rows_slot<N>(e), T * S);
+        }
+        const PlaneElement q = plane_element<N>(e);
+        if (q.plane < N * N && q.system < systems) {
+          hits_lu[q.plane * k + first + q.system] += 1;
+          take(mat_reads, factor_slot<N>(q.system, q.plane / N, q.plane % N), T * S);
+        }
+      }
+      for (int c = 0; c < Rows<N>::kVecCopies; ++c) {
+        const int e = rows_element<N>(c);
+        if (e < systems * N) {
+          hits_b[first * N + e] += 1;
+          hits_x[first * N + e] += 1;
+          take(vec_hits, e, T * N);
+          take(vec_reads, e, T * N);
+        }
+        const PlaneElement q = plane_element<N>(e);
+        if (q.plane < N && q.system < systems) {
+          hits_piv[q.plane * k + first + q.system] += 1;
+          take(pv_reads, q.system * N + q.plane, T * N);
+        }
+      }
+    }
+  }
+}
+// m and b through rows_load, then the slots through rows_store into x, lu
+// and piv, block by block, the pivot slots holding (first + s) * N + j;
+// misplaced counts elements not where the row solve reads them (element
+// (r, c) of the block's system s at factor_slot(s, r, c), entry j of b at
+// s * N + j)
+template <int N>
+void lu_rows_roundtrip_n(const float2* m, const float2* b, float2* x, float2* lu, int* piv,
+                         long long k, long long* misplaced) {
+  constexpr int T = Rows<N>::kSystems, S = Rows<N>::kStride;
+  static float2 mat[T * S], vec[T * N];
+  static int pv[T * N];
+  for (long long first = 0; first < k; first += T) {
+    const int systems = k - first < T ? (int)(k - first) : T;
+    for (int t = 0; t < Rows<N>::kThreads; ++t) {
+      threadIdx = dim3(t);
+      rows_load<N>(m + first * N * N, b + first * N, mat, vec, systems * N * N, systems * N);
+    }
+    for (int s = 0; s < systems; ++s)
+      for (int j = 0; j < N; ++j) {
+        for (int c = 0; c < N; ++c)
+          if (std::memcmp(&mat[factor_slot<N>(s, j, c)], &m[((first + s) * N + j) * N + c],
+                          sizeof(float2)) != 0)
+            *misplaced += 1;
+        if (std::memcmp(&vec[s * N + j], &b[(first + s) * N + j], sizeof(float2)) != 0)
+          *misplaced += 1;
+        pv[s * N + j] = (int)((first + s) * N + j);
+      }
+    for (int t = 0; t < Rows<N>::kThreads; ++t) {
+      threadIdx = dim3(t);
+      rows_store<N>(mat, vec, pv, x, lu, piv, first, k, systems);
+    }
   }
 }
 // every (block, thread, copy step) of the m and b tile loads: hits_m[e]
@@ -484,12 +656,13 @@ void lu_tile_roundtrip_n(const float2* m, const float2* b, float2* dst, long lon
   }
 }
 extern "C" void emu(const void* m, const void* b, void* x, void* lu, void* piv,
-                    long long k, int n) {
+                    long long k, int n, unsigned seed, int fused) {
   auto mi = (const float2*)m; auto bi = (const float2*)b; auto xo = (float2*)x;
   auto lo = (float2*)lu; auto po = (int*)piv;
+  lane_rng = seed | 1u;
   switch (n) { CASES }
 }""".replace("CASES", _CASES.replace("KERNEL", "emu_lu_n")
-             .replace("ARGS", "mi, bi, xo, lo, po, k")) + """
+             .replace("ARGS", "mi, bi, xo, lo, po, k, fused")) + """
 extern "C" void emu_lut(const void* lu, const void* piv, const void* g, void* y,
                         long long k, int n) {
   auto li = (const float2*)lu; auto pi = (const int*)piv; auto gi = (const float2*)g;
@@ -511,8 +684,28 @@ extern "C" void tile_cover(long long k, int n, void* hits_m, void* hits_b, long 
 extern "C" void tile_roundtrip(const void* m, const void* b, void* dst, long long k, int n,
                                long long* misplaced) {
   switch (n) { ROUNDTRIP_CASES }
+}
+extern "C" int rows_per_warp(int n) {
+  switch (n) { PER_WARP_CASES }
+  return 0;
+}
+extern "C" void rows_cover(long long k, int n, void* hits_m, void* hits_b, void* hits_x,
+                           void* hits_lu, void* hits_piv, long long* bad) {
+  switch (n) { ROWS_COVER_CASES }
+}
+extern "C" void rows_roundtrip(const void* m, const void* b, void* x, void* lu, void* piv,
+                               long long k, int n, long long* misplaced) {
+  switch (n) { ROWS_ROUNDTRIP_CASES }
 }""".replace("TILE_CASES", " ".join(
-        f"case {n}: return Tile<{n}>::kSystems;" for n in LU_TILE_SIZES)).replace(
+        f"case {n}: return solve_systems<{n}>();" for n in LU_TILE_SIZES + ROW_SIZES)).replace(
+    "PER_WARP_CASES", " ".join(f"case {n}: return Rows<{n}>::kPerWarp;" for n in ROW_SIZES)).replace(
+    "ROWS_COVER_CASES", " ".join(
+        f"case {n}: lu_rows_cover_n<{n}>(k, (unsigned char*)hits_m, (unsigned char*)hits_b, "
+        "(unsigned char*)hits_x, (unsigned char*)hits_lu, (unsigned char*)hits_piv, bad); break;"
+        for n in ROW_SIZES)).replace(
+    "ROWS_ROUNDTRIP_CASES", " ".join(
+        f"case {n}: lu_rows_roundtrip_n<{n}>((const float2*)m, (const float2*)b, (float2*)x, "
+        "(float2*)lu, (int*)piv, k, misplaced); break;" for n in ROW_SIZES)).replace(
     "COVER_CASES", " ".join(
         f"case {n}: lu_tile_cover_n<{n}>(k, (unsigned char*)hits_m, (unsigned char*)hits_b, "
         "bad); break;" for n in LU_TILE_SIZES)).replace(
@@ -616,23 +809,44 @@ void emu_hist_n(const TdArgs& p, int threads, const int* order) {
   for (long long start = 0; start < p.t_len; start += p.block)
     for (int k = 0; k < threads; ++k) hist_step<N>(p, c, start, order[k], threads);
 }
-// variant 0 hist (buf: the (N, T + m_max) history), 1 ring (buf: N rows of
-// ring + kGroup)
+// the lines variant: its coefficients staged, its history zeroed, then each
+// step thread by thread; `fused` runs each thread through two steps back to
+// back, as if the barrier between them were missing
+template <int N>
+void emu_lines_n(const TdArgs& p, int threads, const int* order, bool fused) {
+  alignas(16) static float rows[LinesCoef<N>::kFloats];
+  std::memset(rows, 0xff, sizeof rows);
+  for (int k = 0; k < threads; ++k) lines_stage<N>(p.coef, rows, order[k], threads);
+  for (int k = 0; k < threads; ++k) hist_zero(p, N, order[k], threads);
+  const long long stride = fused ? 2LL * p.block : p.block;
+  for (long long start = 0; start < p.t_len; start += stride)
+    for (int k = 0; k < threads; ++k) {
+      lines_step<N>(p, rows, start, order[k], threads);
+      if (fused) lines_step<N>(p, rows, start + p.block, order[k], threads);
+    }
+}
+extern "C" int register_lines() { return kRegisterLines; }
+// variant 0 hist and 2 lines (buf: the (N, T + m_max) history), 1 ring (buf:
+// N rows of ring + kGroup)
 extern "C" void emu(int variant, const void* coef, const void* u, void* y, void* buf,
                     long long t_len, const int* d, int n, int block, int threads, int ring,
-                    const int* order) {
+                    const int* order, int fused) {
   const TdArgs p = make_args((const float*)coef, (const float*)u, (float*)y,
-                             variant == 0 ? (float*)buf : nullptr, t_len, d, n, block, ring);
+                             variant != 1 ? (float*)buf : nullptr, t_len, d, n, block, ring);
   float* b = (float*)buf;
   if (variant == 0) {
     switch (n) { HIST_CASES }
-  } else {
+  } else if (variant == 1) {
     switch (n) { RING_CASES }
+  } else {
+    switch (n) { LINES_CASES }
   }
 }""".replace("HIST_CASES", " ".join(
         f"case {n}: emu_hist_n<{n}>(p, threads, order); break;" for n in TD_SIZES)).replace(
     "RING_CASES", " ".join(
-        f"case {n}: emu_ring_n<{n}>(p, b, threads, order); break;" for n in TD_SIZES)),
+        f"case {n}: emu_ring_n<{n}>(p, b, threads, order); break;" for n in TD_SIZES)).replace(
+    "LINES_CASES", " ".join(
+        f"case {n}: emu_lines_n<{n}>(p, threads, order, fused); break;" for n in TD_LINES_SIZES)),
 }
 
 
@@ -821,12 +1035,114 @@ def test_lu_source_matches_plain(emulated, n):
     x = np.empty_like(b)
     lu = np.empty((n, n, k), np.complex64)
     piv = np.empty((n, k), np.int32)
-    emulated["lu"].emu(_ptr(m), _ptr(b), _ptr(x), _ptr(lu), _ptr(piv),
-                       ctypes.c_longlong(k), ctypes.c_int(n))
+    x, lu, piv = _emulate_lu(emulated["lu"], m, b, seed=n)
     x_ref, lu_ref, piv_ref = lu_solve_plain(torch.from_numpy(m), torch.from_numpy(b))
     np.testing.assert_array_equal(piv, piv_ref.numpy())
     np.testing.assert_array_equal(lu, lu_ref.numpy())
     np.testing.assert_array_equal(x, x_ref.numpy())
+
+
+def _emulate_lu(lib, m, b, seed=0, fused=False):
+    """(x, lu, piv) of csrc/lu.cu; above N = 8 the row solve's phases lane
+    by lane in shuffled orders (``fused``: each lane's pivot and elimination
+    phases back to back)."""
+    k, n = m.shape[0], m.shape[1]
+    x = np.empty_like(b)
+    lu = np.empty((n, n, k), np.complex64)
+    piv = np.empty((n, k), np.int32)
+    lib.emu(_ptr(m), _ptr(b), _ptr(x), _ptr(lu), _ptr(piv), ctypes.c_longlong(k), ctypes.c_int(n),
+            ctypes.c_uint(seed), ctypes.c_int(fused))
+    return x, lu, piv
+
+
+def test_lu_block_systems_are_those_the_card_tests_take(emulated):
+    """tests/test_torch_kernels_cuda.py sets its K around csrc/lu.cu's
+    systems a block; they must be the source's."""
+    for n, systems_a_block in LU_BLOCK_SYSTEMS.items():
+        assert emulated["lu"].tile_systems(ctypes.c_int(n)) == systems_a_block
+
+
+def _lu_row_k(lib, n, rel):
+    t, per_warp = lib.tile_systems(ctypes.c_int(n)), lib.rows_per_warp(ctypes.c_int(n))
+    return {"1": 1, "T-1": t - 1, "T+1": t + 1, "T+W+1": t + per_warp + 1}[rel]
+
+
+@pytest.mark.parametrize("rel", ["1", "T-1", "T+1", "T+W+1"])
+@pytest.mark.parametrize("n", ROW_SIZES)
+def test_lu_row_solve_partial_last_block_matches_plain_bitwise(emulated, n, rel):
+    """The row solve (N > 8) block by block, each phase between two
+    __syncwarp()s lane by lane in an order shuffled anew for every phase,
+    shared memory NaN at each block's start: a single system, a last block
+    one short, one past a block, and a last block whose second warp holds
+    one system (T + W + 1, W systems a warp). x, the factors and the pivots
+    bit for bit."""
+    k = _lu_row_k(emulated["lu"], n, rel)
+    m, b = systems(k, n, seed=800 + k + n)
+    x, lu, piv = _emulate_lu(emulated["lu"], m, b, seed=k)
+    x_ref, lu_ref, piv_ref = lu_solve_plain(torch.from_numpy(m), torch.from_numpy(b))
+    np.testing.assert_array_equal(piv, piv_ref.numpy())
+    np.testing.assert_array_equal(lu, lu_ref.numpy())
+    np.testing.assert_array_equal(x, x_ref.numpy())
+
+
+@pytest.mark.parametrize("n", [9, 27])
+def test_lu_row_solve_needs_its_barriers(emulated, n):
+    """Why each step has two phases: with each lane's pivot and elimination
+    run back to back (the __syncwarp after the pivot row's publication
+    missing), a lane that runs before its system's pivot lane eliminates with
+    a pivot row not yet published, and the result changes."""
+    m, b = systems(30, n, seed=n)
+    ref = [t.numpy() for t in lu_solve_plain(torch.from_numpy(m), torch.from_numpy(b))]
+    out = _emulate_lu(emulated["lu"], m, b, seed=3)
+    for o, r in zip(out, ref):
+        np.testing.assert_array_equal(o, r)
+    fused = _emulate_lu(emulated["lu"], m, b, seed=3, fused=True)
+    assert not all(np.array_equal(o, r) for o, r in zip(fused, ref))
+
+
+@pytest.mark.parametrize("k_of_block", [lambda t: t - 1, lambda t: t, lambda t: t + 1,
+                                        lambda t: 1000], ids=["T-1", "T", "T+1", "1000"])
+@pytest.mark.parametrize("n", ROW_SIZES)
+def test_lu_row_copies_and_factor_stores_move_each_element_once(emulated, n, k_of_block):
+    """The row solve's copies (N > 8): over every block, thread and copy
+    step, each element of m and b is loaded once into its own slot, and each
+    element of x, the factors (N, N, K) and the pivots (N, K) is stored once
+    from its own slot. m and b loaded, and x and the factors stored, at
+    bases 8 bytes past a 16-byte boundary: each element lands where the row
+    solve reads it, x gives b's bits back, the factors m's bits bins-last,
+    the pivots their slots' values, and nothing outside is touched."""
+    lib = emulated["lu"]
+    k = k_of_block(lib.tile_systems(ctypes.c_int(n)))
+    hits = [np.zeros(size, np.uint8) for size in (k * n * n, k * n, k * n, k * n * n, k * n)]
+    bad, misplaced = ctypes.c_longlong(0), ctypes.c_longlong(0)
+    lib.rows_cover(ctypes.c_longlong(k), ctypes.c_int(n), *(_ptr(h) for h in hits),
+                   ctypes.byref(bad))
+    assert bad.value == 0
+    for h in hits:
+        np.testing.assert_array_equal(h, 1)
+
+    def offset_buffer(count, start=None):
+        buf = (np.full(2 * count + 4, 7, np.uint32) if start is None
+               else np.arange(start, start + 2 * count + 4, dtype=np.uint32))
+        view = buf.view(np.complex64)[1:-1]  # 8 bytes past the buffer's 16-byte-aligned start
+        assert view.ctypes.data % 16 == 8
+        return buf, view
+
+    _, m = offset_buffer(k * n * n, 0)
+    _, b = offset_buffer(k * n, 1 << 30)
+    x_buf, x = offset_buffer(k * n)
+    lu_buf, lu = offset_buffer(k * n * n)
+    piv = np.full(k * n + 2, -7, np.int32)
+    lib.rows_roundtrip(_ptr(m), _ptr(b), _ptr(x), _ptr(lu), _ptr(piv[1:-1]), ctypes.c_longlong(k),
+                       ctypes.c_int(n), ctypes.byref(misplaced))
+    assert misplaced.value == 0
+    np.testing.assert_array_equal(x.view(np.uint64), b.view(np.uint64))
+    np.testing.assert_array_equal(lu.view(np.uint64).reshape(n, n, k),
+                                  m.view(np.uint64).reshape(k, n, n).transpose(1, 2, 0))
+    np.testing.assert_array_equal(piv[1:-1].reshape(n, k), np.arange(k * n).reshape(k, n).T)
+    for buf in (x_buf, lu_buf):
+        assert (buf[:2] == 7).all() and (buf[-2:] == 7).all()
+    assert piv[0] == piv[-1] == -7
 
 
 @pytest.mark.parametrize("k_of_tile", [lambda t: t - 1, lambda t: t, lambda t: t + 1,
@@ -1000,10 +1316,11 @@ def _td_inputs(n, t_len, seed):
     return g, a, b, u
 
 
-def _emulate_td(lib, delays, g, a, b, u, variant, block, threads, ring, seed=0):
+def _emulate_td(lib, delays, g, a, b, u, variant, block, threads, ring, seed=0, fused=False):
     """y (N, T) of csrc/tdgfdn.cu's variant on u zero-padded to a multiple
     of td.GROUP samples, as the wrapper pads it, each step's threads in a
-    shuffled order (seed None: in descending order)."""
+    shuffled order (seed None: in descending order); ``fused``: the lines
+    variant with two steps a thread back to back."""
     n, t_len = len(delays), len(u)
     t_pad = -(-t_len // td.GROUP) * td.GROUP
     u_pad = np.zeros(t_pad, np.float32)
@@ -1012,7 +1329,7 @@ def _emulate_td(lib, delays, g, a, b, u, variant, block, threads, ring, seed=0):
     d = np.asarray(delays, np.int32)
     y = np.full((n, t_pad), np.nan, np.float32)  # line-major, as the kernel writes it
     # the kernel zeroes what it reads before t = 0; NaN elsewhere shows stray reads
-    if variant == td.HIST:
+    if variant in (td.HIST, td.LINES):
         buf = np.full((n, t_pad + max(delays)), np.nan, np.float32)
     else:
         buf = np.full(n * (ring + td.GROUP), np.nan, np.float32)
@@ -1020,7 +1337,7 @@ def _emulate_td(lib, delays, g, a, b, u, variant, block, threads, ring, seed=0):
              else np.random.RandomState(seed).permutation(threads)).astype(np.int32)
     lib.emu(ctypes.c_int(variant), _ptr(coef), _ptr(u_pad), _ptr(y), _ptr(buf),
             ctypes.c_longlong(t_pad), _ptr(d), ctypes.c_int(n), ctypes.c_int(block),
-            ctypes.c_int(threads), ctypes.c_int(ring), _ptr(order))
+            ctypes.c_int(threads), ctypes.c_int(ring), _ptr(order), ctypes.c_int(fused))
     return y[:, :t_len]
 
 
@@ -1113,17 +1430,75 @@ def test_tdgfdn_plan_picks_the_ring_by_size(delays, block, threads):
     assert kernel_plan(delays, need - 1).variant == td.HIST
 
 
-def test_tdgfdn_plan_sends_the_directional_delays_to_device_memory():
-    """The directional presets' 27 delays (691-1601 samples at 32 kHz) need
-    a ring of 4096 slots at steps of 512 (442 KB, over an H100's 227 KB):
-    the history goes to device memory, in steps of min(delay). (A ring of
-    2048 slots at steps of 256 would fit; on the H100 it took longer.)"""
+def _directional_delays():
     from diffgfdn_torch.config import preset_config
 
-    delays = tuple(preset_config("directional_1000Hz_res0.6m").delay_length_samps)
+    return tuple(int(d) for d in preset_config("directional_1000Hz_res0.6m").delay_length_samps)
+
+
+def test_tdgfdn_plan_sends_the_directional_delays_to_device_memory(emulated):
+    """The directional presets' 27 delays (691-1601 samples at 32 kHz) take
+    the lines variant, whatever the shared memory: 27^2 + 54 coefficients do
+    not fit a thread's registers, so they go to shared memory and the
+    history to device memory, in steps of min(delay), one sample a thread.
+    (A power-of-two ring would need 4096 slots at steps of 512, 442 KB,
+    over an H100's 227 KB.) The plan's line count for the switch is the
+    source's, which launches the lines variant alone above it."""
+    assert emulated["tdgfdn"].register_lines() == td.REGISTER_LINES
+    assert kernel_plan((5,) * td.REGISTER_LINES, H100_SMEM).variant == td.RING
+    assert kernel_plan((5,) * (td.REGISTER_LINES + 1), H100_SMEM).variant == td.LINES
+    delays = _directional_delays()
     assert (min(delays), max(delays), len(delays)) == (691, 1601, 27)
-    assert kernel_plan(delays, H100_SMEM) == (td.HIST, 691, 256, 0)
+    assert kernel_plan(delays, H100_SMEM) == (td.LINES, 691, 704, 0)
+    assert kernel_plan(delays, 1 << 30) == kernel_plan(delays, 0)
     assert td.ring_bytes(27, 2048) <= H100_SMEM < td.ring_bytes(27, 4096)
+
+
+@pytest.mark.parametrize("u_kind", ["impulse", "random"])
+def test_tdgfdn_lines_source_at_the_directional_delays_matches_plain_bitwise(emulated, u_kind):
+    """The lines variant (N = 27) step by step at the directional delays,
+    the threads of each step in a shuffled order, history and output NaN
+    beyond what the kernel zeroes: bit for bit, impulse and random input."""
+    delays = _directional_delays()
+    plan = kernel_plan(delays, H100_SMEM)
+    g, a, b, u = _td_inputs(27, 3000, seed=27)
+    if u_kind == "impulse":
+        u = np.zeros_like(u)
+        u[0] = 1.0
+    y = _emulate_td(emulated["tdgfdn"], delays, g, a, b, u, *plan, seed=4)
+    ref = delay_line_outputs_plain(delays, *(torch.from_numpy(x) for x in (g, a, b, u)))
+    np.testing.assert_array_equal(y.T, ref.numpy())
+
+
+@pytest.mark.parametrize("delays,threads", [((37, 41, 43, 53) * 4, td.WARP),
+                                            (tuple(range(1600, 1616)), td.LINES_THREADS)],
+                         ids=["n16_one_warp", "n16_block_capped"])
+def test_tdgfdn_lines_source_matches_plain_bitwise(emulated, delays, threads):
+    """The lines variant at N = 16 (rows of A unpadded): with one warp, each
+    thread taking many samples of a step, and at delays from 1600, whose
+    steps are capped at one sample for each of LINES_THREADS threads."""
+    plan = kernel_plan(delays, H100_SMEM)
+    assert plan.variant == td.LINES and plan.block == min(min(delays), td.LINES_THREADS)
+    g, a, b, u = _td_inputs(16, 2500, seed=16)
+    y = _emulate_td(emulated["tdgfdn"], delays, g, a, b, u, td.LINES, plan.block, threads, 0,
+                    seed=5)
+    ref = delay_line_outputs_plain(delays, *(torch.from_numpy(x) for x in (g, a, b, u)))
+    np.testing.assert_array_equal(y.T, ref.numpy())
+
+
+def test_tdgfdn_lines_source_needs_its_barrier(emulated):
+    """Why the lines variant ends each step with a barrier (it has no ring:
+    its history is in device memory): with each thread run through two steps
+    back to back, a sample of the second reads history that a thread yet to
+    run writes in the first, and the result changes."""
+    delays = _directional_delays()
+    plan = kernel_plan(delays, H100_SMEM)
+    g, a, b, u = _td_inputs(27, 3000, seed=28)
+    ref = delay_line_outputs_plain(delays, *(torch.from_numpy(x) for x in (g, a, b, u))).numpy()
+    np.testing.assert_array_equal(_emulate_td(emulated["tdgfdn"], delays, g, a, b, u, *plan,
+                                              seed=6).T, ref)
+    fused = _emulate_td(emulated["tdgfdn"], delays, g, a, b, u, *plan, seed=6, fused=True)
+    assert not np.array_equal(fused.T, ref)
 
 
 @pytest.mark.parametrize("past", [False, True], ids=["ring_full", "ring_full_plus_one"])

@@ -12,8 +12,9 @@ Bound: max abs error <= 1e-4 max |plain|; identical LU pivots. The inverse
 ``lu_solve``: x, factors and pivots) must equal their plain versions bit
 for bit, at every N of the model family, on ragged K around the systems of
 a block (csrc/cinv.cu: 128 at N <= 4, 12 at N = 9, 8 at N = 12, 2 at
-N = 27; csrc/lu.cu: 128), on a contiguous view 8 bytes past a 16-byte boundary, and on two
-launches alike. The cascade
+N = 27; csrc/lu.cu: 128 at N <= 4, 24 at N = 9, 16 at N = 12, 4 at
+N = 27), on a contiguous view 8 bytes past a 16-byte boundary, and on two
+launches alike; the transposed solve (B6) on B5's factors too. The cascade
 forward (B3) also runs with every section scaled by 1e4 and 1e-4, where the
 unscaled product of |Q_k|^2 leaves float32, and its backward (B4), given
 the forward's response, must give the same bits on two launches. The
@@ -24,7 +25,8 @@ B7 ``delay_line_outputs`` must equal its plain version bit for bit at the
 served path's delays and length (T = 131072), impulse and random input
 (the shared-memory ring the wrapper picks there), at a delay spread whose
 ring fills the card's shared memory exactly and at one a sample longer
-(which takes the device-memory history), at a spread of 50000 samples, and
+(which takes the device-memory history), at a spread of 50000 samples, at
+the directional presets' 27 delays (coefficients in shared memory), and
 on two launches alike.
 """
 
@@ -39,7 +41,7 @@ from diffgfdn_torch.kernels import lu as lu_mod, sos as sos_mod, tdgfdn as td_mo
 from diffgfdn_torch.kernels.dispatch import plain_versions
 from diffgfdn_torch.kernels import linalg
 from torch_port_helpers import (cascade, CINV_BLOCK_SYSTEMS, cinv_systems, KERNEL_TOL as TOL,
-                                max_rel, systems)
+                                LU_BLOCK_SYSTEMS, max_rel, systems)
 
 
 @pytest.fixture
@@ -114,9 +116,12 @@ def test_cinv_kernels_are_deterministic_on_card(cuda_device, n):
     assert torch.equal(cinv_mod.neg_ptgpt(first, g), cinv_mod.neg_ptgpt(second, g))
 
 
-# csrc/lu.cu tiles 128 systems a block at N <= 4 (32 at N = 8) and runs one
-# system a thread at N > 8
+# csrc/lu.cu tiles 128 systems a block at N <= 4 (32 at N = 8) and gives
+# each lane a row of a system at N > 8 (LU_BLOCK_SYSTEMS a block)
 LU_SIZES = (1, 4, 8, 9, 12, 27)
+LU_ROW_CASES = [(n, k) for n in (9, 12, 27)
+                for t in (LU_BLOCK_SYSTEMS[n],)
+                for k in (1, t - 1, t, t + 1, 3 * 65537)]
 
 
 @pytest.mark.cuda
@@ -134,6 +139,30 @@ def test_lu_kernel_matches_plain_on_card(cuda_device, n, k):
     assert torch.equal(x, x_p)
     assert torch.equal(lu, lu_p)
     assert torch.equal(piv, piv_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k", LU_ROW_CASES)
+def test_lu_row_solve_and_transposed_solve_match_plain_on_card(cuda_device, n, k):
+    """The row solve (N > 8) at K around a block's systems and at the
+    directional step's 3 x 65537: x, factors and pivots bit for bit, twice
+    alike, from views 8 bytes off alignment too; B6 on those factors bit for
+    bit."""
+    m, b = (torch.from_numpy(x).to(cuda_device) for x in systems(k, n, seed=100 + n + k))
+    g = torch.from_numpy(systems(k, n, seed=200 + n + k)[1]).to(cuda_device)
+    before = lu_mod.lu_solve.launches
+    out, ref = _on_card_and_plain(lu_mod.lu_solve, m, b)
+    assert lu_mod.lu_solve.launches == before + 1
+    again = lu_mod.lu_solve(_offset_view(m), _offset_view(b))
+    torch.cuda.synchronize()
+    for a, c, r in zip(out, again, ref):
+        assert torch.equal(a, r) and torch.equal(c, r)
+    _, lu, piv = out
+    before = lu_mod.lut_apply.launches
+    y, y_ref = _on_card_and_plain(lu_mod.lut_apply, lu, piv, g)
+    assert lu_mod.lut_apply.launches == before + 1
+    assert torch.equal(y, y_ref)
+    assert torch.equal(lu_mod.lut_apply(lu, piv, _offset_view(g)), y_ref)
 
 
 @pytest.mark.cuda
@@ -310,6 +339,28 @@ def test_tdgfdn_kernel_matches_plain_on_card(cuda_device, case):
     out, ref = _on_card_and_plain(lambda *a: td_mod.delay_line_outputs(delays, *a), *args)
     assert td_mod.delay_line_outputs.launches == before + 1
     assert out.shape == (t_len, len(delays))
+    assert torch.equal(out, ref)
+    again = td_mod.delay_line_outputs(delays, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(again, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impulse", [True, False], ids=["impulse", "random"])
+def test_tdgfdn_kernel_at_the_directional_delays_matches_plain_on_card(cuda_device, impulse):
+    """The directional presets' 27 delays, T = 131072: the lines variant
+    (coefficients in shared memory, history in device memory), bit for bit,
+    twice alike."""
+    from diffgfdn_torch.config import preset_config
+
+    delays = tuple(int(d) for d in preset_config("directional_1000Hz_res0.6m").delay_length_samps)
+    assert td_mod.kernel_plan(delays, td_mod.shared_memory_limit(cuda_device)).variant == (
+        td_mod.LINES)
+    args = [x.to(cuda_device) for x in _td_inputs(delays, 131072, impulse, seed=27)]
+    before = td_mod.delay_line_outputs.launches
+    out, ref = _on_card_and_plain(lambda *a: td_mod.delay_line_outputs(delays, *a), *args)
+    assert td_mod.delay_line_outputs.launches == before + 1
+    assert out.shape == (131072, 27)
     assert torch.equal(out, ref)
     again = td_mod.delay_line_outputs(delays, *args)
     torch.cuda.synchronize()

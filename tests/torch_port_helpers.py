@@ -16,6 +16,9 @@ KERNEL_TOL = 1e-4  # kernel level: max abs error / max |reference|
 # thread in a tile at N <= 8, floor(32 / N) a warp at N > 8 (4 warps a block
 # to N = 16, 2 above); test_torch_kernel_sources.py holds it to the source
 CINV_BLOCK_SYSTEMS = {1: 128, 4: 128, 8: 32, 9: 12, 12: 8, 27: 2}
+# and of csrc/lu.cu's solve: a tile at N <= 8, floor(32 / N) a warp at N > 8
+# (8 warps a block to N = 24, 4 above)
+LU_BLOCK_SYSTEMS = {1: 128, 4: 128, 8: 32, 9: 24, 12: 16, 27: 4}
 
 
 def systems(k: int, n: int, seed: int):
