@@ -10,8 +10,8 @@ Phases (any failure raises and exits non-zero, with no result line):
 
 1. build the kernels of ``diffgfdn_torch/csrc`` (one ``nvcc`` per source)
    and hold ptxas's report of the directional shapes' kernels: no stack
-   frame and no spill stores in B1 / B2 and B5 at N = 9, no spill stores in
-   B7 at N = 27;
+   frame and no spill stores in B1 / B2 and B5 at N = 9 and in B6 at N = 9,
+   12 and 27, no spill stores in B7 at N = 27;
 2. serve both slice configurations at full width through the user entry
    point ``InferDiffGFDN.rirs_at``: a synthetic 3-room dataset at 32 kHz
    (96 receivers, 3 batches of 32, nfft 131072), seeded parameters written
@@ -100,7 +100,8 @@ Phases (any failure raises and exits non-zero, with no result line):
    read back. One step then runs on the kernels and on the plain versions
    (loss 1e-6 relative, gradients 1e-3 relative L2); B1, B2, B5 and B6 are
    held bit for bit to their plain versions at that step's 9 x 9 inputs
-   and timed; timed steps must launch each exactly once. ``InferDiffGFDN``
+   (B6: the transposed solve's N > 8 kernel, its factors fetched ahead
+   through a ring of asynchronous copies, w in registers) and timed; timed steps must launch each exactly once. ``InferDiffGFDN``
    with ``variant="directional"`` then serves 96 receivers' SH-domain RIRs
    (96, 9, 131072) from the trained checkpoint (vs plain rel L2 1e-3, EDC
    0.01 dB over 0.5 s), and ``make_time_domain_synthesis_fn`` synthesizes
@@ -957,8 +958,9 @@ def kernel_times(root: Path) -> dict:
     time too, median of 5); and, when this process built
     them, ptxas's registers, spill-store and stack-frame bytes of
     ``cinv_kernel`` and ``neg_ptgpt_kernel`` at N = 4, 8, 9, 12 and 27, the cascade kernels at
-    K = 11, ``lu_solve_kernel`` at N = 4, 9, 12 and 27, ``lut_apply_kernel``
-    at N = 4 and 9 and the B7 kernels at N = 12 and 27, with the
+    K = 11, ``lu_solve_kernel`` and ``lut_apply_kernel`` at N = 4, 9, 12
+    and 27 (B6 above N = 8: w in registers to N = 12, in shared memory
+    above) and the B7 kernels at N = 12 and 27, with the
     shared-memory loads (LDS) cuobjdump counts in the B7 kernels. B5 and
     B6 also run at the directional step's shape (3 x 65537 random systems
     of 9 x 9) and at N = 27 (65537), with the plain version's time (median
@@ -1040,7 +1042,7 @@ def kernel_times(root: Path) -> dict:
             **{f"lu_solve_kernel<{n}>": ptxas_usage(logs["lu"], f"lu_solve_kernelILi{n}E")
                for n in (4, 9, 12, 27)},
             **{f"lut_apply_kernel<{n}>": ptxas_usage(logs["lu"], f"lut_apply_kernelILi{n}E")
-               for n in (4, 9)},
+               for n in (4, 9, 12, 27)},
             **{label: ptxas_usage(logs["tdgfdn"], frag) for label, frag in b7},
         }
     for label, m in (("path", m_path),
@@ -2092,23 +2094,25 @@ def main(argv=None) -> int:
     logs = _build.build_all()
     print(f"phase 1: built {sorted(logs)} in {time.perf_counter() - t0:.1f} s")
     # the row kernels of B1 / B2 and B5 keep each lane's row in registers: a
-    # stack frame would be a system left in local memory; B7 at N = 27 keeps
-    # its coefficients in shared memory: a spill would put a sample's
-    # outputs in local memory
+    # stack frame would be a system left in local memory; so would one in
+    # B6 above N = 8 (w in registers to N = 12, in shared memory above); B7
+    # at N = 27 keeps its coefficients in shared memory: a spill would put a
+    # sample's outputs in local memory
     rows = {}
     if logs.get("cinv"):
         rows.update({f"{kern}<{n}>": ptxas_usage(logs["cinv"], f"{kern}ILi{n}E")
                      for kern in ("cinv_kernel", "neg_ptgpt_kernel") for n in (9, 12, 27)})
     if logs.get("lu"):
-        rows.update({f"lu_solve_kernel<{n}>": ptxas_usage(logs["lu"], f"lu_solve_kernelILi{n}E")
-                     for n in (9, 12, 27)})
+        rows.update({f"{kern}<{n}>": ptxas_usage(logs["lu"], f"{kern}ILi{n}E")
+                     for kern in ("lu_solve_kernel", "lut_apply_kernel") for n in (9, 12, 27)})
     if logs.get("tdgfdn"):
         rows["tdgfdn_lines_kernel<27>"] = ptxas_usage(logs["tdgfdn"], "tdgfdn_lines_kernelILi27E")
     if rows:
         print("phase 1: ptxas " + json.dumps(rows))
     require(all(u is not None and u["stack_frame"] == 0 and u["spill_stores"] == 0
-                for label, u in rows.items() if label.endswith("<9>")),
-            f"B1 / B2 / B5 at N = 9 left in local memory: {rows}")
+                for label, u in rows.items()
+                if label.endswith("<9>") or label.startswith("lut_apply_kernel")),
+            f"B1 / B2 / B5 at N = 9 or B6 above N = 8 left in local memory: {rows}")
     if logs.get("tdgfdn"):
         b7 = rows["tdgfdn_lines_kernel<27>"]
         require(b7 is not None and b7["spill_stores"] == 0, f"B7 at N = 27 spills: {b7}")

@@ -616,80 +616,441 @@ unsigned solve_blocks(long long k_sys) {
 // Layout: lu (N, N, K) and piv (N, K) as lu_solve_kernel writes them; g and
 // y (K, N) complex64, contiguous. Any 1 <= N <= 32.
 //
-// Bound on an H100: at the training shape (K = 3 x 65537, N = 4) the kernel
-// reads the factors (K N^2 8 B = 25.2 MB), the pivots (3.1 MB) and g
-// (6.3 MB) and writes y (6.3 MB): 40.9 MB, 12 us at 3.35 TB/s, against about
-// 8 N^2 + 11 N FLOP per system: memory bound. Design: one thread per system
-// keeps w in registers and reads each factor entry once; the factor and pivot
-// reads are bins-last, so a warp's loads are coalesced.
+// Bound on an H100: the kernel reads the factors (K N^2 8 B), the pivots
+// (K N 4 B) and g (K N 8 B) and writes y (K N 8 B), against about 8 N^2 +
+// 11 N FLOP per system: memory bound at every N. At the training shape (K =
+// 3 x 65537, N = 4) that is 40.9 MB, 12 us at 3.35 TB/s; at the directional
+// step's (K = 3 x 65537, N = 9) 162.8 MB, 48.6 us; at N = 27 (K = 65537)
+// 417.6 MB, 124.7 us.
+//
+// Design for N <= 8: one thread per system keeps w in registers and reads
+// each factor entry once; the factor and pivot reads are bins-last, so a
+// warp's loads are coalesced.
+//
+// Design for N > 8 (the directional presets' 9 x 9 blocks and above): still
+// one thread a system, T systems a block, but every read is fetched ahead
+// of use. Thread t's factor entries are element t of each of the block's
+// N^2 plane runs (system s of plane (i, j) sits at (i N + j) K + s), so the
+// thread copies its own entries, a warp's copies coalesced, into a ring of
+// kRing slots in shared memory with asynchronous copies, one commit group a
+// plane, in the order the passes consume them: U's rows k = 0..N-1, then
+// the multiplier columns k = N-2..0 (a table of that order is built once a
+// block). Before it reads plane q the thread waits until at most kRing - 1
+// of its groups are outstanding (plane q has landed), reads it and refills
+// the slot with plane q + kRing. So kRing x 8 bytes a thread are always in
+// flight: 115 KB an SM at N = 9 (16 slots, 7 blocks of 30 KB), 32 KB at
+// N = 27 (8 slots, 8 blocks of 27 KB), where one load a thread at a time,
+// each behind a read-modify-write of w in local memory, kept at most 16 KB.
+// A slot is written and read by one thread only: no barrier guards the
+// ring. g and y, rows a thread would read at a stride of N x 8 bytes, are
+// staged through shared memory with coalesced copies (neighbouring threads
+// on neighbouring elements), a system's slot N | 1 float2 long, an odd
+// stride, so a half warp's threads hit 16 different bank pairs; the pivots
+// are copied with g's group. The last block is partial: the copies mask by
+// element, the solves by system. w stays out of local memory: up to N =
+// kMaxRegLutN every loop is unrolled, the steps a template recursion and
+// pass 2's swap done by selects (a branch per candidate row lets the
+// compiler merge the stores at a run-time index, which puts w in local
+// memory), so w lives in registers; above, unrolled steps would outgrow the
+// instruction cache (B2 at N = 27, PERF.md), so the loops stay rolled and w
+// is updated in place in its g slot, the swap a read and two stores. On an
+// H100 80GB HBM3 at 700 W (chip_smoke.py --kernel-times) the directional
+// shape takes 0.071 ms (0.120 before), N = 27 0.169 (0.490). At N = 9, 8
+// to 24 slots and 64 or 128 threads a block ran alike; at N = 27 8 slots
+// ran 18 % faster than 16, where the threads' chains of shared-memory reads
+// and writes of w limit, not the bytes in flight (PERF.md).
+constexpr int kMaxRegLutN = 12;
+
+template <int N>
+struct Lut {
+  static constexpr bool kRegs = N <= kMaxRegLutN;  // w in registers
+  static constexpr int kSystems = kRegs ? 128 : 64;  // threads (systems) a block
+  static constexpr int kRing = kRegs ? 16 : 8;       // factor planes in flight a thread
+  static constexpr int kSlot = N | 1;                // float2 a system's g / y slot: odd
+  static constexpr int kPlanes = N * N;
+  static constexpr int kPass1 = N * (N + 1) / 2;     // planes of U, consumed first
+  static_assert(kPlanes > kRing, "the ring's first planes are copied unconditionally");
+};
+
+// The block's shared memory: the ring (slot r of thread t at r * T + t),
+// the g / y slots, the pivots (pivot k of thread t at k * T + t) and the
+// order in which the planes are consumed.
+template <int N>
+struct LutSmem {
+  float2 ring[Lut<N>::kRing * Lut<N>::kSystems];
+  float2 gy[Lut<N>::kSystems * Lut<N>::kSlot];
+  int pv[N * Lut<N>::kSystems];
+  int order[Lut<N>::kPlanes];
+};
+
+template <int N>
+constexpr int lut_threads() {
+  if constexpr (N <= kMaxTiledN) {
+    return kThreads;
+  } else {
+    return Lut<N>::kSystems;
+  }
+}
+
+template <int N>
+unsigned lut_blocks(long long k_sys) {
+  return static_cast<unsigned>((k_sys + lut_threads<N>() - 1) / lut_threads<N>());
+}
+
+// A pipeline's 8- and 4-byte asynchronous copies into shared memory, in
+// groups: on the card cp.async, cp.async.commit_group and
+// cp.async.wait_group (at most `Pending` of this thread's groups still in
+// flight); in the host build of the tests a queue per thread that performs
+// a group's copies only at the wait that needs them.
+__device__ __forceinline__ void copy_async(float2* dst, const float2* src) {
+#ifdef __CUDA_ARCH__
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src) : "memory");
+#elif !defined(__CUDACC__)
+  host_copy_async(dst, src, sizeof(float2));
+#endif
+}
+
+__device__ __forceinline__ void copy_async(int* dst, const int* src) {
+#ifdef __CUDA_ARCH__
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+#elif !defined(__CUDACC__)
+  host_copy_async(dst, src, sizeof(int));
+#endif
+}
+
+__device__ __forceinline__ void copy_commit() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+#elif !defined(__CUDACC__)
+  host_copy_commit();
+#endif
+}
+
+template <int Pending>
+__device__ __forceinline__ void copy_wait_group() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(Pending) : "memory");
+#elif !defined(__CUDACC__)
+  host_copy_wait(Pending);
+#endif
+}
+
+// The plane i N + j that the passes consume q-th: pass 1 row k of U,
+// columns k..N-1; then pass 2 column k = N-2..0 of the multipliers, rows
+// k+1..N-1 (the order of pass 2's sums).
+template <int N>
+__device__ __forceinline__ int lut_plane(int q) {
+  if (q < Lut<N>::kPass1) {
+    int k = 0;
+    while (q >= N - k) {
+      q -= N - k;
+      ++k;
+    }
+    return k * N + k + q;
+  }
+  q -= Lut<N>::kPass1;
+  int k = N - 2;
+  while (q >= N - 1 - k) {
+    q -= N - 1 - k;
+    --k;
+  }
+  return (k + 1 + q) * N + k;
+}
+
+// Phase 0: the consumption order, entries t, t + T, ... of this thread.
+template <int N>
+__device__ __forceinline__ void lut_order(int* order) {
+  for (int q = static_cast<int>(threadIdx.x); q < Lut<N>::kPlanes; q += Lut<N>::kSystems) {
+    order[q] = lut_plane<N>(q);
+  }
+}
+
+// Element e of the block's g (or y) rows, element e % N of system e / N,
+// lives in this slot.
+template <int N>
+__device__ __forceinline__ int lut_slot(int e) {
+  return (e / N) * Lut<N>::kSlot + e % N;
+}
+
+// Copy step c of this thread moves element c * T + threadIdx.x of the
+// block's g (and y) rows.
+template <int N>
+__device__ __forceinline__ int lut_element(int c) {
+  return c * Lut<N>::kSystems + static_cast<int>(threadIdx.x);
+}
+
+// Phase 1 (the order table built): one commit group of the g rows of the
+// block's `systems` systems (coalesced) and this thread's pivots, then one
+// group for each of the ring's first kRing planes of this thread's system
+// (a thread past the block's systems copies only g and commits empty
+// groups); then waits for the first group, so that a barrier makes g
+// visible while the planes are still in flight.
+template <int N>
+__device__ __forceinline__ void lut_load(LutSmem<N>& sm, const float2* __restrict__ lu,
+                                         const int* __restrict__ piv,
+                                         const float2* __restrict__ g, long long first,
+                                         long long k_sys, int systems) {
+  constexpr int T = Lut<N>::kSystems;
+  const int t = static_cast<int>(threadIdx.x);
+  const bool active = t < systems;
+  const long long s = first + t;
+#pragma unroll
+  for (int c = 0; c < N; ++c) {
+    const int e = lut_element<N>(c);
+    if (e < systems * N) copy_async(sm.gy + lut_slot<N>(e), g + first * N + e);
+  }
+  if (active) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) copy_async(sm.pv + k * T + t, piv + k * k_sys + s);
+  }
+  copy_commit();
+#pragma unroll
+  for (int r = 0; r < Lut<N>::kRing; ++r) {
+    if (active) copy_async(sm.ring + r * T + t, lu + sm.order[r] * k_sys + s);
+    copy_commit();
+  }
+  copy_wait_group<Lut<N>::kRing>();
+}
+
+// This thread's view of the ring: its system's entry of plane 0 (lu + s),
+// its slot 0 (ring + t, slot r T floats2 further) and the order table.
+struct LutThread {
+  const float2* lu;
+  long long k_sys;
+  float2* ring;
+  const int* order;
+};
+
+// Plane q of this thread's system: wait until it has landed (at most
+// kRing - 1 groups of this thread outstanding: the groups complete in
+// order), read it from its slot and refill the slot with plane q + kRing
+// (an empty group past the last plane, so the count stays right).
+template <int N>
+__device__ __forceinline__ float2 lut_take(const LutThread& th, int q) {
+  constexpr int R = Lut<N>::kRing;
+  copy_wait_group<R - 1>();
+  float2* slot = th.ring + (q % R) * Lut<N>::kSystems;
+  const float2 f = *slot;
+  if (q + R < Lut<N>::kPlanes) copy_async(slot, th.lu + th.order[q + R] * th.k_sys);
+  copy_commit();
+  return f;
+}
+
+// w in registers (N <= kMaxRegLutN). Pass 1, step K: w[K] /= conj(U[K][K]),
+// then w[i] -= conj(U[K][i]) w[K] for i > K; planes K N - K (K - 1) / 2 +
+// 0..N-1-K of the consumption order.
+template <int N, int K>
+__device__ __forceinline__ void lut_forward(const LutThread& th, float (&wr)[N],
+                                            float (&wi)[N]) {
+  constexpr int Q = K * N - K * (K - 1) / 2;
+  const float2 d = lut_take<N>(th, Q);
+  const float dr = d.x, di = -d.y;
+  const float inv_den = 1.0f / (dr * dr + di * di);
+  const float wkr = (wr[K] * dr + wi[K] * di) * inv_den;
+  const float wki = (wi[K] * dr - wr[K] * di) * inv_den;
+  wr[K] = wkr;
+  wi[K] = wki;
+#pragma unroll
+  for (int i = K + 1; i < N; ++i) {
+    const float2 u = lut_take<N>(th, Q + i - K);
+    const float ur = u.x, ui = -u.y;
+    wr[i] = wr[i] - (ur * wkr - ui * wki);
+    wi[i] = wi[i] - (ur * wki + ui * wkr);
+  }
+  if constexpr (K + 1 < N) lut_forward<N, K + 1>(th, wr, wi);
+}
+
+// Pass 2, step K (from N - 1 down): w[K] -= sum_{i>K} conj(f_K[i]) w[i]
+// over ascending i from zero (planes kPass1 + (N-2-K)(N-1-K)/2 + 0..N-2-K),
+// then w[K] and w[p_K] swap by selects; pv holds this thread's pivot 0,
+// pivot k T further.
+template <int N, int K>
+__device__ __forceinline__ void lut_backward(const LutThread& th, const int* pv,
+                                             float (&wr)[N], float (&wi)[N]) {
+  if constexpr (K < N - 1) {
+    constexpr int Q = Lut<N>::kPass1 + (N - 2 - K) * (N - 1 - K) / 2;
+    float sr = 0.0f, si = 0.0f;
+#pragma unroll
+    for (int i = K + 1; i < N; ++i) {
+      const float2 f = lut_take<N>(th, Q + i - K - 1);
+      const float fr = f.x, fi = -f.y;
+      sr = sr + (fr * wr[i] - fi * wi[i]);
+      si = si + (fr * wi[i] + fi * wr[i]);
+    }
+    wr[K] = wr[K] - sr;
+    wi[K] = wi[K] - si;
+  }
+  const int p = pv[K * Lut<N>::kSystems];
+#pragma unroll
+  for (int r = K + 1; r < N; ++r) {
+    const bool swap = r == p;
+    const float kr = wr[K], ki = wi[K], xr = wr[r], xi = wi[r];
+    wr[K] = swap ? xr : kr;
+    wi[K] = swap ? xi : ki;
+    wr[r] = swap ? kr : xr;
+    wi[r] = swap ? ki : xi;
+  }
+  if constexpr (K > 0) lut_backward<N, K - 1>(th, pv, wr, wi);
+}
+
+// Phase 2 for one system (thread t of the block, system first + t): w from
+// its g slot, the two passes, y over the g slot.
+template <int N>
+__device__ __forceinline__ void lut_solve(LutSmem<N>& sm, const float2* __restrict__ lu,
+                                          long long first, long long k_sys) {
+  const int t = static_cast<int>(threadIdx.x);
+  const LutThread th{lu + first + t, k_sys, sm.ring + t, sm.order};
+  const int* pv = sm.pv + t;
+  float2* w = sm.gy + t * Lut<N>::kSlot;
+  if constexpr (Lut<N>::kRegs) {
+    float wr[N], wi[N];
+#pragma unroll
+    for (int r = 0; r < N; ++r) {
+      const float2 v = w[r];
+      wr[r] = v.x;
+      wi[r] = v.y;
+    }
+    lut_forward<N, 0>(th, wr, wi);
+    lut_backward<N, N - 1>(th, pv, wr, wi);
+#pragma unroll
+    for (int r = 0; r < N; ++r) w[r] = make_float2(wr[r], wi[r]);
+  } else {
+    int q = 0;
+#pragma unroll 1
+    for (int k = 0; k < N; ++k) {
+      const float2 d = lut_take<N>(th, q++);
+      const float dr = d.x, di = -d.y;
+      const float inv_den = 1.0f / (dr * dr + di * di);
+      const float2 wk = w[k];
+      const float wkr = (wk.x * dr + wk.y * di) * inv_den;
+      const float wki = (wk.y * dr - wk.x * di) * inv_den;
+      w[k] = make_float2(wkr, wki);
+      for (int i = k + 1; i < N; ++i) {
+        const float2 u = lut_take<N>(th, q++);
+        const float ur = u.x, ui = -u.y;
+        const float2 x = w[i];
+        w[i] = make_float2(x.x - (ur * wkr - ui * wki), x.y - (ur * wki + ui * wkr));
+      }
+    }
+#pragma unroll 1
+    for (int k = N - 1; k >= 0; --k) {
+      float2 wk = w[k];
+      if (k < N - 1) {
+        float sr = 0.0f, si = 0.0f;
+        for (int i = k + 1; i < N; ++i) {
+          const float2 f = lut_take<N>(th, q++);
+          const float fr = f.x, fi = -f.y;
+          const float2 x = w[i];
+          sr = sr + (fr * x.x - fi * x.y);
+          si = si + (fr * x.y + fi * x.x);
+        }
+        wk = make_float2(wk.x - sr, wk.y - si);
+      }
+      // swap w[k] and w[p] (p >= k): when p == k both stores write wk
+      const int p = pv[k * Lut<N>::kSystems];
+      const float2 wp = w[p];
+      w[p] = wk;
+      w[k] = p == k ? wk : wp;
+    }
+  }
+}
+
+// Phase 3 (every solve done): the y rows of the block's `systems` systems
+// from the slots to y, coalesced.
+template <int N>
+__device__ __forceinline__ void lut_store(const LutSmem<N>& sm, float2* __restrict__ y,
+                                          long long first, int systems) {
+#pragma unroll
+  for (int c = 0; c < N; ++c) {
+    const int e = lut_element<N>(c);
+    if (e < systems * N) y[first * N + e] = sm.gy[lut_slot<N>(e)];
+  }
+}
+
 template <int N>
 __global__ void lut_apply_kernel(const float2* __restrict__ lu, const int* __restrict__ piv,
                                  const float2* __restrict__ g, float2* __restrict__ y,
                                  long long k_sys) {
-  constexpr int U = N <= 8 ? N : 1;
-  const long long s = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (s >= k_sys) return;
-  const float2* g_in = g + s * N;
+  if constexpr (N > kMaxTiledN) {
+    constexpr int T = Lut<N>::kSystems;
+    __shared__ LutSmem<N> sm;
+    const long long first = blockIdx.x * static_cast<long long>(T);
+    const int systems = k_sys - first < T ? static_cast<int>(k_sys - first) : T;
+    lut_order<N>(sm.order);
+    __syncthreads();
+    lut_load<N>(sm, lu, piv, g, first, k_sys, systems);
+    __syncthreads();
+    if (static_cast<int>(threadIdx.x) < systems) lut_solve<N>(sm, lu, first, k_sys);
+    __syncthreads();
+    lut_store<N>(sm, y, first, systems);
+  } else {
+    constexpr int U = N <= 8 ? N : 1;
+    const long long s = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+    if (s >= k_sys) return;
+    const float2* g_in = g + s * N;
 
-  float wr[N], wi[N];
+    float wr[N], wi[N];
 #pragma unroll U
-  for (int r = 0; r < N; ++r) {
-    const float2 v = g_in[r];
-    wr[r] = v.x;
-    wi[r] = v.y;
-  }
-
-  // pass 1: U^H w = g, with d = conj(U[k][k]) and conj(U[k][i]) below it
-#pragma unroll U
-  for (int k = 0; k < N; ++k) {
-    const float2 d = lu[(k * N + k) * k_sys + s];
-    const float dr = d.x, di = -d.y;
-    const float inv_den = 1.0f / (dr * dr + di * di);
-    const float wkr = (wr[k] * dr + wi[k] * di) * inv_den;
-    const float wki = (wi[k] * dr - wr[k] * di) * inv_den;
-    wr[k] = wkr;
-    wi[k] = wki;
-#pragma unroll U
-    for (int i = k + 1; i < N; ++i) {
-      const float2 u = lu[(k * N + i) * k_sys + s];
-      const float ur = u.x, ui = -u.y;
-      wr[i] = wr[i] - (ur * wkr - ui * wki);
-      wi[i] = wi[i] - (ur * wki + ui * wkr);
+    for (int r = 0; r < N; ++r) {
+      const float2 v = g_in[r];
+      wr[r] = v.x;
+      wi[r] = v.y;
     }
-  }
 
-  // pass 2: undo the multipliers (conjugated) and the swaps, last step first
+    // pass 1: U^H w = g, with d = conj(U[k][k]) and conj(U[k][i]) below it
 #pragma unroll U
-  for (int k = N - 1; k >= 0; --k) {
-    if (k < N - 1) {
-      float sr = 0.0f, si = 0.0f;
+    for (int k = 0; k < N; ++k) {
+      const float2 d = lu[(k * N + k) * k_sys + s];
+      const float dr = d.x, di = -d.y;
+      const float inv_den = 1.0f / (dr * dr + di * di);
+      const float wkr = (wr[k] * dr + wi[k] * di) * inv_den;
+      const float wki = (wi[k] * dr - wr[k] * di) * inv_den;
+      wr[k] = wkr;
+      wi[k] = wki;
 #pragma unroll U
       for (int i = k + 1; i < N; ++i) {
-        const float2 f = lu[(i * N + k) * k_sys + s];
-        const float fr = f.x, fi = -f.y;
-        sr = sr + (fr * wr[i] - fi * wi[i]);
-        si = si + (fr * wi[i] + fi * wr[i]);
-      }
-      wr[k] = wr[k] - sr;
-      wi[k] = wi[k] - si;
-    }
-    const int p = piv[k * k_sys + s];
-#pragma unroll U
-    for (int r = k + 1; r < N; ++r) {
-      if (r == p) {
-        const float tr = wr[k], ti = wi[k];
-        wr[k] = wr[r];
-        wi[k] = wi[r];
-        wr[r] = tr;
-        wi[r] = ti;
+        const float2 u = lu[(k * N + i) * k_sys + s];
+        const float ur = u.x, ui = -u.y;
+        wr[i] = wr[i] - (ur * wkr - ui * wki);
+        wi[i] = wi[i] - (ur * wki + ui * wkr);
       }
     }
-  }
 
-  float2* y_out = y + s * N;
+    // pass 2: undo the multipliers (conjugated) and the swaps, last step first
 #pragma unroll U
-  for (int r = 0; r < N; ++r) {
-    y_out[r] = make_float2(wr[r], wi[r]);
+    for (int k = N - 1; k >= 0; --k) {
+      if (k < N - 1) {
+        float sr = 0.0f, si = 0.0f;
+#pragma unroll U
+        for (int i = k + 1; i < N; ++i) {
+          const float2 f = lu[(i * N + k) * k_sys + s];
+          const float fr = f.x, fi = -f.y;
+          sr = sr + (fr * wr[i] - fi * wi[i]);
+          si = si + (fr * wi[i] + fi * wr[i]);
+        }
+        wr[k] = wr[k] - sr;
+        wi[k] = wi[k] - si;
+      }
+      const int p = piv[k * k_sys + s];
+#pragma unroll U
+      for (int r = k + 1; r < N; ++r) {
+        if (r == p) {
+          const float tr = wr[k], ti = wi[k];
+          wr[k] = wr[r];
+          wi[k] = wi[r];
+          wr[r] = tr;
+          wi[r] = ti;
+        }
+      }
+    }
+
+    float2* y_out = y + s * N;
+#pragma unroll U
+    for (int r = 0; r < N; ++r) {
+      y_out[r] = make_float2(wr[r], wi[r]);
+    }
   }
 }
 
@@ -727,7 +1088,8 @@ extern "C" int diffgfdn_lu_solve_c64(const void* m, const void* b, void* x, void
 
 #define LUT_CASE(n)                                                             \
   case n:                                                                       \
-    lut_apply_kernel<n><<<blocks, kThreads, 0, st>>>(li, pi, gi, yo, k_sys);    \
+    lut_apply_kernel<n><<<lut_blocks<n>(k_sys), lut_threads<n>(), 0, st>>>(      \
+        li, pi, gi, yo, k_sys);                                                 \
     break;
 
 // lu (N,N,K) complex64, piv (N,K) int32, g and y (K,N) complex64 device
@@ -741,7 +1103,6 @@ extern "C" int diffgfdn_lut_apply_c64(const void* lu, const void* piv, const voi
   const float2* gi = static_cast<const float2*>(g);
   float2* yo = static_cast<float2*>(y);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const unsigned blocks = static_cast<unsigned>((k_sys + kThreads - 1) / kThreads);
   switch (n) {
     LUT_CASE(1) LUT_CASE(2) LUT_CASE(3) LUT_CASE(4) LUT_CASE(5) LUT_CASE(6) LUT_CASE(7)
     LUT_CASE(8) LUT_CASE(9) LUT_CASE(10) LUT_CASE(11) LUT_CASE(12) LUT_CASE(13) LUT_CASE(14)

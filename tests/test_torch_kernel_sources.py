@@ -35,6 +35,15 @@ shared memory NaN at the start of each block; with the barrier between
 B1's or B5's pivot and elimination phases removed the result must change.
 Further tests hold the tile copies, the row kernels' copies and B5's
 bins-last factor stores to moving each element once.
+Above N = 8 the transposed solve (B6) keeps one thread a system and fetches
+each thread's factor entries through a ring of asynchronous copies in shared
+memory, g and y through coalesced copies: the harness runs its phases
+between barriers thread by thread in shuffled orders, the shim queuing each
+thread's copies by commit group and performing them only at the wait that
+needs them (in a second run, as they are issued); with the barrier after the
+copies removed, or every wait one group short, y must change, and every
+element of the factors, pivots and g must be copied once, every element of
+y stored once.
 The time-domain recursion (B7) cannot run thread by thread through its
 kernel: thread 0 would reach the next block of samples before thread 1 had
 written this one. Its step is a device function per thread, which the
@@ -66,7 +75,7 @@ from diffgfdn_torch.kernels.sos import sos_cascade_backward_plain, sos_cascade_p
 from diffgfdn_torch.kernels import tdgfdn as td
 from diffgfdn_torch.kernels.tdgfdn import delay_line_outputs_plain, kernel_plan
 from torch_port_helpers import (cascade, CINV_BLOCK_SYSTEMS, cinv_systems, KERNEL_TOL,
-                                LU_BLOCK_SYSTEMS, max_rel, systems)
+                                LU_BLOCK_SYSTEMS, LUT_BLOCK_SYSTEMS, max_rel, systems)
 
 CSRC = Path(__file__).resolve().parents[1] / "diffgfdn_torch" / "csrc"
 SIZES = (1, 4, 9, 12, 27)
@@ -123,6 +132,47 @@ inline float __frcp_rn(float x) { return 1.0f / x; }
 inline unsigned __float_as_uint(float x) { unsigned u; std::memcpy(&u, &x, 4); return u; }
 inline float __uint_as_float(unsigned u) { float x; std::memcpy(&x, &u, 4); return x; }
 namespace { float4 coef4[1 << 14]; }  // the cascade's dynamic shared memory
+// cp.async in a pipeline (csrc/lu.cu's transposed solve above N = 8): each
+// thread's copies wait in its queue, grouped by commit, until a wait leaves
+// at most `pending` of its groups outstanding (async_slack more: a wait one
+// group short), so a read that no wait covers sees what was there before;
+// async_eager performs each copy as it is issued instead; async_copy_hook,
+// where set, sees every copy as it is issued
+#include <deque>
+#include <vector>
+struct AsyncCopy { void* dst; const void* src; int bytes; };
+inline std::vector<AsyncCopy> async_open[1024];
+inline std::deque<std::vector<AsyncCopy>> async_groups[1024];
+inline int async_slack = 0;
+inline bool async_eager = false;
+inline void (*async_copy_hook)(void*, const void*, int) = nullptr;
+inline void host_copy_async(void* dst, const void* src, int bytes) {
+  if (async_copy_hook) async_copy_hook(dst, src, bytes);
+  if (async_eager) std::memcpy(dst, src, bytes);
+  else async_open[threadIdx.x].push_back({dst, src, bytes});
+}
+inline void host_copy_commit() {
+  async_groups[threadIdx.x].push_back(async_open[threadIdx.x]);
+  async_open[threadIdx.x].clear();
+}
+inline void host_copy_wait(int pending) {
+  auto& groups = async_groups[threadIdx.x];
+  while ((int)groups.size() > pending + async_slack) {
+    for (const AsyncCopy& c : groups.front()) std::memcpy(c.dst, c.src, c.bytes);
+    groups.pop_front();
+  }
+}
+// the copies issued and never performed, over every thread; empties the queues
+inline long long host_copy_drop() {
+  long long n = 0;
+  for (int t = 0; t < 1024; ++t) {
+    n += (long long)async_open[t].size();
+    for (const auto& group : async_groups[t]) n += (long long)group.size();
+    async_open[t].clear();
+    async_groups[t].clear();
+  }
+  return n;
+}
 """
 
 _CASES = " ".join(f"case {n}: KERNEL<{n}>(ARGS); break;" for n in SIZES)
@@ -663,17 +713,145 @@ extern "C" void emu(const void* m, const void* b, void* x, void* lu, void* piv,
   switch (n) { CASES }
 }""".replace("CASES", _CASES.replace("KERNEL", "emu_lu_n")
              .replace("ARGS", "mi, bi, xo, lo, po, k, fused")) + """
-extern "C" void emu_lut(const void* lu, const void* piv, const void* g, void* y,
-                        long long k, int n) {
+// B6: for N <= kMaxTiledN the kernel thread by thread, one a block; above,
+// block by block, the order table, the copies in, the solves and the stores
+// out each a phase, thread by thread in an order shuffled anew for every
+// phase, shared memory NaN (order and pivots -1) at each block's start and
+// the copies deferred to the waits that need them (async_eager: performed
+// at once). fault 1 runs each thread's copies and its solve back to back,
+// as if the barrier after the copies were missing; fault 2 leaves one
+// group more in flight at every wait. Returns the copies issued and never
+// performed.
+template <int N>
+long long emu_lut_n(const float2* lu, const int* piv, const float2* g, float2* y, long long k,
+                    int fault) {
+  if constexpr (N <= kMaxTiledN) {
+    threadIdx = dim3(0);
+    for (long long s = 0; s < k; ++s) {
+      blockIdx = dim3((unsigned)s);
+      lut_apply_kernel<N>(lu, piv, g, y, k);
+    }
+    return 0;
+  } else {
+    constexpr int T = Lut<N>::kSystems;
+    static LutSmem<N> sm;
+    int perm[T];
+    long long dropped = 0;
+    async_slack = fault == 2 ? 1 : 0;
+    host_copy_drop();
+    for (long long first = 0; first < k; first += T) {
+      const int systems = k - first < T ? (int)(k - first) : T;
+      std::memset(&sm, 0xff, sizeof sm);
+      shuffle(perm, T);
+      for (int i = 0; i < T; ++i) {
+        threadIdx = dim3(perm[i]);
+        lut_order<N>(sm.order);
+      }
+      shuffle(perm, T);
+      for (int i = 0; i < T; ++i) {
+        threadIdx = dim3(perm[i]);
+        lut_load<N>(sm, lu, piv, g, first, k, systems);
+        if (fault == 1 && perm[i] < systems) lut_solve<N>(sm, lu, first, k);
+      }
+      if (fault != 1) {
+        shuffle(perm, T);
+        for (int i = 0; i < T; ++i) {
+          threadIdx = dim3(perm[i]);
+          if (perm[i] < systems) lut_solve<N>(sm, lu, first, k);
+        }
+      }
+      shuffle(perm, T);
+      for (int i = 0; i < T; ++i) {
+        threadIdx = dim3(perm[i]);
+        lut_store<N>(sm, y, first, systems);
+      }
+      dropped += host_copy_drop();
+    }
+    async_slack = 0;
+    return dropped;
+  }
+}
+extern "C" long long emu_lut(const void* lu, const void* piv, const void* g, void* y,
+                             long long k, int n, unsigned seed, int fault, int eager) {
   auto li = (const float2*)lu; auto pi = (const int*)piv; auto gi = (const float2*)g;
   auto yo = (float2*)y;
-  threadIdx = dim3(0);
-  for (long long s = 0; s < k; ++s) {
-    blockIdx = dim3((unsigned)s);
-    switch (n) { CASES }
+  lane_rng = seed | 1u;
+  async_eager = eager != 0;
+  long long dropped = -1;
+  switch (n) { CASES }
+  async_eager = false;
+  return dropped;
+}
+// B6's copies above N = 8: the sources of every copy the emulation issues
+// counted per element of lu, piv and g (cover_bad: a copy of another size,
+// off an element, or from outside the three); then, over every block,
+// thread and copy step of the g / y mapping, the y element each stores
+// counted, and a g / y slot outside the block's or taken twice counted bad
+static const char* cover_base[3];
+static long long cover_len[3];
+static int cover_size[3];
+static unsigned char* cover_hits[3];
+static long long cover_bad;
+static void cover_hook(void*, const void* src, int bytes) {
+  const char* p = (const char*)src;
+  for (int a = 0; a < 3; ++a) {
+    if (p < cover_base[a] || p >= cover_base[a] + cover_len[a]) continue;
+    const long long off = p - cover_base[a];
+    if (bytes != cover_size[a] || off % cover_size[a] != 0) ++cover_bad;
+    else cover_hits[a][off / cover_size[a]] += 1;
+    return;
   }
-}""".replace("CASES", _CASES.replace("KERNEL", "lut_apply_kernel")
-             .replace("ARGS", "li, pi, gi, yo, k")) + """
+  ++cover_bad;
+}
+template <int N>
+void lut_y_cover_n(long long k, unsigned char* hits_y, long long* bad) {
+  constexpr int T = Lut<N>::kSystems, S = T * Lut<N>::kSlot;
+  static unsigned char slot_hits[S];
+  for (long long first = 0; first < k; first += T) {
+    const int systems = k - first < T ? (int)(k - first) : T;
+    std::memset(slot_hits, 0, sizeof slot_hits);
+    for (int t = 0; t < T; ++t) {
+      threadIdx = dim3(t);
+      for (int c = 0; c < N; ++c) {
+        const int e = lut_element<N>(c);
+        if (e >= systems * N) continue;
+        hits_y[first * N + e] += 1;
+        const int slot = lut_slot<N>(e);
+        if (slot < 0 || slot >= S || slot_hits[slot]++) *bad += 1;
+      }
+    }
+  }
+}
+extern "C" long long lut_cover(const void* lu, const void* piv, const void* g, void* y,
+                               long long k, int n, void* hits_lu, void* hits_piv,
+                               void* hits_g, void* hits_y, long long* bad) {
+  const void* bases[3] = {lu, piv, g};
+  const int sizes[3] = {8, 4, 8};
+  const long long counts[3] = {(long long)n * n * k, (long long)n * k, (long long)n * k};
+  void* hits[3] = {hits_lu, hits_piv, hits_g};
+  for (int a = 0; a < 3; ++a) {
+    cover_base[a] = (const char*)bases[a];
+    cover_len[a] = counts[a] * sizes[a];
+    cover_size[a] = sizes[a];
+    cover_hits[a] = (unsigned char*)hits[a];
+  }
+  cover_bad = 0;
+  async_copy_hook = cover_hook;
+  const long long dropped = emu_lut(lu, piv, g, y, k, n, 1, 0, 0);
+  async_copy_hook = nullptr;
+  *bad = cover_bad;
+  switch (n) { Y_COVER_CASES }
+  return dropped;
+}
+extern "C" int lut_systems(int n) {
+  switch (n) { LUT_SYSTEMS_CASES }
+  return 0;
+}""".replace("Y_COVER_CASES", " ".join(
+        f"case {n}: lut_y_cover_n<{n}>(k, (unsigned char*)hits_y, bad); break;" for n in ROW_SIZES)
+        ).replace("LUT_SYSTEMS_CASES", " ".join(
+        f"case {n}: return lut_threads<{n}>();" for n in SIZES)).replace("CASES", " ".join(
+        f"case {n}: dropped = emu_lut_n<{n}>(li, pi, gi, yo, k, fault); break;" for n in SIZES)
+        ) + """
 extern "C" int tile_systems(int n) {
   switch (n) { TILE_CASES }
   return 0;
@@ -1271,11 +1449,118 @@ def test_lut_apply_source_matches_plain_bitwise(emulated, n):
         m[:, 0, 0] += 1.0
     _, lu, piv = lu_solve_plain(torch.from_numpy(m), torch.from_numpy(b))
     g = np.ascontiguousarray(b[::-1])
-    y = np.empty_like(g)
     lu_np, piv_np = np.ascontiguousarray(lu.numpy()), np.ascontiguousarray(piv.numpy())
-    emulated["lu"].emu_lut(_ptr(lu_np), _ptr(piv_np), _ptr(g), _ptr(y),
-                           ctypes.c_longlong(len(g)), ctypes.c_int(n))
+    y, _ = _emulate_lut(emulated["lu"], lu_np, piv_np, g, seed=n)
     np.testing.assert_array_equal(y, lut_apply_plain(lu, piv, torch.from_numpy(g)).numpy())
+
+
+def _emulate_lut(lib, lu, piv, g, seed=0, fault=0, eager=False):
+    """(y, copies issued and never performed) of csrc/lu.cu's transposed
+    solve; above N = 8 block by block, each phase thread by thread in a
+    shuffled order, the copies deferred to the waits that need them
+    (``eager``: performed as issued); ``fault`` 1 drops the barrier after
+    the copies, 2 leaves one group more in flight at every wait."""
+    k, n = g.shape
+    y = np.empty_like(g)
+    lib.emu_lut.restype = ctypes.c_longlong
+    dropped = lib.emu_lut(_ptr(lu), _ptr(piv), _ptr(g), _ptr(y), ctypes.c_longlong(k),
+                          ctypes.c_int(n), ctypes.c_uint(seed), ctypes.c_int(fault),
+                          ctypes.c_int(eager))
+    return y, dropped
+
+
+def _lut_inputs(k, n, seed):
+    """B5's plain factors and pivots of K random systems, and a random g."""
+    m, b = systems(k, n, seed=seed)
+    _, lu, piv = lu_solve_plain(torch.from_numpy(m), torch.from_numpy(b))
+    g = systems(k, n, seed=seed + 1)[1]
+    return np.ascontiguousarray(lu.numpy()), np.ascontiguousarray(piv.numpy()), g
+
+
+def _lut_plain(lu, piv, g):
+    return lut_apply_plain(*map(torch.from_numpy, (lu, piv, g))).numpy()
+
+
+def test_lut_block_systems_are_those_the_card_tests_take(emulated):
+    """tests/test_torch_kernels_cuda.py sets B6's K around csrc/lu.cu's
+    systems a block; they must be the source's."""
+    for n, systems_a_block in LUT_BLOCK_SYSTEMS.items():
+        assert emulated["lu"].lut_systems(ctypes.c_int(n)) == systems_a_block
+
+
+def _lut_k(n, rel):
+    t = LUT_BLOCK_SYSTEMS[n]
+    return {"1": 1, "T-1": t - 1, "T+1": t + 1, "2T+5": 2 * t + 5}[rel]
+
+
+@pytest.mark.parametrize("rel", ["1", "T-1", "T+1", "2T+5"])
+@pytest.mark.parametrize("n", ROW_SIZES)
+def test_lut_apply_rows_partial_last_block_matches_plain_bitwise(emulated, n, rel):
+    """B6 above N = 8 block by block: the order table, the copies in, the
+    solves and the stores out each a phase, thread by thread in an order
+    shuffled anew for every phase, shared memory NaN at each block's start;
+    a single system, a last block one short, one past a block, and a third
+    block of 5. y bit for bit, with every copy deferred to the wait that
+    needs it and with every copy performed as it is issued, and no copy
+    left unperformed."""
+    k = _lut_k(n, rel)
+    lu, piv, g = _lut_inputs(k, n, seed=900 + k + n)
+    ref = _lut_plain(lu, piv, g)
+    for eager in (False, True):
+        y, dropped = _emulate_lut(emulated["lu"], lu, piv, g, seed=k, eager=eager)
+        assert dropped == 0
+        np.testing.assert_array_equal(y, ref)
+
+
+@pytest.mark.parametrize("fault", [1, 2], ids=["barrier_missing", "wait_one_group_short"])
+@pytest.mark.parametrize("n", [9, 27])
+def test_lut_apply_rows_needs_its_barrier_and_its_waits(emulated, n, fault):
+    """Why the copies of g end in a barrier, and why each plane waits until
+    at most kRing - 1 groups are in flight: with each thread's copies and
+    solve back to back, a thread reads g entries that threads after it copy;
+    with every wait one group short, a thread reads a ring slot before its
+    plane has landed. Either way y changes."""
+    lu, piv, g = _lut_inputs(2 * LUT_BLOCK_SYSTEMS[n] + 5, n, seed=n)
+    ref = _lut_plain(lu, piv, g)
+    y, _ = _emulate_lut(emulated["lu"], lu, piv, g, seed=3)
+    np.testing.assert_array_equal(y, ref)
+    y, _ = _emulate_lut(emulated["lu"], lu, piv, g, seed=3, fault=fault)
+    assert not np.array_equal(y, ref)
+
+
+@pytest.mark.parametrize("k_of_block", [lambda t: t - 1, lambda t: t, lambda t: t + 1,
+                                        lambda t: 1000], ids=["T-1", "T", "T+1", "1000"])
+@pytest.mark.parametrize("n", ROW_SIZES)
+def test_lut_apply_rows_copies_move_each_element_once(emulated, n, k_of_block):
+    """B6's staging above N = 8: over the whole emulated run every element
+    of the factors (N, N, K), the pivots (N, K) and g (K, N) is copied into
+    shared memory once, and nothing else is; over every block, thread and
+    copy step each element of y is stored once, from a slot of its own.
+    The factors, g and y at bases 8 bytes past a 16-byte boundary: y bit
+    for bit, nothing outside it touched."""
+    lib = emulated["lu"]
+    k = k_of_block(LUT_BLOCK_SYSTEMS[n])
+    lu, piv, g = _lut_inputs(k, n, seed=1000 + k + n)
+    ref = _lut_plain(lu, piv, g)
+
+    def offset_copy(a):
+        buf = np.full(a.size + 2, 7 + 7j, np.complex64)
+        view = buf[1:-1]  # 8 bytes past the buffer's 16-byte-aligned start
+        assert view.ctypes.data % 16 == 8
+        view[:] = a.reshape(-1)
+        return buf, view.reshape(a.shape)
+
+    (_, lu_v), (_, g_v), (y_buf, y_v) = offset_copy(lu), offset_copy(g), offset_copy(g * 0)
+    hits = [np.zeros(size, np.uint8) for size in (k * n * n, k * n, k * n, k * n)]
+    bad = ctypes.c_longlong(0)
+    lib.lut_cover.restype = ctypes.c_longlong
+    dropped = lib.lut_cover(_ptr(lu_v), _ptr(piv), _ptr(g_v), _ptr(y_v), ctypes.c_longlong(k),
+                            ctypes.c_int(n), *(_ptr(h) for h in hits), ctypes.byref(bad))
+    assert bad.value == 0 and dropped == 0
+    for h in hits:
+        np.testing.assert_array_equal(h, 1)
+    np.testing.assert_array_equal(y_v, ref)
+    assert y_buf[0] == y_buf[-1] == 7 + 7j
 
 
 def _sos_backward_source_check(lib, k):

@@ -14,7 +14,9 @@ for bit, at every N of the model family, on ragged K around the systems of
 a block (csrc/cinv.cu: 128 at N <= 4, 12 at N = 9, 8 at N = 12, 2 at
 N = 27; csrc/lu.cu: 128 at N <= 4, 24 at N = 9, 16 at N = 12, 4 at
 N = 27), on a contiguous view 8 bytes past a 16-byte boundary, and on two
-launches alike; the transposed solve (B6) on B5's factors too. The cascade
+launches alike; the transposed solve (B6) on B5's factors too, at N = 4,
+9, 12 and 27 and K around its own block (128 systems to N = 12, 64
+above). The cascade
 forward (B3) also runs with every section scaled by 1e4 and 1e-4, where the
 unscaled product of |Q_k|^2 leaves float32, and its backward (B4), given
 the forward's response, must give the same bits on two launches. The
@@ -41,7 +43,7 @@ from diffgfdn_torch.kernels import lu as lu_mod, sos as sos_mod, tdgfdn as td_mo
 from diffgfdn_torch.kernels.dispatch import plain_versions
 from diffgfdn_torch.kernels import linalg
 from torch_port_helpers import (cascade, CINV_BLOCK_SYSTEMS, cinv_systems, KERNEL_TOL as TOL,
-                                LU_BLOCK_SYSTEMS, max_rel, systems)
+                                LU_BLOCK_SYSTEMS, LUT_BLOCK_SYSTEMS, max_rel, systems)
 
 
 @pytest.fixture
@@ -206,16 +208,22 @@ def test_neg_ptgpt_kernel_matches_plain_on_card(cuda_device, n, k):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [4, 12, 27])
-def test_lut_apply_kernel_matches_plain_on_card(cuda_device, n):
-    m, b = systems(1000, n, seed=n)
+@pytest.mark.parametrize("k", ["1000", "T+1"])
+@pytest.mark.parametrize("n", [4, 9, 12, 27])
+def test_lut_apply_kernel_matches_plain_on_card(cuda_device, n, k):
+    """B6 on B5's factors bit for bit, at K = 1000 and at one past a block's
+    systems (LUT_BLOCK_SYSTEMS: both leave a partial last block), and from a
+    g 8 bytes off alignment."""
+    k = 1000 if k == "1000" else LUT_BLOCK_SYSTEMS[n] + 1
+    m, b = systems(k, n, seed=n)
     _, lu, piv = lu_mod.lu_solve(torch.from_numpy(m).to(cuda_device),
                                  torch.from_numpy(b).to(cuda_device))
     g = torch.from_numpy(b[::-1].copy()).to(cuda_device)
     before = lu_mod.lut_apply.launches
     out, ref = _on_card_and_plain(lu_mod.lut_apply, lu, piv, g)
     assert lu_mod.lut_apply.launches == before + 1
-    assert max_rel(out.cpu().numpy(), ref.cpu().numpy()) <= TOL
+    assert torch.equal(out, ref)
+    assert torch.equal(lu_mod.lut_apply(lu, piv, _offset_view(g)), ref)
 
 
 @pytest.mark.cuda

@@ -19,6 +19,9 @@ CINV_BLOCK_SYSTEMS = {1: 128, 4: 128, 8: 32, 9: 12, 12: 8, 27: 2}
 # and of csrc/lu.cu's solve: a tile at N <= 8, floor(32 / N) a warp at N > 8
 # (8 warps a block to N = 24, 4 above)
 LU_BLOCK_SYSTEMS = {1: 128, 4: 128, 8: 32, 9: 24, 12: 16, 27: 4}
+# and of its transposed solve (B6): one thread a system, 128 a block to
+# N = 12 (w in registers), 64 above (w in shared memory)
+LUT_BLOCK_SYSTEMS = {1: 128, 4: 128, 9: 128, 12: 128, 27: 64}
 
 
 def systems(k: int, n: int, seed: int):
