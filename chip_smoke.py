@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Quickest proof that the PyTorch/CUDA port serves, trains and synthesizes DiffGFDNs on an NVIDIA GPU.
+"""Quickest proof that the PyTorch/CUDA port trains and serves its models on an NVIDIA GPU.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -108,7 +108,22 @@ Phases (any failure raises and exits non-zero, with no result line):
    them with one launch of B7 at N = 27 on the transposed feedback matrix
    (vs plain, and vs the frequency path within 2e-3 of the peak and 0.01 dB
    of EDC); B7 there is held bit for bit to its plain version and to
-   float64 numpy.
+   float64 numpy;
+9. train the common-slopes spatial-sampling presets through the user entry
+   point ``run_training_spatial_sampling`` on phase 8's grid:
+   ``spatial_directional_1000Hz`` (a 12 x 128 MLP, batch 50) at its grid
+   resolutions 0.9, 0.6 and 0.3 m, then ``spatial_omni_1000Hz`` (5 x 16) at
+   its ten (3.0 .. 0.3 m) on the grid's omni collapse, 4 epochs each; serve
+   all 847 receivers from the 0.3 m checkpoints through
+   ``get_ambisonic_rirs(use_trained_model=True)`` ((847, 9, 16000) SRIRs,
+   (847, 16000) omni RIRs). No hand-written kernel lies on this path: every
+   launch count must stay 0. The losses must be finite and fall, the served
+   RIRs finite and decaying; a directional step on the card must match the
+   same step on the CPU (loss 1e-5 relative, gradients 1e-3 relative L2),
+   the served amplitudes the CPU's (1e-5) and the synthesis the CPU's on one
+   noise tensor (1e-4 relative L2). Per preset and resolution the phase
+   prints the median step time and steps/s, epoch time, the first and last
+   losses and peak memory, and the served RIRs per second.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``. ``--kernel-times ROOT``
@@ -117,9 +132,10 @@ of the port's checkout under ROOT at the paths' shapes (so that two trees
 can be compared in turns in one call) and prints no result line.
 ``--log-dir`` receives the compiler's resource report and a torch.profiler
 table of one served batch and of one training step per configuration (and
-of one band-parallel step per group, and of one directional step); their
-wall time, the card's busy time within them and its idle share join the
-phase-2, phase-5, phase-7 and phase-8 lines.
+of one band-parallel step per group, of one directional step, and of one
+step of each spatial-sampling preset); their wall time, the card's busy
+time within them and its idle share join the phase-2, phase-5, phase-7,
+phase-8 and phase-9 lines.
 """
 
 import argparse
@@ -208,6 +224,16 @@ KERNEL_SYMBOLS = ("cinv_kernel", "neg_ptgpt_kernel", "sos_cascade_kernel", "sos_
                   "lu_solve_kernel", "lut_apply_kernel", "tdgfdn_kernel")
 
 
+def profile_window(events, label: str):
+    """The host-side span of the ``record_function`` named ``label``. The
+    profiler also lists the label as a device annotation, spanning only its
+    first to last device op, and either may come first."""
+    from torch.autograd import DeviceType
+
+    return next(e.time_range for e in events
+                if e.name == label and e.device_type == DeviceType.CPU)
+
+
 def profile_once(fn, label: str, table_path: Path):
     """Run ``fn`` once under torch.profiler; write its tables (by device time,
     then by host time) to ``table_path``; return (wall ms of the window,
@@ -223,7 +249,7 @@ def profile_once(fn, label: str, table_path: Path):
     table_path.write_text(averages.table(sort_by="cuda_time_total", row_limit=60) + "\n"
                           + averages.table(sort_by="self_cpu_time_total", row_limit=40))
     events = prof.events()
-    window = next(e.time_range for e in events if e.name == label)
+    window = profile_window(events, label)
     busy = device_busy_us(events, window)
     require(busy > 0.0, f"{label}: the profiled window shows no device work")
     ours = [e for e in events if any(k in e.name for k in KERNEL_SYMBOLS)]
@@ -2056,6 +2082,201 @@ def directional(tmp: Path, log_dir):
     return result, rows
 
 
+SPATIAL_PRESETS = ("spatial_directional_1000Hz", "spatial_omni_1000Hz")
+SPATIAL_FS = 32000.0  # phase 8's grid: the directional preset's sample rate
+SPATIAL_EPOCHS = 4  # of the presets' 20
+SPATIAL_STEP_LOSS_TOL = 1e-5  # a directional step, card vs CPU, relative
+SPATIAL_AMP_TOL = 1e-5  # served amplitudes, card vs CPU: max abs error / max |CPU|
+SPATIAL_SYNTH_TOL = 1e-4  # synthesis on one noise tensor, card vs CPU, relative L2
+
+
+def spatial_step_times(trainer, train_idx: np.ndarray, log_dir, label: str) -> dict:
+    """Median wall time of ``fit_step`` on the first batch after a warm-up
+    step, steps/s, the peak memory of the timed steps (and what was already
+    allocated when they began, earlier phases' tensors included), and with
+    ``log_dir`` the card's idle share of one profiled step."""
+    import torch
+
+    idx = torch.as_tensor(train_idx[: min(trainer.cfg.batch_size, len(train_idx))],
+                          device=trainer.device)
+    trainer.fit_step(idx)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    times = []
+    for _ in range(TIMED_STEPS):
+        t0 = time.perf_counter()
+        trainer.fit_step(idx)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    step_s = float(np.median(times))
+    out = {"step_ms": step_s * 1e3, "steps_per_s": 1.0 / step_s,
+           "peak_mem_step_mb": torch.cuda.max_memory_allocated() / 2 ** 20,
+           "resident_mem_mb": resident / 2 ** 20}
+    if log_dir is not None:
+        wall, busy, _ = profile_once(lambda: trainer.fit_step(idx), label,
+                                     Path(log_dir) / f"profile_{label}.txt")
+        out.update(profiled_step_ms=wall, profiled_device_busy_ms=busy,
+                   profiled_idle_share=1.0 - busy / wall)
+    return out
+
+
+def spatial_sampling(tmp: Path, log_dir):
+    """Phase 9: the common-slopes spatial-sampling MLPs trained and served at
+    the presets' widths.
+
+    ``spatial_directional_1000Hz`` (a 12 x 128 MLP, 20 Fourier features,
+    batch 50, lr 1e-3, the max-directivity beamformer, ambi order 2, 12
+    directions) trains through ``run_training_spatial_sampling`` at its three
+    grid resolutions (0.9, 0.6, 0.3 m), then ``spatial_omni_1000Hz`` (a 5 x 16
+    MLP, batch 50) at its ten (3.0 .. 0.3 m; each has training receivers on
+    this grid) on the grid's omni collapse. Cuts: 4 epochs of the presets' 20;
+    phase 8's synthetic spatial grid at 32 kHz (0.3 m, 847 receivers, 0.5 s
+    SRIRs, decays 1.2 / 2.2 / 1.6 s, so the EDC envelopes are 70400 samples)
+    instead of the Treble grids (git-LFS placeholders), for the omni preset
+    too (its own pickle is an omni one). Every receiver is then served from
+    the 0.3 m checkpoints through ``get_ambisonic_rirs(use_trained_model=True)``:
+    (847, 9, 16000) SRIRs and (847, 16000) omni RIRs. No hand-written kernel
+    lies on this path: every launch count must stay 0.
+    """
+    import torch
+
+    from diffgfdn_torch.config import spatial_preset_config
+    from diffgfdn_torch.data import (
+        arrays_from_spatial_dataset,
+        generate_spatial_three_room_pickle,
+        SpatialThreeRoomDataset,
+        split_by_grid_resolution,
+    )
+    from diffgfdn_torch.inference import get_ambisonic_rirs, get_output_from_trained_model
+    from diffgfdn_torch.inference.cs_synthesis import get_rirs_from_common_slopes_model
+    from diffgfdn_torch.training import (
+        build_spatial_model,
+        collapse_amplitudes_to_omni,
+        run_training_spatial_sampling,
+        SpatialSamplingTrainer,
+    )
+    from diffgfdn_torch.utils.params import jax_params_from_torch, load_jax_params
+
+    path = tmp / "directional" / "srirs.pkl"
+    t0 = time.perf_counter()
+    if not path.exists():
+        generate_spatial_three_room_pickle(
+            path, fs=SPATIAL_FS, grid_spacing_m=DIRECTIONAL_GRID_M, rir_len_s=DIRECTIONAL_RIR_S,
+            decay_times=DIRECTIONAL_DECAYS, seed=SEED)
+    full_room = SpatialThreeRoomDataset(path)
+    data_s = time.perf_counter() - t0
+    require(full_room.num_rec == DIRECTIONAL_RECEIVERS,
+            f"spatial sampling: {full_room.num_rec} receivers")
+    rec = full_room.receiver_position
+    ir_len = full_room.rir_length
+    result = {"receivers": full_room.num_rec, "epochs": SPATIAL_EPOCHS, "data_s": data_s}
+    for name in SPATIAL_PRESETS:
+        cfg = spatial_preset_config(name, max_epochs=SPATIAL_EPOCHS,
+                                    train_dir=str(tmp / "spatial" / name))
+        room = full_room if cfg.use_directional_rirs else collapse_amplitudes_to_omni(full_room)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        trained = run_training_spatial_sampling(cfg, room, device=DEVICE)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        require(all(v == 0 for v in launch_counts().values()),
+                f"{name}: hand-written kernels launched {launch_counts()}")
+        per_res = {"run_s": run_s, "peak_mem_run_mb": torch.cuda.max_memory_allocated() / 2 ** 20}
+        finest = min(trained)
+        for res, (trainer, _) in trained.items():
+            losses = trainer.train_loss + trainer.valid_loss
+            require(len(trainer.train_loss) == SPATIAL_EPOCHS and bool(np.isfinite(losses).all())
+                    and trainer.train_loss[-1] < trainer.train_loss[0],
+                    f"{name} at {res:.1f} m: losses {trainer.train_loss} {trainer.valid_loss}")
+            train_idx, valid_idx = split_by_grid_resolution(room, res)
+            row = {"train": len(train_idx), "valid": len(valid_idx),
+                   "epoch_s": float(np.median(trainer.epoch_s)),
+                   "train_loss": [trainer.train_loss[0], trainer.train_loss[-1]],
+                   "valid_loss": trainer.valid_loss[:1] + trainer.valid_loss[-1:]}
+            row.update(spatial_step_times(trainer, train_idx, log_dir if res == finest else None,
+                                          f"spatial_step_{name}"))
+            per_res[f"{res:.1f}"] = row
+        trainer, model = trained[finest]
+        if cfg.use_directional_rirs:
+            # one step on the card and on the CPU from the same parameters and batch
+            cpu_model = build_spatial_model(cfg, room.num_rooms, room.ambi_order, device="cpu")
+            load_jax_params(cpu_model, jax_params_from_torch(model))
+            cpu = SpatialSamplingTrainer(cpu_model, cfg, room, device="cpu")
+            cpu.upload_arrays(arrays_from_spatial_dataset(room))
+            idx = np.arange(cfg.batch_size)
+            loss_k = trainer.loss_and_grads(trainer.gather(torch.as_tensor(idx, device=DEVICE)))
+            loss_c = cpu.loss_and_grads(cpu.gather(torch.from_numpy(idx)))
+            loss_rel = abs(float(loss_k) - float(loss_c)) / abs(float(loss_c))
+            grad_errs = {n: rel_l2(p.grad.cpu(), q.grad) for (n, p), q in
+                         zip(model.named_parameters(), cpu_model.parameters())}
+            worst = max(grad_errs, key=grad_errs.get)
+            require(loss_rel <= SPATIAL_STEP_LOSS_TOL,
+                    f"{name}: step loss card vs CPU {loss_rel}")
+            require(grad_errs[worst] <= GRAD_TOL,
+                    f"{name}: gradient of {worst} card vs CPU {grad_errs[worst]}")
+            per_res.update(step_loss_rel_card_vs_cpu=loss_rel,
+                           max_grad_rel_l2_card_vs_cpu=grad_errs[worst])
+            del cpu, cpu_model
+        del trained, trainer, model
+
+        # serving every receiver from the finest resolution's checkpoints
+        def serve_all():
+            return get_ambisonic_rirs(rec, room, use_trained_model=True, configs=[cfg],
+                                      grid_resolution_m=finest, seed=SEED, device=DEVICE)
+
+        reset_counts()
+        out = serve_all()
+        require(all(v == 0 for v in launch_counts().values()),
+                f"{name} serving: hand-written kernels launched {launch_counts()}")
+        want = ((room.num_rec, (room.ambi_order + 1) ** 2, ir_len) if cfg.use_directional_rirs
+                else (room.num_rec, ir_len))
+        require(out.rirs.shape == want and bool(np.isfinite(out.rirs).all()),
+                f"{name}: served {out.rirs.shape}, finite {np.isfinite(out.rirs).all()}")
+        # the omni RIRs and the SRIRs' W channel of every receiver decay
+        edc = edc_db(out.rirs[:, 0] if cfg.use_directional_rirs else out.rirs)
+        fs = room.sample_rate
+        drop = edc[:, int(0.05 * fs)] - edc[:, int(0.45 * fs)]
+        require(bool((drop > 3.0).all()), f"{name}: served RIRs do not decay "
+                f"(min {drop.min()} dB)")
+        serve_times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            serve_all()
+            torch.cuda.synchronize()
+            serve_times.append(time.perf_counter() - t0)
+        amps_k = get_output_from_trained_model(cfg, room, rec, finest, device=DEVICE)
+        amps_c = get_output_from_trained_model(cfg, room, rec, finest, device="cpu")
+        amp_err = rel_err(amps_k.cpu(), amps_c)
+        require(amp_err <= SPATIAL_AMP_TOL, f"{name}: served amplitudes card vs CPU {amp_err}")
+        # the synthesis of NUM_RECEIVERS receivers on one noise tensor
+        sub = slice(0, NUM_RECEIVERS)
+        bands = list(np.atleast_1d(room.band_centre_hz))
+        shape = (len(rec[sub]), len(bands), ir_len)
+        kw = {}
+        if cfg.use_directional_rirs:
+            shape = (room.sph_directions.shape[-1],) + shape
+            kw = dict(ambi_order=room.ambi_order, des_directions=room.sph_directions,
+                      beamformer_type=cfg.dnn_config.beamformer_type)
+        noise = torch.randn(shape, generator=torch.Generator().manual_seed(SEED))
+        synth = [get_rirs_from_common_slopes_model(
+            fs, rec[sub], bands, ir_len, amps[sub][..., None].to(dev),
+            np.asarray(room.common_decay_times), noise=noise.to(dev), **kw).cpu()
+            for amps, dev in ((amps_k, DEVICE), (amps_c, "cpu"))]
+        synth_err = rel_l2(synth[0], synth[1])
+        require(synth_err <= SPATIAL_SYNTH_TOL, f"{name}: synthesis card vs CPU {synth_err}")
+        per_res.update(
+            served_shape=list(out.rirs.shape),
+            served_rirs_per_s=room.num_rec / float(np.median(serve_times)),
+            serve_s=serve_times, amplitudes_max_rel_card_vs_cpu=amp_err,
+            synthesis_rel_l2_card_vs_cpu=synth_err)
+        result[name] = per_res
+        del out
+    return result
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--log-dir", default=None,
@@ -2167,6 +2388,10 @@ def main(argv=None) -> int:
         result, directional_kernel_rows = directional(tmp, log_dir)
         rows += directional_kernel_rows
         print(f"phase 8: directional in {time.perf_counter() - t0:.1f} s: " + json.dumps(result))
+        t0 = time.perf_counter()
+        result = spatial_sampling(tmp, log_dir)
+        print(f"phase 9: spatial sampling in {time.perf_counter() - t0:.1f} s: "
+              + json.dumps(result))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({

@@ -17,7 +17,7 @@ Each mapping is exactly what ``yaml.safe_load`` returns for its file, so
 import copy
 from typing import Dict
 
-from .schema import DiffGFDNConfig
+from .schema import DiffGFDNConfig, SpatialSamplingConfig
 
 FULLBAND_GRID_COLORLESS = {
     "ambi_order": None,
@@ -220,3 +220,53 @@ def preset_config(name: str, **overrides) -> DiffGFDNConfig:
     raw = copy.deepcopy(PRESETS[name])
     raw.update(overrides)
     return DiffGFDNConfig.from_dict(raw)
+
+
+SPATIAL_DIRECTIONAL_1000HZ = {
+    "batch_size": 50,
+    "device": "tpu",
+    "dnn_config": {
+        "beamformer_type": "max_directivity",
+        "cnn_config": None,
+        "mlp_config": {"num_hidden_layers": 12, "num_neurons_per_layer": 128},
+        "num_fourier_features": 20,
+    },
+    "lr": 0.001,
+    "max_epochs": 20,
+    "num_grid_spacing": 3,
+    "room_dataset_path": "resources/Georg_3room_FDTD/srirs_spatial_band_centre=1000Hz.pkl",
+    "seed": 241924,
+    "train_dir": "output/spatial_sampling/band_1000Hz_directional/",
+    "use_directional_rirs": True,
+}
+
+SPATIAL_OMNI_1000HZ = {
+    "batch_size": 50,
+    "device": "tpu",
+    "dnn_config": {
+        "beamformer_type": "max_directivity",
+        "cnn_config": None,
+        "mlp_config": {"num_hidden_layers": 5, "num_neurons_per_layer": 16},
+        "num_fourier_features": 20,
+    },
+    "lr": 0.001,
+    "max_epochs": 20,
+    "num_grid_spacing": 10,
+    "room_dataset_path": "resources/Georg_3room_FDTD/srirs_band_centre=1000Hz.pkl",
+    "seed": 24521,
+    "train_dir": "output/spatial_sampling/band_1000Hz_omni/",
+    "use_directional_rirs": False,
+}
+
+SPATIAL_PRESETS: Dict[str, dict] = {
+    "spatial_directional_1000Hz": SPATIAL_DIRECTIONAL_1000HZ,
+    "spatial_omni_1000Hz": SPATIAL_OMNI_1000HZ,
+}
+
+
+def spatial_preset_config(name: str, **overrides) -> SpatialSamplingConfig:
+    """Validated config of a named spatial-sampling preset; ``overrides``
+    replace top-level keys."""
+    raw = copy.deepcopy(SPATIAL_PRESETS[name])
+    raw.update(overrides)
+    return SpatialSamplingConfig.from_dict(raw)

@@ -308,6 +308,68 @@ class DiffGFDNConfig(_Config):
         return [int(d) for d in delays]
 
 
+# ------------------------- spatial sampling configs -------------------------
+
+
+class DNNType(Enum):
+    """DNN families available for common-slopes amplitude models."""
+
+    CNN = "cnn"
+    MLP = "mlp"
+
+
+@dataclass
+class CNNConfig(_Config):
+    """The floor-plan CNN of the directional common-slopes model."""
+
+    num_hidden_channels: int = 2 ** 6
+    num_layers: int = 3
+    kernel_size: Tuple[int, int] = (3, 3)
+
+
+@dataclass
+class MLPConfig(_Config):
+    """The position MLP of the common-slopes models."""
+
+    num_neurons_per_layer: int = 2 ** 7
+    num_hidden_layers: int = 3
+
+
+@dataclass
+class DNNConfig(_Config):
+    """Common-slopes amplitude network: an MLP, or a CNN when ``mlp_config`` is None."""
+
+    mlp_config: Optional[MLPConfig] = None
+    cnn_config: Optional[CNNConfig] = None
+    num_fourier_features: int = 10
+    beamformer_type: BeamformerType = BeamformerType.MAX_DI
+
+
+@dataclass
+class SpatialSamplingConfig(_Config):
+    """Config for the common-slopes spatial-sampling models.
+
+    ``device`` is read for YAML parity and ignored: the port's entry points
+    take the device as their own argument.
+    """
+
+    room_dataset_path: str = "resources/Georg_3room_FDTD/srirs.pkl"
+    batch_size: int = 32
+    device: Optional[str] = "tpu"
+    seed: int = 241924
+    num_grid_spacing: Optional[int] = None
+    max_epochs: int = 50
+    lr: float = 0.001
+    train_dir: str = "output/spatial-sampling/"
+    dnn_config: DNNConfig = field(default_factory=DNNConfig)
+    use_directional_rirs: bool = False
+
+    @property
+    def network_type(self) -> DNNType:
+        """Which DNN family is configured."""
+        return DNNType.CNN if self.dnn_config.mlp_config is None else DNNType.MLP
+
+
 # ------------------------------ prime helpers -------------------------------
 
 

@@ -6,11 +6,13 @@ parser, :func:`arrays_from_spatial_dataset`, :func:`split_by_grid_resolution`
 and :func:`generate_spatial_three_room_pickle`, whose numbers equal the JAX
 package's for a seed.
 
-The directional trainer reads the positions and the common-slope amplitudes
-(R, J, num_slopes) only. The three target spectra of
+The directional and common-slopes trainers read the positions and the
+common-slope amplitudes (R, J, num_slopes) only; serving replaces the
+receivers and RIRs of a copy (:meth:`SpatialRoomDataset.update_receiver_pos`,
+:meth:`SpatialRoomDataset.update_rirs`). The three target spectra of
 :func:`arrays_from_spatial_dataset` are computed lazily, on first read: at
 847 receivers, 9 SH channels and 65537 bins each is some 4 GB of host memory.
-The CNN grid and patch batching wait for ROADMAP A12.
+The CNN grid, floor mask and patch batching wait for ROADMAP A12's second slice.
 """
 
 import math
@@ -71,6 +73,7 @@ class SpatialRoomDataset:
         self.mixing_time_ms = mixing_time_ms
         self._eps = 1e-12
         self.num_rec = self.receiver_position.shape[0]
+        self.rir_length = self.rirs.shape[-1]
 
     @property
     def desired_directions(self) -> Optional[np.ndarray]:
@@ -93,6 +96,25 @@ class SpatialRoomDataset:
     @property
     def freq_bins_rad(self) -> np.ndarray:
         return rfftfreq(self.num_freq_bins) * 2 * np.pi
+
+    @property
+    def freq_bins_hz(self) -> np.ndarray:
+        return rfftfreq(self.num_freq_bins, d=1.0 / self.sample_rate)
+
+    def find_rec_idx(self, rec_pos_list: np.ndarray) -> np.ndarray:
+        """Index of the dataset receiver nearest each query position."""
+        d = np.linalg.norm(
+            self.receiver_position[:, None, :] - np.atleast_2d(rec_pos_list), axis=2
+        )
+        return np.argmin(d, axis=0)
+
+    def update_receiver_pos(self, new_receiver_pos: np.ndarray) -> None:
+        self.receiver_position = np.asarray(new_receiver_pos)
+        self.num_rec = self.receiver_position.shape[0]
+
+    def update_rirs(self, new_rirs: np.ndarray) -> None:
+        self.rirs = np.asarray(new_rirs)
+        self.rir_length = self.rirs.shape[-1]
 
     def split_rirs(self) -> Tuple[np.ndarray, np.ndarray]:
         """(early, late) time-domain split with crossfades at the mixing time."""

@@ -1,5 +1,5 @@
 """Training losses: EDC and EDR against precomputed targets, the directional
-EDC loss, colorless losses."""
+EDC loss, colorless losses, the common-slopes spatial-sampling losses."""
 
 from .colorless import amse_loss, mse_loss, sparsity_loss
 from .gfdn import (
@@ -9,7 +9,14 @@ from .gfdn import (
     edc_mask,
     edr_loss_from_rir,
 )
-from .spatial import make_decay_envelopes
+from .spatial import (
+    find_position_idx,
+    make_decay_envelopes,
+    make_smoothness_kernel,
+    spatial_edc_loss,
+    spatial_mse_loss,
+    spatial_smoothness_loss,
+)
 
 __all__ = [
     "amse_loss",
@@ -18,7 +25,12 @@ __all__ = [
     "edc_loss_from_rir",
     "edc_mask",
     "edr_loss_from_rir",
+    "find_position_idx",
     "make_decay_envelopes",
+    "make_smoothness_kernel",
     "mse_loss",
     "sparsity_loss",
+    "spatial_edc_loss",
+    "spatial_mse_loss",
+    "spatial_smoothness_loss",
 ]

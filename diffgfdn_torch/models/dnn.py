@@ -1,4 +1,4 @@
-"""DNN building blocks (port of ``diffgfdn_tpu/models/dnn.py``: the MLPs and the encoding).
+"""DNN building blocks (port of ``diffgfdn_tpu/models/dnn.py``: sigmoids, MLPs, the encoding).
 
 Layer order, initializers and LayerNorm epsilon follow the flax modules so
 that parameters carried over from the JAX package (``utils/params.py``)
@@ -16,9 +16,15 @@ from torch import nn
 LAYER_NORM_EPS = 1e-6  # flax.linen.LayerNorm default
 
 
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """Plain logistic sigmoid 1 / (1 + e^-x), rounded as the JAX package's
+    (``torch.sigmoid`` rounds differently)."""
+    return 1.0 / (1.0 + torch.exp(-x))
+
+
 def scaled_sigmoid(x: torch.Tensor, lower: float, upper: float) -> torch.Tensor:
-    """Sigmoid rescaled to (lower, upper), as 1 / (1 + e^-x)."""
-    return lower + (upper - lower) * (1.0 / (1.0 + torch.exp(-x)))
+    """Sigmoid rescaled to (lower, upper)."""
+    return lower + (upper - lower) * sigmoid(x)
 
 
 class SinusoidalEncoding(nn.Module):

@@ -1,12 +1,14 @@
-"""Directional beamforming heads (port of ``diffgfdn_tpu/models/spatial.py``, subset).
+"""Common-slopes and directional beamforming heads (port of ``diffgfdn_tpu/models/spatial.py``).
 
 :func:`build_analysis_matrix` designs the SH-domain analysis matrix on the
 host (``ops/sph.py``); :class:`DirectionalBeamformerWeightsMLP` maps a
-receiver position to per-group SH beamforming weights. The common-slopes
-CNN and omni heads wait for ROADMAP A12.
+receiver position to per-group SH beamforming weights, and
+:func:`directional_amplitudes` turns them into per-direction common-slope
+amplitudes; :class:`OmniAmplitudesMLP` maps a position to omni common-slope
+amplitudes. The floor-plan CNN head waits for ROADMAP A12's second slice.
 """
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -14,7 +16,7 @@ from torch import nn
 
 from ..config.schema import BeamformerType
 from ..ops.sph import design_sph_filterbank, modal_weights
-from .dnn import MLP, MLPSkipConnections, SinusoidalEncoding
+from .dnn import MLP, MLPSkipConnections, scaled_sigmoid, sigmoid, SinusoidalEncoding
 
 
 def build_analysis_matrix(
@@ -37,6 +39,15 @@ def build_analysis_matrix(
 def normalise_weights(weights: torch.Tensor) -> torch.Tensor:
     """Unit-energy normalization along the SH-component axis."""
     return weights / (torch.linalg.vector_norm(weights, dim=-1, keepdim=True) + 1e-6)
+
+
+def directional_amplitudes(analysis_matrix: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """sigmoid(Y_analysis @ w): (B, num_directions, num_slopes).
+
+    ``analysis_matrix``: (num_directions, (N+1)^2); ``weights``:
+    (B, num_slopes, (N+1)^2).
+    """
+    return sigmoid(torch.einsum("jn,bkn->bjk", analysis_matrix, weights))
 
 
 class DirectionalBeamformerWeightsMLP(nn.Module):
@@ -74,3 +85,27 @@ class DirectionalBeamformerWeightsMLP(nn.Module):
         out = net(self.encoding(position))
         weights = out.reshape(position.shape[0], self.num_groups, self.num_out)
         return normalise_weights(weights) if normalise else weights
+
+
+class OmniAmplitudesMLP(nn.Module):
+    """MLP: receiver position -> omni common-slope amplitudes (B, num_groups)
+    in ``gain_limits``. The MLP is ``mlp`` (flax ``MLP_0``)."""
+
+    def __init__(
+        self,
+        num_groups: int,
+        num_fourier_features: int,
+        num_hidden_layers: int,
+        num_neurons: int,
+        gain_limits: Tuple[float, float] = (-1.0, 1.0),
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        self.gain_limits = gain_limits
+        self.encoding = SinusoidalEncoding(num_fourier_features)
+        self.mlp = MLP(3 * num_fourier_features * 2, num_hidden_layers, num_neurons, num_groups,
+                       1, 1, generator=generator)
+
+    def forward(self, x: dict) -> torch.Tensor:
+        gains = self.mlp(self.encoding(x["norm_listener_position"]))[..., 0, 0]
+        return scaled_sigmoid(gains, self.gain_limits[0], self.gain_limits[1])

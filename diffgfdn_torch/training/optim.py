@@ -6,7 +6,10 @@ package's substring rules, applied to each parameter's flax path
 (``utils/params.flax_path``), so ``output_scalars/...`` lands in ``io`` as it
 does in JAX. The decay is StepLR(10 epochs, 0.1) counted in optimizer steps:
 update u (from 0) uses lr * 0.1^(((u + offset) // steps_per_epoch) // 10),
-as optax's schedule does with its step count.
+as optax's schedule does with its step count. The spatial-sampling trainer
+takes one Adam over all parameters with StepLR(20 epochs, 0.1)
+(:func:`make_single_lr_optimizer`), as JAX's ``optax.exponential_decay(lr,
+20 * steps_per_epoch, 0.1, staircase=True)``.
 """
 
 from typing import Dict, Tuple
@@ -48,10 +51,11 @@ def param_labels(model: nn.Module) -> Dict[str, str]:
     }
 
 
-def step_decay_factor(count: int, steps_per_epoch: int, count_offset: int = 0) -> float:
-    """GAMMA^(epoch // STEP_SIZE_EPOCHS) for the epoch that update ``count`` falls in."""
+def step_decay_factor(count: int, steps_per_epoch: int, count_offset: int = 0,
+                      step_size_epochs: int = STEP_SIZE_EPOCHS) -> float:
+    """GAMMA^(epoch // step_size_epochs) for the epoch that update ``count`` falls in."""
     epoch = (count + count_offset) // max(steps_per_epoch, 1)
-    return GAMMA ** (epoch // STEP_SIZE_EPOCHS)
+    return GAMMA ** (epoch // step_size_epochs)
 
 
 def make_optimizer(
@@ -76,5 +80,20 @@ def make_optimizer(
     scheduler = torch.optim.lr_scheduler.LambdaLR(
         optimizer,
         lambda count: step_decay_factor(count, steps_per_epoch, count_offset=count_offset),
+    )
+    return optimizer, scheduler
+
+
+def make_single_lr_optimizer(
+    model: nn.Module, lr: float, steps_per_epoch: int, step_size_epochs: int
+) -> Tuple[torch.optim.Adam, torch.optim.lr_scheduler.LambdaLR]:
+    """One Adam (optax's defaults) over every parameter at ``lr``, decayed by
+    GAMMA every ``step_size_epochs`` epochs. Call ``scheduler.step()`` after
+    every ``optimizer.step()``."""
+    optimizer = torch.optim.Adam(model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    scheduler = torch.optim.lr_scheduler.LambdaLR(
+        optimizer,
+        lambda count: step_decay_factor(count, steps_per_epoch,
+                                        step_size_epochs=step_size_epochs),
     )
     return optimizer, scheduler

@@ -1,0 +1,333 @@
+"""Common-slopes spatial-sampling trainer and sweep (port of ``training/spatial_trainer.py``).
+
+Position MLPs map a receiver position to omni common-slope (CS) amplitudes
+or to SH beamforming weights per slope (directional), trained with Adam and
+StepLR(20 epochs, 0.1) at several grid resolutions, one checkpoint directory
+``grid_resolution=<res>`` per resolution. The MLP path of the JAX trainer:
+
+* the positions and CS targets are uploaded once (:meth:`upload_arrays`);
+  batches are gathered on the device from an index matrix uploaded once per
+  epoch, in the order ``np.random.RandomState(seed)`` draws, wrap-padded;
+* the losses are summed on the device and read by the host once per epoch;
+  the validation loss is the exact item-weighted mean over full batches and
+  the unpadded remainder;
+* checkpoints are flax trees (``utils/params.py``), readable by the JAX
+  package.
+
+The floor-plan CNN (``spatial_directional_1000Hz_cnn.yml``) and the
+generator-batch ``fit`` wait for ROADMAP A12's second slice; the beamformer
+maps need ``utils/plot.py`` (ROADMAP A14) and are skipped.
+"""
+
+import copy
+import logging
+from pathlib import Path
+import time
+from typing import Dict, List, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from ..config.schema import DNNType, MLPConfig, SpatialSamplingConfig
+from ..data.spatial_dataset import (
+    arrays_from_spatial_dataset,
+    SpatialRoomDataset,
+    split_by_grid_resolution,
+)
+from ..losses.spatial import (
+    find_position_idx,
+    make_decay_envelopes,
+    make_smoothness_kernel,
+    spatial_edc_loss,
+    spatial_mse_loss,
+    spatial_smoothness_loss,
+)
+from ..models.spatial import (
+    build_analysis_matrix,
+    directional_amplitudes,
+    DirectionalBeamformerWeightsMLP,
+    OmniAmplitudesMLP,
+)
+from ..utils.device import resolve_device
+from ..utils.params import jax_params_from_torch
+from .checkpoints import save_checkpoint
+from .optim import make_single_lr_optimizer
+from .trainer import exact_valid_batches, padded_batches
+
+logger = logging.getLogger("diffgfdn_torch")
+
+Batch = Dict[str, torch.Tensor]
+DECAY_EPOCHS = 20  # StepLR(20, 0.1), as the JAX trainer's exponential_decay
+SMOOTHNESS_WEIGHT = 1e-4
+_CNN_NOT_PORTED = ("the floor-plan CNN of the common-slopes models is not ported yet "
+                   "(ROADMAP A12, second slice)")
+
+
+def build_spatial_model(
+    config: SpatialSamplingConfig,
+    num_slopes: int,
+    ambi_order: Optional[int],
+    device: Union[str, torch.device] = "cuda",
+) -> torch.nn.Module:
+    """The configured CS-amplitude MLP on ``device``, parameters drawn from a
+    ``torch.Generator`` seeded with ``config.seed``.
+
+    A missing ``mlp_config`` means default hyperparameters for the omni head,
+    as in the JAX package; a directional config without one is the CNN.
+    """
+    dev = resolve_device(device)
+    dnn = config.dnn_config
+    mlp = dnn.mlp_config or MLPConfig()
+    generator = torch.Generator().manual_seed(config.seed)
+    if config.use_directional_rirs:
+        if config.network_type == DNNType.CNN:
+            raise NotImplementedError(_CNN_NOT_PORTED)
+        model = DirectionalBeamformerWeightsMLP(
+            num_groups=num_slopes, ambi_order=ambi_order,
+            num_fourier_features=dnn.num_fourier_features,
+            num_hidden_layers=mlp.num_hidden_layers, num_neurons=mlp.num_neurons_per_layer,
+            generator=generator,
+        )
+    else:
+        model = OmniAmplitudesMLP(
+            num_groups=num_slopes, num_fourier_features=dnn.num_fourier_features,
+            num_hidden_layers=mlp.num_hidden_layers, num_neurons=mlp.num_neurons_per_layer,
+            gain_limits=(1e-5, 1.0), generator=generator,
+        )
+    return model.to(dev)
+
+
+class SpatialSamplingTrainer:
+    """Trainer of a CS-amplitude MLP (omni amplitudes or directional weights).
+
+    ``device`` defaults to CUDA and raises without a card unless the caller
+    passes ``device="cpu"``; the model is moved there.
+    """
+
+    _INDEXED_KEYS = ("norm_listener_position", "listener_position", "target_common_slope_amps")
+
+    def __init__(
+        self,
+        model: torch.nn.Module,
+        config: SpatialSamplingConfig,
+        room_data: SpatialRoomDataset,
+        use_edc_loss: bool = True,
+        use_smoothness_loss: bool = False,
+        grid_resolution_m: Optional[float] = None,
+        device: Union[str, torch.device] = "cuda",
+    ):
+        if config.network_type == DNNType.CNN:
+            raise NotImplementedError(_CNN_NOT_PORTED)
+        self.device = resolve_device(device)
+        self.model = model.to(self.device)
+        self.cfg = config
+        self.use_directional = config.use_directional_rirs
+        self.grid_resolution_m = grid_resolution_m
+        self.train_loss: List[float] = []
+        self.valid_loss: List[float] = []
+        self.epoch_s: List[float] = []  # wall time of each epoch, checkpoint included
+        self.optimizer: Optional[torch.optim.Optimizer] = None
+        self.scheduler = None
+        self.data: Optional[Batch] = None
+
+        self.analysis_matrix = None
+        if self.use_directional:
+            self.analysis_matrix = torch.as_tensor(build_analysis_matrix(
+                room_data.ambi_order, room_data.sph_directions, config.dnn_config.beamformer_type,
+            ), device=self.device)
+        slopes = np.squeeze(np.asarray(room_data.common_decay_times)).reshape(-1)
+        slopes = slopes[: room_data.num_rooms]
+        edc_len = int(float(np.max(slopes)) * room_data.sample_rate)
+        self.envelopes = (
+            make_decay_envelopes(slopes, edc_len, room_data.sample_rate).to(self.device)
+            if use_edc_loss else None
+        )
+        self.kernel_weights = (
+            torch.as_tensor(make_smoothness_kernel(room_data.receiver_position),
+                            device=self.device)
+            if use_smoothness_loss else None
+        )
+        self._all_positions = torch.as_tensor(
+            room_data.receiver_position.astype(np.float32), device=self.device)
+
+    # ------------------------------ loss -----------------------------------
+
+    def _predict(self, batch: Batch) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """(amplitudes, raw weights or None) for a batch."""
+        if self.use_directional:
+            weights = self.model(batch)
+            return directional_amplitudes(self.analysis_matrix, weights), weights
+        return self.model(batch), None
+
+    def _losses(self, batch: Batch) -> Dict[str, torch.Tensor]:
+        amps, weights = self._predict(batch)
+        target = batch["target_common_slope_amps"]
+        out: Dict[str, torch.Tensor] = {}
+        if self.envelopes is not None:
+            out["edc_loss"] = spatial_edc_loss(amps, target, self.envelopes)
+        else:
+            out["mse_loss"] = spatial_mse_loss(amps, target)
+        if self.kernel_weights is not None and weights is not None:
+            pos_idx = find_position_idx(self._all_positions, batch["listener_position"])
+            out["smoothness_loss"] = SMOOTHNESS_WEIGHT * spatial_smoothness_loss(
+                self.kernel_weights, pos_idx, weights)
+        return out
+
+    def loss_and_grads(self, batch: Batch) -> torch.Tensor:
+        """Zero the gradients, then the total loss of one batch and its
+        backward: the parameters' ``.grad`` hold the step's gradients."""
+        for p in self.model.parameters():
+            p.grad = None
+        total = sum(self._losses(batch).values())
+        total.backward()
+        return total.detach()
+
+    def fit_step(self, idx: torch.Tensor) -> torch.Tensor:
+        """One optimizer step on the receivers ``idx`` (a device tensor);
+        returns the device-resident loss (no host sync)."""
+        total = self.loss_and_grads(self.gather(idx))
+        self.optimizer.step()
+        self.scheduler.step()
+        return total
+
+    # --------------------- device-resident indexed path ---------------------
+
+    @torch.no_grad()
+    def upload_arrays(self, arrays) -> Batch:
+        """The positions and CS targets on the device, uploaded once."""
+        self.data = {
+            k: torch.as_tensor(np.asarray(getattr(arrays, k), np.float32), device=self.device)
+            for k in self._INDEXED_KEYS if getattr(arrays, k) is not None
+        }
+        return self.data
+
+    def gather(self, idx: torch.Tensor) -> Batch:
+        """One batch gathered on the device."""
+        return {k: v[idx] for k, v in self.data.items()}
+
+    def _checkpoint_dir(self) -> str:
+        base = Path(self.cfg.train_dir)
+        if self.grid_resolution_m is not None:
+            return str(base / f"grid_resolution={self.grid_resolution_m:.1f}")
+        return str(base)
+
+    def fit_indexed(
+        self,
+        arrays,
+        train_idx: np.ndarray,
+        valid_idx: Optional[np.ndarray] = None,
+        seed: int = 0,
+    ) -> torch.nn.Module:
+        """Epoch loop over device-resident data; returns the trained model.
+
+        Training batches are wrap-padded (``padded_batches``); validation is
+        the item-weighted mean over full batches and the unpadded remainder.
+        Each epoch writes its checkpoint; the host reads the losses once.
+        """
+        if len(train_idx) == 0:
+            raise ValueError("no training items: train_idx is empty (check "
+                             "split_by_grid_resolution / dataset size) - training "
+                             "would silently run zero steps")
+        train_idx = np.asarray(train_idx)
+        self.upload_arrays(arrays)
+        bs = min(self.cfg.batch_size, len(train_idx))
+        steps_per_epoch = -(-len(train_idx) // bs)  # padded_batches' count
+        self.optimizer, self.scheduler = make_single_lr_optimizer(
+            self.model, self.cfg.lr, steps_per_epoch, DECAY_EPOCHS)
+
+        valid_batches = []
+        if valid_idx is not None and len(valid_idx):
+            vbs = min(self.cfg.batch_size, len(valid_idx))
+            vfull, vrem = exact_valid_batches(np.asarray(valid_idx), vbs)
+            valid_batches = [
+                torch.as_tensor(b, dtype=torch.long, device=self.device)
+                for b in vfull + ([vrem] if len(vrem) else [])
+            ]
+        rng = np.random.RandomState(seed)
+        for epoch in range(self.cfg.max_epochs):
+            t0 = time.time()
+            perm = train_idx[rng.permutation(len(train_idx))]
+            idx_mat = torch.as_tensor(np.stack(list(padded_batches(perm, bs))),
+                                      dtype=torch.long, device=self.device)
+            ep_total = torch.zeros((), device=self.device)
+            for idx in idx_mat:
+                ep_total = ep_total + self.fit_step(idx)
+            v_total, v_weight = torch.zeros((), device=self.device), 0
+            with torch.no_grad():
+                for vidx in valid_batches:
+                    v_total = v_total + sum(self._losses(self.gather(vidx)).values()) * len(vidx)
+                    v_weight += len(vidx)
+            host = torch.stack([ep_total, v_total]).tolist()  # the epoch's one read
+            self.train_loss.append(host[0] / idx_mat.shape[0])
+            if v_weight:
+                self.valid_loss.append(host[1] / v_weight)
+            save_checkpoint(self._checkpoint_dir(), epoch, jax_params_from_torch(self.model))
+            self.epoch_s.append(time.time() - t0)
+            logger.info("spatial epoch %d train %.4f%s (%.2fs)", epoch, self.train_loss[-1],
+                        f" valid {self.valid_loss[-1]:.4f}" if v_weight else "",
+                        self.epoch_s[-1])
+        return self.model
+
+    def fit(self, *args, **kwargs):
+        """The generator-batch epoch loop (CNN grids) is not ported."""
+        raise NotImplementedError("the generator-batch SpatialSamplingTrainer.fit is not "
+                                  "ported yet (ROADMAP A12, second slice); use fit_indexed")
+
+    @torch.no_grad()
+    def predict_amplitudes(self, batch: Dict) -> torch.Tensor:
+        """CS amplitudes at the batch positions, on the trainer's device."""
+        batch = {k: torch.as_tensor(np.asarray(v, np.float32), device=self.device)
+                 if not torch.is_tensor(v) else v.to(self.device) for k, v in batch.items()}
+        return self._predict(batch)[0]
+
+
+def collapse_amplitudes_to_omni(room_data: SpatialRoomDataset) -> SpatialRoomDataset:
+    """A copy of a directional dataset with its CS amplitudes averaged over
+    directions (axis 1); a dataset without directions is returned as it is.
+    The input is not changed."""
+    if room_data.amplitudes is None or room_data.sph_directions is None:
+        return room_data
+    logger.info("collapsing directional amplitudes to omni (mean over directions) for "
+                "use_directional_rirs=false")
+    room_data = copy.copy(room_data)
+    room_data.amplitudes = room_data.amplitudes.mean(axis=1)
+    room_data.sph_directions = None
+    return room_data
+
+
+def run_training_spatial_sampling(
+    config: SpatialSamplingConfig,
+    room_data: Optional[SpatialRoomDataset] = None,
+    grid_resolutions: Optional[List[float]] = None,
+    use_edc_loss: bool = True,
+    device: Union[str, torch.device] = "cuda",
+) -> Dict[float, Tuple[SpatialSamplingTrainer, torch.nn.Module]]:
+    """Sweep the grid resolutions (by default ``grid_spacing_m * k`` for k =
+    ``num_grid_spacing`` (3 if unset) .. 1), training one model per
+    resolution from the same seeded initialization. Returns
+    {resolution: (trainer, model)}."""
+    dev = resolve_device(device)
+    if config.network_type == DNNType.CNN:
+        raise NotImplementedError(_CNN_NOT_PORTED)
+    if room_data is None:
+        from ..data.spatial_dataset import SpatialThreeRoomDataset
+
+        room_data = SpatialThreeRoomDataset(config.room_dataset_path)
+    if not config.use_directional_rirs:
+        room_data = collapse_amplitudes_to_omni(room_data)
+    if grid_resolutions is None:
+        n = config.num_grid_spacing or 3
+        grid_resolutions = [room_data.grid_spacing_m * k for k in range(n, 0, -1)]
+
+    arrays = arrays_from_spatial_dataset(room_data)
+    results = {}
+    for res in grid_resolutions:
+        train_idx, valid_idx = split_by_grid_resolution(room_data, res)
+        model = build_spatial_model(config, room_data.num_rooms, room_data.ambi_order, dev)
+        trainer = SpatialSamplingTrainer(model, config, room_data, use_edc_loss=use_edc_loss,
+                                         grid_resolution_m=res, device=dev)
+        trainer.fit_indexed(arrays, train_idx, valid_idx, seed=config.seed)
+        results[res] = (trainer, model)
+        if trainer.use_directional:
+            logger.info("beamformer maps skipped: utils/plot.py is not ported (ROADMAP A14)")
+    return results

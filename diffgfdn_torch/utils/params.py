@@ -2,7 +2,8 @@
 
 A flax tree (as a JAX checkpoint holds it: nested dicts of numpy arrays,
 optionally under a top-level ``"params"`` key) maps onto the port's
-``state_dict`` names by these rules:
+``state_dict`` names by these rules (the GFDN models' trees and the
+common-slopes heads' ``{"MLP_0": ...}`` alike):
 
 * ``MLP_0`` -> ``mlp``; ``MLPSkipConnections_0`` -> ``skip_mlp``;
   ``ResidualBlock_i`` -> ``blocks.i``;

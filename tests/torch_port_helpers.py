@@ -242,3 +242,66 @@ def jax_directional_model_and_params(cfg, room, batch: int, inference_solve: boo
     arrays = arrays_from_spatial_dataset(room)
     params = init_with_batch(model, jax.random.PRNGKey(3), init_example_batch(arrays, batch))
     return model, params
+
+
+# common-slopes spatial-sampling tests: the JAX package's own fixture
+# (tests/test_spatial_training.py): a 0.6 m grid at fs 8 kHz, 0.2 s SRIRs,
+# decays 0.05 / 0.09 / 0.07 s; batch 16, a 1 x 32 MLP, 4 Fourier features
+CS_GRID_M = 0.6
+CS_RESOLUTION_M = 1.2  # the split the JAX tests train at: 52 train, 140 valid
+
+
+def cs_room_path(tmp_path):
+    """The synthetic spatial pickle of JAX's spatial-training fixture."""
+    from diffgfdn_tpu.data.spatial_dataset import generate_spatial_three_room_pickle
+
+    return generate_spatial_three_room_pickle(
+        tmp_path / "cs_srirs.pkl", grid_spacing_m=CS_GRID_M, rir_len_s=0.2,
+        decay_times=(0.05, 0.09, 0.07),
+    )
+
+
+def cs_rooms(path):
+    """(JAX dataset, port dataset) parsed from one spatial pickle."""
+    from diffgfdn_torch.data import SpatialThreeRoomDataset
+    from diffgfdn_tpu.data.spatial_dataset import (
+        SpatialThreeRoomDataset as JaxSpatialThreeRoomDataset,
+    )
+
+    return JaxSpatialThreeRoomDataset(path), SpatialThreeRoomDataset(path)
+
+
+def cs_raw_config(train_dir, directional: bool, epochs: int = 4) -> dict:
+    """JAX's spatial-training test config as a mapping for both schemas."""
+    return dict(
+        batch_size=16, seed=0, max_epochs=epochs, lr=5e-3, train_dir=str(train_dir),
+        use_directional_rirs=directional,
+        dnn_config=dict(mlp_config=dict(num_neurons_per_layer=32, num_hidden_layers=1),
+                        num_fourier_features=4),
+    )
+
+
+def cs_configs(raw: dict):
+    """(JAX config, port config) of one raw mapping."""
+    from diffgfdn_torch.config import SpatialSamplingConfig
+    from diffgfdn_tpu.config.schema import SpatialSamplingConfig as JaxSpatialSamplingConfig
+
+    return JaxSpatialSamplingConfig.model_validate(raw), SpatialSamplingConfig.from_dict(raw)
+
+
+def cs_models(jcfg, cfg, jax_room, num_init: int = 16):
+    """(JAX model, its params from PRNGKey(seed) as run_training_spatial_sampling
+    draws them, the port model on the CPU with those params loaded)."""
+    import jax
+
+    from diffgfdn_torch.training import build_spatial_model
+    from diffgfdn_torch.utils.params import load_jax_params
+    from diffgfdn_tpu.training.spatial_trainer import build_spatial_model as jax_build
+
+    jmodel = jax_build(jcfg, jax_room.num_rooms, jax_room.ambi_order)
+    example = {"norm_listener_position":
+               jax_room.norm_receiver_position[:num_init].astype(np.float32)}
+    params = jmodel.init(jax.random.PRNGKey(jcfg.seed), example)
+    model = build_spatial_model(cfg, jax_room.num_rooms, jax_room.ambi_order, device="cpu")
+    load_jax_params(model, params)
+    return jmodel, params, model
