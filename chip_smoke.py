@@ -11,7 +11,8 @@ Phases (any failure raises and exits non-zero, with no result line):
 1. build the kernels of ``diffgfdn_torch/csrc`` (one ``nvcc`` per source)
    and hold ptxas's report of the directional shapes' kernels: no stack
    frame and no spill stores in B1 / B2 and B5 at N = 9 and in B6 at N = 9,
-   12 and 27, no spill stores in B7 at N = 27;
+   12 and 27, no spill stores in B7 at N = 27 (B1 / B2 at N = 8, phase
+   10's blocks, are printed);
 2. serve both slice configurations at full width through the user entry
    point ``InferDiffGFDN.rirs_at``: a synthetic 3-room dataset at 32 kHz
    (96 receivers, 3 batches of 32, nfft 131072), seeded parameters written
@@ -125,6 +126,29 @@ Phases (any failure raises and exits non-zero, with no result line):
    prints the median step time and steps/s, epoch time, the first and last
    losses and peak memory, and the served RIRs per second.
 
+10. fit the single-RIR presets through the user entry point, the CLI
+   ``python -m diffgfdn_torch.cli.run_model -c <preset>`` (each run from a
+   working directory that holds the preset's ``ir_path``): the synthetic RIR
+   is one receiver of phase 2's dataset at 32 kHz for ``single_rir_example``
+   (N = 12 in 3 groups, nfft 131072, SVF output heads) and a two-slope
+   synthetic RIR at 48 kHz for ``single_rir_two_stage_colorless_proto`` (N =
+   8 in 2 groups) and ``single_rir_single_room_colorless_proto`` (N = 8 in
+   one group), both with SVF input heads, nfft 32768 from the data, and
+   their colorless prototypes first (one per group on 2048 bins: 1638 in one
+   step, 410 in one validation batch an epoch, 5 or 15 epochs). The full
+   preset: 50 epochs of one full-spectrum step, or as early stopping ends
+   them. Each kernel's launch count is set to 0 just before a preset and
+   read just after: B1, B2, B3 and B4 exactly as often as the path runs
+   them, B5, B6 and B7 never. The losses must be finite, the last checkpoint
+   and the prototype pickles must read back, the warm-started feedback
+   blocks must equal the prototypes' matrices within 1e-4 and the io gains
+   theirs. One step and one prototype step then run on the kernels and on
+   the plain versions (loss 1e-6 relative, gradients 1e-3 relative L2); B1
+   and B2 are held bit for bit at those steps' 4 x 4 and 8 x 8 inputs, B3
+   and B4 within 1e-4, and timed. Per preset the phase prints the median
+   step time after a warm-up, steps/s, one prototype epoch's time and the
+   peak memory (with ``--log-dir``, the profiled step's idle share).
+
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``. ``--kernel-times ROOT``
 (or its older name ``--cascade-times``) instead only times the seven kernels
@@ -132,14 +156,15 @@ of the port's checkout under ROOT at the paths' shapes (so that two trees
 can be compared in turns in one call) and prints no result line.
 ``--log-dir`` receives the compiler's resource report and a torch.profiler
 table of one served batch and of one training step per configuration (and
-of one band-parallel step per group, of one directional step, and of one
-step of each spatial-sampling preset); their wall time, the card's busy
-time within them and its idle share join the phase-2, phase-5, phase-7,
-phase-8 and phase-9 lines.
+of one band-parallel step per group, of one directional step, of one
+step of each spatial-sampling preset and of each single-RIR preset); their
+wall time, the card's busy time within them and its idle share join the
+phase-2, phase-5, phase-7, phase-8, phase-9 and phase-10 lines.
 """
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import re
 from pathlib import Path
@@ -2277,6 +2302,324 @@ def spatial_sampling(tmp: Path, log_dir):
     return result
 
 
+# phase 10: single-RIR fits and the colorless prototype warm start, through
+# the CLI, each preset in a working directory holding its wav at its ir_path
+SINGLE_RIR_PRESETS = ("single_rir_example", "single_rir_two_stage_colorless_proto",
+                      "single_rir_single_room_colorless_proto")
+SINGLE_RIR_OFF_PATH = ("lu", "lut_apply", "tdgfdn")
+WARM_START_TOL = 1e-4  # warm-started feedback blocks vs the prototypes' matrices
+
+
+def two_slope_rir(fs: float, seconds: float = 1.2) -> np.ndarray:
+    """A direct impulse and noise under two exponential decays (T60 0.4 and
+    1.0 s), peak 0.9, seeded."""
+    rng = np.random.RandomState(SEED)
+    t = np.arange(int(seconds * fs)) / fs
+    rir = rng.randn(t.size) * (np.exp(-6.9 * t / 0.4) + 0.3 * np.exp(-6.9 * t / 1.0))
+    rir[0] = 5.0
+    return (0.9 * rir / np.abs(rir).max()).astype(np.float32)
+
+
+def colorless_counts(cfg, nfft: int):
+    """(optimizer steps, validation batches) per epoch of a prototype on nfft / 16 bins,
+    as ``ColorlessFDNTrainer.fit`` splits them."""
+    ccfg = cfg.colorless_fdn_config
+    nbins = nfft // 16
+    n_train = int(nbins * ccfg.train_valid_split)
+    n_valid = nbins - n_train
+    vbs = min(ccfg.batch_size, max(1, n_valid))
+    return n_train // min(ccfg.batch_size, n_train), (max(1, n_valid // vbs) if n_valid else 0)
+
+
+def single_rir_rows(name: str, inputs: dict, colorless_inputs: dict, per_epoch: dict,
+                    launches: dict) -> list:
+    """Phase 10, kernels: B1 and B2 bit for bit, B3 and B4 within KERNEL_TOL,
+    against their plain versions at the inputs one GFDN step and one
+    colorless step of the preset gave them, timed beside their bounds, plain
+    versions and library calls."""
+    import torch
+
+    from diffgfdn_torch.kernels import sos as sos_mod
+    from diffgfdn_torch.kernels.cinv import cinv, neg_ptgpt
+    from diffgfdn_torch.kernels.dispatch import plain_versions
+
+    def both(fn, *args):
+        out = fn(*args)
+        with plain_versions():
+            ref = fn(*args)
+        torch.cuda.synchronize()
+        return out, ref
+
+    def plain(fn, *args):
+        with plain_versions():
+            return fn(*args)
+
+    rows, differ = [], {}
+    for label, rec in (("", inputs), (" colorless", colorless_inputs)):
+        if not rec:
+            continue
+        (m,) = rec["cinv"]
+        out, ref = both(cinv, m)
+        differ[f"cinv{label}"] = int((out != ref).sum())
+        rows.append(timed_row(
+            f"cinv [{name}{label}]", "cinv.cu", "diffgfdn_tpu/kernels/pallas_cinv.py:34",
+            launches["cinv"], float(torch.max(torch.abs(out - ref))), lambda: cinv(m),
+            lambda: plain(cinv, m), lambda: cinv(m), cinv_cost(m.shape[0], m.shape[1]),
+            lambda: torch.linalg.inv(m), m.shape))
+        rows[-1]["launches_per_epoch"] = per_epoch[f"cinv{label}"]
+        p, g = rec["neg_ptgpt"]
+        out, ref = both(neg_ptgpt, p, g)
+        differ[f"neg_ptgpt{label}"] = int((out != ref).sum())
+        rows.append(timed_row(
+            f"neg_ptgpt [{name}{label}]", "cinv.cu", "diffgfdn_tpu/kernels/pallas_cinv.py:146",
+            launches["neg_ptgpt"], float(torch.max(torch.abs(out - ref))),
+            lambda: neg_ptgpt(p, g), lambda: plain(neg_ptgpt, p, g), lambda: neg_ptgpt(p, g),
+            neg_ptgpt_cost(p.shape[0], p.shape[1]), lambda: -(p.mH @ g @ p.mH), p.shape))
+        rows[-1]["launches_per_epoch"] = per_epoch[f"neg_ptgpt{label}"]
+    errs = {}
+    num, den, w = inputs["sos"]
+    if num.shape[0] > 1:  # the SVF heads of 2 and 3 groups; the single room's one is printed
+        out, ref = both(sos_mod.sos_cascade, num, den, w)
+        errs["sos"] = rel_err(out, ref)
+        rows.append(timed_row(
+            f"sos_cascade_response [{name}]", "sos.cu", "diffgfdn_tpu/kernels/pallas_sos.py:47",
+            launches["sos"], float(torch.max(torch.abs(out - ref))),
+            lambda: sos_mod.sos_cascade(num, den, w),
+            lambda: plain(sos_mod.sos_cascade, num, den, w),
+            lambda: sos_mod.sos_cascade(num, den, w),
+            sos_cost(num.shape[0], num.shape[1], w.shape[0]), None, num.shape))
+        rows[-1]["launches_per_epoch"] = per_epoch["sos"]
+        bn, bd, bw, bg, bh = inputs["sos_backward"]
+        (dn, dd), (dn_p, dd_p) = both(sos_mod.sos_cascade_backward, bn, bd, bw, bg, bh)
+        errs["sos_backward"] = max(rel_err(dn, dn_p), rel_err(dd, dd_p))
+        rows.append(timed_row(
+            f"sos_cascade_backward [{name}]", "sos.cu", "diffgfdn_tpu/kernels/pallas_sos.py:64",
+            launches["sos_backward"],
+            float(max(torch.max(torch.abs(dn - dn_p)), torch.max(torch.abs(dd - dd_p)))),
+            lambda: sos_mod.sos_cascade_backward(bn, bd, bw, bg, bh),
+            lambda: plain(sos_mod.sos_cascade_backward, bn, bd, bw, bg, bh),
+            lambda: sos_mod.sos_cascade_backward(bn, bd, bw, bg, bh),
+            sos_backward_saved_h_cost(bn.shape[0], bn.shape[1], bw.shape[0]), None, bn.shape))
+        rows[-1]["launches_per_epoch"] = per_epoch["sos_backward"]
+    shapes = {r["name"]: r["shape"] for r in rows}
+    print(f"phase 10 kernels, {name}: {shapes}; elements differing from plain {differ}; "
+          f"B3 / B4 rel err {errs}")
+    require(all(v == 0 for v in differ.values()) and all(v <= KERNEL_TOL for v in errs.values()),
+            f"{name}: kernels vs plain: B1 / B2 differ in {differ}, B3 / B4 {errs}")
+    return rows
+
+
+def kernel_step(step) -> tuple:
+    """One loss-and-backward ``step()`` (returning the loss) on the kernels,
+    keeping each kernel's inputs, then on the plain versions: (relative loss
+    error, worst gradient's relative L2 error, kernel inputs)."""
+    import torch
+
+    from diffgfdn_torch.kernels.dispatch import plain_versions
+
+    inputs = {}
+    with recording_kernel_inputs(inputs, forward=True):
+        loss_k, params = step()
+    grads_k = [p.grad.clone() for p in params]
+    with plain_versions():
+        loss_p, params = step()
+    grads_p = [p.grad.clone() for p in params]
+    loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    grad_err = max(rel_l2(a, b) for a, b in zip(grads_k, grads_p))
+    torch.cuda.synchronize()
+    return loss_rel, grad_err, inputs
+
+
+def single_rir(tmp: Path, log_dir):
+    """Phase 10: the single-RIR presets fit through the CLI at full width, the
+    prototypes' warm start, the kernels of their path against their plain
+    versions. Returns (results, kernel rows)."""
+    import torch
+    from scipy.io import loadmat
+
+    from diffgfdn_torch.cli import run_model
+    from diffgfdn_torch.config import preset_config
+    from diffgfdn_torch.data import RIRData, ThreeRoomDataset, write_wav
+    from diffgfdn_torch.ops.unitary import orthogonal_from_skew
+    from diffgfdn_torch.training import (
+        build_colorless_fdn,
+        build_gfdn_model,
+        ColorlessFDNTrainer,
+        load_checkpoint,
+        load_colorless_fdn_params,
+        make_optimizer,
+        SinglePosGFDNTrainer,
+    )
+    from diffgfdn_torch.training.solver import single_pos_batch
+    from diffgfdn_torch.utils.params import load_jax_params
+
+    results, rows = [], []
+    for name in SINGLE_RIR_PRESETS:
+        cfg = preset_config(name)
+        tc, ccfg = cfg.trainer_config, cfg.colorless_fdn_config
+        work = tmp / "single_rir" / name
+        wav = work / cfg.ir_path
+        wav.parent.mkdir(parents=True, exist_ok=True)
+        if name == "single_rir_example":  # a receiver of phase 2's dataset, at 32 kHz
+            rir = ThreeRoomDataset(tmp / "three_room_example" / "srirs.pkl").rirs32[0]
+        else:
+            rir = two_slope_rir(cfg.sample_rate)
+        write_wav(wav, rir, cfg.sample_rate)
+        cdt = np.array([0.5] * cfg.num_groups)
+        data = RIRData.from_wav(wav, common_decay_times=cdt, nfft=tc.num_freq_bins)
+        nfft = data.num_freq_bins
+
+        # the main path: the CLI, as a user fits the preset
+        with contextlib.chdir(work):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.perf_counter()
+            run_model.main(["-c", name, "--device", DEVICE])
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            launches = launch_counts()
+            peak_run = torch.cuda.max_memory_allocated()
+            protos = (load_colorless_fdn_params(cfg) if ccfg.use_colorless_prototype
+                      else None)
+        train_dir = work / tc.train_dir
+        losses = loadmat(str(train_dir / "losses.mat"))["train_loss"].reshape(-1)
+        epochs = losses.size
+        require(0 < epochs <= tc.max_epochs and bool(np.isfinite(losses).all()),
+                f"{name}: training losses {losses}")
+
+        # every kernel of the path launched, exactly as often as the path runs it
+        model = build_gfdn_model(cfg, cdt, variant="single_pos", device=DEVICE,
+                                 colorless_params=protos)
+        svf_sides = int(model.use_svf_in_output) + int(model.use_svf_in_input)
+        steps_c, valid_c = colorless_counts(cfg, nfft) if protos else (0, 0)
+        groups_c = cfg.num_groups * ccfg.max_epochs if protos else 0
+        both_scalar = svf_sides == 0
+        expected = {
+            "cinv": epochs + (0 if protos else 1) + int(both_scalar)
+            + (cfg.num_groups + groups_c * (steps_c + valid_c) if protos else 0),
+            "neg_ptgpt": epochs + groups_c * steps_c,
+            "sos": epochs * svf_sides, "sos_backward": epochs * svf_sides,
+            **{k: 0 for k in SINGLE_RIR_OFF_PATH},
+        }
+        require({k: launches[k] for k in expected} == expected,
+                f"{name}: launches {launches}, expected {expected}")
+
+        # the last checkpoint and the prototypes read back; the warm start is exact
+        load_jax_params(model, load_checkpoint(train_dir, epochs - 1))
+        params = loadmat(str(train_dir / "parameters_opt.mat"))
+        with torch.no_grad():
+            a = model.feedback_loop.coupled_feedback_matrix().cpu().numpy()
+        require(np.array_equal(params["coupled_feedback_matrix"], a),
+                f"{name}: the exported feedback matrix is not the checkpoint's")
+        warm_err = None
+        if protos:
+            m0 = torch.from_numpy(load_checkpoint(train_dir, -1)["params"]["feedback_loop"]["M"])
+            blocks = orthogonal_from_skew(m0).numpy()
+            warm_err = max(float(np.abs(blocks[g] - p.opt_feedback_matrix).max())
+                           for g, p in enumerate(protos))
+            gains_equal = all(np.array_equal(
+                model.input_gains[g * model.num_delay_lines_per_group:
+                                  (g + 1) * model.num_delay_lines_per_group, 0].cpu().numpy(),
+                np.asarray(p.opt_input_gains, np.float32)) for g, p in enumerate(protos))
+            require(warm_err <= WARM_START_TOL and gains_equal and model.io_gains_fixed,
+                    f"{name}: warm start vs prototypes {warm_err}, io gains fixed "
+                    f"{model.io_gains_fixed}, equal {gains_equal}")
+
+        # one step on the kernels and on the plain versions, at the trained parameters
+        trainer = SinglePosGFDNTrainer(model, tc, 1, common_decay_times=cdt,
+                                       sample_rate=cfg.sample_rate, device=DEVICE)
+        trainer.optimizer, trainer.scheduler = make_optimizer(tc, model, 1)
+        trainer.upload_batch(single_pos_batch(cfg, data))
+
+        def gfdn_step():
+            loss, _ = trainer.loss_and_grads(trainer.data)
+            return loss, [p for p in model.parameters()]
+
+        loss_rel, grad_err, inputs = kernel_step(gfdn_step)
+        require(loss_rel <= LOSS_TOL and grad_err <= GRAD_TOL,
+                f"{name}: step kernels vs plain: loss {loss_rel}, gradient {grad_err}")
+        colorless = {}
+        per_epoch = {"cinv": 1, "neg_ptgpt": 1, "sos": svf_sides, "sos_backward": svf_sides}
+        if protos:
+            cmodel = build_colorless_fdn(cfg, 0, device=DEVICE)
+            load_jax_params(cmodel, load_checkpoint(work / tc.train_dir / "colorless-fdn"
+                                                    / "group0", ccfg.max_epochs - 1))
+            ctrainer = ColorlessFDNTrainer(cmodel, ccfg, str(tmp / "single_rir" / "scratch"),
+                                           use_asym_loss=tc.use_asym_spectral_loss,
+                                           device=DEVICE)
+            nbins = nfft // 16
+            angles = torch.as_tensor(np.arange(nbins) / nbins * np.pi, dtype=torch.float32,
+                                     device=DEVICE)
+            rng = np.random.RandomState(cfg.seed)
+            train_idx = rng.permutation(nbins)[:int(nbins * ccfg.train_valid_split)]
+            first = torch.as_tensor(rng.permutation(train_idx)[:min(ccfg.batch_size,
+                                                                    len(train_idx))],
+                                    device=DEVICE)
+
+            def colorless_step():
+                for p in cmodel.parameters():
+                    p.grad = None
+                loss = ctrainer.loss(angles[first])
+                loss.backward()
+                return loss.detach(), list(cmodel.parameters())
+
+            c_loss_rel, c_grad_err, colorless = kernel_step(colorless_step)
+            require(c_loss_rel <= LOSS_TOL and c_grad_err <= GRAD_TOL,
+                    f"{name}: colorless step kernels vs plain: loss {c_loss_rel}, "
+                    f"gradient {c_grad_err}")
+            per_epoch.update({"cinv colorless": cfg.num_groups * (steps_c + valid_c),
+                              "neg_ptgpt colorless": cfg.num_groups * steps_c})
+        rows += single_rir_rows(name, inputs, colorless, per_epoch, launches)
+        del inputs, colorless
+
+        # step time, as the fit runs a step: warm-up, then timed steps
+        trainer.fit_step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(TIMED_STEPS):
+            t0 = time.perf_counter()
+            trainer.fit_step()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        peak_step = torch.cuda.max_memory_allocated()
+        profiled = {}
+        if log_dir is not None:
+            wall, busy, ours = profile_once(trainer.fit_step, f"single_rir_step_{name}",
+                                            Path(log_dir) / f"profile_train_{name}.txt")
+            profiled = {"profiled_step_ms": wall, "profiled_device_busy_ms": busy,
+                        "profiled_kernels_ms": ours, "profiled_idle_share": 1.0 - busy / wall}
+        colorless_epoch = {}
+        if protos:  # one prototype epoch as the fit runs it: normalization, steps, validation
+            one = dataclasses.replace(ccfg, max_epochs=1)
+            c1 = ColorlessFDNTrainer(build_colorless_fdn(cfg, 0, device=DEVICE), one,
+                                     str(tmp / "single_rir" / "scratch"), device=DEVICE)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            c1.fit(nfft // 16, seed=cfg.seed)
+            torch.cuda.synchronize()
+            colorless_epoch = {"colorless_epoch_s": time.perf_counter() - t0,
+                               "colorless_step_loss_rel_vs_plain": c_loss_rel,
+                               "colorless_max_grad_rel_l2_vs_plain": c_grad_err}
+        step_s = float(np.median(times))
+        results.append({
+            "preset": name, "fs": cfg.sample_rate, "nfft": nfft, "bins": nfft // 2 + 1,
+            "delay_lines": len(cfg.delay_length_samps), "groups": cfg.num_groups,
+            "prototype_bins": nfft // 16 if protos else None, "epochs": epochs,
+            "run_s": run_s, "first_loss": float(losses[0]), "last_loss": float(losses[-1]),
+            "launches": {k: launches[k] for k in expected},
+            "warm_start_max_abs_vs_prototypes": warm_err,
+            "step_loss_rel_vs_plain": loss_rel, "max_grad_rel_l2_vs_plain": grad_err,
+            "step_ms": step_s * 1e3, "step_ms_all": [t * 1e3 for t in times],
+            "steps_per_s": 1.0 / step_s, **colorless_epoch,
+            "peak_mem_run_mb": peak_run / 2 ** 20, "peak_mem_step_mb": peak_step / 2 ** 20,
+            **profiled,
+        })
+        del trainer, model
+    return results, rows
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--log-dir", default=None,
@@ -2322,7 +2665,7 @@ def main(argv=None) -> int:
     rows = {}
     if logs.get("cinv"):
         rows.update({f"{kern}<{n}>": ptxas_usage(logs["cinv"], f"{kern}ILi{n}E")
-                     for kern in ("cinv_kernel", "neg_ptgpt_kernel") for n in (9, 12, 27)})
+                     for kern in ("cinv_kernel", "neg_ptgpt_kernel") for n in (8, 9, 12, 27)})
     if logs.get("lu"):
         rows.update({f"{kern}<{n}>": ptxas_usage(logs["lu"], f"{kern}ILi{n}E")
                      for kern in ("lu_solve_kernel", "lut_apply_kernel") for n in (9, 12, 27)})
@@ -2392,6 +2735,12 @@ def main(argv=None) -> int:
         result = spatial_sampling(tmp, log_dir)
         print(f"phase 9: spatial sampling in {time.perf_counter() - t0:.1f} s: "
               + json.dumps(result))
+        t0 = time.perf_counter()
+        results, single_rir_kernel_rows = single_rir(tmp, log_dir)
+        rows += single_rir_kernel_rows
+        for result in results:
+            print(f"phase 10: {result['preset']}: " + json.dumps(result))
+        print(f"phase 10: single-RIR fits in {time.perf_counter() - t0:.1f} s")
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({

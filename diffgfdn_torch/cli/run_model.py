@@ -4,11 +4,12 @@
 
 ``-c`` takes a YAML file or the name of a preset in ``config/presets.py``
 (``fullband_grid_colorless``, ``three_room_example``, ``subband_<f>Hz``,
-``directional_<f>Hz_res<r>m``), which needs no YAML parser. Trains on CUDA
-unless ``--device cpu`` is given. A config with ``ambi_order`` trains a
-directional FDN on the spatial dataset at ``room_dataset_path``; any other
-trains on the receiver grid. Single-position fits (``ir_path``) raise
-NotImplementedError (ROADMAP A10).
+``directional_<f>Hz_res<r>m``, ``single_rir_example``, the ``single_rir_*``
+presets, ``synth_broadband_colorless_proto``), which needs no YAML parser.
+Trains on CUDA unless ``--device cpu`` is given. A config with ``ir_path``
+fits the one RIR in that wav; one with ``ambi_order`` trains a directional
+FDN on the spatial dataset at ``room_dataset_path``; any other trains on the
+receiver grid. Relative paths are read from the working directory.
 """
 
 import argparse
@@ -50,8 +51,9 @@ def main(argv=None) -> None:
     logging.basicConfig(level=logging.INFO)
     config = _load_config(args.config)
     np.random.seed(config.seed)
-    if config.ir_path is not None:
-        raise NotImplementedError("single-position fits (ir_path) are not ported yet (ROADMAP A10)")
+    if config.ir_path is not None and args.resume:
+        parser.error("--resume is not supported for single-position fits "
+                     "(they train in seconds from scratch)")
 
     train_dir = Path(config.trainer_config.train_dir)
     if args.wipe_train_dir and train_dir.exists():
@@ -62,10 +64,13 @@ def main(argv=None) -> None:
 
     from ..training.solver import (
         run_training_anisotropic_decay_var_receiver_pos,
+        run_training_single_pos,
         run_training_var_receiver_pos,
     )
 
-    if config.ambi_order is not None:
+    if config.ir_path is not None:
+        run_training_single_pos(config, device=device)
+    elif config.ambi_order is not None:
         from ..data.spatial_dataset import SpatialThreeRoomDataset
 
         room_data = SpatialThreeRoomDataset(config.room_dataset_path)

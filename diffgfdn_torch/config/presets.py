@@ -11,7 +11,15 @@ Each mapping is exactly what ``yaml.safe_load`` returns for its file, so
 * ``subband_<f>Hz``: ``configs/presets/subband/subband_<f>Hz.yml``;
 * ``directional_<f>Hz_res<r>m``: ``configs/presets/directional/`` (ambi
   order 2, 27 lines in 3 groups, a skip-connection MLP, the
-  max-directivity beamformer, the band's response in the loss).
+  max-directivity beamformer, the band's response in the loss);
+* ``single_rir_example``: ``configs/single_rir_example.yml`` (a single-RIR
+  fit: 12 lines in 3 groups, SVF output heads, nfft 131072, fs 32 kHz);
+* ``single_rir_<variant>``: ``configs/presets/single_rir/`` (8 lines in 2
+  groups, or 1 for the single room; SVF input heads; the colorless loss or
+  the colorless prototype; fs 48 kHz, nfft from the data);
+* ``synth_broadband_colorless_proto``:
+  ``configs/presets/synth/synth_broadband_colorless_proto.yml`` (a grid fit
+  warm-started from colorless prototypes).
 """
 
 import copy
@@ -207,11 +215,102 @@ def _directional_preset(freq: int, res: float) -> dict:
     return raw
 
 
+SINGLE_RIR_EXAMPLE = {
+    "seed": 42,
+    "ir_path": "resources/single_rir.wav",
+    "num_groups": 3,
+    "sample_rate": 32000.0,
+    "num_delay_lines": 12,
+    "delay_range_ms": [20.0, 45.0],
+    "trainer_config": {
+        "batch_size": 1,
+        "num_freq_bins": 131072,
+        "max_epochs": 50,
+        "lr": 1.0e-2,
+        "train_dir": "output/single_rir",
+        "ir_dir": "output/single_rir/audio",
+    },
+    "output_filter_config": {
+        "use_svfs": True,
+        "num_hidden_layers": 1,
+        "num_neurons_per_layer": 16,
+        "num_fourier_features": 4,
+    },
+    "decay_filter_config": {"use_absorption_filters": False},
+    "colorless_fdn_config": {"use_colorless_prototype": False},
+}
+
+TWO_ROOMS = "audio/synthetic_true/two_coupled_rooms/"
+SINGLE_ROOM = "audio/synthetic_true/single_room/"
+
+
+def _synth_preset(name: str, ir_path, trainer: dict, colorless: dict, output: dict = None,
+                  absorption_filters: bool = False, **top) -> dict:
+    """A preset of ``configs/presets/single_rir/`` (``name`` its output
+    directory's) or ``synth/``: the two-room colorless-loss fit's settings
+    with the given ir_path, trainer, colorless-FDN and output-head updates
+    and top-level keys."""
+    raw = copy.deepcopy(FULLBAND_GRID_COLORLESS)
+    out = f"output/{name}/"
+    raw.update(ir_path=ir_path, num_delay_lines=8, num_groups=2, sample_rate=48000.0,
+               seed=46434,
+               room_dataset_path="resources/synthetic_dataset/two_coupled_rooms/bb_wgn_0000.pkl")
+    raw["decay_filter_config"]["use_absorption_filters"] = absorption_filters
+    raw["output_filter_config"].update(num_fourier_features=10, num_hidden_layers=3,
+                                       num_neurons_per_layer=128, use_svfs=False)
+    raw["output_filter_config"].update(output or {})
+    raw["trainer_config"].update(
+        hold_out_test_set=None, io_lr=0.1, ir_dir=out + "audio/", max_epochs=50,
+        num_freq_bins=None, save_true_irs=False, train_dir=out,
+        use_asym_spectral_loss=False, use_edc_mask=False)
+    raw["trainer_config"].update(trainer)
+    raw["colorless_fdn_config"].update(colorless)
+    raw.update(top)
+    return raw
+
+
+PROTO = {"use_colorless_prototype": True}
+PROTO_15 = {"use_colorless_prototype": True, "batch_size": 4000, "max_epochs": 15}
+SINGLE_ROOM_DATA = "resources/synthetic_dataset/single_room/bb_wgn_0000.pkl"
+SINGLE_RIR_PRESETS = {
+    "single_rir_two_stage_colorless_loss": _synth_preset(
+        "single_rir/two_stage_colorless_loss", TWO_ROOMS + "ir_(6.90, 2.70, 0.68).wav", {}, {}),
+    "single_rir_two_stage_colorless_loss_pos2": _synth_preset(
+        "single_rir/two_stage_colorless_loss_pos2", TWO_ROOMS + "ir_(1.21, 2.92, 0.83).wav",
+        {"use_edc_mask": True}, {}),
+    "single_rir_two_stage_colorless_proto": _synth_preset(
+        "single_rir/two_stage_colorless_proto", TWO_ROOMS + "ir_(6.90, 2.70, 0.68).wav",
+        {"use_colorless_loss": False}, dict(PROTO, max_epochs=5)),
+    "single_rir_two_stage_colorless_proto_pos2": _synth_preset(
+        "single_rir/two_stage_colorless_proto_pos2", TWO_ROOMS + "ir_(1.21, 2.92, 0.83).wav",
+        {"use_colorless_loss": False, "use_edc_mask": True}, PROTO_15),
+    "single_rir_single_room_colorless_loss": _synth_preset(
+        "single_rir/single_room_colorless_loss", SINGLE_ROOM + "ir_(2.11, 6.06, 0.81).wav", {},
+        {}, num_groups=1, room_dataset_path=SINGLE_ROOM_DATA),
+    "single_rir_single_room_colorless_proto": _synth_preset(
+        "single_rir/single_room_colorless_proto", SINGLE_ROOM + "ir_(2.11, 6.06, 0.81).wav",
+        {"use_colorless_loss": False}, PROTO_15, num_groups=1,
+        room_dataset_path=SINGLE_ROOM_DATA),
+    "single_rir_freq_dep_colorless_loss": _synth_preset(
+        "single_rir/freq_dep_colorless_loss",
+        "audio/synthetic_true/two_coupled_rooms_freq_dep/ir_(2.41, 5.54, 1.10).wav",
+        {"max_epochs": 20, "num_freq_bins": 96000}, {}, {"use_svfs": True},
+        absorption_filters=True, room_dataset_path="resources/synthetic_dataset/two_coupled_rooms_freq_dep/"
+        "bb_wgn_0000.pkl"),
+    "synth_broadband_colorless_proto": _synth_preset(
+        "synth_grid/broadband_colorless_proto", None,
+        {"batch_size": 10, "edr_loss_weight": 0.0, "io_lr": 0.01, "max_epochs": 10,
+         "train_valid_split": 0.9, "use_colorless_loss": False}, PROTO_15,
+        {"num_neurons_per_layer": 32}, input_filter_config=None),
+}
+
 PRESETS: Dict[str, dict] = {
     "fullband_grid_colorless": FULLBAND_GRID_COLORLESS,
     "three_room_example": THREE_ROOM_EXAMPLE,
     **{f"subband_{f}Hz": _subband_preset(f) for f in SUBBAND_MLP},
     **{f"directional_{f}Hz_res{r}m": _directional_preset(f, r) for f, r in DIRECTIONAL_RUNS},
+    "single_rir_example": SINGLE_RIR_EXAMPLE,
+    **SINGLE_RIR_PRESETS,
 }
 
 

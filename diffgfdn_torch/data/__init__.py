@@ -1,5 +1,5 @@
-"""Host-side data: the three-room and spatial datasets, batch gathering, splits,
-synthetic generators."""
+"""Host-side data: single RIRs, the three-room and spatial datasets, batch
+gathering, splits, synthetic generators."""
 
 from .batching import (
     arrays_from_room_dataset,
@@ -9,7 +9,8 @@ from .batching import (
     index_batches,
     train_valid_split,
 )
-from .room_dataset import RoomDataset, ThreeRoomDataset
+from .audio import read_wav, write_wav
+from .room_dataset import early_late_split, RIRData, RoomDataset, ThreeRoomDataset
 from .spatial_dataset import (
     arrays_from_spatial_dataset,
     generate_spatial_three_room_pickle,
@@ -21,18 +22,22 @@ from .synthetic import generate_three_room_pickle, synthetic_three_room_dataset
 
 __all__ = [
     "BatchArrays",
+    "RIRData",
     "RoomDataset",
     "SpatialRoomDataset",
     "SpatialThreeRoomDataset",
     "ThreeRoomDataset",
     "arrays_from_room_dataset",
     "arrays_from_spatial_dataset",
+    "early_late_split",
     "fixed_test_split",
     "gather_batch",
     "index_batches",
+    "read_wav",
     "generate_spatial_three_room_pickle",
     "generate_three_room_pickle",
     "split_by_grid_resolution",
     "synthetic_three_room_dataset",
     "train_valid_split",
+    "write_wav",
 ]

@@ -1,13 +1,15 @@
-"""RIR dataset container and the three-room pickle parser (host numpy).
+"""RIR dataset containers and the three-room pickle parser (host numpy).
 
-Port of ``diffgfdn_tpu/data/room_dataset.py`` (serving subset): parse once,
-compute spectra lazily on first access, hand batches to the model.
+Port of ``diffgfdn_tpu/data/room_dataset.py``: a single RIR read from a wav
+(:class:`RIRData`, for single-position fits) and the receiver grid
+(:class:`RoomDataset`): parse once, compute spectra lazily on first access,
+hand batches to the model.
 """
 
 from dataclasses import dataclass
 import pickle
 from pathlib import Path
-from typing import List, Optional, Union
+from typing import List, Optional, Tuple, Union
 
 import numpy as np
 from scipy.fft import rfft, rfftfreq
@@ -54,6 +56,60 @@ def late_split(
     late = np.array(rirs[..., mix:])
     late[..., : wl // 2] *= fade_in
     return late
+
+
+def early_late_split(
+    rirs: np.ndarray, mixing_time_ms: float, fs: float, win_len_ms: float = 5.0
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Split RIRs at the mixing time with half-Hann crossfades: (early, late),
+    early the first mixing-time samples and late the remainder."""
+    return (
+        early_split(rirs, mixing_time_ms, fs, win_len_ms),
+        late_split(rirs, mixing_time_ms, fs, win_len_ms),
+    )
+
+
+@dataclass
+class RIRData:
+    """A single measured or simulated RIR with its spectral representations."""
+
+    rir: np.ndarray
+    sample_rate: float
+    common_decay_times: np.ndarray
+    band_centre_hz: Optional[np.ndarray] = None
+    amplitudes: Optional[np.ndarray] = None
+    room_dims: Optional[List] = None
+    absorption_coeffs: Optional[List] = None
+    mixing_time_ms: float = 20.0
+    nfft: Optional[int] = None
+
+    @staticmethod
+    def from_wav(wav_path: Union[str, Path], **kwargs) -> "RIRData":
+        """Load the RIR from a wav file."""
+        from .audio import read_wav
+
+        rir, fs = read_wav(wav_path)
+        return RIRData(rir=rir, sample_rate=fs, **kwargs)
+
+    @property
+    def num_freq_bins(self) -> int:
+        """nfft: as given, else the next power of 2 of the longest decay time."""
+        if self.nfft is not None:
+            return self.nfft
+        return _next_pow2(float(np.max(self.common_decay_times)) * self.sample_rate)
+
+    @property
+    def freq_bins_rad(self) -> np.ndarray:
+        return rfftfreq(self.num_freq_bins) * 2 * np.pi
+
+    @property
+    def rir_mag_response(self) -> np.ndarray:
+        return rfft(self.rir, n=self.num_freq_bins)
+
+    def split_responses(self) -> Tuple[np.ndarray, np.ndarray]:
+        """(early, late) frequency responses after the crossfaded split."""
+        early, late = early_late_split(self.rir, self.mixing_time_ms, self.sample_rate)
+        return rfft(early, n=self.num_freq_bins), rfft(late, n=self.num_freq_bins)
 
 
 class RoomDataset:

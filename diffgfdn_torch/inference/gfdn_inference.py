@@ -6,6 +6,8 @@ and irfft the transfer function to RIRs of shape (B, nfft)
 (:class:`InferDiffGFDN`), or run the loop in the time domain with no time
 aliasing (:func:`make_time_domain_synthesis_fn`). A directional model
 serves SH-domain RIRs (B, (ambi_order + 1)^2, nfft) from a spatial dataset.
+A model warm-started from colorless prototypes is rebuilt from their cached
+pickles (they fix its io gains), retraining only missing ones.
 
 Subband models (one per octave band) are merged into broadband RIRs by
 their reconstructing filterbank (:func:`infer_all_octave_bands`), or
@@ -15,6 +17,8 @@ and merge are not ported yet (ROADMAP A11), nor the octave-band merge of
 directional models (ROADMAP A10, with A12's common-slopes synthesis).
 """
 
+import logging
+from pathlib import Path
 from typing import Callable, Dict, List, Optional, Union
 
 import numpy as np
@@ -30,11 +34,14 @@ from ..models import DiffDirectionalFDNVarReceiverPos, DiffGFDNVarReceiverPos
 from ..models.gain_heads import expand_groups_to_delay_lines
 from ..ops.basic import db, ms_to_samps, schroeder_backward_int
 from ..ops.filterbanks import reconstructing_fractional_octave_bands
-from ..training.build import build_gfdn_model
+from ..training.build import build_gfdn_model, colorless_result_path
 from ..training.checkpoints import load_latest_checkpoint
+from ..training.solver import colorless_prototypes
 from ..training.trainer import target_rirs, upload_model_inputs
 from ..utils.device import resolve_device
 from ..utils.params import load_jax_params
+
+logger = logging.getLogger("diffgfdn_torch")
 
 # the batch entries DiffGFDNVarReceiverPos reads
 MODEL_INPUTS = ("z_values", "listener_position", "norm_listener_position",
@@ -191,6 +198,7 @@ class InferDiffGFDN:
             variant=variant,
             device=self.device,
             desired_directions=room_data.desired_directions if directional else None,
+            colorless_params=self._colorless_params(config, room_data),
         )
         if params is None:
             params = load_latest_checkpoint(tc.train_dir, tc.max_epochs)
@@ -221,6 +229,24 @@ class InferDiffGFDN:
             )
             band = filters[int(np.argmin(np.abs(centers - spc.centre_frequency)))]
             self.subband_filter_norm_factor = subband_energy_compensation(band)
+
+    def _colorless_params(self, config: DiffGFDNConfig, room_data: RoomDataset):
+        """The colorless prototypes the model was trained from, rebuilt as the
+        solver built them (they fix the io gains, which the checkpoint does not
+        hold): the saved results at ``saved_param_path``, else those cached under
+        ``<train_dir>/colorless-fdn``, retraining only missing groups."""
+        ccfg = config.colorless_fdn_config
+        if ccfg.use_colorless_prototype and not ccfg.load_fixed_parameters:
+            colorless_dir = Path(config.trainer_config.train_dir) / "colorless-fdn"
+            missing = [g + 1 for g in range(config.num_groups)
+                       if not colorless_result_path(colorless_dir, g).exists()]
+            if missing:
+                logger.warning(
+                    "colorless prototype pickles missing for group(s) %s under %s: "
+                    "retraining them now; if this checkpoint was trained elsewhere, copy "
+                    "its colorless-fdn/ directory instead (retrained io gains may not match "
+                    "the checkpoint)", missing, colorless_dir)
+        return colorless_prototypes(config, room_data.num_freq_bins, self.device)
 
     def _device_batch(self, idx: np.ndarray) -> Dict[str, torch.Tensor]:
         """The model's inputs only: the late and full target planes are never read."""

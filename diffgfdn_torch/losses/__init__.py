@@ -1,12 +1,15 @@
-"""Training losses: EDC and EDR against precomputed targets, the directional
-EDC loss, colorless losses, the common-slopes spatial-sampling losses."""
+"""Training losses: EDC and EDR against precomputed targets or raw spectra,
+the directional EDC loss, colorless losses, the common-slopes
+spatial-sampling losses."""
 
 from .colorless import amse_loss, mse_loss, sparsity_loss
 from .gfdn import (
     directional_edc_loss,
     directional_edc_loss_from_sh,
+    edc_loss,
     edc_loss_from_rir,
     edc_mask,
+    edr_loss,
     edr_loss_from_rir,
 )
 from .spatial import (
@@ -22,8 +25,10 @@ __all__ = [
     "amse_loss",
     "directional_edc_loss",
     "directional_edc_loss_from_sh",
+    "edc_loss",
     "edc_loss_from_rir",
     "edc_mask",
+    "edr_loss",
     "edr_loss_from_rir",
     "find_position_idx",
     "make_decay_envelopes",

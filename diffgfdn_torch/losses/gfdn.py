@@ -1,16 +1,18 @@
-"""GFDN training losses against precomputed targets (port of ``losses/gfdn.py``).
+"""GFDN training losses (port of ``losses/gfdn.py``).
 
-The trainer precomputes the parameter-independent target EDC and EDR once
-per dataset; these losses compare the model's RIRs with them. The
-directional EDC loss compares a directional model's beamformed EDCs with
-the common-slope amplitudes times decay envelopes. The random EDC
-time mask is an explicit tensor, or drawn from a ``torch.Generator``
-(probabilities ~ U(0, 1), then Bernoulli): ``jax.random`` bits cannot be
-reproduced, so tests hand both packages the same mask.
+The grid trainer precomputes the parameter-independent target EDC and EDR
+once per dataset; :func:`edc_loss_from_rir` and :func:`edr_loss_from_rir`
+compare the model's RIRs with them. A single-position fit compares raw
+spectra, the target's and the model's, each step (:func:`edc_loss`,
+:func:`edr_loss`). The directional EDC loss compares a directional model's
+beamformed EDCs with the common-slope amplitudes times decay envelopes. The
+random EDC time mask is an explicit tensor, or drawn from a
+``torch.Generator`` (probabilities ~ U(0, 1), then Bernoulli): ``jax.random``
+bits cannot be reproduced, so tests hand both packages the same mask.
 
-Not ported yet (neither slice preset sets them; each raises in the trainer):
-the aliasing regularizer ``reg_loss``, ``frequency_weighting`` and the ERB
-grouping of the EDR (ROADMAP A5).
+Not ported yet (no ported preset sets them; each raises): the aliasing
+regularizer ``reg_loss``, ``frequency_weighting``, the ERB grouping of the
+EDR and the per-band EDC of ``edc_loss(band_responses=...)`` (ROADMAP A5).
 """
 
 from typing import Optional
@@ -27,6 +29,58 @@ def edc_mask(
     """Random EDC time mask (length,) of 0/1 float32: Bernoulli(U(0, 1))."""
     probs = torch.rand(length, generator=generator, device=device)
     return torch.bernoulli(probs, generator=generator)
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP A5)")
+
+
+def edc_loss(
+    target_response: torch.Tensor,
+    achieved_response: torch.Tensor,
+    mixing_time_samps: int,
+    max_ir_len_samps: int,
+    mask: Optional[torch.Tensor] = None,
+    band_responses: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Mean |dB| difference between the Schroeder EDCs of two spectra (..., F),
+    both irfft'd and cut to [mixing time, max length]; ``mask`` as in
+    :func:`edc_loss_from_rir`."""
+    if band_responses is not None:
+        raise _not_ported("the per-band EDC loss (band_responses)")
+    n = 2 * (target_response.shape[-1] - 1)
+    end = min(max_ir_len_samps, n)
+    target_rir = torch.fft.irfft(target_response, n, dim=-1)[..., mixing_time_samps:end]
+    target_edc = db(schroeder_backward_int(target_rir), is_squared=True)
+    achieved_rir = torch.fft.irfft(achieved_response, n, dim=-1)[..., mixing_time_samps:end]
+    return edc_loss_from_rir(target_edc, achieved_rir, mask)
+
+
+def edr_loss(
+    target_response: torch.Tensor,
+    achieved_response: torch.Tensor,
+    win_size: int = 2 ** 12,
+    hop_size: int = 2 ** 11,
+    reduced_pole_radius: Optional[float] = None,
+    erb_filters: Optional[torch.Tensor] = None,
+    frequency_weights: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Normalized |dB| EDR difference between two spectra (..., F): both
+    irfft'd, the achieved RIR's reduced-pole-radius envelope undone, then as
+    :func:`edr_loss_from_rir` against the target's EDR."""
+    if erb_filters is not None or frequency_weights is not None:
+        raise _not_ported("the ERB-grouped and frequency-weighted EDR loss")
+    n = 2 * (target_response.shape[-1] - 1)
+    target_rir = torch.fft.irfft(target_response, n, dim=-1)
+    achieved_rir = torch.fft.irfft(achieved_response, n, dim=-1)
+    if reduced_pole_radius is not None and reduced_pole_radius != 1.0:
+        achieved_rir = achieved_rir * torch.pow(
+            1.0 / reduced_pole_radius,
+            torch.arange(n, dtype=torch.float32, device=achieved_rir.device),
+        )
+    target_edr = edr_from_stft(stft(target_rir, win_size, hop_size))
+    return edr_loss_from_rir(target_edr, torch.sum(torch.abs(target_edr), dim=(-2, -1)),
+                             achieved_rir, win_size, hop_size)
 
 
 def edc_loss_from_rir(

@@ -1,9 +1,10 @@
 """GFDN feedback loop: P(z) = (D(z) Gamma(z)^-1 - A(z))^-1 at all rFFT bins.
 
 Port of ``diffgfdn_tpu/models/feedback_loop.py`` for SCALAR coupling (zero
-coupling, or learned Givens angles). The per-bin inverse and solve go
-through ``kernels/linalg.py`` (Gauss-Jordan and LU kernels), the absorption
-cascades through the biquad-cascade kernel.
+coupling, or learned Givens angles) and RANDOM coupling (one dense
+orthogonal matrix exp(skew(X)), as the colorless prototype FDN uses). The
+per-bin inverse and solve go through ``kernels/linalg.py`` (Gauss-Jordan and
+LU kernels), the absorption cascades through the biquad-cascade kernel.
 
 Absorption: fixed per-line scalar gains (``gains``) or fixed per-line SOS
 cascades fitted by the GEQ designer (``sos_coeffs``).
@@ -27,8 +28,12 @@ class FeedbackLoop(nn.Module):
 
     ``delays``: per-line lengths in samples (N); ``gains``: fixed per-line
     absorption gains (N,); ``sos_coeffs``: (N, n_sections, 3, 2) absorption
-    cascades, (num, den) on the last axis. Parameters: ``M`` (G, Nper, Nper)
-    skew pre-images and, with learned coupling, ``alpha`` (G(G-1)/2 angles).
+    cascades, (num, den) on the last axis. Parameters, SCALAR coupling: ``M``
+    (G, Nper, Nper) skew pre-images and, with learned coupling, ``alpha``
+    (G(G-1)/2 angles); ``colorless_feedback_matrix_skew`` (G, Nper, Nper)
+    initializes ``M`` (the colorless prototypes' optima, :mod:`..training.build`).
+    RANDOM coupling: ``random_feedback_matrix`` (N, N), whose exp(skew(.))
+    is the whole loop's feedback matrix.
     """
 
     def __init__(
@@ -41,12 +46,14 @@ class FeedbackLoop(nn.Module):
         gains: Optional[np.ndarray] = None,
         sos_coeffs: Optional[np.ndarray] = None,
         generator: Optional[torch.Generator] = None,
+        colorless_feedback_matrix_skew: Optional[np.ndarray] = None,
     ):
         super().__init__()
-        if CouplingMatrixType(coupling_matrix_type) is not CouplingMatrixType.SCALAR:
+        self.coupling_matrix_type = CouplingMatrixType(coupling_matrix_type)
+        if self.coupling_matrix_type is CouplingMatrixType.FILTER:
             raise NotImplementedError(
-                f"coupling_matrix_type={CouplingMatrixType(coupling_matrix_type).value} "
-                "is not ported yet (ROADMAP A4); SCALAR coupling is"
+                "coupling_matrix_type=filter_matrix is not ported yet (ROADMAP A4); "
+                "SCALAR and RANDOM coupling are"
             )
         if (gains is None) == (sos_coeffs is None):
             raise ValueError("give exactly one of gains or sos_coeffs")
@@ -72,10 +79,20 @@ class FeedbackLoop(nn.Module):
         # the designed cascades as given (float64 from the GEQ fit): the
         # time-domain path builds its state-space constants from them
         self.sos_coeffs_host = None if sos_coeffs is None else np.asarray(sos_coeffs)
-        self.M = nn.Parameter(
-            (2.0 * torch.rand((g, nper, nper), generator=generator) - 1.0) / np.sqrt(nper)
-        )
         self._shared_blocks = None
+        if self.coupling_matrix_type is CouplingMatrixType.RANDOM:
+            n = self.num_delays
+            self.random_feedback_matrix = nn.Parameter(
+                (2.0 * torch.rand((n, n), generator=generator) - 1.0) / np.sqrt(nper)
+            )
+            return
+        if colorless_feedback_matrix_skew is not None:
+            self.M = nn.Parameter(torch.as_tensor(
+                np.asarray(colorless_feedback_matrix_skew), dtype=torch.float32).clone())
+        else:
+            self.M = nn.Parameter(
+                (2.0 * torch.rand((g, nper, nper), generator=generator) - 1.0) / np.sqrt(nper)
+            )
         n_alpha = g * (g - 1) // 2
         if use_zero_coupling:
             self.register_buffer("alpha", torch.zeros(n_alpha), persistent=False)
@@ -133,7 +150,9 @@ class FeedbackLoop(nn.Module):
         return nd_unitary(alpha, self.num_groups)
 
     def coupled_feedback_matrix(self) -> torch.Tensor:
-        """A = block_M o (Phi kron 1), shape (N, N)."""
+        """A = block_M o (Phi kron 1), or exp(skew(X)) with RANDOM coupling; (N, N)."""
+        if self.coupling_matrix_type is CouplingMatrixType.RANDOM:
+            return orthogonal_from_skew(self.random_feedback_matrix)
         nper = self.num_delay_lines_per_group
         phi = self.coupling_matrix()
         expand = torch.repeat_interleave(torch.repeat_interleave(phi, nper, 0), nper, 1)
@@ -143,8 +162,8 @@ class FeedbackLoop(nn.Module):
 
     @property
     def is_block_diagonal(self) -> bool:
-        """Zero inter-group coupling makes the loop matrix block-diagonal."""
-        return self.use_zero_coupling
+        """Zero inter-group SCALAR coupling makes the loop matrix block-diagonal."""
+        return self.coupling_matrix_type is CouplingMatrixType.SCALAR and self.use_zero_coupling
 
     def _inverse_gammas(self, z: torch.Tensor) -> torch.Tensor:
         """1 / Gamma per line: (N, F) complex for filters, (N, 1) real for gains."""

@@ -3,11 +3,14 @@
 H(z) = c(z)^T (D(z) Gamma(z)^-1 - A(z))^-1 b(z) + d(z), evaluated at all
 rFFT bins at once.
 
-* :class:`DiffGFDN` — io gains, feedback loop, the three transfer-function
-  forms (general, per-group filter heads, frequency-independent heads) and
-  the lossless per-group responses ``sub_fdn_output``;
+* :class:`DiffGFDN` — io gains (learned, or fixed by a colorless
+  prototype), feedback loop, the three transfer-function forms (general,
+  per-group filter heads, frequency-independent heads) and the lossless
+  per-group responses ``sub_fdn_output``;
 * :class:`DiffGFDNVarReceiverPos` — output gains (scalar heads) or SVF
   filters (SVF heads) conditioned on the listener position via an MLP;
+* :class:`DiffGFDNSinglePos` — one source / receiver pair: per-group scalars
+  or SVF cascades as plain parameters, on the output and the input side;
 * :class:`DiffDirectionalFDNVarReceiverPos` — SH-domain output gains for
   directional (ambisonic) FDNs: (B, (ambi_order + 1)^2, F) per position.
 
@@ -24,7 +27,14 @@ from torch import nn
 from ..config.schema import CouplingMatrixType, FeatureEncodingType
 from ..kernels.linalg import cinv
 from .feedback_loop import FeedbackLoop
-from .gain_heads import expand_groups_to_delay_lines, GainsFromMLP, SVFFromMLP
+from .gain_heads import (
+    expand_groups_to_delay_lines,
+    GainsFromMLP,
+    svf_cutoff_frequencies,
+    svf_filter_types,
+    svf_params_to_response,
+    SVFFromMLP,
+)
 from .spatial import DirectionalBeamformerWeightsMLP
 
 
@@ -54,7 +64,14 @@ def _io_gains(n: int, generator: Optional[torch.Generator]) -> nn.Parameter:
 
 
 class DiffGFDN(nn.Module):
-    """Base GFDN: io gains + feedback loop."""
+    """Base GFDN: io gains + feedback loop.
+
+    ``fixed_input_gains`` / ``fixed_output_gains`` (N,) and
+    ``colorless_feedback_matrix_skew`` (G, Nper, Nper) warm-start the model
+    from colorless prototypes: the io gains are then buffers, not parameters
+    (the optimizer and the checkpoints do not see them), and ``M`` starts at
+    the prototypes' optima.
+    """
 
     def __init__(
         self,
@@ -66,6 +83,9 @@ class DiffGFDN(nn.Module):
         gains: Optional[np.ndarray] = None,
         sos_coeffs: Optional[np.ndarray] = None,
         generator: Optional[torch.Generator] = None,
+        fixed_input_gains: Optional[np.ndarray] = None,
+        fixed_output_gains: Optional[np.ndarray] = None,
+        colorless_feedback_matrix_skew: Optional[np.ndarray] = None,
     ):
         super().__init__()
         self.sample_rate = sample_rate
@@ -73,8 +93,13 @@ class DiffGFDN(nn.Module):
         self.delays = tuple(int(d) for d in delays)
         self.num_delay_lines = n = len(self.delays)
         self.num_delay_lines_per_group = n // num_groups
-        self.input_gains = _io_gains(n, generator)
-        self.output_gains = _io_gains(n, generator)
+        for name, fixed in (("input_gains", fixed_input_gains),
+                            ("output_gains", fixed_output_gains)):
+            if fixed is None:
+                setattr(self, name, _io_gains(n, generator))
+            else:
+                self.register_buffer(name, torch.as_tensor(
+                    np.asarray(fixed), dtype=torch.float32).reshape(n, 1), persistent=False)
         self.feedback_loop = FeedbackLoop(
             num_groups=num_groups,
             num_delay_lines_per_group=self.num_delay_lines_per_group,
@@ -84,7 +109,13 @@ class DiffGFDN(nn.Module):
             gains=gains,
             sos_coeffs=sos_coeffs,
             generator=generator,
+            colorless_feedback_matrix_skew=colorless_feedback_matrix_skew,
         )
+
+    @property
+    def io_gains_fixed(self) -> bool:
+        """Whether the io gains are fixed (a colorless warm start)."""
+        return not isinstance(self.input_gains, nn.Parameter)
 
     def sub_fdn_inverse(self, z: torch.Tensor) -> torch.Tensor:
         """P_g(z) = (diag(z^m) - ortho(M_g))^-1 of each lossless sub-FDN,
@@ -135,12 +166,15 @@ class DiffGFDN(nn.Module):
         z: torch.Tensor,
         c_group: torch.Tensor,
         direct: Optional[torch.Tensor] = None,
+        b_group: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
-        """H for per-GROUP output filter heads via a group-pooled loop response.
+        """H for per-GROUP filter heads via a group-pooled loop response.
 
         ``s[f,g,h] = sum_{n in g, m in h} c_gain[n] P[f,n,m] b_gain[m]``; with
         zero coupling P is block-diagonal, so s is diagonal and only the
-        per-group blocks are inverted. ``c_group``: (B, G, F) complex.
+        per-group blocks are inverted. ``c_group``: (B, G, F) complex;
+        ``b_group``: (B, G, F) complex input heads, or None when the input
+        side is the io gains alone.
         """
         g, nper = self.num_groups, self.num_delay_lines_per_group
         cw = self.output_gains[:, 0].to(torch.complex64)
@@ -150,11 +184,18 @@ class DiffGFDN(nn.Module):
             s_diag = torch.einsum(
                 "gfnm,gn,gm->fg", pb, cw.reshape(g, nper), bw.reshape(g, nper)
             )
+            if b_group is None:
+                h = torch.einsum("bgf,fg->bf", c_group, s_diag)
+            else:
+                h = torch.einsum("bgf,fg,bgf->bf", c_group, s_diag, b_group)
         else:
             p = self.feedback_loop(z)  # (F, N, N)
             w = cw[None, :, None] * p * bw[None, None, :]
-            s_diag = w.reshape(z.shape[0], g, nper, g, nper).sum(dim=(2, 4)).sum(dim=-1)
-        h = torch.einsum("bgf,fg->bf", c_group, s_diag)
+            s = w.reshape(z.shape[0], g, nper, g, nper).sum(dim=(2, 4))  # (F, G, G)
+            if b_group is None:
+                h = torch.einsum("bgf,fg->bf", c_group, s.sum(dim=-1))
+            else:
+                h = torch.einsum("bgf,fgh,bhf->bf", c_group, s, b_group)
         return h if direct is None else h + direct
 
     def transfer_function_scalar_heads(
@@ -237,6 +278,66 @@ class DiffGFDNVarReceiverPos(DiffGFDN):
             _, params = self.output_filters(x, return_params=True)
             return params
         return {"gains": self.output_scalars(x)}
+
+
+class DiffGFDNSinglePos(DiffGFDN):
+    """Single source / receiver fit with direct per-group parameters.
+
+    Each side (output, input) is either a per-group SVF cascade (raw
+    parameters ``<side>_svf_params`` (G, K, 2), evaluated by the cascade
+    kernel) or a per-group scalar (``<side>_scalars`` (G, 1), 1/sqrt(G) at
+    first). ``forward`` returns H (F,) with the direct part added.
+    """
+
+    def __init__(
+        self,
+        *args,
+        use_svf_in_output: bool = False,
+        use_svf_in_input: bool = False,
+        compress_pole_factor: float = 1.0,
+        generator: Optional[torch.Generator] = None,
+        **kwargs,
+    ):
+        super().__init__(*args, generator=generator, **kwargs)
+        self.use_svf_in_output = use_svf_in_output
+        self.use_svf_in_input = use_svf_in_input
+        self.compress_pole_factor = compress_pole_factor
+        g = self.num_groups
+        cutoffs = svf_cutoff_frequencies(self.sample_rate)
+        self.register_buffer("cutoff_values", torch.as_tensor(cutoffs, dtype=torch.float32),
+                             persistent=False)
+        self.register_buffer("filter_types", torch.as_tensor(svf_filter_types(len(cutoffs))),
+                             persistent=False)
+        for side, svf in (("output", use_svf_in_output), ("input", use_svf_in_input)):
+            if svf:
+                init = torch.randn((g, len(cutoffs), 2), generator=generator)
+                init[..., 1] = 0.0  # a random resonance, a 0 dB gain
+                setattr(self, f"{side}_svf_params", nn.Parameter(init))
+            else:
+                setattr(self, f"{side}_scalars", nn.Parameter(torch.ones((g, 1)) / np.sqrt(g)))
+
+    def group_response(self, z: torch.Tensor, side: str) -> torch.Tensor:
+        """(G, F) complex response of the ``side`` ("output" or "input") head."""
+        if getattr(self, f"use_svf_in_{side}"):
+            resp, _, _ = svf_params_to_response(
+                getattr(self, f"{side}_svf_params"), self.cutoff_values, z,
+                self.compress_pole_factor, self.filter_types,
+            )
+            return resp
+        scalars = getattr(self, f"{side}_scalars")[:, :1].to(torch.complex64)
+        return scalars.expand(self.num_groups, z.shape[0])
+
+    def forward(self, x: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """(F,) complex transfer function at ``x["z_values"]``, plus
+        ``x["target_early_response"]`` (F,) when present."""
+        z = x["z_values"]
+        direct = x.get("target_early_response")
+        h = self.transfer_function_group_heads(
+            z, self.group_response(z, "output")[None],
+            None if direct is None else direct[None],
+            b_group=self.group_response(z, "input")[None],
+        )
+        return h[0]
 
 
 class DiffDirectionalFDNVarReceiverPos(DiffGFDN):

@@ -1,28 +1,41 @@
-"""Grid-of-receivers training entry points (port of ``training/solver.py``).
+"""Training entry points (port of ``training/solver.py``).
 
 :func:`run_training_var_receiver_pos` parses the dataset, builds the model,
 draws the same test / train / valid splits as the JAX package for the seed,
 trains through :class:`GFDNTrainer.fit_indexed` and exports the parameters,
-loss curves and (optionally) RIR wavs. It runs on CUDA unless the caller
-passes ``device="cpu"``.
+loss curves and (optionally) RIR wavs. Every entry point runs on CUDA unless
+the caller passes ``device="cpu"``.
 
 :func:`run_training_anisotropic_decay_var_receiver_pos` trains a
 directional FDN on a spatial dataset: the model built for the dataset's
 directions, the grid-resolution split (or the seeded random one), the decay
 envelopes of the common decay times, and :class:`DirectionalGFDNTrainer`.
 
+:func:`run_training_single_pos` fits one RIR read from ``config.ir_path``
+(the position parsed from its name): :class:`DiffGFDNSinglePos`, one
+full-spectrum batch an epoch, :class:`SinglePosGFDNTrainer`.
+
+With ``use_colorless_prototype`` each solver first trains one colorless
+prototype FDN per group (:func:`run_training_colorless_fdn`, skipping groups
+whose results are cached under ``<train_dir>/colorless-fdn``), or, with
+``saved_param_path``, loads saved ones (grid and directional solvers, as in
+JAX); the prototypes fix the io gains and start the feedback blocks.
+
 A config with ``subband_process_config`` trains one octave band: the
 trainer multiplies H by the band filter's response on the training grid
 (:func:`subband_resp`), as the JAX solver does.
 
-Not ported yet, each raising NotImplementedError: the colorless prototype
-(ROADMAP A10) and the MLP hyper-parameter search (ROADMAP A10).
+Not ported yet: the MLP hyper-parameter search (raises NotImplementedError
+naming ROADMAP A10), and frequency sharding over several cards
+(``use_freq_parallel``: one card trains unsharded, ROADMAP A14).
 """
 
 import logging
 import os
+from pathlib import Path
+import re
 import time
-from typing import Optional, Tuple, Union
+from typing import List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -35,7 +48,7 @@ from ..data.batching import (
     index_batches,
     train_valid_split,
 )
-from ..data.room_dataset import RoomDataset, ThreeRoomDataset
+from ..data.room_dataset import RIRData, RoomDataset, ThreeRoomDataset
 from ..data.spatial_dataset import (
     arrays_from_spatial_dataset,
     SpatialRoomDataset,
@@ -45,9 +58,17 @@ from ..losses.spatial import make_decay_envelopes
 from ..ops.basic import ms_to_samps
 from ..ops.filterbanks import subband_filter_response
 from ..utils.device import resolve_device
-from .build import build_gfdn_model
-from .save_results import save_diff_gfdn_parameters, save_loss
-from .trainer import DirectionalGFDNTrainer, GFDNTrainer
+from .build import (
+    build_colorless_fdn,
+    build_gfdn_model,
+    colorless_result_path,
+    ColorlessFDNResults,
+    load_colorless_fdn_params,
+    load_colorless_result,
+)
+from .colorless_trainer import ColorlessFDNTrainer
+from .save_results import save_colorless_fdn_parameters, save_diff_gfdn_parameters, save_loss
+from .trainer import DirectionalGFDNTrainer, GFDNTrainer, SinglePosGFDNTrainer
 
 logger = logging.getLogger("diffgfdn_torch")
 
@@ -94,10 +115,44 @@ def _check_ported(config: DiffGFDNConfig) -> None:
         raise NotImplementedError(
             "the MLP hyper-parameter search (mlp_tuning_config) is not ported yet (ROADMAP A10)"
         )
-    if config.colorless_fdn_config.use_colorless_prototype:
-        raise NotImplementedError(
-            "use_colorless_prototype (colorless warm start) is not ported yet (ROADMAP A10)"
+
+
+def run_training_colorless_fdn(
+    config: DiffGFDNConfig, num_freq_samples: int, device: Union[str, torch.device] = "cuda"
+) -> List[ColorlessFDNResults]:
+    """Train (or load cached) colorless prototypes, one per group, on
+    ``num_freq_samples`` bins; each group's results are pickled under
+    ``<train_dir>/colorless-fdn`` and a group whose pickle exists is not
+    trained again."""
+    dev = resolve_device(device)
+    colorless_dir = Path(config.trainer_config.train_dir) / "colorless-fdn"
+    results: List[ColorlessFDNResults] = []
+    for g in range(config.num_groups):
+        cached = colorless_result_path(colorless_dir, g)
+        if cached.exists():
+            results.append(load_colorless_result(cached))
+            continue
+        model = build_colorless_fdn(config, g, device=dev)
+        trainer = ColorlessFDNTrainer(
+            model, config.colorless_fdn_config, str(colorless_dir / f"group{g}"),
+            use_asym_loss=config.trainer_config.use_asym_spectral_loss, device=dev,
         )
+        trainer.fit(num_freq_samples, seed=config.seed + g)
+        results.append(save_colorless_fdn_parameters(model, colorless_dir, g))
+    return results
+
+
+def colorless_prototypes(config: DiffGFDNConfig, num_freq_bins: int,
+                         device: torch.device) -> Optional[List[ColorlessFDNResults]]:
+    """The grid and directional solvers' warm start: None without
+    ``use_colorless_prototype``, else the saved results at ``saved_param_path``
+    or prototypes trained on nfft / 16 bins."""
+    ccfg = config.colorless_fdn_config
+    if not ccfg.use_colorless_prototype:
+        return None
+    if ccfg.load_fixed_parameters:
+        return load_colorless_fdn_params(config, ccfg.saved_param_path)
+    return run_training_colorless_fdn(config, num_freq_bins // 16, device)
 
 
 def run_training_var_receiver_pos(
@@ -122,6 +177,7 @@ def run_training_var_receiver_pos(
     model = build_gfdn_model(
         config, common_decay_times=room_data.common_decay_times,
         band_centre_hz=room_data.band_centre_hz, device=dev,
+        colorless_params=colorless_prototypes(config, room_data.num_freq_bins, dev),
     )
     arrays = arrays_from_room_dataset(
         room_data,
@@ -180,6 +236,7 @@ def run_training_anisotropic_decay_var_receiver_pos(
         config, common_decay_times=room_data.common_decay_times,
         band_centre_hz=room_data.band_centre_hz, variant="directional", device=dev,
         desired_directions=room_data.desired_directions,
+        colorless_params=colorless_prototypes(config, room_data.num_freq_bins, dev),
     )
     arrays = arrays_from_spatial_dataset(
         room_data,
@@ -208,6 +265,76 @@ def run_training_anisotropic_decay_var_receiver_pos(
     logger.info("fit_indexed total: %.1fs", time.time() - t)
     save_diff_gfdn_parameters(model, tc.train_dir)
     save_loss(trainer.train_loss, trainer.valid_loss, tc.train_dir)
+    return trainer, model
+
+
+def parse_position_from_filename(path) -> Optional[np.ndarray]:
+    """The "(x, y, z)" receiver coordinates of an IR file name such as
+    ``ir_(1.74, 4.50, 1.50).wav`` as float32 (3,), or None."""
+    m = re.search(r"\(\s*(-?[\d.]+),\s*(-?[\d.]+),\s*(-?[\d.]+)\s*\)", str(path))
+    if m is None:
+        return None
+    return np.array([float(g) for g in m.groups()], np.float32)
+
+
+def single_pos_batch(config: DiffGFDNConfig, rir_data: RIRData) -> dict:
+    """The full-spectrum batch of a single-position fit (numpy): z on the
+    (reduced-radius) circle, the position parsed from ``ir_path`` (zeros
+    when it names none), and the early, late and whole target spectra."""
+    tc = config.trainer_config
+    radius = 1.0 if tc.reduced_pole_radius == 1.0 else 1.0 / tc.reduced_pole_radius
+    z = (radius * np.exp(1j * rir_data.freq_bins_rad)).astype(np.complex64)
+    early, late = rir_data.split_responses()
+    pos = None if config.ir_path is None else parse_position_from_filename(config.ir_path)
+    pos = np.zeros(3, np.float32) if pos is None else pos
+    return {
+        "z_values": z,
+        "listener_position": pos[None, :],
+        "norm_listener_position": np.zeros((1, 3), np.float32),
+        "target_early_response": early.astype(np.complex64),
+        "target_late_response": late.astype(np.complex64),
+        "target_rir_response": rir_data.rir_mag_response.astype(np.complex64),
+    }
+
+
+def run_training_single_pos(
+    config: DiffGFDNConfig,
+    rir_data: Optional[RIRData] = None,
+    device: Union[str, torch.device] = "cuda",
+) -> Tuple[SinglePosGFDNTrainer, torch.nn.Module]:
+    """Single-RIR fit on whole-spectrum batches; returns (trainer, model).
+
+    ``rir_data`` defaults to the wav at ``config.ir_path`` with a broadband
+    0.5 s decay time per group (nfft from ``num_freq_bins``, else the next
+    power of 2 of 0.5 s). ``use_freq_parallel`` set to true trains unsharded
+    on the one card, with JAX's one-device warning.
+    """
+    dev = resolve_device(device)
+    tc = config.trainer_config
+    if rir_data is None:
+        rir_data = RIRData.from_wav(
+            config.ir_path, common_decay_times=np.array([0.5] * config.num_groups),
+            nfft=tc.num_freq_bins,
+        )
+    check_sample_rate(config, rir_data)
+    colorless_params = None
+    if config.colorless_fdn_config.use_colorless_prototype:
+        colorless_params = run_training_colorless_fdn(config, rir_data.num_freq_bins // 16, dev)
+    if tc.use_freq_parallel:
+        logger.warning("use_freq_parallel=true but only one device is visible; "
+                       "training unsharded")
+    model = build_gfdn_model(
+        config, common_decay_times=rir_data.common_decay_times,
+        band_centre_hz=rir_data.band_centre_hz, variant="single_pos", device=dev,
+        colorless_params=colorless_params,
+    )
+    trainer = SinglePosGFDNTrainer(
+        model, tc, steps_per_epoch=1, common_decay_times=rir_data.common_decay_times,
+        subband_filter_resp=subband_resp(config), sample_rate=config.sample_rate, device=dev,
+    )
+    trainer.fit(single_pos_batch(config, rir_data), seed=config.seed)
+    save_diff_gfdn_parameters(model, tc.train_dir)
+    save_loss(trainer.train_loss, None, tc.train_dir)
     return trainer, model
 
 

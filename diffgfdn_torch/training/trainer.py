@@ -1,6 +1,7 @@
-"""Grid-of-receivers GFDN training on the device (port of ``training/trainer.py`` GFDNTrainer).
+"""GFDN training on the device (port of ``training/trainer.py``).
 
-The precomputed-target path of the JAX trainer, which
+:class:`GFDNTrainer` fits a grid of receivers through the
+precomputed-target path of the JAX trainer, which
 ``run_training_var_receiver_pos`` takes:
 
 * the dataset's time-domain RIRs and early segments are uploaded once; the
@@ -35,6 +36,10 @@ colorless loss is on, the step evaluates the sub-FDN inverse once for both
 (it depends on M alone, not on the gains), as the JAX trainer's two
 evaluations give the same values.
 
+A single-position fit (:class:`SinglePosGFDNTrainer`) uploads its one
+full-spectrum batch once and compares raw spectra each step, as JAX's
+trainer does for a batch without precomputed features.
+
 Each step's gradients run through the hand-written backward kernels: B2
 (``neg_ptgpt``) behind ``block_responses`` and ``sub_fdn_output``, B4
 (``sos_cascade_backward``) behind the SVF heads, B6 (``lut_apply``) behind
@@ -51,8 +56,8 @@ import torch
 
 from ..config.schema import TrainerConfig
 from ..data.audio import write_wav
-from ..losses import amse_loss, directional_edc_loss_from_sh, edc_loss_from_rir, edc_mask
-from ..losses import edr_loss_from_rir, mse_loss, sparsity_loss
+from ..losses import amse_loss, directional_edc_loss_from_sh, edc_loss, edc_loss_from_rir
+from ..losses import edc_mask, edr_loss, edr_loss_from_rir, mse_loss, sparsity_loss
 from ..ops.basic import db, ms_to_samps, schroeder_backward_int
 from ..ops.stft import edr_from_stft, stft
 from ..utils.device import resolve_device
@@ -107,7 +112,9 @@ def gfdn_losses(
 ) -> Dict[str, torch.Tensor]:
     """The weighted losses of one batch against its precomputed target
     features (JAX ``GFDNTrainer._losses``' fast path, and the band loss of
-    ``parallel/band_parallel.py``): EDC from sample ``mixing`` to ``max_len``
+    ``parallel/band_parallel.py``), or, for a batch without them (a
+    single-position fit's), against its raw ``target_rir_response``
+    (the JAX trainer's other branch): EDC from sample ``mixing`` to ``max_len``
     (with the time ``mask`` when given), EDR, and with the colorless loss the
     sub-FDNs' spectral and sparsity terms. ``band_resp`` (F,) complex, when
     given, multiplies H (subband training); the sub-FDN terms take the
@@ -124,8 +131,15 @@ def gfdn_losses(
         losses = {"edc_loss": cfg.edc_loss_weight * directional_edc_loss_from_sh(
             h, model.analysis_matrix, batch["target_common_slope_amps"], envelopes, mixing,
             max_len, mask)}
-    else:
+    elif "target_edc_db" in batch:
         losses = _omni_losses(cfg, batch, h, mixing, max_len, edr_win, edr_hop, mask)
+    else:  # a single-position batch: the raw target spectrum
+        target = batch["target_rir_response"]
+        losses = {
+            "edr_loss": cfg.edr_loss_weight * edr_loss(
+                target, h, edr_win, edr_hop, reduced_pole_radius=cfg.reduced_pole_radius),
+            "edc_loss": cfg.edc_loss_weight * edc_loss(target, h, mixing, max_len, mask),
+        }
     if cfg.use_colorless_loss:
         h_out, _ = model.sub_fdn_output(sub_fdn_bins(model, batch["z_values"]),
                                         sub_inverse)  # (F, G)
@@ -356,12 +370,15 @@ class GFDNTrainer:
 
     def _normalize_params(self, keep_inverse: bool = False) -> Optional[torch.Tensor]:
         """Scale b and c so each sub-FDN has unit average energy: divide each
-        group's io gains by E[|H_sub_g|^2]^(1/4), in place.
+        group's io gains by E[|H_sub_g|^2]^(1/4), in place. A no-op returning
+        None when the io gains are fixed (a colorless warm start), as in JAX.
 
         ``keep_inverse``: evaluate the sub-FDN inverse with its autograd graph
         and return it, for the step's colorless loss to reuse (the gains
         rescaled here do not enter it); else return None.
         """
+        if self.model.io_gains_fixed:
+            return None
         z = sub_fdn_bins(self.model, self.data["z_values"])
         with torch.set_grad_enabled(keep_inverse):
             p = self.model.sub_fdn_inverse(z)
@@ -550,3 +567,84 @@ class DirectionalGFDNTrainer(GFDNTrainer):
                 arrays.target_common_slope_amps, dtype=torch.float32, device=self.device),
         }
         return self.data
+
+
+class SinglePosGFDNTrainer(GFDNTrainer):
+    """Single-RIR fit: one full-spectrum batch, on the card once, one
+    optimizer step an epoch, early stopping on the train loss (tolerance
+    1e-4, patience 5).
+
+    The losses compare raw spectra (:func:`gfdn_losses`' single-position
+    branch). Before the first step the io gains are normalized per sub-FDN
+    (unless fixed by a colorless warm start), then, when both heads are
+    scalars, the io scalars are scaled so that the model's average energy
+    matches the target's.
+    """
+
+    early_stop_tol = 1e-4
+
+    @torch.no_grad()
+    def upload_batch(self, batch: Dict[str, np.ndarray]) -> Batch:
+        """The full-spectrum batch (numpy) on the device, once."""
+        self.data = {k: torch.as_tensor(np.asarray(v), device=self.device)
+                     for k, v in batch.items()}
+        return self.data
+
+    @torch.no_grad()
+    def _normalize_params(self, keep_inverse: bool = False) -> Optional[torch.Tensor]:
+        """The sub-FDN normalization, then the energy match of the io scalars:
+        both divided by (E|H|^2 / E|target|^2)^(1/4), in place."""
+        super()._normalize_params()
+        model = self.model
+        if model.use_svf_in_output or model.use_svf_in_input:
+            return None
+        h = model(self.data)
+        if self.subband_filter_resp is not None:
+            h = h * self.subband_filter_resp
+        energy_h = torch.mean(torch.abs(h) ** 2)
+        energy_t = torch.mean(torch.abs(self.data["target_rir_response"]) ** 2)
+        ratio = torch.pow(energy_h / (energy_t + 1e-12), 0.25)
+        model.input_scalars.div_(ratio)
+        model.output_scalars.div_(ratio)
+        return None
+
+    def fit_step(self, idx: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """One optimizer step on the whole spectrum (``idx`` is not used: the
+        batch is the single position). Returns the device-resident losses."""
+        total, aux = self.loss_and_grads(self.data)
+        self.optimizer.step()
+        self.scheduler.step()
+        return total, aux
+
+    def fit(self, batch: Dict[str, np.ndarray], seed: int = 0) -> torch.nn.Module:
+        """Train on the full-spectrum ``batch`` (numpy: ``z_values``,
+        ``listener_position``, ``norm_listener_position``,
+        ``target_early_response``, ``target_late_response``,
+        ``target_rir_response``) for up to ``max_epochs`` epochs of one step;
+        returns the trained model."""
+        cfg = self.cfg
+        self.optimizer, self.scheduler = make_optimizer(cfg, self.model, 1)
+        self.mask_generator.manual_seed(seed)
+        self.upload_batch(batch)
+        self._normalize_params()
+        save_checkpoint(cfg.train_dir, -1, jax_params_from_torch(self.model))
+        start = time.time()
+        for epoch in range(cfg.max_epochs):
+            total, aux = self.fit_step()
+            keys = list(aux)
+            host = torch.stack([total] + [aux[k] for k in keys]).tolist()  # one read
+            self.train_loss.append(host[0])
+            self.individual_train_loss.append(dict(zip(keys, host[1:])))
+            save_checkpoint(cfg.train_dir, epoch, jax_params_from_torch(self.model))
+            logger.info("epoch %d train %.4f", epoch, self.train_loss[-1])
+            if len(self.train_loss) >= 2:
+                if abs(self.train_loss[-2] - self.train_loss[-1]) <= self.early_stop_tol:
+                    self._early_stop += 1
+                else:
+                    self._early_stop = 0
+            if self._early_stop == self.patience:
+                logger.info("early stopping at epoch %d", epoch)
+                break
+        logger.info("training time: %.3fs", time.time() - start)
+        return self.model

@@ -12,7 +12,9 @@ common-slopes heads' ``{"MLP_0": ...}`` alike):
 * ``LayerNorm_i/scale`` -> ``norm.i.weight``; ``LayerNorm_i/bias`` -> ``norm.i.bias``;
 * every other key keeps its name (``input_gains``, ``output_gains``,
   ``feedback_loop/M``, ``feedback_loop/alpha``, ``output_filters``,
-  ``output_scalars``, ``sh_output_scalars``).
+  ``output_scalars``, ``sh_output_scalars``; a single-position model's
+  ``output_svf_params``, ``input_svf_params``, ``input_scalars`` and
+  ``output_scalars``; a colorless FDN's ``feedback_loop/random_feedback_matrix``).
 
 Gradients map by the same rules (:func:`jax_grads_from_torch`), and the
 optimizer's parameter groups are labelled on the flax path

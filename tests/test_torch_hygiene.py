@@ -4,6 +4,7 @@ from pathlib import Path
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -70,6 +71,37 @@ def test_training_entry_points_default_to_cuda_and_raise_without_a_card(tmp_path
         run_training_var_receiver_pos(cfg, room)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cli_main(["-c", "three_room_example"])
+    assert not (tmp_path / "train").exists()
+
+
+def test_single_position_and_colorless_entry_points_default_to_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card: the default device is valid here")
+    from diffgfdn_torch.cli.run_model import main as cli_main
+    from diffgfdn_torch.config import preset_config
+    from diffgfdn_torch.data import RIRData
+    from diffgfdn_torch.training import (
+        build_colorless_fdn,
+        ColorlessFDNTrainer,
+        run_training_colorless_fdn,
+        run_training_single_pos,
+    )
+
+    cfg = preset_config("single_rir_two_stage_colorless_proto", sample_rate=8000.0)
+    cfg.trainer_config.train_dir = str(tmp_path / "train")
+    rir = RIRData(rir=np.zeros(800, np.float32), sample_rate=8000.0,
+                  common_decay_times=np.array([0.5, 0.5]), nfft=512)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_training_single_pos(cfg, rir)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_training_colorless_fdn(cfg, 32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_colorless_fdn(cfg, 0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ColorlessFDNTrainer(build_colorless_fdn(cfg, 0, device="cpu"),
+                            cfg.colorless_fdn_config, str(tmp_path / "c"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli_main(["-c", "single_rir_example"])  # ir_path: the single-position fit
     assert not (tmp_path / "train").exists()
 
 

@@ -99,7 +99,6 @@ def test_seeded_init_is_deterministic():
     [
         ({"feedback_loop_config": {"coupling_matrix_type": "filter_matrix"}}, "A4"),
         ({"feedback_loop_config": {"coupling_matrix_type": "random_matrix"}}, "A4"),
-        ({"colorless_fdn_config": {"use_colorless_prototype": True}}, "A10"),
         ({"output_filter_config": {"encoding_type": "meshgrid"}}, "A4"),
         ({"decay_filter_config": {"learn_common_decay_times": True}}, "A7"),
     ],
@@ -114,14 +113,26 @@ def test_unported_options_raise_naming_the_roadmap_item(override, item):
 
 
 def test_other_variants_raise():
-    """The single-position and source-conditioned variants still raise
-    naming ROADMAP A10; the directional one builds (its parity with JAX is
-    in test_torch_directional_model.py)."""
+    """The source-conditioned variant still raises naming ROADMAP A10; the
+    single-position one builds (its parity with JAX is in
+    test_torch_single_pos.py), and so does the directional one (in
+    test_torch_directional_model.py). RANDOM coupling with the colorless
+    loss is refused as JAX refuses it."""
     cfg = DiffGFDNConfig.from_dict(dict(seed=3, sample_rate=8000.0, num_delay_lines=6,
                                         delay_range_ms=[20.0, 45.0]))
-    for variant in ("single_pos", "var_source_receiver"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-            build_gfdn_model(cfg, np.array([0.5, 0.6, 0.7]), variant=variant, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+        build_gfdn_model(cfg, np.array([0.5, 0.6, 0.7]), variant="var_source_receiver",
+                         device="cpu")
+    single = build_gfdn_model(cfg, np.array([0.5, 0.6, 0.7]), variant="single_pos",
+                              device="cpu")
+    assert {n for n, _ in single.named_parameters()} == {
+        "input_gains", "output_gains", "feedback_loop.M", "output_svf_params", "input_svf_params"}
+    random_loss = DiffGFDNConfig.from_dict(dict(
+        seed=3, sample_rate=8000.0, num_delay_lines=6, delay_range_ms=[20.0, 45.0],
+        feedback_loop_config=dict(coupling_matrix_type="random_matrix"),
+        trainer_config=dict(use_colorless_loss=True)))
+    with pytest.raises(ValueError, match="RANDOM has no per-group sub-FDNs"):
+        build_gfdn_model(random_loss, np.array([0.5, 0.6, 0.7]), device="cpu")
     directional = DiffGFDNConfig.from_dict(dict(
         seed=3, sample_rate=8000.0, ambi_order=1, delay_range_ms=[20.0, 45.0],
         decay_filter_config=dict(use_absorption_filters=False),

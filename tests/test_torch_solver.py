@@ -6,7 +6,9 @@
   JAX package loads the last checkpoint and serves the same H as the port's
   trained model, to <= 2e-3 relative L2 (the H bound of test_torch_models.py);
 * a run resumed after its first epoch ends where an uninterrupted run ends;
-* the CLI trains from a YAML file and refuses the variants not ported yet.
+* the CLI trains from a YAML file, sends a config with ``ir_path`` to the
+  single-position solver (and refuses ``--resume`` for it) and one with
+  ``ambi_order`` to the directional solver.
 """
 
 import jax
@@ -108,9 +110,16 @@ def test_cli_trains_from_yaml_and_refuses_unported_variants(tmp_path, monkeypatc
     train_dir = tmp_path / "train_svfFalse_zcTrue"
     assert (train_dir / "checkpoints" / "model_e0.ckpt").exists()
     assert (train_dir / "config_args.pickle").exists()
+    # a config with ir_path goes to the single-position solver (trained end to
+    # end in test_torch_single_pos.py), which takes no --resume
+    single = []
+    monkeypatch.setattr(port_solver, "run_training_single_pos",
+                        lambda cfg, **kw: single.append((cfg.ir_path, kw)))
     path.write_text(yaml.safe_dump(dict(raw, ir_path="rir.wav")))
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        cli_main(["-c", str(path), "--device", "cpu"])
+    cli_main(["-c", str(path), "--device", "cpu"])
+    assert single == [("rir.wav", {"device": torch.device("cpu")})]
+    with pytest.raises(SystemExit):
+        cli_main(["-c", str(path), "--device", "cpu", "--resume"])
     # a config with ambi_order goes to the directional solver on the spatial
     # dataset (trained end to end in test_torch_directional_solver.py)
     calls = []

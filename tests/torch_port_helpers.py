@@ -305,3 +305,98 @@ def cs_models(jcfg, cfg, jax_room, num_init: int = 16):
     model = build_spatial_model(cfg, jax_room.num_rooms, jax_room.ambi_order, device="cpu")
     load_jax_params(model, params)
     return jmodel, params, model
+
+
+# single-position tests: a two-slope synthetic RIR written as a wav at 8 kHz,
+# fit at nfft 2^12 with a 0.5 s broadband decay time per group, as
+# run_training_single_pos reads it
+SINGLE_POS_NFFT = 2 ** 12
+SINGLE_POS_WAV = "ir_(1.20, 3.40, 0.90).wav"
+
+
+def write_two_slope_wav(directory, fs: float = FS, seconds: float = 0.45, seed: int = 3,
+                        name: str = SINGLE_POS_WAV, dtype=np.float32):
+    """A direct impulse and noise under two exponential decays (T60 0.15 and
+    0.6 s), peak 0.9, written as ``directory / name``; returns the path."""
+    from diffgfdn_tpu.data.audio import write_wav
+
+    rng = np.random.RandomState(seed)
+    t = np.arange(int(seconds * fs)) / fs
+    rir = rng.randn(t.size) * (np.exp(-6.9 * t / 0.15) + 0.2 * np.exp(-6.9 * t / 0.6))
+    rir[0] = 4.0
+    rir = 0.9 * rir / np.abs(rir).max()
+    path = directory / name
+    if dtype == np.int16:
+        from scipy.io import wavfile
+
+        wavfile.write(str(path), int(fs), (rir * 32767).astype(np.int16))
+    else:
+        write_wav(path, rir.astype(np.float32), fs)
+    return path
+
+
+def single_pos_raw(tmp_path, svf_out: bool, svf_in: bool, num_groups: int = 3,
+                   num_delay_lines: int = 12, epochs: int = 3, **trainer) -> dict:
+    """A single-position config: per-group SVF or scalar heads on each side,
+    scalar absorption, nfft 2^12 at 8 kHz; ``trainer`` updates the trainer config."""
+    return dict(
+        seed=5, num_groups=num_groups, sample_rate=FS, num_delay_lines=num_delay_lines,
+        delay_range_ms=[20.0, 45.0], ir_path=str(tmp_path / SINGLE_POS_WAV),
+        trainer_config={
+            **dict(batch_size=1, num_freq_bins=SINGLE_POS_NFFT, max_epochs=epochs, lr=1e-2,
+                   io_lr=0.05, train_dir=str(tmp_path / f"sp_out{svf_out}_in{svf_in}"),
+                   ir_dir=str(tmp_path / "audio")),
+            **trainer,
+        },
+        output_filter_config=dict(use_svfs=svf_out),
+        input_filter_config=dict(use_svfs=svf_in) if svf_in else None,
+        decay_filter_config=dict(use_absorption_filters=False),
+        colorless_fdn_config=dict(use_colorless_prototype=False),
+    )
+
+
+def single_pos_batch(jcfg, rir):
+    """The full-spectrum batch JAX's run_training_single_pos builds (numpy)."""
+    from diffgfdn_tpu.training.solver import parse_position_from_filename
+
+    z = np.exp(1j * rir.freq_bins_rad).astype(np.complex64)
+    early, late = rir.split_responses()
+    return {
+        "z_values": z,
+        "listener_position": parse_position_from_filename(jcfg.ir_path)[None, :],
+        "norm_listener_position": np.zeros((1, 3), np.float32),
+        "target_early_response": early.astype(np.complex64),
+        "target_late_response": late.astype(np.complex64),
+        "target_rir_response": rir.rir_mag_response.astype(np.complex64),
+    }
+
+
+def single_pos_models(raw, tmp_path, colorless_params=None):
+    """(JAX config, JAX model, its initial params, port model with them
+    loaded, the numpy batch, the port's RIRData) of a single-position config,
+    the wav written first."""
+    import jax
+
+    from diffgfdn_torch.config.schema import DiffGFDNConfig
+    from diffgfdn_torch.data import RIRData
+    from diffgfdn_torch.training import build_gfdn_model
+    from diffgfdn_torch.utils.params import load_jax_params
+    from diffgfdn_tpu.config.schema import DiffGFDNConfig as JaxDiffGFDNConfig
+    from diffgfdn_tpu.data.room_dataset import RIRData as JaxRIRData
+    from diffgfdn_tpu.training.build import build_gfdn_model as jax_build
+    from diffgfdn_tpu.utils.cio import init_with_batch
+
+    path = write_two_slope_wav(tmp_path)
+    jcfg = JaxDiffGFDNConfig.model_validate(raw)
+    cdt = np.array([0.5] * jcfg.num_groups)
+    jrir = JaxRIRData.from_wav(path, common_decay_times=cdt, nfft=SINGLE_POS_NFFT)
+    rir = RIRData.from_wav(path, common_decay_times=cdt, nfft=SINGLE_POS_NFFT)
+    jmodel = jax_build(jcfg, common_decay_times=cdt, colorless_params=colorless_params,
+                       variant="single_pos", use_pallas_inverse=False)
+    batch = single_pos_batch(jcfg, jrir)
+    params = init_with_batch(jmodel, jax.random.PRNGKey(jcfg.seed), batch)
+    cfg = DiffGFDNConfig.from_dict(raw)
+    model = build_gfdn_model(cfg, cdt, variant="single_pos", device="cpu",
+                             colorless_params=colorless_params)
+    load_jax_params(model, params)
+    return jcfg, jmodel, params, model, batch, rir
