@@ -42,8 +42,22 @@ Phases (any failure raises and exits non-zero, with no result line):
    relative L2. The inputs each backward kernel got in that step are kept;
    each backward kernel is held against its plain version on them (1e-4;
    B2 bit for bit) and timed beside its bound, its plain version and the
-   library call computing the same function. Per configuration the phase prints the
-   median step time after a warm-up step, steps/s and the peak memory;
+   library call computing the same function. Per configuration the step
+   then runs through its CUDA graph and eagerly (``graphed_vs_eager``, as in
+   phases 7-10): the run must have replayed its captured step; the graphs
+   are made anew (a warm-up step, the capture), three graphed and three
+   eager steps from one restored state must agree (each loss 1e-6
+   relative, the parameters after the last step 1e-5 and its gradients
+   1e-3 relative L2), then five steps of each path are timed in turns
+   (eager, graphed, graphed, eager), the graphed ones under
+   ``torch.cuda.set_sync_debug_mode("error")``, with the same launches per
+   step on both paths. One more graphed step runs under torch.profiler: it
+   must replay its graph, and the launches the wrappers count for it (the
+   counts seen at the capture, added again on each replay) must equal the
+   hand-written kernels the card ran in it, kernel by kernel. The phase
+   prints both medians, steps/s, the warm-up and capture times, each path's
+   peak memory and the profiled step's idle share (with ``--log-dir``, beside
+   an eager step's);
 6. synthesize 96 RIRs per configuration in the time domain through the user
    entry point ``make_time_domain_synthesis_fn`` (the model as phase 2's
    ``InferDiffGFDN`` loaded it, num_samples = nfft, batches of 32). Each
@@ -72,8 +86,8 @@ Phases (any failure raises and exits non-zero, with no result line):
    the losses must be finite and each band's last checkpoint must load into
    its own model. Per group, one band-stacked step then runs on the kernels
    and on the plain versions (losses 1e-6 relative, every band's gradients
-   1e-3 relative L2), timed steps must launch each of B1, B2, B3, B5, B6
-   exactly once, and the phase prints steps/s and peak memory. At the
+   1e-3 relative L2), its graphed and eager steps are held and timed as in
+   phase 5, each of B1, B2, B3, B5, B6 launched exactly once a step. At the
    4-band group, B1-B6 are held against their plain versions at that
    step's band-stacked inputs (B1, B2, B5 bit for bit) and timed, and its
    last band's step against the sequential ``GFDNTrainer``'s (loss 1e-5,
@@ -102,7 +116,9 @@ Phases (any failure raises and exits non-zero, with no result line):
    (loss 1e-6 relative, gradients 1e-3 relative L2); B1, B2, B5 and B6 are
    held bit for bit to their plain versions at that step's 9 x 9 inputs
    (B6: the transposed solve's N > 8 kernel, its factors fetched ahead
-   through a ring of asynchronous copies, w in registers) and timed; timed steps must launch each exactly once. ``InferDiffGFDN``
+   through a ring of asynchronous copies, w in registers) and timed; its
+   graphed and eager steps are held and timed as in phase 5, each kernel
+   launched exactly once a step. ``InferDiffGFDN``
    with ``variant="directional"`` then serves 96 receivers' SH-domain RIRs
    (96, 9, 131072) from the trained checkpoint (vs plain rel L2 1e-3, EDC
    0.01 dB over 0.5 s), and ``make_time_domain_synthesis_fn`` synthesizes
@@ -122,9 +138,10 @@ Phases (any failure raises and exits non-zero, with no result line):
    RIRs finite and decaying; a directional step on the card must match the
    same step on the CPU (loss 1e-5 relative, gradients 1e-3 relative L2),
    the served amplitudes the CPU's (1e-5) and the synthesis the CPU's on one
-   noise tensor (1e-4 relative L2). Per preset and resolution the phase
-   prints the median step time and steps/s, epoch time, the first and last
-   losses and peak memory, and the served RIRs per second.
+   noise tensor (1e-4 relative L2). Per preset and resolution the step's
+   graphed and eager paths are held and timed as in phase 5; the phase
+   prints them, the epoch time, the first and last losses, and the served
+   RIRs per second.
 
 10. fit the single-RIR presets through the user entry point, the CLI
    ``python -m diffgfdn_torch.cli.run_model -c <preset>`` (each run from a
@@ -145,9 +162,9 @@ Phases (any failure raises and exits non-zero, with no result line):
    theirs. One step and one prototype step then run on the kernels and on
    the plain versions (loss 1e-6 relative, gradients 1e-3 relative L2); B1
    and B2 are held bit for bit at those steps' 4 x 4 and 8 x 8 inputs, B3
-   and B4 within 1e-4, and timed. Per preset the phase prints the median
-   step time after a warm-up, steps/s, one prototype epoch's time and the
-   peak memory (with ``--log-dir``, the profiled step's idle share).
+   and B4 within 1e-4, and timed. Per preset the step's (and a prototype
+   step's) graphed and eager paths are held and timed as in phase 5; the
+   phase prints them and one prototype epoch's time.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``. ``--kernel-times ROOT``
@@ -246,7 +263,12 @@ def device_busy_us(events, window) -> float:
 
 # device symbols of the hand-written kernels (csrc/*.cu)
 KERNEL_SYMBOLS = ("cinv_kernel", "neg_ptgpt_kernel", "sos_cascade_kernel", "sos_bwd_",
-                  "lu_solve_kernel", "lut_apply_kernel", "tdgfdn_kernel")
+                  "lu_solve_kernel", "lut_apply_kernel", "tdgfdn_")
+# the device symbol of the kernel that each counted wrapper launches once a call
+WRAPPER_SYMBOLS = {"cinv": "cinv_kernel", "neg_ptgpt": "neg_ptgpt_kernel",
+                   "sos": "sos_cascade_kernel", "sos_backward": "sos_bwd_partial_kernel",
+                   "lu": "lu_solve_kernel", "lut_apply": "lut_apply_kernel",
+                   "tdgfdn": "tdgfdn_"}
 
 
 def profile_window(events, label: str):
@@ -259,10 +281,9 @@ def profile_window(events, label: str):
                 if e.name == label and e.device_type == DeviceType.CPU)
 
 
-def profile_once(fn, label: str, table_path: Path):
-    """Run ``fn`` once under torch.profiler; write its tables (by device time,
-    then by host time) to ``table_path``; return (wall ms of the window,
-    device busy ms in it, device ms of the hand-written kernels in it)."""
+def profile_events(fn, label: str):
+    """Run ``fn`` once under torch.profiler, within a ``record_function``
+    named ``label``: (the profiler, its events, the label's window)."""
     import torch
     from torch.profiler import profile as tprofile, ProfilerActivity, record_function
 
@@ -270,15 +291,51 @@ def profile_once(fn, label: str, table_path: Path):
         with record_function(label):
             fn()
             torch.cuda.synchronize()
-    averages = prof.key_averages()
-    table_path.write_text(averages.table(sort_by="cuda_time_total", row_limit=60) + "\n"
-                          + averages.table(sort_by="self_cpu_time_total", row_limit=40))
     events = prof.events()
-    window = profile_window(events, label)
+    return prof, events, profile_window(events, label)
+
+
+def device_kernels(events, window) -> list:
+    """The kernels the card ran that started within ``window`` (no copies,
+    no annotations)."""
+    from torch.autograd import DeviceType
+
+    return [e for e in events if e.device_type == DeviceType.CUDA
+            and not e.is_user_annotation and not e.name.startswith(("Memcpy", "Memset"))
+            and window.start <= e.time_range.start < window.end]
+
+
+def wrapper_launches(kernels) -> dict:
+    """{counted wrapper name: how many of ``kernels`` (device events) are the
+    kernel it launches}, wrappers that launched none left out."""
+    out = {}
+    for name, symbol in WRAPPER_SYMBOLS.items():
+        n = sum(1 for e in kernels if symbol in e.name)
+        if n:
+            out[name] = n
+    return out
+
+
+def profile_numbers(prof, events, window, label: str, table_path=None):
+    """(wall ms of the window, device busy ms in it, device ms of the
+    hand-written kernels in it, the number of kernels the card ran in it);
+    with ``table_path``, the profile's tables (by device time, then by host
+    time) are written there."""
+    if table_path is not None:
+        averages = prof.key_averages()
+        table_path.write_text(averages.table(sort_by="cuda_time_total", row_limit=60) + "\n"
+                              + averages.table(sort_by="self_cpu_time_total", row_limit=40))
     busy = device_busy_us(events, window)
     require(busy > 0.0, f"{label}: the profiled window shows no device work")
     ours = [e for e in events if any(k in e.name for k in KERNEL_SYMBOLS)]
-    return window.elapsed_us() / 1e3, busy / 1e3, device_busy_us(ours, window) / 1e3
+    return (window.elapsed_us() / 1e3, busy / 1e3, device_busy_us(ours, window) / 1e3,
+            len(device_kernels(events, window)))
+
+
+def profile_once(fn, label: str, table_path: Path):
+    """Run ``fn`` once under torch.profiler and write its tables to
+    ``table_path``: :func:`profile_numbers` of it."""
+    return profile_numbers(*profile_events(fn, label), label, table_path)
 
 
 def edc_db(x: np.ndarray) -> np.ndarray:
@@ -303,27 +360,16 @@ def make_room(tmp: Path, name: str, fs: float, nfft: int):
     return room
 
 
-def kernel_wrappers():
-    """{name: the wrapper that counts the kernel's launches}."""
-    from diffgfdn_torch.kernels import cinv, lu, sos, tdgfdn
-
-    return {
-        "cinv": cinv.cinv,
-        "neg_ptgpt": cinv.neg_ptgpt,
-        "sos": sos.sos_cascade_response,
-        "sos_backward": sos.sos_cascade_backward,
-        "lu": lu.lu_solve,
-        "lut_apply": lu.lut_apply,
-        "tdgfdn": tdgfdn.delay_line_outputs,
-    }
-
-
 def launch_counts():
-    return {name: fn.launches for name, fn in kernel_wrappers().items()}
+    from diffgfdn_torch.kernels import counted_wrappers
+
+    return {name: fn.launches for name, fn in counted_wrappers().items()}
 
 
 def reset_counts() -> None:
-    for fn in kernel_wrappers().values():
+    from diffgfdn_torch.kernels import counted_wrappers
+
+    for fn in counted_wrappers().values():
         fn.launches = 0
 
 
@@ -385,7 +431,7 @@ def serve(name: str, tmp: Path, log_dir):
         plain_s = time.perf_counter() - t0
     profiled = {}
     if log_dir is not None:
-        wall, busy, ours = profile_once(lambda: infer.rirs_at(idx[:BATCH], BATCH),
+        wall, busy, ours, _ = profile_once(lambda: infer.rirs_at(idx[:BATCH], BATCH),
                                         "served_batch", Path(log_dir) / f"profile_{name}.txt")
         profiled = {
             "profiled_batch_ms": wall,
@@ -727,6 +773,152 @@ def rel_l2(a, b) -> float:
     return diff / ref if ref > 0.0 else diff
 
 
+# a training step captured in a CUDA graph (training/scan.py) against the
+# same step run eagerly (scan_epochs = False), from one state
+GRAPH_STEPS = 3
+GRAPH_LOSS_TOL = 1e-6  # each step's loss, relative
+GRAPH_PARAM_TOL = 1e-5  # each parameter after the last step, relative L2
+GRAPH_GRAD_TOL = 1e-3  # each gradient of the last step, relative L2
+
+
+class TrainerState:
+    """A trainer's parameters, Adam state, learning rates, schedule and EDC
+    mask generator, restored in place: a captured step reads them by address."""
+
+    def __init__(self, params: dict, optimizer, scheduler, generator=None):
+        import copy
+
+        self.params, self.optimizer, self.scheduler = params, optimizer, scheduler
+        self.generator = generator
+        self.values = {k: p.detach().clone() for k, p in params.items()}
+        self.adam = {p: {k: v.clone() for k, v in st.items()}
+                     for p, st in optimizer.state.items()}
+        self.lrs = [g["lr"].clone() for g in optimizer.param_groups]
+        self.schedule = copy.deepcopy(scheduler.state_dict())
+        self.rng = None if generator is None else generator.get_state()
+
+    def restore(self) -> None:
+        import copy
+
+        import torch
+
+        with torch.no_grad():
+            for k, p in self.params.items():
+                p.copy_(self.values[k])
+            for p, st in self.adam.items():
+                for k, v in st.items():
+                    self.optimizer.state[p][k].copy_(v)
+            for g, lr in zip(self.optimizer.param_groups, self.lrs):
+                g["lr"].copy_(lr)
+        self.scheduler.load_state_dict(copy.deepcopy(self.schedule))
+        if self.generator is not None:
+            self.generator.set_state(self.rng)
+
+
+@contextlib.contextmanager
+def syncs_raise():
+    """Within the block, an operation that waits for the card raises."""
+    import torch
+
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def graphed_vs_eager(label: str, trainer, params: dict, step, log_dir, generator=None) -> dict:
+    """A trainer's step (``step()``, returning the step's loss) through its
+    CUDA graph and eagerly, in one process.
+
+    The step graphs are made anew: a warm-up step and the capture. From one
+    state (``params``, Adam's, the schedule's and ``generator``'s), then
+    GRAPH_STEPS graphed steps and GRAPH_STEPS eager ones must agree: each
+    loss within GRAPH_LOSS_TOL, the parameters after the last step within
+    GRAPH_PARAM_TOL, its gradients within GRAPH_GRAD_TOL. Then TIMED_STEPS
+    steps of each path in turns (eager, graphed, graphed, eager), the
+    graphed ones under ``syncs_raise``; the launches per step of both paths
+    must be equal. Then one graphed step runs under the profiler: it must
+    replay a graph, and the launches the wrappers count for it (those a
+    replay adds, ``training/scan.py`` ``ReplayCounts``) must be the kernels
+    the card ran in it, kernel by kernel (``WRAPPER_SYMBOLS``); with
+    ``log_dir`` its tables are written there. Returns the numbers, with the
+    warm-up and capture times, each path's peak memory and the profiled
+    step's busy time and idle share.
+    """
+    import torch
+
+    trainer.scan_epochs = True
+    trainer.graphs.clear()
+    while trainer.graphs.get("train") is None or not trainer.graphs.get("train").captured:
+        step()
+    graph = trainer.graphs.get("train")
+    state = TrainerState(params, trainer.optimizer, trainer.scheduler, generator)
+    runs = {}
+    for scan in (True, False):
+        state.restore()
+        trainer.scan_epochs = scan
+        losses = torch.stack([step().detach().clone().reshape(-1) for _ in range(GRAPH_STEPS)])
+        runs[scan] = (losses, {k: p.detach().clone() for k, p in params.items()},
+                      {k: p.grad.clone() for k, p in params.items()})
+    (loss_g, par_g, grad_g), (loss_e, par_e, grad_e) = runs[True], runs[False]
+    loss_rel = float(torch.max(torch.abs(loss_g - loss_e) / torch.abs(loss_e)))
+    par_rel = max(rel_l2(par_g[k], par_e[k]) for k in par_e)
+    grad_rel = max(rel_l2(grad_g[k], grad_e[k]) for k in grad_e)
+    require(bool(torch.isfinite(loss_g).all()) and loss_rel <= GRAPH_LOSS_TOL
+            and par_rel <= GRAPH_PARAM_TOL and grad_rel <= GRAPH_GRAD_TOL,
+            f"{label}: graphed vs eager steps: loss {loss_rel}, parameters {par_rel}, "
+            f"gradients {grad_rel}")
+
+    times, peaks, per_step = {True: [], False: []}, {True: 0, False: 0}, {}
+    for scan in (False, True, True, False):
+        trainer.scan_epochs = scan
+        step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        for _ in range(TIMED_STEPS):
+            t0 = time.perf_counter()
+            with syncs_raise() if scan else contextlib.nullcontext():
+                step()
+            torch.cuda.synchronize()
+            times[scan].append(time.perf_counter() - t0)
+        per_step[scan] = {k: v / TIMED_STEPS for k, v in launch_counts().items() if v}
+        peaks[scan] = max(peaks[scan], torch.cuda.max_memory_allocated())
+    require(per_step[True] == per_step[False],
+            f"{label}: launches per graphed step {per_step[True]}, eager {per_step[False]}")
+    trainer.scan_epochs = True
+    graphed, eager = float(np.median(times[True])), float(np.median(times[False]))
+    out = {
+        "graph_vs_eager_loss_rel": loss_rel, "graph_vs_eager_param_rel_l2": par_rel,
+        "graph_vs_eager_grad_rel_l2": grad_rel,
+        "graphed_step_ms": graphed * 1e3, "graphed_steps_per_s": 1.0 / graphed,
+        "eager_step_ms": eager * 1e3, "eager_steps_per_s": 1.0 / eager,
+        "graphed_step_ms_all": [t * 1e3 for t in times[True]],
+        "eager_step_ms_all": [t * 1e3 for t in times[False]],
+        "warmup_s": graph.warmup_s, "capture_s": graph.capture_s,
+        "graphed_peak_mem_mb": peaks[True] / 2 ** 20, "eager_peak_mem_mb": peaks[False] / 2 ** 20,
+        "reserved_mem_mb": torch.cuda.memory_reserved() / 2 ** 20,
+        "launches_per_step": per_step[True],
+    }
+    replays = sum(g.replays for g in trainer.graphs)
+    reset_counts()
+    prof, events, window = profile_events(step, f"graphed_{label}")
+    counted = {k: v for k, v in launch_counts().items() if v}
+    kernels = device_kernels(events, window)
+    ran = wrapper_launches(kernels)
+    require(sum(g.replays for g in trainer.graphs) > replays and len(kernels) > 0,
+            f"{label}: the profiled graphed step replayed no graph or ran no kernel")
+    require(ran == counted, f"{label}: a graphed step counted the launches {counted}, "
+            f"the card ran {ran}")
+    table = None if log_dir is None else Path(log_dir) / f"profile_graphed_{label}.txt"
+    wall, busy, ours, count = profile_numbers(prof, events, window, f"graphed_{label}", table)
+    out.update(graphed_profiled_step_ms=wall, graphed_profiled_device_busy_ms=busy,
+               graphed_profiled_kernels_ms=ours, graphed_profiled_kernel_count=count,
+               graphed_profiled_launches=ran, graphed_profiled_idle_share=1.0 - busy / wall)
+    return out
+
+
 def train(name: str, tmp: Path, log_dir):
     """Phase 5 for one configuration: returns (result, backward-kernel inputs, launches)."""
     import torch
@@ -759,6 +951,7 @@ def train(name: str, tmp: Path, log_dir):
     saved = torch_state_from_jax(load_checkpoint(tc.train_dir, TRAIN_EPOCHS - 1))
     for key, value in model.state_dict().items():
         require(torch.equal(saved[key], value.cpu()), f"{name}: checkpoint differs at {key}")
+    require(any(g.replays for g in trainer.graphs), f"{name}: the run replayed no captured step")
 
     # one step on the kernels and on the plain versions: same parameters,
     # batch and EDC mask; the kernels' step keeps each backward kernel's inputs
@@ -783,19 +976,11 @@ def train(name: str, tmp: Path, log_dir):
     require(grad_errs[worst] <= GRAD_TOL, f"{name}: gradient of {worst} kernels vs plain "
             f"{grad_errs[worst]}")
 
-    # step time, as fit_indexed runs a step: warm-up, then timed steps
-    trainer.fit_step(idx)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    times = []
-    for _ in range(TIMED_STEPS):
-        t0 = time.perf_counter()
-        trainer.fit_step(idx)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    per_step = {k: launch_counts()[k] / TIMED_STEPS for k in TRAIN_KERNELS[name]}
-    peak_step = torch.cuda.max_memory_allocated()
+    # the step graphed and eagerly: agreement, times in turns, no sync; then
+    # an eager step on the plain versions, and a profiled eager step
+    graph = graphed_vs_eager(name, trainer, dict(model.named_parameters()),
+                             lambda: trainer.fit_step(idx)[0], log_dir, trainer.mask_generator)
+    trainer.scan_epochs = False
     with plain_versions():
         t0 = time.perf_counter()
         trainer.fit_step(idx)
@@ -803,11 +988,12 @@ def train(name: str, tmp: Path, log_dir):
         plain_step_s = time.perf_counter() - t0
     profiled = {}
     if log_dir is not None:
-        wall, busy, ours = profile_once(lambda: trainer.fit_step(idx), "train_step",
-                                        Path(log_dir) / f"profile_train_{name}.txt")
-        profiled = {"profiled_step_ms": wall, "profiled_device_busy_ms": busy,
-                    "profiled_kernels_ms": ours, "profiled_idle_share": 1.0 - busy / wall}
-    step_s = float(np.median(times))
+        wall, busy, ours, _ = profile_once(lambda: trainer.fit_step(idx), "train_step",
+                                           Path(log_dir) / f"profile_train_{name}.txt")
+        profiled = {"eager_profiled_step_ms": wall, "eager_profiled_device_busy_ms": busy,
+                    "eager_profiled_kernels_ms": ours,
+                    "eager_profiled_idle_share": 1.0 - busy / wall}
+    trainer.scan_epochs = True
     result = {
         "config": name,
         "epochs": TRAIN_EPOCHS,
@@ -817,16 +1003,12 @@ def train(name: str, tmp: Path, log_dir):
         "run_s": run_s,
         "train_loss": trainer.train_loss,
         "valid_loss": trainer.valid_loss,
-        "step_ms": step_s * 1e3,
-        "step_ms_all": [t * 1e3 for t in times],
-        "steps_per_s": 1.0 / step_s,
-        "plain_step_ms": plain_step_s * 1e3,
+        "plain_eager_step_ms": plain_step_s * 1e3,
         "peak_mem_run_mb": peak_run / 2 ** 20,
-        "peak_mem_step_mb": peak_step / 2 ** 20,
         "step_loss_rel_vs_plain": loss_rel,
         "max_grad_rel_l2_vs_plain": grad_errs[worst],
         "launches": {k: launches[k] for k in TRAIN_KERNELS[name]},
-        "launches_per_step": per_step,
+        **graph,
         **profiled,
     }
     return result, inputs, launches
@@ -1283,7 +1465,7 @@ def time_domain(name: str, infer, log_dir):
         times.append(time.perf_counter() - t0)
     profiled = {}
     if log_dir is not None:
-        wall, busy, ours = profile_once(lambda: synth(batches[0]), "td_batch",
+        wall, busy, ours, _ = profile_once(lambda: synth(batches[0]), "td_batch",
                                         Path(log_dir) / f"profile_td_{name}.txt")
         profiled = {"profiled_batch_ms": wall, "profiled_device_busy_ms": busy,
                     "profiled_kernels_ms": ours, "profiled_idle_share": 1.0 - busy / wall}
@@ -1655,36 +1837,31 @@ def subband(tmp: Path, log_dir):
             result.update(sequential_band_hz=freqs[b], loss_rel_vs_sequential=seq_loss,
                           max_grad_rel_l2_vs_sequential=seq_grad)
             del seq, model, inputs
-        trainer.step(idx)  # warm-up
-        torch.cuda.synchronize()
-        reset_counts()
-        times = []
-        for _ in range(TIMED_STEPS):
-            t0 = time.perf_counter()
-            trainer.step(idx)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-        per_step = {k: launch_counts()[k] / TIMED_STEPS for k in SUBBAND_KERNELS}
-        require(all(v == 1 for v in per_step.values()),
-                f"subband {freqs}: launches per step {per_step}")
-        step_s = float(np.median(times))
-        result.update(step_ms=step_s * 1e3, steps_per_s=1.0 / step_s,
-                      step_ms_all=[t * 1e3 for t in times], launches_per_step=per_step,
-                      peak_mem_mb=torch.cuda.max_memory_allocated() / 2 ** 20)
+        label = f"subband_{len(group)}_bands_{freqs[0]:.0f}Hz"
+        graph = graphed_vs_eager(label, trainer, trainer.params,
+                                 lambda trainer=trainer: trainer.step(idx)[0], log_dir,
+                                 trainer.mask_generator)
+        require(graph["launches_per_step"] == {k: 1.0 for k in SUBBAND_KERNELS},
+                f"subband {freqs}: launches per step {graph['launches_per_step']}")
+        result.update(graph)
         if log_dir is not None:
-            wall, busy, ours = profile_once(
+            trainer.scan_epochs = False
+            wall, busy, ours, _ = profile_once(
                 lambda trainer=trainer: trainer.step(idx), "band_step",
-                Path(log_dir) / f"profile_subband_{len(group)}_bands_{freqs[0]:.0f}Hz.txt")
-            result.update(profiled_step_ms=wall, profiled_device_busy_ms=busy,
-                          profiled_kernels_ms=ours, profiled_idle_share=1.0 - busy / wall)
+                Path(log_dir) / f"profile_{label}.txt")
+            trainer.scan_epochs = True
+            result.update(eager_profiled_step_ms=wall, eager_profiled_device_busy_ms=busy,
+                          eager_profiled_kernels_ms=ours,
+                          eager_profiled_idle_share=1.0 - busy / wall)
         group_results.append(result)
         trainers.append(trainer)
 
     # every band's step: the groups' band-parallel steps against the eight
     # sequential trainers' steps, in turns
     seqs = sequential_trainers(configs, room, arrays, steps_per_epoch(len(splits[0][0]), BATCH))
-    for seq in seqs:
-        seq.fit_step(idx)  # warm-up
+    for seq in seqs:  # the warm-up step and the capture
+        seq.fit_step(idx)
+        seq.fit_step(idx)
     parallel_s, sequential_s = [], []
     for turn in range(TURNS):
         order = ("parallel", "sequential") if turn % 2 == 0 else ("sequential", "parallel")
@@ -1984,21 +2161,14 @@ def directional(tmp: Path, log_dir):
     rows = directional_rows(inputs, launches)
     del inputs
 
-    # step time, as fit_indexed runs a step: warm-up, then timed steps
-    trainer.fit_step(idx)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    times = []
-    for _ in range(TIMED_STEPS):
-        t0 = time.perf_counter()
-        trainer.fit_step(idx)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    per_step = {k: launch_counts()[k] / TIMED_STEPS for k in DIRECTIONAL_KERNELS}
-    require(all(v == 1 for v in per_step.values()),
+    # the step graphed and eagerly: agreement, times in turns, no sync
+    graph = graphed_vs_eager("directional", trainer, dict(model.named_parameters()),
+                             lambda: trainer.fit_step(idx)[0], log_dir, trainer.mask_generator)
+    per_step = graph["launches_per_step"]
+    require(per_step == {k: 1.0 for k in DIRECTIONAL_KERNELS},
             f"directional: launches per step {per_step}")
-    peak_step = torch.cuda.max_memory_allocated()
+    # an eager step on the plain versions, and a profiled eager step
+    trainer.scan_epochs = False
     with plain_versions():
         t0 = time.perf_counter()
         trainer.fit_step(idx)
@@ -2006,11 +2176,11 @@ def directional(tmp: Path, log_dir):
         plain_step_s = time.perf_counter() - t0
     profiled = {}
     if log_dir is not None:
-        wall, busy, ours = profile_once(lambda: trainer.fit_step(idx), "directional_step",
-                                        Path(log_dir) / "profile_train_directional.txt")
-        profiled = {"profiled_step_ms": wall, "profiled_device_busy_ms": busy,
-                    "profiled_kernels_ms": ours, "profiled_idle_share": 1.0 - busy / wall}
-    step_s = float(np.median(times))
+        wall, busy, ours, _ = profile_once(lambda: trainer.fit_step(idx), "directional_step",
+                                           Path(log_dir) / "profile_train_directional.txt")
+        profiled = {"eager_profiled_step_ms": wall, "eager_profiled_device_busy_ms": busy,
+                    "eager_profiled_kernels_ms": ours,
+                    "eager_profiled_idle_share": 1.0 - busy / wall}
     for row, kernel in zip(rows, DIRECTIONAL_KERNELS):
         row["launches_per_step"] = per_step[kernel]
     train_loss, valid_loss = trainer.train_loss, trainer.valid_loss
@@ -2092,10 +2262,8 @@ def directional(tmp: Path, log_dir):
         "launches": {k: launches[k] for k in DIRECTIONAL_KERNELS},
         "steps": steps, "valid_batches": valid,
         "step_loss_rel_vs_plain": loss_rel, "max_grad_rel_l2_vs_plain": grad_errs[worst],
-        "step_ms": step_s * 1e3, "step_ms_all": [t * 1e3 for t in times],
-        "steps_per_s": 1.0 / step_s, "plain_step_ms": plain_step_s * 1e3,
-        "launches_per_step": per_step, "peak_mem_run_mb": peak_run / 2 ** 20,
-        "peak_mem_step_mb": peak_step / 2 ** 20, **profiled,
+        "plain_eager_step_ms": plain_step_s * 1e3, "peak_mem_run_mb": peak_run / 2 ** 20,
+        **graph, **profiled,
         "served_rirs_per_s": NUM_RECEIVERS / float(np.median(serve_times)),
         "serve_s": serve_times, "serve_rel_l2_vs_plain": serve_rel,
         "serve_edc_max_abs_db_vs_plain": serve_edc,
@@ -2116,33 +2284,25 @@ SPATIAL_SYNTH_TOL = 1e-4  # synthesis on one noise tensor, card vs CPU, relative
 
 
 def spatial_step_times(trainer, train_idx: np.ndarray, log_dir, label: str) -> dict:
-    """Median wall time of ``fit_step`` on the first batch after a warm-up
-    step, steps/s, the peak memory of the timed steps (and what was already
-    allocated when they began, earlier phases' tensors included), and with
-    ``log_dir`` the card's idle share of one profiled step."""
+    """``fit_step`` on the first batch graphed and eagerly
+    (:func:`graphed_vs_eager`), what was already allocated when the steps
+    began (earlier phases' tensors included), and with ``log_dir`` the
+    card's idle share of one profiled eager step too."""
     import torch
 
     idx = torch.as_tensor(train_idx[: min(trainer.cfg.batch_size, len(train_idx))],
                           device=trainer.device)
-    trainer.fit_step(idx)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     resident = torch.cuda.memory_allocated()
-    times = []
-    for _ in range(TIMED_STEPS):
-        t0 = time.perf_counter()
-        trainer.fit_step(idx)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    step_s = float(np.median(times))
-    out = {"step_ms": step_s * 1e3, "steps_per_s": 1.0 / step_s,
-           "peak_mem_step_mb": torch.cuda.max_memory_allocated() / 2 ** 20,
-           "resident_mem_mb": resident / 2 ** 20}
+    out = graphed_vs_eager(label, trainer, dict(trainer.model.named_parameters()),
+                           lambda: trainer.fit_step(idx), log_dir)
+    out["resident_mem_mb"] = resident / 2 ** 20
     if log_dir is not None:
-        wall, busy, _ = profile_once(lambda: trainer.fit_step(idx), label,
-                                     Path(log_dir) / f"profile_{label}.txt")
-        out.update(profiled_step_ms=wall, profiled_device_busy_ms=busy,
-                   profiled_idle_share=1.0 - busy / wall)
+        trainer.scan_epochs = False
+        wall, busy, _, _ = profile_once(lambda: trainer.fit_step(idx), label,
+                                        Path(log_dir) / f"profile_{label}.txt")
+        trainer.scan_epochs = True
+        out.update(eager_profiled_step_ms=wall, eager_profiled_device_busy_ms=busy,
+                   eager_profiled_idle_share=1.0 - busy / wall)
     return out
 
 
@@ -2222,7 +2382,7 @@ def spatial_sampling(tmp: Path, log_dir):
                    "train_loss": [trainer.train_loss[0], trainer.train_loss[-1]],
                    "valid_loss": trainer.valid_loss[:1] + trainer.valid_loss[-1:]}
             row.update(spatial_step_times(trainer, train_idx, log_dir if res == finest else None,
-                                          f"spatial_step_{name}"))
+                                          f"spatial_step_{name}_{res:.1f}m"))
             per_res[f"{res:.1f}"] = row
         trainer, model = trained[finest]
         if cfg.use_directional_rirs:
@@ -2450,6 +2610,7 @@ def single_rir(tmp: Path, log_dir):
         make_optimizer,
         SinglePosGFDNTrainer,
     )
+    from diffgfdn_torch.training.optim import make_single_lr_optimizer, STEP_SIZE_EPOCHS
     from diffgfdn_torch.training.solver import single_pos_batch
     from diffgfdn_torch.utils.params import load_jax_params
 
@@ -2573,23 +2734,26 @@ def single_rir(tmp: Path, log_dir):
         rows += single_rir_rows(name, inputs, colorless, per_epoch, launches)
         del inputs, colorless
 
-        # step time, as the fit runs a step: warm-up, then timed steps
-        trainer.fit_step()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        times = []
-        for _ in range(TIMED_STEPS):
-            t0 = time.perf_counter()
-            trainer.fit_step()
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-        peak_step = torch.cuda.max_memory_allocated()
+        # the step graphed and eagerly: agreement, times in turns, no sync
+        graph = graphed_vs_eager(name, trainer, dict(model.named_parameters()),
+                                 lambda: trainer.fit_step()[0], log_dir, trainer.mask_generator)
         profiled = {}
         if log_dir is not None:
-            wall, busy, ours = profile_once(trainer.fit_step, f"single_rir_step_{name}",
-                                            Path(log_dir) / f"profile_train_{name}.txt")
-            profiled = {"profiled_step_ms": wall, "profiled_device_busy_ms": busy,
-                        "profiled_kernels_ms": ours, "profiled_idle_share": 1.0 - busy / wall}
+            trainer.scan_epochs = False
+            wall, busy, ours, _ = profile_once(trainer.fit_step, f"single_rir_step_{name}",
+                                               Path(log_dir) / f"profile_train_{name}.txt")
+            trainer.scan_epochs = True
+            profiled = {"eager_profiled_step_ms": wall, "eager_profiled_device_busy_ms": busy,
+                        "eager_profiled_kernels_ms": ours,
+                        "eager_profiled_idle_share": 1.0 - busy / wall}
+        if protos:  # a prototype step graphed and eagerly, at the prototype's parameters
+            ctrainer.angles = angles
+            ctrainer.optimizer, ctrainer.scheduler = make_single_lr_optimizer(
+                cmodel, ccfg.lr, steps_c, STEP_SIZE_EPOCHS)
+            cgraph = graphed_vs_eager(f"{name}_colorless", ctrainer,
+                                      dict(cmodel.named_parameters()),
+                                      lambda: ctrainer.fit_step(first), log_dir)
+            profiled.update({f"colorless_{k}": v for k, v in cgraph.items()})
         colorless_epoch = {}
         if protos:  # one prototype epoch as the fit runs it: normalization, steps, validation
             one = dataclasses.replace(ccfg, max_epochs=1)
@@ -2602,7 +2766,6 @@ def single_rir(tmp: Path, log_dir):
             colorless_epoch = {"colorless_epoch_s": time.perf_counter() - t0,
                                "colorless_step_loss_rel_vs_plain": c_loss_rel,
                                "colorless_max_grad_rel_l2_vs_plain": c_grad_err}
-        step_s = float(np.median(times))
         results.append({
             "preset": name, "fs": cfg.sample_rate, "nfft": nfft, "bins": nfft // 2 + 1,
             "delay_lines": len(cfg.delay_length_samps), "groups": cfg.num_groups,
@@ -2611,10 +2774,7 @@ def single_rir(tmp: Path, log_dir):
             "launches": {k: launches[k] for k in expected},
             "warm_start_max_abs_vs_prototypes": warm_err,
             "step_loss_rel_vs_plain": loss_rel, "max_grad_rel_l2_vs_plain": grad_err,
-            "step_ms": step_s * 1e3, "step_ms_all": [t * 1e3 for t in times],
-            "steps_per_s": 1.0 / step_s, **colorless_epoch,
-            "peak_mem_run_mb": peak_run / 2 ** 20, "peak_mem_step_mb": peak_step / 2 ** 20,
-            **profiled,
+            **graph, **colorless_epoch, "peak_mem_run_mb": peak_run / 2 ** 20, **profiled,
         })
         del trainer, model
     return results, rows

@@ -12,3 +12,20 @@
 Kernels build with ``nvcc`` at first use (``_build``); nothing is compiled
 or loaded when a module is imported.
 """
+
+
+def counted_wrappers() -> dict:
+    """{name: wrapper} of every kernel wrapper that counts its launches in
+    ``wrapper.launches``, looked up anew on each call (so that a wrapper a
+    caller replaced is the one counted)."""
+    from . import cinv, lu, sos, tdgfdn
+
+    return {
+        "cinv": cinv.cinv,
+        "neg_ptgpt": cinv.neg_ptgpt,
+        "sos": sos.sos_cascade_response,
+        "sos_backward": sos.sos_cascade_backward,
+        "lu": lu.lu_solve,
+        "lut_apply": lu.lut_apply,
+        "tdgfdn": tdgfdn.delay_line_outputs,
+    }

@@ -30,6 +30,11 @@ def plain_versions() -> Iterator[None]:
         _plain_on_card = previous
 
 
+def plain_on_card() -> bool:
+    """True within a :func:`plain_versions` block."""
+    return _plain_on_card
+
+
 def runs_kernel(*tensors: torch.Tensor) -> bool:
     """True when the wrapper must launch its kernel for these tensors.
 

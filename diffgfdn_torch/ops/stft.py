@@ -7,12 +7,26 @@ full window fits exactly, and with win = 2 hop the frames are consecutive
 half-window blocks joined pairwise (a reshape, no gather).
 """
 
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .basic import db
+
+
+_windows: Dict[Tuple[int, torch.dtype, torch.device], torch.Tensor] = {}
+
+
+def hann_window(win_size: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """numpy's ``hanning(win_size + 1)[:-1]`` on ``device``, made once per
+    size, dtype and device: a training step captured in a CUDA graph must
+    copy nothing from the host."""
+    key = (win_size, dtype, device)
+    if key not in _windows:
+        _windows[key] = torch.as_tensor(np.hanning(win_size + 1)[:-1], dtype=dtype,
+                                        device=device)
+    return _windows[key]
 
 
 def stft(
@@ -30,9 +44,7 @@ def stft(
     tp = x.shape[-1]
     n_frames = (tp - win_size) // hop_size + 1
     if window is None:
-        window = torch.as_tensor(
-            np.hanning(win_size + 1)[:-1], dtype=x.dtype, device=x.device
-        )
+        window = hann_window(win_size, x.dtype, x.device)
     if win_size == 2 * hop_size:
         blocks = x.reshape(x.shape[:-1] + (tp // hop_size, hop_size))
         frames = torch.cat([blocks[..., :-1, :], blocks[..., 1:, :]], dim=-1)

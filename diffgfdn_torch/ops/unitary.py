@@ -5,6 +5,7 @@ rotation used by SCALAR coupling.
 """
 
 import math
+from typing import Dict, Tuple
 
 import torch
 
@@ -21,6 +22,18 @@ _MAX_SQUARINGS = 8  # accurate for |A|_1 <= 2^8
 # p(A) = sum_i C_i (A^3)^i with C_i = c_3i I + c_3i+1 A + c_3i+2 A^2
 _PS_COEFFS = [[1.0 / math.factorial(3 * i + j) if 3 * i + j <= _TAYLOR_DEGREE else 0.0
                for j in range(3)] for i in range(_TAYLOR_DEGREE // 3 + 1)]
+
+
+_coeff_tensors: Dict[Tuple[torch.dtype, torch.device], torch.Tensor] = {}
+
+
+def _ps_coeffs(dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """``_PS_COEFFS`` on ``device``, made once per dtype and device: a training
+    step captured in a CUDA graph must copy nothing from the host."""
+    key = (dtype, device)
+    if key not in _coeff_tensors:
+        _coeff_tensors[key] = torch.tensor(_PS_COEFFS, dtype=dtype, device=device)
+    return _coeff_tensors[key]
 
 
 def matrix_exp(a: torch.Tensor) -> torch.Tensor:
@@ -41,7 +54,7 @@ def matrix_exp(a: torch.Tensor) -> torch.Tensor:
     eye = torch.eye(a.shape[-1], dtype=a.dtype, device=a.device).expand_as(a)
     x2 = torch.matmul(x, x)
     x3 = torch.matmul(x2, x)
-    coeffs = torch.tensor(_PS_COEFFS, dtype=a.dtype, device=a.device)
+    coeffs = _ps_coeffs(a.dtype, a.device)
     c = torch.einsum("ij,j...->i...", coeffs, torch.stack([eye, x, x2]))  # C_i
     e = c[-1]
     for i in range(len(_PS_COEFFS) - 2, -1, -1):

@@ -18,7 +18,13 @@ As in the JAX trainer:
   exactly its own gradient and update;
 * a per-band validation pass each epoch, and per-band early stopping: a
   stopped band's update is masked to zero while its Adam state advances;
-* one train / valid split and batch order per group.
+* one train / valid split and batch order per group;
+* with ``scan_epochs`` (the default) each step and each validation batch
+  runs through a step graph (``training/scan.py``), captured once on the
+  card and replayed; its static inputs are the batch's indices, the EDC
+  mask and the keep vector of stopped bands, which every step applies
+  (``torch.where`` with every band active leaves the parameters as the
+  optimizer left them, bit for bit).
 
 Unlike the JAX trainer, which builds one model from the group's first
 config, every band keeps its own config's model: its delay lines and
@@ -40,6 +46,7 @@ from ..config.schema import TrainerConfig
 from ..losses import edc_mask
 from ..ops.basic import ms_to_samps
 from ..training.optim import make_optimizer
+from ..training.scan import GraphedSteps
 from ..training.trainer import (
     gfdn_losses,
     padded_batches,
@@ -80,7 +87,7 @@ def _stack(models: Sequence[nn.Module], named: Callable, device: torch.device
     return {k: torch.stack([t[k].detach().to(device) for t in tensors]) for k in tensors[0]}
 
 
-class BandParallelTrainer:
+class BandParallelTrainer(GraphedSteps):
     """Trains the GFDNs of one architecture group, one per band, as one step.
 
     ``models``: one model per band (its own config's delays, absorption and
@@ -134,7 +141,10 @@ class BandParallelTrainer:
         self._loss = _BandLoss(self.model, cfg, self.mixing_time_samps, self.max_ir_len_samps,
                                self.edr_win, self.edr_hop)
         self._band_losses = torch.func.vmap(self._one_band, in_dims=(0, 0, 0, 0, None, None))
+        self.init_graphs(self.device)
         self.optimizer, self.scheduler = make_optimizer(cfg, self, self.steps_per_epoch)
+        self._stopped = {(False,) * self.num_bands: torch.zeros(
+            self.num_bands, dtype=torch.bool, device=self.device)}
         self.mask_generator = torch.Generator(device=self.device).manual_seed(0)
         self.band_feats: Optional[Batch] = None
         self.data: Optional[Batch] = None
@@ -186,28 +196,49 @@ class BandParallelTrainer:
         totals.sum().backward()
         return totals.detach(), {k: v.detach() for k, v in losses.items()}
 
+    def _train_step(self, idx: torch.Tensor, mask: Optional[torch.Tensor], keep: torch.Tensor
+                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The step closure: every band's loss, backward and optimizer step,
+        then the bands where ``keep`` (bands,) is True put back as they were."""
+        totals, aux = self.loss_and_grads(idx, mask)
+        before = {k: p.detach().clone() for k, p in self.params.items()}
+        self.optimizer.step()
+        with torch.no_grad():
+            for k, p in self.params.items():
+                p.copy_(torch.where(keep.view(-1, *([1] * (p.dim() - 1))), before[k], p))
+        return totals, aux
+
+    def _valid_step(self, idx: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+        """The validation closure: each band's total loss (bands,), no gradient."""
+        with torch.no_grad():
+            return sum(self.losses(idx, mask).values())
+
+    def stopped_bands(self, active: Optional[np.ndarray]) -> torch.Tensor:
+        """(bands,) bool on the device, True where ``active`` is 0 (None: every
+        band active). Each pattern is copied to the device once and kept, so
+        that the steps of a run copy nothing from the host."""
+        stopped = ((False,) * self.num_bands if active is None
+                   else tuple(bool(a == 0) for a in np.asarray(active)))
+        if stopped not in self._stopped:
+            self._stopped[stopped] = torch.tensor(stopped, device=self.device)
+        return self._stopped[stopped]
+
     def step(self, idx: torch.Tensor, active: Optional[np.ndarray] = None,
              mask: Optional[torch.Tensor] = None
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """One optimizer step of every band on the receivers ``idx`` (a device
-        tensor). ``active`` (bands,) 0/1: a band at 0 keeps its parameters
-        exactly, while its Adam moments advance as the JAX trainer's do.
-        ``mask``: the EDC time mask (None draws one when the config uses it).
-        Returns the device-resident per-band losses (no host sync)."""
+        tensor), graphed with ``scan_epochs``. ``active`` (bands,) 0/1: a band
+        at 0 keeps its parameters exactly, while its Adam moments advance as
+        the JAX trainer's do. ``mask``: the EDC time mask (None draws one
+        when the config uses it). Returns the device-resident per-band losses
+        (no host sync; with ``scan_epochs`` on the card, valid until the next
+        step)."""
         if mask is None:
             mask = self._edc_mask()
-        totals, aux = self.loss_and_grads(idx, mask)
-        frozen = active is not None and not bool(np.all(active))
-        if frozen:
-            keep = torch.as_tensor(np.asarray(active) == 0, device=self.device)
-            before = {k: p.detach().clone() for k, p in self.params.items()}
-        self.optimizer.step()
+        out = self.run_step("train", self._train_step, idx=idx, mask=mask,
+                            keep=self.stopped_bands(active))
         self.scheduler.step()
-        if frozen:
-            with torch.no_grad():
-                for k, p in self.params.items():
-                    p.copy_(torch.where(keep.view(-1, *([1] * (p.dim() - 1))), before[k], p))
-        return totals, aux
+        return out
 
     # ----------------------- device-resident data path -----------------------
 
@@ -294,10 +325,10 @@ class BandParallelTrainer:
                 ep_total = ep_total + total
             row = [ep_total / idx_mat.shape[0]]
             if valid_batches:
-                with torch.no_grad():
-                    v_total = 0.0
-                    for vidx in valid_batches:
-                        v_total = v_total + sum(self.losses(vidx, self._edc_mask()).values())
+                v_total = 0.0
+                for vidx in valid_batches:
+                    v_total = v_total + self.run_step("valid", self._valid_step, idx=vidx,
+                                                      mask=self._edc_mask())
                 row.append(v_total / len(valid_batches))
             host = torch.stack(row).cpu().numpy()  # the epoch's one read of device values
             self.train_loss.append(host[0])

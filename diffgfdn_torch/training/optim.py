@@ -10,9 +10,15 @@ as optax's schedule does with its step count. The spatial-sampling trainer
 takes one Adam over all parameters with StepLR(20 epochs, 0.1)
 (:func:`make_single_lr_optimizer`), as JAX's ``optax.exponential_decay(lr,
 20 * steps_per_epoch, 0.1, staircase=True)``.
+
+Adam is the fused one, capturable, and each group's learning rate is a 0-d
+float32 tensor on the parameters' device: a step captured in a CUDA graph
+(``training/scan.py``) reads it there on every replay, and the scheduler
+writes each decay into it in place (a Python float would be frozen into the
+graph at capture).
 """
 
-from typing import Dict, Tuple
+from typing import Dict, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -58,6 +64,16 @@ def step_decay_factor(count: int, steps_per_epoch: int, count_offset: int = 0,
     return GAMMA ** (epoch // step_size_epochs)
 
 
+def tensor_lr(lr: float, params: Sequence[torch.Tensor]) -> torch.Tensor:
+    """A group's learning rate as a 0-d float32 tensor on its parameters' device."""
+    return torch.tensor(lr, dtype=torch.float32, device=params[0].device)
+
+
+def adam(groups) -> torch.optim.Adam:
+    """Fused, capturable Adam with optax's defaults (betas 0.9 / 0.999, eps 1e-8)."""
+    return torch.optim.Adam(groups, betas=(0.9, 0.999), eps=1e-8, fused=True, capturable=True)
+
+
 def make_optimizer(
     trainer_config: TrainerConfig, model: nn.Module, steps_per_epoch: int,
     count_offset: int = 0,
@@ -75,8 +91,8 @@ def make_optimizer(
     for label, lr in lrs.items():
         params = [p for name, p in model.named_parameters() if labels[name] == label]
         if params:
-            groups.append({"params": params, "lr": lr, "label": label})
-    optimizer = torch.optim.Adam(groups, betas=(0.9, 0.999), eps=1e-8)
+            groups.append({"params": params, "lr": tensor_lr(lr, params), "label": label})
+    optimizer = adam(groups)
     scheduler = torch.optim.lr_scheduler.LambdaLR(
         optimizer,
         lambda count: step_decay_factor(count, steps_per_epoch, count_offset=count_offset),
@@ -90,10 +106,32 @@ def make_single_lr_optimizer(
     """One Adam (optax's defaults) over every parameter at ``lr``, decayed by
     GAMMA every ``step_size_epochs`` epochs. Call ``scheduler.step()`` after
     every ``optimizer.step()``."""
-    optimizer = torch.optim.Adam(model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    params = list(model.parameters())
+    optimizer = adam([{"params": params, "lr": tensor_lr(lr, params)}])
     scheduler = torch.optim.lr_scheduler.LambdaLR(
         optimizer,
         lambda count: step_decay_factor(count, steps_per_epoch,
                                         step_size_epochs=step_size_epochs),
     )
     return optimizer, scheduler
+
+
+def load_optimizer_state(optimizer: torch.optim.Optimizer, scheduler, state: Dict) -> None:
+    """Load an optimizer-state sidecar (``{"optimizer": ..., "scheduler": ...}``)
+    into both. Loading takes each group's hyperparameters from the sidecar;
+    one saved by a float-rate, unfused Adam brings back a Python float rate,
+    ``fused`` unset, ``capturable`` off and host step counts. Every group is
+    made fused and capturable again, its rate a tensor on the parameters'
+    device, and every step count a float32 tensor there. A step graph
+    captured before the load is stale: capture after it."""
+    optimizer.load_state_dict(state["optimizer"])
+    scheduler.load_state_dict(state["scheduler"])
+    for group in optimizer.param_groups:
+        group.update(fused=True, capturable=True, foreach=None)
+        lr = group["lr"]
+        if not torch.is_tensor(lr) or lr.device != group["params"][0].device:
+            group["lr"] = tensor_lr(float(lr), group["params"])
+        for p in group["params"]:
+            st = optimizer.state.get(p)
+            if st and "step" in st:
+                st["step"] = torch.as_tensor(st["step"], dtype=torch.float32, device=p.device)

@@ -11,6 +11,11 @@ StepLR(20 epochs, 0.1) at several grid resolutions, one checkpoint directory
 * the losses are summed on the device and read by the host once per epoch;
   the validation loss is the exact item-weighted mean over full batches and
   the unpadded remainder;
+* with ``scan_epochs`` (the default) each step and each full validation
+  batch runs through a step graph (``training/scan.py``), captured once on
+  the card and replayed, the batch's indices its one static input; the
+  validation remainder runs eagerly. Each resolution's trainer of a sweep
+  captures its own;
 * checkpoints are flax trees (``utils/params.py``), readable by the JAX
   package.
 
@@ -52,6 +57,7 @@ from ..utils.device import resolve_device
 from ..utils.params import jax_params_from_torch
 from .checkpoints import save_checkpoint
 from .optim import make_single_lr_optimizer
+from .scan import GraphedSteps
 from .trainer import exact_valid_batches, padded_batches
 
 logger = logging.getLogger("diffgfdn_torch")
@@ -97,7 +103,7 @@ def build_spatial_model(
     return model.to(dev)
 
 
-class SpatialSamplingTrainer:
+class SpatialSamplingTrainer(GraphedSteps):
     """Trainer of a CS-amplitude MLP (omni amplitudes or directional weights).
 
     ``device`` defaults to CUDA and raises without a card unless the caller
@@ -126,7 +132,7 @@ class SpatialSamplingTrainer:
         self.train_loss: List[float] = []
         self.valid_loss: List[float] = []
         self.epoch_s: List[float] = []  # wall time of each epoch, checkpoint included
-        self.optimizer: Optional[torch.optim.Optimizer] = None
+        self.init_graphs(self.device)
         self.scheduler = None
         self.data: Optional[Batch] = None
 
@@ -182,11 +188,23 @@ class SpatialSamplingTrainer:
         total.backward()
         return total.detach()
 
-    def fit_step(self, idx: torch.Tensor) -> torch.Tensor:
-        """One optimizer step on the receivers ``idx`` (a device tensor);
-        returns the device-resident loss (no host sync)."""
+    def _train_step(self, idx: torch.Tensor) -> torch.Tensor:
+        """The step closure: loss, backward and optimizer step on the batch."""
         total = self.loss_and_grads(self.gather(idx))
         self.optimizer.step()
+        return total
+
+    def _valid_step(self, idx: torch.Tensor) -> torch.Tensor:
+        """The validation closure: the batch's total loss, no gradient."""
+        with torch.no_grad():
+            return sum(self._losses(self.gather(idx)).values())
+
+    def fit_step(self, idx: torch.Tensor) -> torch.Tensor:
+        """One optimizer step on the receivers ``idx`` (a device tensor),
+        graphed with ``scan_epochs``; returns the device-resident loss (no
+        host sync; with ``scan_epochs`` on the card, valid until the next
+        step)."""
+        total = self.run_step("train", self._train_step, idx=idx)
         self.scheduler.step()
         return total
 
@@ -199,6 +217,7 @@ class SpatialSamplingTrainer:
             k: torch.as_tensor(np.asarray(getattr(arrays, k), np.float32), device=self.device)
             for k in self._INDEXED_KEYS if getattr(arrays, k) is not None
         }
+        self.graphs.clear()
         return self.data
 
     def gather(self, idx: torch.Tensor) -> Batch:
@@ -253,10 +272,10 @@ class SpatialSamplingTrainer:
             for idx in idx_mat:
                 ep_total = ep_total + self.fit_step(idx)
             v_total, v_weight = torch.zeros((), device=self.device), 0
-            with torch.no_grad():
-                for vidx in valid_batches:
-                    v_total = v_total + sum(self._losses(self.gather(vidx)).values()) * len(vidx)
-                    v_weight += len(vidx)
+            for vidx in valid_batches:
+                loss = self.run_valid(self._valid_step, vbs, idx=vidx)
+                v_total = v_total + loss * len(vidx)
+                v_weight += len(vidx)
             host = torch.stack([ep_total, v_total]).tolist()  # the epoch's one read
             self.train_loss.append(host[0] / idx_mat.shape[0])
             if v_weight:

@@ -12,6 +12,14 @@ precomputed-target path of the JAX trainer, which
   epoch; the EDC mask is drawn on the device from a ``torch.Generator``;
 * losses are summed on the device, and the host reads them once per epoch,
   when it writes the epoch's checkpoint and optimizer-state sidecar;
+* with ``scan_epochs`` (the default, as in JAX) every training step and
+  every full validation batch runs through a step graph
+  (``training/scan.py``): on the card each is captured once in a CUDA graph
+  and replayed, the host only refilling its static inputs (the batch's
+  indices and the EDC mask, drawn from the generator before each step as
+  the eager path draws it) and stepping the learning-rate schedule; a
+  validation remainder runs eagerly, as JAX's separate ``valid_step`` does.
+  ``scan_epochs = False`` runs the same step closure eagerly;
 * the sub-FDN energy normalization runs under ``no_grad``, before every step
   for scalar heads and once per epoch for SVF heads, as in the JAX trainer.
 
@@ -68,7 +76,8 @@ from .checkpoints import (
     save_checkpoint,
     save_opt_state,
 )
-from .optim import make_optimizer
+from .optim import load_optimizer_state, make_optimizer
+from .scan import GraphedSteps
 
 logger = logging.getLogger("diffgfdn_torch")
 
@@ -218,7 +227,7 @@ def target_rirs(arrays, nfft: int, device: torch.device) -> torch.Tensor:
     return torch.nn.functional.pad(rirs[:, :nfft], (0, max(0, nfft - rirs.shape[1])))
 
 
-class GFDNTrainer:
+class GFDNTrainer(GraphedSteps):
     """Trainer for position-conditioned (grid) GFDNs.
 
     ``device`` defaults to CUDA and raises without a card unless the caller
@@ -279,7 +288,9 @@ class GFDNTrainer:
         self._early_stop = 0
         self.features: Optional[Batch] = None
         self.data: Optional[Batch] = None
-        self.optimizer: Optional[torch.optim.Optimizer] = None
+        # steps and full validation batches through captured graphs; False
+        # runs the same step closures eagerly (step-level introspection)
+        self.init_graphs(self.device)
         self.scheduler = None
         self.mask_generator = torch.Generator(device=self.device).manual_seed(0)
 
@@ -323,18 +334,48 @@ class GFDNTrainer:
         total.backward()
         return total.detach(), {k: v.detach() for k, v in losses.items()}
 
-    def fit_step(self, idx: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """One step of :meth:`fit_indexed` on the receivers ``idx`` (a device
-        tensor): the per-step normalization of scalar heads, then the
-        optimizer step on the gathered batch. Returns the device-resident
-        losses (no host sync)."""
+    def draw_edc_mask(self) -> Optional[torch.Tensor]:
+        """A step's EDC time mask from ``mask_generator`` when the config
+        uses one, else None."""
+        if not self.cfg.use_edc_mask:
+            return None
+        return edc_mask(self.edc_mask_length(self.data["z_values"].shape[0]),
+                        self.mask_generator, self.device)
+
+    def _train_step(self, idx: Optional[torch.Tensor], mask: Optional[torch.Tensor]
+                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The step closure: the per-step normalization of scalar heads, then
+        the loss, its backward and the optimizer step on the gathered batch."""
         sub_inverse = None
         if not self.model.use_svf_in_output:
             sub_inverse = self._normalize_params(keep_inverse=self.cfg.use_colorless_loss)
-        total, aux = self.loss_and_grads(self.gather(idx), sub_inverse=sub_inverse)
+        total, aux = self.loss_and_grads(self.gather(idx), mask, sub_inverse)
         self.optimizer.step()
-        self.scheduler.step()
         return total, aux
+
+    def _valid_step(self, idx: torch.Tensor, mask: Optional[torch.Tensor]
+                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The validation closure: the total and each loss of one batch, no gradient."""
+        with torch.no_grad():
+            losses = self._losses(self.gather(idx), mask)
+        return sum(losses.values()), losses
+
+    def fit_step(self, idx: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """One step of :meth:`fit_indexed` on the receivers ``idx`` (a device
+        tensor), graphed with ``scan_epochs``, then the schedule's step.
+        Returns the device-resident losses (no host sync): with
+        ``scan_epochs`` on the card, the graph's outputs, valid until the
+        next step."""
+        out = self.run_step("train", self._train_step, idx=idx, mask=self.draw_edc_mask())
+        self.scheduler.step()
+        return out
+
+    def valid_step(self, idx: torch.Tensor, batch_size: int
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The losses of the validation batch ``idx`` (total, {name: loss});
+        a full one of ``batch_size`` through the validation graph with
+        ``scan_epochs`` (:meth:`run_valid`)."""
+        return self.run_valid(self._valid_step, batch_size, idx=idx, mask=self.draw_edc_mask())
 
     # ----------------------- device-resident data path -----------------------
 
@@ -360,6 +401,7 @@ class GFDNTrainer:
         if self.features is None:
             self.precompute_target_features(arrays)
         self.data = {**upload_model_inputs(arrays, self.device), **self.features}
+        self.graphs.clear()
         return self.data
 
     def gather(self, idx: torch.Tensor) -> Batch:
@@ -424,8 +466,7 @@ class GFDNTrainer:
             cfg, self.model, self.steps_per_epoch, count_offset=count_offset
         )
         if resumed is not None:
-            self.optimizer.load_state_dict(resumed["optimizer"])
-            self.scheduler.load_state_dict(resumed["scheduler"])
+            load_optimizer_state(self.optimizer, self.scheduler, resumed)
         if len(train_idx) == 0:
             raise ValueError("no training items: train_idx is empty (check "
                              "train_valid_split / dataset size)")
@@ -460,13 +501,12 @@ class GFDNTrainer:
                 ep_total = ep_total + total
                 ep_aux = {k: ep_aux.get(k, 0.0) + v for k, v in aux.items()}
             v_total, v_aux, v_weight = 0.0, {}, 0
-            with torch.no_grad():
-                for vidx in valid_batches:
-                    losses = self._losses(self.gather(vidx))
-                    w = len(vidx)
-                    v_total = v_total + sum(losses.values()) * w
-                    v_aux = {k: v_aux.get(k, 0.0) + v * w for k, v in losses.items()}
-                    v_weight += w
+            for vidx in valid_batches:
+                total, losses = self.valid_step(vidx, vbs)
+                w = len(vidx)
+                v_total = v_total + total * w
+                v_aux = {k: v_aux.get(k, 0.0) + v * w for k, v in losses.items()}
+                v_weight += w
             # the epoch's one read of device values
             keys = list(ep_aux)
             vkeys = list(v_aux)
@@ -566,6 +606,7 @@ class DirectionalGFDNTrainer(GFDNTrainer):
             "target_common_slope_amps": torch.as_tensor(
                 arrays.target_common_slope_amps, dtype=torch.float32, device=self.device),
         }
+        self.graphs.clear()
         return self.data
 
 
@@ -588,6 +629,7 @@ class SinglePosGFDNTrainer(GFDNTrainer):
         """The full-spectrum batch (numpy) on the device, once."""
         self.data = {k: torch.as_tensor(np.asarray(v), device=self.device)
                      for k, v in batch.items()}
+        self.graphs.clear()
         return self.data
 
     @torch.no_grad()
@@ -608,14 +650,20 @@ class SinglePosGFDNTrainer(GFDNTrainer):
         model.output_scalars.div_(ratio)
         return None
 
+    def _train_step(self, idx: Optional[torch.Tensor], mask: Optional[torch.Tensor]
+                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The step closure: one optimizer step on the whole spectrum (the
+        batch is the single position, uploaded once: ``idx`` is None)."""
+        total, aux = self.loss_and_grads(self.data, mask)
+        self.optimizer.step()
+        return total, aux
+
     def fit_step(self, idx: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """One optimizer step on the whole spectrum (``idx`` is not used: the
-        batch is the single position). Returns the device-resident losses."""
-        total, aux = self.loss_and_grads(self.data)
-        self.optimizer.step()
-        self.scheduler.step()
-        return total, aux
+        """One optimizer step on the whole spectrum, graphed with
+        ``scan_epochs`` (``idx`` is not used). Returns the device-resident
+        losses."""
+        return super().fit_step(None)
 
     def fit(self, batch: Dict[str, np.ndarray], seed: int = 0) -> torch.nn.Module:
         """Train on the full-spectrum ``batch`` (numpy: ``z_values``,

@@ -172,3 +172,44 @@ def test_plain_versions_is_scoped():
     assert not dispatch._plain_on_card
     with pytest.raises(ValueError, match="different devices"):
         dispatch.runs_kernel(cpu, torch.zeros(1, device="meta"))
+
+
+STEP_GRAPH_USERS = ("diffgfdn_torch/training/trainer.py", "diffgfdn_torch/training/scan.py",
+                    "diffgfdn_torch/training/spatial_trainer.py",
+                    "diffgfdn_torch/training/colorless_trainer.py",
+                    "diffgfdn_torch/parallel/band_parallel.py")
+
+
+def test_step_graphs_import_no_jax():
+    """training/scan.py names no JAX module, and importing it loads none."""
+    import ast
+
+    tree = ast.parse((ROOT / "diffgfdn_torch/training/scan.py").read_text())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+    names += [n.module or "" for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)]
+    assert names and not [m for m in names
+                          if m.split(".")[0] in ("jax", "jaxlib", "flax", "diffgfdn_tpu")]
+    code = ("import sys, diffgfdn_torch.training.scan\n"
+            "print([m for m in sys.modules if m.split('.')[0] in ('jax', 'diffgfdn_tpu')])\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "[]", out.stderr
+
+
+def test_no_try_around_a_capture_falls_back_to_eager():
+    """No exception handler in scan.py (its one ``try`` has a ``finally``
+    only), and none in a trainer around a graphed step: a failed capture
+    raises, it never continues eagerly."""
+    import ast
+
+    graphed = {"run_step", "graphs", "graph", "_capture", "replay"}
+    for rel in STEP_GRAPH_USERS:
+        tree = ast.parse((ROOT / rel).read_text())
+        tries = [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
+        if rel.endswith("scan.py"):
+            assert tries and not [t for t in tries if t.handlers or t.orelse], rel
+        for t in tries:
+            calls = [c.func for stmt in t.body for c in ast.walk(stmt) if isinstance(c, ast.Call)]
+            names = {f.attr if isinstance(f, ast.Attribute) else getattr(f, "id", "")
+                     for f in calls}
+            assert not (t.handlers and names & graphed), (rel, t.lineno, names & graphed)
