@@ -5,6 +5,7 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py [--log-dir DIR]
     python3 chip_smoke.py --kernel-times ROOT   (alias: --cascade-times)
+    python3 chip_smoke.py --edc-loss
 
 Phases (any failure raises and exits non-zero, with no result line):
 
@@ -272,13 +273,21 @@ WRAPPER_SYMBOLS = {"cinv": "cinv_kernel", "neg_ptgpt": "neg_ptgpt_kernel",
 
 
 def profile_window(events, label: str):
-    """The host-side span of the ``record_function`` named ``label``. The
-    profiler also lists the label as a device annotation, spanning only its
-    first to last device op, and either may come first."""
+    """The host-side span of the ``record_function`` named ``label``,
+    widened to the label's device annotation, which spans its first to last
+    device op (either event may come first in the list). The device times
+    are converted to the host's clock, and the first kernels of a step
+    launched as soon as the span opens have been placed before its start:
+    the annotation keeps them in the window."""
     from torch.autograd import DeviceType
+    from torch.autograd.profiler_util import Interval
 
-    return next(e.time_range for e in events
+    host = next(e.time_range for e in events
                 if e.name == label and e.device_type == DeviceType.CPU)
+    device = [e.time_range for e in events
+              if e.name == label and e.device_type == DeviceType.CUDA]
+    return Interval(min([host.start] + [d.start for d in device]),
+                    max([host.end] + [d.end for d in device]))
 
 
 def profile_events(fn, label: str):
@@ -2779,6 +2788,403 @@ def single_rir(tmp: Path, log_dir):
         del trainer, model
     return results, rows
 
+# phase 11: the floor-plan CNN preset through the spatial CLI, and the
+# directional octave-band merge of the eight directional band presets
+SPATIAL_CNN_PRESET = "spatial_directional_1000Hz_cnn"
+# the CNN's full grids of phase 8's receivers at the preset's resolutions
+# (rows = distinct y, columns = distinct x of the resolution's training receivers)
+SPATIAL_CNN_MESHES = {0.9: (21, 17), 0.6: (31, 24), 0.3: (61, 45)}
+SPATIAL_CNN_CPU_RES = 0.9  # the resolution of the card-vs-CPU step
+MERGE_BANDS = (63, 125, 250, 500, 1000, 2000, 4000, 8000)
+MERGE_EPOCHS = 1
+
+
+def spatial_cnn(tmp: Path, log_dir):
+    """Phase 11 (a): the floor-plan CNN preset trained through the spatial
+    CLI at full width, its steps held graphed against eager and card against
+    CPU, every receiver served from its 0.3 m checkpoint.
+
+    ``spatial_directional_1000Hz_cnn`` (4 convolutions of 3 x 3 and 32
+    channels, 10 Fourier features, lr 1e-3, 15 epochs of one full-grid step,
+    the max-directivity beamformer, ambi order 2, 12 directions) runs as
+    ``python -m diffgfdn_torch.cli.run_spatial_sampling -c <preset>`` does, in
+    a working directory that holds phase 8's synthetic grid at the preset's
+    ``room_dataset_path`` (0.3 m, 847 receivers, 0.5 s SRIRs at 32 kHz,
+    decays 1.2 / 2.2 / 1.6 s, so the EDC envelopes are 70400 samples): at
+    0.9, 0.6 and 0.3 m, grids of 21 x 17, 31 x 24 and 61 x 45 cells. No
+    hand-written kernel lies on this path: every launch count must stay 0.
+    """
+    import torch
+
+    from diffgfdn_torch.cli import run_spatial_sampling
+    from diffgfdn_torch.config import spatial_preset_config
+    from diffgfdn_torch.data import (
+        generate_spatial_three_room_pickle,
+        SpatialThreeRoomDataset,
+        split_by_grid_resolution,
+    )
+    from diffgfdn_torch.inference import get_ambisonic_rirs, get_output_from_trained_model
+    from diffgfdn_torch.training import build_spatial_model, make_cnn_batch, SpatialSamplingTrainer
+    from diffgfdn_torch.utils.params import jax_params_from_torch, load_jax_params
+
+    path = tmp / "directional" / "srirs.pkl"
+    if not path.exists():
+        generate_spatial_three_room_pickle(
+            path, fs=SPATIAL_FS, grid_spacing_m=DIRECTIONAL_GRID_M, rir_len_s=DIRECTIONAL_RIR_S,
+            decay_times=DIRECTIONAL_DECAYS, seed=SEED)
+    work = tmp / "spatial_cnn"
+    cfg = spatial_preset_config(SPATIAL_CNN_PRESET)
+    data = work / cfg.room_dataset_path
+    data.parent.mkdir(parents=True, exist_ok=True)
+    data.symlink_to(path)
+    cfg = spatial_preset_config(SPATIAL_CNN_PRESET, train_dir=str(work / cfg.train_dir))
+    room = SpatialThreeRoomDataset(path)
+    rec = room.receiver_position
+
+    # the main path: the CLI, as a user trains the preset
+    with contextlib.chdir(work):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        trained = run_spatial_sampling.main(["-c", SPATIAL_CNN_PRESET, "--device", DEVICE])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    require(all(v == 0 for v in launch_counts().values()),
+            f"{SPATIAL_CNN_PRESET}: hand-written kernels launched {launch_counts()}")
+    require(sorted(round(r, 1) for r in trained) == sorted(SPATIAL_CNN_MESHES),
+            f"{SPATIAL_CNN_PRESET}: resolutions {sorted(trained)}")
+    result = {"preset": SPATIAL_CNN_PRESET, "epochs": cfg.max_epochs, "run_s": run_s,
+              "peak_mem_run_mb": torch.cuda.max_memory_allocated() / 2 ** 20,
+              "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+              "cudnn_benchmark": torch.backends.cudnn.benchmark}
+    require(not torch.backends.cudnn.allow_tf32 and not torch.backends.cudnn.benchmark,
+            f"{SPATIAL_CNN_PRESET}: cuDNN TF32 {torch.backends.cudnn.allow_tf32}, benchmark "
+            f"{torch.backends.cudnn.benchmark}")
+    for res, (trainer, model) in sorted(trained.items(), reverse=True):
+        losses = trainer.train_loss
+        require(len(losses) == cfg.max_epochs and bool(np.isfinite(losses).all())
+                and losses[-1] < losses[0], f"CNN at {res:.1f} m: losses {losses}")
+        train_idx, _ = split_by_grid_resolution(room, res)
+        batch = trainer.to_device(make_cnn_batch(room, train_idx))
+        shape = tuple(batch["mesh_2d"].shape[:2])
+        require(shape == SPATIAL_CNN_MESHES[round(res, 1)], f"CNN at {res:.1f} m: mesh {shape}")
+        row = {"train": len(train_idx), "mesh": list(shape), "cells": shape[0] * shape[1],
+               "epoch_s": float(np.median(trainer.epoch_s)), "epoch_s_all": trainer.epoch_s,
+               "train_loss": [losses[0], losses[-1]]}
+        if round(res, 1) == SPATIAL_CNN_CPU_RES:
+            # one step on the card and on the CPU from the same parameters and grid
+            cpu_model = build_spatial_model(cfg, room.num_rooms, room.ambi_order, device="cpu")
+            load_jax_params(cpu_model, jax_params_from_torch(model))
+            cpu = SpatialSamplingTrainer(cpu_model, cfg, room, device="cpu")
+            loss_k = trainer.loss_and_grads(batch)
+            loss_c = cpu.loss_and_grads(cpu.to_device(make_cnn_batch(room, train_idx)))
+            loss_rel = abs(float(loss_k) - float(loss_c)) / abs(float(loss_c))
+            grad_errs = {n: rel_l2(p.grad.cpu(), q.grad) for (n, p), q in
+                         zip(model.named_parameters(), cpu_model.parameters())}
+            worst = max(grad_errs, key=grad_errs.get)
+            require(loss_rel <= SPATIAL_STEP_LOSS_TOL,
+                    f"CNN at {res:.1f} m: step loss card vs CPU {loss_rel}")
+            require(grad_errs[worst] <= GRAD_TOL,
+                    f"CNN at {res:.1f} m: gradient of {worst} card vs CPU {grad_errs[worst]}")
+            row.update(step_loss_rel_card_vs_cpu=loss_rel,
+                       max_grad_rel_l2_card_vs_cpu=grad_errs[worst])
+            del cpu, cpu_model
+        # the step graphed and eagerly: agreement, times in turns, no sync
+        resident = torch.cuda.memory_allocated()
+        row.update(graphed_vs_eager(f"spatial_cnn_{res:.1f}m", trainer,
+                                    dict(model.named_parameters()),
+                                    lambda: trainer.fit_batch(batch), log_dir))
+        row["resident_mem_mb"] = resident / 2 ** 20
+        result[f"{res:.1f}"] = row
+        trainer.graphs.clear()
+        del trainer, model, batch
+        torch.cuda.empty_cache()
+    del trained
+
+    # serving every receiver from the 0.3 m checkpoint
+    finest = min(SPATIAL_CNN_MESHES)
+
+    def serve_all():
+        return get_ambisonic_rirs(rec, room, use_trained_model=True, configs=[cfg],
+                                  grid_resolution_m=finest, seed=SEED, device=DEVICE)
+
+    reset_counts()
+    out = serve_all()
+    require(all(v == 0 for v in launch_counts().values()),
+            f"CNN serving: hand-written kernels launched {launch_counts()}")
+    want = (room.num_rec, (room.ambi_order + 1) ** 2, room.rir_length)
+    require(out.rirs.shape == want and bool(np.isfinite(out.rirs).all()),
+            f"CNN: served {out.rirs.shape}, finite {np.isfinite(out.rirs).all()}")
+    edc = edc_db(out.rirs[:, 0])
+    fs = room.sample_rate
+    drop = edc[:, int(0.05 * fs)] - edc[:, int(0.45 * fs)]
+    require(bool((drop > 3.0).all()), f"CNN: served SRIRs do not decay (min {drop.min()} dB)")
+    serve_times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        serve_all()
+        torch.cuda.synchronize()
+        serve_times.append(time.perf_counter() - t0)
+    amps_k = get_output_from_trained_model(cfg, room, rec, finest, device=DEVICE)
+    amps_c = get_output_from_trained_model(cfg, room, rec, finest, device="cpu")
+    amp_err = rel_err(amps_k.cpu(), amps_c)
+    require(amp_err <= SPATIAL_AMP_TOL, f"CNN: served amplitudes card vs CPU {amp_err}")
+    result.update(served_shape=list(out.rirs.shape),
+                  served_srirs_per_s=room.num_rec / float(np.median(serve_times)),
+                  serve_s=serve_times, amplitudes_max_rel_card_vs_cpu=amp_err)
+    return result
+
+
+# the directional EDC loss at a directional MLP batch and at the CNN's 0.3 m
+# grid (receivers or cells); 12 directions, phase 8's decays: T = 70400
+EDC_LOSS_ROWS = {"mlp_batch": 50, "cnn_0.3m": 2745}
+EDC_LOSS_DIRECTIONS = 12
+EDC_LOSS_TIMED = 20
+
+
+def edc_loss_check() -> dict:
+    """The directional EDC loss of the common-slopes trainers (port
+    ``losses/spatial.py``: a chunked forward that keeps each element's
+    derivative, a backward of one contraction) against autograd through
+    ``db``, the loss as JAX writes it, on seeded amplitudes at
+    ``EDC_LOSS_ROWS``. For each way and shape, one step (the loss and its
+    backward) runs eagerly, then through a ``training/scan.py`` StepGraph (a
+    warm-up step, the capture, replays), the cache emptied before each: the
+    median of ``EDC_LOSS_TIMED`` synchronized steps and the peak memory
+    allocated above what was resident. The two ways' losses and gradients
+    are compared. Autograd's graphed step at the 0.3 m grid runs last, and
+    an out-of-memory error there is its printed result."""
+    import gc
+
+    import torch
+
+    from diffgfdn_torch.losses import make_decay_envelopes, spatial_edc_loss
+    from diffgfdn_torch.ops.basic import db
+    from diffgfdn_torch.training.scan import StepGraph
+
+    def autograd_loss(pred, target, env):
+        return torch.mean(torch.abs(
+            db(torch.einsum("bjk,kt->bjt", target, env), is_squared=True)
+            - db(torch.einsum("bjk,kt->bjt", pred, env), is_squared=True)))
+
+    dev = torch.device(DEVICE)
+    edc_len = int(max(DIRECTIONAL_DECAYS) * SPATIAL_FS)
+    env = make_decay_envelopes(np.asarray(DIRECTIONAL_DECAYS), edc_len, SPATIAL_FS).to(dev)
+    rng = np.random.RandomState(SEED)
+    ways = {"port": spatial_edc_loss, "autograd": autograd_loss}
+    out = {"edc_len": edc_len, "directions": EDC_LOSS_DIRECTIONS}
+    for label, rows in EDC_LOSS_ROWS.items():
+        shape = (rows, EDC_LOSS_DIRECTIONS, len(DIRECTIONAL_DECAYS))
+        target = rng.lognormal(-2.0, 1.0, shape).astype(np.float32)
+        pred = target * rng.lognormal(0.0, 0.3, shape).astype(np.float32)
+        target = torch.as_tensor(target, device=dev)
+        row, grads = {"rows": rows}, {}
+        for name, fn in ways.items():
+            amps = torch.as_tensor(pred, device=dev).requires_grad_(True)
+
+            def step(inputs, fn=fn, amps=amps):
+                amps.grad = None
+                loss = fn(amps, inputs["target"], env)
+                loss.backward()
+                return loss.detach()
+
+            for graphed in (False, True):
+                key = f"{name}_{'graphed' if graphed else 'eager'}"
+                if graphed and name == "autograd" and label == "cnn_0.3m":
+                    continue  # last, below
+                gc.collect()
+                torch.cuda.empty_cache()
+                torch.cuda.synchronize()
+                resident = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                run = StepGraph(step, dev) if graphed else (lambda target: step({"target": target}))
+                loss = run(target=target)
+                times = []
+                for _ in range(EDC_LOSS_TIMED):
+                    t0 = time.perf_counter()
+                    loss = run(target=target)
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t0)
+                require(bool(torch.isfinite(loss)), f"EDC loss {key} at {label}: {loss}")
+                row[key] = {"ms": float(np.median(times)) * 1e3,
+                            "peak_mb": (torch.cuda.max_memory_allocated() - resident) / 2 ** 20,
+                            "loss": float(loss)}
+                grads[key] = amps.grad.detach().clone()
+                del run, loss
+            del amps
+        ref = grads["autograd_eager"]
+        row["port_vs_autograd_loss_rel"] = abs(row["port_eager"]["loss"]
+                                              - row["autograd_eager"]["loss"]) \
+            / abs(row["autograd_eager"]["loss"])
+        row["port_vs_autograd_grad_rel_l2"] = {k: rel_l2(g, ref) for k, g in grads.items()
+                                               if k != "autograd_eager"}
+        require(row["port_vs_autograd_loss_rel"] <= 1e-5
+                and max(row["port_vs_autograd_grad_rel_l2"].values()) <= 1e-4,
+                f"EDC loss at {label}: port against autograd {row}")
+        out[label] = row
+        del grads, ref
+    # autograd's graphed step at the 0.3 m grid: the warm-up's tensors stay
+    # cached beside the capture's pool
+    rows = EDC_LOSS_ROWS["cnn_0.3m"]
+    shape = (rows, EDC_LOSS_DIRECTIONS, len(DIRECTIONAL_DECAYS))
+    amps = torch.ones(shape, device=dev, requires_grad=True)
+    target = torch.full(shape, 0.5, device=dev)
+
+    def big_step(inputs):
+        amps.grad = None
+        loss = autograd_loss(amps, inputs["target"], env)
+        loss.backward()
+        return loss.detach()
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    graph = StepGraph(big_step, dev)
+    try:
+        graph(target=target)
+        graph(target=target)
+        torch.cuda.synchronize()
+        result = {"peak_mb": (torch.cuda.max_memory_allocated() - resident) / 2 ** 20}
+    except torch.cuda.OutOfMemoryError as exc:
+        result = {"out_of_memory": str(exc).split("\n")[0][:400],
+                  "peak_mb_before": (torch.cuda.max_memory_allocated() - resident) / 2 ** 20}
+    out["cnn_0.3m"]["autograd_graphed"] = result
+    return out
+
+
+def directional_merge(tmp: Path):
+    """Phase 11 (b): the eight directional band presets trained for one epoch
+    each through the directional solver on phase 8's grid, then merged into
+    broadband SRIRs through ``infer_all_octave_bands(variant="directional")``.
+    Returns (result, B5's kernel row at the merge path's inputs)."""
+    import torch
+
+    from diffgfdn_torch.config import preset_config
+    from diffgfdn_torch.data import generate_spatial_three_room_pickle, SpatialThreeRoomDataset
+    from diffgfdn_torch.inference import (
+        band_reconstruction_filters,
+        infer_all_octave_bands,
+        infer_all_octave_bands_directional,
+        InferDiffGFDN,
+        merge_subband_rirs,
+    )
+    from diffgfdn_torch.kernels.dispatch import plain_versions
+    from diffgfdn_torch.kernels.lu import lu_solve
+    from diffgfdn_torch.training import run_training_anisotropic_decay_var_receiver_pos
+
+    path = tmp / "directional" / "srirs.pkl"
+    if not path.exists():
+        generate_spatial_three_room_pickle(
+            path, fs=SPATIAL_FS, grid_spacing_m=DIRECTIONAL_GRID_M, rir_len_s=DIRECTIONAL_RIR_S,
+            decay_times=DIRECTIONAL_DECAYS, seed=SEED)
+    room = SpatialThreeRoomDataset(path)
+    configs, train_s = [], []
+    for band in MERGE_BANDS:
+        cfg = preset_config(f"directional_{band}Hz_res0.6m")
+        cfg.trainer_config.train_dir = str(tmp / "merge" / f"{band}Hz")
+        cfg.trainer_config.max_epochs = MERGE_EPOCHS
+        t0 = time.perf_counter()
+        trainer, _ = run_training_anisotropic_decay_var_receiver_pos(cfg, room, device=DEVICE)
+        torch.cuda.synchronize()
+        train_s.append(time.perf_counter() - t0)
+        require(bool(np.isfinite(trainer.train_loss + trainer.valid_loss).all()),
+                f"merge, {band} Hz band: losses {trainer.train_loss} {trainer.valid_loss}")
+        configs.append(cfg)
+        del trainer
+    rec = np.arange(NUM_RECEIVERS)
+    nfft = room.num_freq_bins
+    n_ch = (room.ambi_order + 1) ** 2
+
+    # the main path: the entry point a user calls
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    merged = infer_all_octave_bands(configs, room, rec, variant="directional", device=DEVICE)
+    call_s = time.perf_counter() - t0
+    launches = launch_counts()
+    batches = len(MERGE_BANDS) * -(-NUM_RECEIVERS // BATCH)
+    require(launches == {**{k: 0 for k in launches}, "lu": batches},
+            f"merge: launches {launches}, expected B5 {batches} times and nothing else")
+    require(merged.shape == (NUM_RECEIVERS, n_ch, nfft) and bool(np.isfinite(merged).all()),
+            f"merge: {merged.shape}, finite {np.isfinite(merged).all()}")
+    with plain_versions():
+        plain = infer_all_octave_bands(configs, room, rec, variant="directional", device=DEVICE)
+    half_s = int(0.5 * room.sample_rate)
+    merge_rel = rel_l2(torch.from_numpy(merged), torch.from_numpy(plain))
+    edc = edc_db(merged)
+    merge_edc = float(np.abs(edc - edc_db(plain))[..., :half_s].max())
+    require(merge_rel <= RIR_TOL and merge_edc <= EDC_TOL_DB,
+            f"merge vs plain: rel L2 {merge_rel}, EDC {merge_edc} dB")
+    drop = edc[:, 0, int(0.05 * room.sample_rate)] - edc[:, 0, half_s]
+    require(bool((drop > 3.0).all()), f"merge: SRIRs do not decay (min {drop.min()} dB)")
+    del plain, edc
+    try:
+        infer_all_octave_bands_directional(configs, room, rec[:1], convert_to_ambisonics=True,
+                                           device=DEVICE)
+    except ValueError:
+        pass
+    else:
+        require(False, "merge: convert_to_ambisonics=True did not raise (ROADMAP C12)")
+
+    # the same merge, each band's serving timed alone: SRIRs/s per band, and
+    # the host merge's time is the call's time less the bands' build and serve
+    serve_s, build_s = [], []
+
+    def timed_bands():
+        for cfg in configs:
+            t0 = time.perf_counter()
+            infer = InferDiffGFDN(cfg, room, variant="directional", device=DEVICE)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            rirs = infer.rirs_at(rec, BATCH)
+            serve_s.append(time.perf_counter() - t1)
+            build_s.append(t1 - t0)
+            yield rirs
+
+    filters = band_reconstruction_filters(configs, room.sample_rate, 2 ** 12)
+    t0 = time.perf_counter()
+    again = merge_subband_rirs(timed_bands(), filters)
+    total_s = time.perf_counter() - t0
+    require(np.array_equal(again, merged), "merge: a second run differs from the first")
+    del again
+
+    # B5 at the merge path's inputs: one served batch of the last band
+    infer = InferDiffGFDN(configs[-1], room, variant="directional", device=DEVICE)
+    inputs = {}
+    with recording_kernel_inputs(inputs):
+        infer.rirs_at(rec[:BATCH], BATCH)
+    m5, b5 = inputs["lu"]
+    (x, lu, piv) = lu_solve(m5, b5)
+    with plain_versions():
+        (x_p, lu_p, piv_p) = lu_solve(m5, b5)
+    torch.cuda.synchronize()
+    differ = [int((o != r).sum()) for o, r in ((x, x_p), (lu, lu_p), (piv, piv_p))]
+    require(differ == [0, 0, 0], f"merge: B5 vs plain differs in {differ} elements")
+
+    def plain_call():
+        with plain_versions():
+            return lu_solve(m5, b5)
+
+    row = timed_row("lu_solve [directional merge]", "lu.cu",
+                    "diffgfdn_tpu/kernels/pallas_lu.py:46", launches["lu"],
+                    float(torch.max(torch.abs(x - x_p))), lambda: lu_solve(m5, b5), plain_call,
+                    lambda: lu_solve(m5, b5), lu_cost(m5.shape[0], m5.shape[1]),
+                    lambda: torch.linalg.solve(m5, b5.unsqueeze(-1)), m5.shape)
+    result = {
+        "bands": list(MERGE_BANDS), "receivers": NUM_RECEIVERS, "nfft": nfft,
+        "epochs": MERGE_EPOCHS, "train_s": train_s, "shape": list(merged.shape),
+        "launches": {"lu": launches["lu"]}, "call_s": call_s,
+        "rel_l2_vs_plain": merge_rel, "edc_max_abs_db_vs_plain": merge_edc,
+        "served_srirs_per_s": [NUM_RECEIVERS / t for t in serve_s],
+        "serve_s": serve_s, "build_s": build_s,
+        "host_merge_s": total_s - sum(serve_s) - sum(build_s),
+        "b5_shape": list(m5.shape), "b5_differ_from_plain": differ,
+    }
+    return result, row
+
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -2789,6 +3195,10 @@ def main(argv=None) -> int:
                         help="only time the kernels B1-B7 of the diffgfdn_torch package "
                              "under ROOT (another checkout of the port) and print them as one "
                              "JSON line; no result line")
+    parser.add_argument("--edc-loss", action="store_true",
+                        help="only hold the directional EDC loss against autograd through "
+                             "db, time both and print their peak memory as one JSON line "
+                             "(edc_loss_check); no result line")
     args = parser.parse_args(argv)
 
     import torch
@@ -2799,6 +3209,10 @@ def main(argv=None) -> int:
     if args.kernel_times is not None:
         print(card_line())
         print(json.dumps({"kernel_times": kernel_times(Path(args.kernel_times))}))
+        return 0
+    if args.edc_loss:
+        print(card_line())
+        print(json.dumps({"edc_loss": edc_loss_check()}), flush=True)
         return 0
     try:
         from diffgfdn_torch.kernels import _build
@@ -2901,6 +3315,15 @@ def main(argv=None) -> int:
         for result in results:
             print(f"phase 10: {result['preset']}: " + json.dumps(result))
         print(f"phase 10: single-RIR fits in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        result = spatial_cnn(tmp, log_dir)
+        print(f"phase 11: floor-plan CNN in {time.perf_counter() - t0:.1f} s: "
+              + json.dumps(result))
+        t0 = time.perf_counter()
+        result, merge_row = directional_merge(tmp)
+        rows.append(merge_row)
+        print(f"phase 11: directional octave-band merge in {time.perf_counter() - t0:.1f} s: "
+              + json.dumps(result))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({

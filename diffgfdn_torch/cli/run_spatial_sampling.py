@@ -1,15 +1,17 @@
-"""CLI: train common-slopes spatial-sampling MLPs (port of ``cli/run_spatial_sampling.py``).
+"""CLI: train common-slopes spatial-sampling DNNs (port of ``cli/run_spatial_sampling.py``).
 
     python -m diffgfdn_torch.cli.run_spatial_sampling -c <config.yml | preset name> [--device cpu]
 
 ``-c`` takes a YAML file or the name of a spatial preset in
-``config/presets.py`` (``spatial_directional_1000Hz``, ``spatial_omni_1000Hz``),
-which needs no YAML parser. Trains one model per grid resolution on the
-spatial dataset at ``room_dataset_path``, on CUDA unless ``--device cpu`` is
-given. All-band inference to SOFA (``--infer-dataset``) and BRIRs
-(``--return-brirs``) need ``inference/sofa.py`` and raise
-NotImplementedError (ROADMAP A13); serving from Python is
-``diffgfdn_torch.inference.get_ambisonic_rirs``.
+``config/presets.py`` (``spatial_directional_1000Hz``,
+``spatial_directional_1000Hz_cnn``, ``spatial_omni_1000Hz``), which needs no
+YAML parser. Trains one model per grid resolution on the spatial dataset at
+``room_dataset_path``: the position MLPs on receiver batches, the floor-plan
+CNN (``network_type: cnn``) on one full-grid batch per resolution; on CUDA
+unless ``--device cpu`` is given. All-band inference to SOFA
+(``--infer-dataset``) and BRIRs (``--return-brirs``) need
+``inference/sofa.py`` and raise NotImplementedError (ROADMAP A13); serving
+from Python is ``diffgfdn_torch.inference.get_ambisonic_rirs``.
 """
 
 import argparse
@@ -25,7 +27,9 @@ def _load_config(spec: str):
     return load_and_validate_config(spec, SpatialSamplingConfig)
 
 
-def main(argv=None) -> None:
+def main(argv=None) -> dict:
+    """Parse ``argv`` and train; returns ``run_training_spatial_sampling``'s
+    {resolution: (trainer, model)}."""
     parser = argparse.ArgumentParser(
         description="Common-slopes spatial-sampling training with the PyTorch port")
     parser.add_argument("-c", "--config", required=True,
@@ -47,7 +51,7 @@ def main(argv=None) -> None:
 
     device = resolve_device(args.device)  # raises before anything is written
     logging.basicConfig(level=logging.INFO)
-    run_training_spatial_sampling(_load_config(args.config), device=device)
+    return run_training_spatial_sampling(_load_config(args.config), device=device)
 
 
 if __name__ == "__main__":

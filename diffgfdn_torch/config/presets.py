@@ -357,8 +357,27 @@ SPATIAL_OMNI_1000HZ = {
     "use_directional_rirs": False,
 }
 
+SPATIAL_DIRECTIONAL_1000HZ_CNN = {
+    "batch_size": 25,
+    "device": "tpu",
+    "dnn_config": {
+        "beamformer_type": "max_directivity",
+        "cnn_config": {"kernel_size": [3, 3], "num_hidden_channels": 32, "num_layers": 4},
+        "mlp_config": None,
+        "num_fourier_features": 10,
+    },
+    "lr": 0.001,
+    "max_epochs": 15,
+    "num_grid_spacing": 3,
+    "room_dataset_path": "resources/Georg_3room_FDTD/srirs_spatial_band_centre=1000Hz.pkl",
+    "seed": 24051,
+    "train_dir": "output/spatial_sampling/band_1000Hz_directional_cnn/",
+    "use_directional_rirs": True,
+}
+
 SPATIAL_PRESETS: Dict[str, dict] = {
     "spatial_directional_1000Hz": SPATIAL_DIRECTIONAL_1000HZ,
+    "spatial_directional_1000Hz_cnn": SPATIAL_DIRECTIONAL_1000HZ_CNN,
     "spatial_omni_1000Hz": SPATIAL_OMNI_1000HZ,
 }
 

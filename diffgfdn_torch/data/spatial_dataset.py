@@ -12,16 +12,20 @@ receivers and RIRs of a copy (:meth:`SpatialRoomDataset.update_receiver_pos`,
 :meth:`SpatialRoomDataset.update_rirs`). The three target spectra of
 :func:`arrays_from_spatial_dataset` are computed lazily, on first read: at
 847 receivers, 9 SH channels and 65537 bins each is some 4 GB of host memory.
-The CNN grid, floor mask and patch batching wait for ROADMAP A12's second slice.
+The floor-plan CNN reads the receivers as a 2-D grid: the floor mask
+(:meth:`SpatialRoomDataset.get_binary_mask`), the grid's inputs and targets
+(:func:`create_2d_grid_data`) and square patches of it
+(:func:`square_patch_indices`).
 """
 
 import math
 import pickle
 from pathlib import Path
-from typing import List, Optional, Tuple, Union
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 from scipy.fft import rfftfreq
+from scipy.interpolate import griddata
 
 from ..ops.basic import LOG10E6
 from ..ops.sph import t_design_directions
@@ -120,6 +124,17 @@ class SpatialRoomDataset:
         """(early, late) time-domain split with crossfades at the mixing time."""
         return (early_split(self.rirs, self.mixing_time_ms, self.sample_rate),
                 late_split(self.rirs, self.mixing_time_ms, self.sample_rate))
+
+    def get_binary_mask(self, mesh_2d: np.ndarray) -> np.ndarray:
+        """True where the (..., 2) mesh points lie inside a room's floor plan
+        (the rooms' edges included)."""
+        x, y = mesh_2d[..., 0], mesh_2d[..., 1]
+        mask = np.zeros(x.shape, dtype=bool)
+        for i in range(self.num_rooms):
+            sx, sy = self.room_start_coord[i][:2]
+            w, h = self.room_dims[i][:2]
+            mask |= (x >= sx) & (x <= sx + w) & (y >= sy) & (y <= sy + h)
+        return mask
 
 
 class SpatialThreeRoomDataset(SpatialRoomDataset):
@@ -243,6 +258,71 @@ def split_by_grid_resolution(
         else:
             valid_idx.append(idx)
     return np.asarray(train_idx), np.asarray(valid_idx)
+
+
+def create_2d_grid_data(
+    room_data: SpatialRoomDataset, indices: np.ndarray
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The CNN's 2-D inputs and targets from a set of receiver indices.
+
+    The grid is the product of the receivers' distinct x and y coordinates.
+    Returns float32 (mesh (H, W, 2), normalized mesh (H, W, 2), labels
+    (H*W, J, num_slopes)): every cell takes the amplitudes of the nearest
+    dataset receiver (any receiver, not only ``indices``), and cells outside
+    the floor plan take zeros.
+    """
+    pos = room_data.receiver_position[indices]
+    norm = room_data.norm_receiver_position[indices]
+    xm, ym = np.meshgrid(np.unique(pos[:, 0]), np.unique(pos[:, 1]))
+    mesh = np.stack([xm, ym], axis=-1)
+    xn, yn = np.meshgrid(np.unique(norm[:, 0]), np.unique(norm[:, 1]))
+    norm_mesh = np.stack([xn, yn], axis=-1)
+
+    labels = room_data.amplitudes  # (R, J, num_slopes)
+    interp = griddata(
+        (room_data.receiver_position[:, 0], room_data.receiver_position[:, 1]),
+        labels, (mesh[..., 0], mesh[..., 1]), method="nearest",
+    )
+    interp[~room_data.get_binary_mask(mesh), ...] = 0.0
+    h, w = mesh.shape[:2]
+    return (mesh.astype(np.float32), norm_mesh.astype(np.float32),
+            interp.reshape(h * w, *labels.shape[1:]).astype(np.float32))
+
+
+def square_patch_indices(
+    coords: np.ndarray,
+    patch_size: int,
+    grid_spacing_m: float,
+    step_size: int = 1,
+    drop_incomplete: bool = False,
+    shuffle: bool = False,
+    seed: Optional[int] = None,
+) -> List[np.ndarray]:
+    """Square 2-D patches of receiver indices for CNN batching.
+
+    ``coords``: (R, >=2) receiver coordinates on a (possibly incomplete)
+    uniform ``grid_spacing_m`` grid. A patch of ``patch_size`` x
+    ``patch_size`` cells starts at every ``step_size``-th cell and holds the
+    indices of the receivers in it (x outer, y inner); empty patches are
+    left out, and with ``drop_incomplete`` those missing a receiver too.
+    ``shuffle`` orders them by ``np.random.RandomState(seed)``.
+    """
+    xy = np.round(coords[:, :2] / grid_spacing_m).astype(np.int64)
+    xy -= xy.min(axis=0, keepdims=True)
+    occupancy: Dict[Tuple[int, int], int] = {(int(x), int(y)): i for i, (x, y) in enumerate(xy)}
+    nx, ny = xy.max(axis=0) + 1
+    patches = []
+    for px in range(0, int(nx), step_size):
+        for py in range(0, int(ny), step_size):
+            idx = [occupancy[(px + dx, py + dy)] for dx in range(patch_size)
+                   for dy in range(patch_size) if (px + dx, py + dy) in occupancy]
+            if not idx or (drop_incomplete and len(idx) < patch_size ** 2):
+                continue
+            patches.append(np.asarray(idx))
+    if shuffle:
+        rng = np.random.RandomState(seed)
+        patches = [patches[i] for i in rng.permutation(len(patches))]
+    return patches
 
 
 def generate_spatial_three_room_pickle(

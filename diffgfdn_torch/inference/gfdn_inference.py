@@ -10,16 +10,17 @@ A model warm-started from colorless prototypes is rebuilt from their cached
 pickles (they fix its io gains), retraining only missing ones.
 
 Subband models (one per octave band) are merged into broadband RIRs by
-their reconstructing filterbank (:func:`infer_all_octave_bands`), or
-compared with the measured RIRs' EDCs on the card without any RIR reaching
-the host (:func:`broadband_edc_errors_device`). Their time-domain synthesis
-and merge are not ported yet (ROADMAP A11), nor the octave-band merge of
-directional models (ROADMAP A10, with A12's common-slopes synthesis).
+their reconstructing filterbank (:func:`infer_all_octave_bands`; directional
+band models into broadband SH-domain SRIRs,
+:func:`infer_all_octave_bands_directional`), or compared with the measured
+RIRs' EDCs on the card without any RIR reaching the host
+(:func:`broadband_edc_errors_device`). Their time-domain synthesis and
+merge are not ported yet (ROADMAP A11).
 """
 
 import logging
 from pathlib import Path
-from typing import Callable, Dict, List, Optional, Union
+from typing import Callable, Dict, Iterable, List, Optional, Union
 
 import numpy as np
 from scipy.signal import fftconvolve
@@ -28,7 +29,7 @@ import torch
 from ..config.schema import DiffGFDNConfig
 from ..data.batching import arrays_from_room_dataset
 from ..data.room_dataset import RoomDataset
-from ..data.spatial_dataset import arrays_from_spatial_dataset
+from ..data.spatial_dataset import arrays_from_spatial_dataset, SpatialRoomDataset
 from ..kernels.tdgfdn import delay_line_outputs, delay_line_outputs_filtered, filter_bank_from_sos
 from ..models import DiffDirectionalFDNVarReceiverPos, DiffGFDNVarReceiverPos
 from ..models.gain_heads import expand_groups_to_delay_lines
@@ -326,22 +327,24 @@ def subband_energy_compensation(band_filter: np.ndarray) -> float:
     return float(np.sqrt(np.sum(np.asarray(band_filter) ** 2)))
 
 
-def merge_subband_rirs(band_rirs: List[np.ndarray], band_filters: np.ndarray) -> np.ndarray:
+def merge_subband_rirs(band_rirs: Iterable[np.ndarray], band_filters: np.ndarray) -> np.ndarray:
     """Filter each band's synthesized RIRs with its reconstructing filter
-    and sum across bands -> broadband RIRs.
+    and sum across bands -> broadband RIRs (float64).
 
-    ``band_rirs``: list of (..., T) arrays, one per band (any leading dims);
-    ``band_filters``: (num_bands, filt_len). The group delay of the
-    linear-phase filterbank is compensated.
+    ``band_rirs``: (..., T) arrays, one per band (any leading dims), in a
+    list or produced one at a time by an iterator (then only one band's
+    RIRs are held at once); ``band_filters``: (num_bands, filt_len). The
+    group delay of the linear-phase filterbank is compensated.
     """
-    t_len = band_rirs[0].shape[-1]
     filt_len = band_filters.shape[-1]
     delay = filt_len // 2
-    out = np.zeros(band_rirs[0].shape)
-    shape = (1,) * (band_rirs[0].ndim - 1) + (filt_len,)
+    out = None
     for b, rirs in enumerate(band_rirs):
+        if out is None:
+            out = np.zeros(rirs.shape)
+        shape = (1,) * (rirs.ndim - 1) + (filt_len,)
         filtered = fftconvolve(rirs, band_filters[b].reshape(shape), mode="full", axes=-1)
-        out += filtered[..., delay : delay + t_len]
+        out += filtered[..., delay : delay + rirs.shape[-1]]
     return out
 
 
@@ -371,18 +374,48 @@ def infer_all_octave_bands(
     """Broadband RIRs (len(rec_indices), nfft) from one subband model per
     octave band: each band model's RIRs (from its newest checkpoint), band
     filtered by the reconstructing filterbank and summed on the host
-    (:func:`merge_subband_rirs`). Omnidirectional band models only."""
-    if variant != "var_receiver":
-        raise NotImplementedError(
-            f"the octave-band merge of {variant!r} models is not ported yet (ROADMAP A10, "
-            "with A12's common-slopes synthesis)"
+    (:func:`merge_subband_rirs`), one band at a time.
+    ``variant="directional"`` takes a spatial dataset and returns
+    :func:`infer_all_octave_bands_directional`'s (P, L, nfft) SRIRs."""
+    if variant == "directional":
+        return infer_all_octave_bands_directional(configs, room_data, rec_indices,
+                                                  fir_len=fir_len, device=device)
+    filters = band_reconstruction_filters(configs, room_data.sample_rate, fir_len)
+    return merge_subband_rirs(
+        (InferDiffGFDN(cfg, room_data, variant=variant, device=device).rirs_at(rec_indices)
+         for cfg in configs), filters)
+
+
+def infer_all_octave_bands_directional(
+    configs: List[DiffGFDNConfig],
+    room_data: SpatialRoomDataset,
+    rec_indices: np.ndarray,
+    convert_to_ambisonics: bool = False,
+    fir_len: int = 2 ** 12,
+    device: Union[str, torch.device] = "cuda",
+) -> np.ndarray:
+    """Broadband SH-domain SRIRs (len(rec_indices), (ambi_order + 1)^2, nfft)
+    float64 from one directional model per octave band.
+
+    Each band is served by ``InferDiffGFDN(variant="directional")`` from its
+    newest checkpoint (the model built as the directional solver builds
+    it), band filtered by the reconstructing filterbank and added to the
+    sum on the host, one band at a time (:func:`merge_subband_rirs`).
+
+    The merged SRIRs are already in the SH domain, so
+    ``convert_to_ambisonics=True`` raises ``ValueError``: the JAX package
+    would hand them to ``convert_directional_rirs_to_ambisonics``, which
+    reads their axis as the 12 directions (ROADMAP C12).
+    """
+    if convert_to_ambisonics:
+        raise ValueError(
+            "the directional octave-band merge returns SH-domain SRIRs already: there are no "
+            "directional responses to convert to ambisonics (ROADMAP C12)"
         )
     filters = band_reconstruction_filters(configs, room_data.sample_rate, fir_len)
-    band_rirs = [
-        InferDiffGFDN(cfg, room_data, variant=variant, device=device).rirs_at(rec_indices)
-        for cfg in configs
-    ]
-    return merge_subband_rirs(band_rirs, filters)
+    return merge_subband_rirs(
+        (InferDiffGFDN(cfg, room_data, variant="directional", device=device)
+         .rirs_at(rec_indices) for cfg in configs), filters)
 
 
 @torch.no_grad()

@@ -3,8 +3,9 @@
 
 Per-band checkpoints give CS amplitudes at the query positions; shaped noise
 synthesizes the tails on the device (``cs_synthesis.py``); a directional set
-converts to ambisonics. The entry points run on CUDA unless the caller passes
-``device="cpu"``. The floor-plan CNN waits for ROADMAP A12's second slice.
+converts to ambisonics. The floor-plan CNN predicts its whole grid once and
+each query takes its nearest cell. The entry points run on CUDA unless the
+caller passes ``device="cpu"``.
 """
 
 import copy
@@ -18,7 +19,11 @@ import torch
 from ..config.schema import DNNType, SpatialSamplingConfig
 from ..data.spatial_dataset import SpatialRoomDataset
 from ..training.checkpoints import load_latest_checkpoint
-from ..training.spatial_trainer import build_spatial_model, SpatialSamplingTrainer
+from ..training.spatial_trainer import (
+    build_spatial_model,
+    make_cnn_batch,
+    SpatialSamplingTrainer,
+)
 from ..utils.device import resolve_device
 from ..utils.params import load_jax_params
 from .cs_synthesis import get_rirs_from_common_slopes_model
@@ -37,11 +42,10 @@ def get_output_from_trained_model(
     training directory (JAX's or the port's): (num_pos, num_slopes) omni or
     (num_pos, J, num_slopes) directional, on ``device``.
 
-    Query positions are normalized by the dataset's own receiver extents.
+    An MLP normalizes the query positions by the dataset's own receiver
+    extents. The CNN predicts once on the grid of all the dataset's
+    receivers, and each query takes the cell nearest to it in (x, y).
     """
-    if config.network_type == DNNType.CNN:
-        raise NotImplementedError("serving the floor-plan CNN is not ported yet "
-                                  "(ROADMAP A12, second slice)")
     dev = resolve_device(device)
     model = build_spatial_model(config, room_data.num_rooms, room_data.ambi_order, dev)
     ckpt_dir = Path(config.train_dir)
@@ -53,6 +57,13 @@ def get_output_from_trained_model(
     load_jax_params(model, tree)
     trainer = SpatialSamplingTrainer(model, config, room_data, use_edc_loss=False,
                                      grid_resolution_m=grid_resolution_m, device=dev)
+    if config.network_type == DNNType.CNN:
+        batch = make_cnn_batch(room_data)
+        grid_amps = trainer.predict_amplitudes(batch)  # (H*W, J, num_slopes)
+        cells = torch.as_tensor(batch["mesh_2d_raw"].reshape(-1, 2), device=dev)
+        q = torch.as_tensor(np.asarray(rec_pos_list, np.float32)[:, :2], device=dev)
+        dist = torch.linalg.vector_norm(cells[None, :, :] - q[:, None, :], dim=-1)
+        return grid_amps[torch.argmin(dist, dim=1)]
     lo = room_data.receiver_position.min(axis=0)
     hi = room_data.receiver_position.max(axis=0)
     norm = (np.asarray(rec_pos_list) - lo) / (hi - lo + 1e-12)

@@ -5,12 +5,23 @@ they weight), the RBF smoothness kernel over receiver pairs (host numpy,
 once per dataset) and the smoothness loss of the beamforming weights.
 :func:`make_decay_envelopes` is also what the directional FDN's EDC loss
 weights by the common-slope amplitudes.
+
+The directional EDC loss runs over (B, J, T) envelopes: at the floor-plan
+CNN's full 0.3 m grid (B = 2745 cells, J = 12, T = 70400) one such tensor is
+9.3 GB, and autograd would keep four of them. So its forward runs in chunks
+of receivers and keeps one (B, J, T) tensor, the derivative of each
+element's error, for a backward that is one contraction
+(:class:`_DirectionalEDCError`).
 """
+
+import math
 
 import numpy as np
 import torch
 
-from ..ops.basic import db, decay_kernel
+from ..ops.basic import _EPS_F32, db, decay_kernel
+
+CHUNK_ELEMENTS = 2 ** 27  # envelope elements a chunk of the directional EDC loss holds
 
 
 def spatial_mse_loss(amps_pred: torch.Tensor, amps_true: torch.Tensor) -> torch.Tensor:
@@ -35,15 +46,59 @@ def spatial_edc_loss(
 
     Omni amplitudes (B, num_slopes): each slope's envelope compared alone,
     averaged over batch and time, summed over slopes. Directional
-    (B, J, num_slopes): the slopes summed first, then the mean |dB| error.
+    (B, J, num_slopes): the slopes summed first, then the mean |dB| error,
+    computed as many receivers at a time as fill ``CHUNK_ELEMENTS``; the
+    targets take no gradient.
     """
     if amps_true.ndim == 2:
         edc_true = db(torch.einsum("bk,kt->bkt", amps_true, envelopes), is_squared=True)
         edc_pred = db(torch.einsum("bk,kt->bkt", amps_pred, envelopes), is_squared=True)
         return torch.sum(torch.mean(torch.abs(edc_true - edc_pred), dim=(0, -1)))
-    edc_true = db(torch.einsum("bjk,kt->bjt", amps_true, envelopes), is_squared=True)
-    edc_pred = db(torch.einsum("bjk,kt->bjt", amps_pred, envelopes), is_squared=True)
-    return torch.mean(torch.abs(edc_true - edc_pred))
+    if amps_true.requires_grad:
+        raise ValueError("the directional EDC loss takes no gradient for its targets")
+    b, j, _ = amps_pred.shape
+    t = envelopes.shape[-1]
+    rows = max(1, CHUNK_ELEMENTS // (j * t))
+    with_slope = torch.is_grad_enabled() and amps_pred.requires_grad
+    return _DirectionalEDCError.apply(amps_pred, amps_true, envelopes, rows,
+                                      with_slope) / (b * j * t)
+
+
+class _DirectionalEDCError(torch.autograd.Function):
+    """The sum over (B, J, T) of |db(E_true) - db(E_pred)|, E = amps @ envelopes,
+    in chunks of ``rows`` receivers.
+
+    ``db``'s clip at -200 dB never binds here: |E| + eps >= eps puts every
+    level at or above -69.2 dB. So the error is 10 |log10 m_t - log10 m_p|,
+    m = |E| + eps, and its derivative in E_pred is
+    sign(diff) sign(E_pred) / m_p times -10 / ln 10, as autograd takes it
+    (abs takes sign(x)). With ``with_slope`` (amps_pred takes a gradient) each
+    chunk writes sign(diff) sign(E_pred) / m_p into one (B, J, T) tensor,
+    which backward contracts with the envelopes.
+    """
+
+    @staticmethod
+    def forward(ctx, amps_pred, amps_true, envelopes, rows, with_slope):
+        b, j, _ = amps_pred.shape
+        slope = amps_pred.new_empty((b, j, envelopes.shape[-1])) if with_slope else None
+        total = amps_pred.new_zeros(())
+        for s in range(0, b, rows):
+            e = torch.einsum("bjk,kt->bjt", amps_pred[s:s + rows], envelopes)
+            mag = torch.abs(e).add_(_EPS_F32)
+            diff = torch.einsum("bjk,kt->bjt", amps_true[s:s + rows], envelopes)
+            diff = diff.abs_().add_(_EPS_F32).log10_().sub_(torch.log10(mag))
+            total = total + torch.sum(torch.abs(diff))
+            if slope is not None:
+                torch.mul(torch.sign(diff), torch.sign(e), out=slope[s:s + rows])
+                slope[s:s + rows].div_(mag)
+        ctx.save_for_backward(slope, envelopes)
+        return 10.0 * total
+
+    @staticmethod
+    def backward(ctx, grad):
+        slope, envelopes = ctx.saved_tensors
+        scale = grad * (-10.0 / math.log(10.0))
+        return torch.einsum("bjt,kt->bjk", slope, envelopes) * scale, None, None, None, None
 
 
 def make_smoothness_kernel(all_receiver_pos: np.ndarray) -> np.ndarray:

@@ -1,13 +1,16 @@
-"""DNN building blocks (port of ``diffgfdn_tpu/models/dnn.py``: sigmoids, MLPs, the encoding).
+"""DNN building blocks (port of ``diffgfdn_tpu/models/dnn.py``: sigmoids,
+MLPs, the encoding, the floor-plan CNN).
 
 Layer order, initializers and LayerNorm epsilon follow the flax modules so
 that parameters carried over from the JAX package (``utils/params.py``)
 give the same function: a flax ``Dense.kernel`` (in, out) is the transpose
-of ``nn.Linear.weight``, and flax ``LayerNorm`` uses eps = 1e-6.
+of ``nn.Linear.weight``, a flax ``Conv.kernel`` (kh, kw, in, out) is
+``nn.Conv2d.weight`` (out, in, kh, kw) permuted, and flax ``LayerNorm`` uses
+eps = 1e-6.
 """
 
 import math
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -135,3 +138,58 @@ class MLPSkipConnections(nn.Module):
         for block in self.blocks:
             h = block(h)
         return self.dense[1](h).reshape(x.shape[0], *self.out_shape)
+
+
+# flax's lecun_normal: a normal truncated at two standard deviations, scaled
+# so that the truncated distribution has variance 1 / fan_in
+_TRUNCATED_NORMAL_STD = 0.87962566103423978
+
+
+def _lecun_normal_conv(
+    in_channels: int, out_channels: int, kernel_size: Sequence[int],
+    generator: Optional[torch.Generator],
+) -> nn.Conv2d:
+    """nn.Conv2d with "SAME" padding, LeCun-normal (truncated) weights and
+    zero bias, as flax ``nn.Conv``'s defaults."""
+    layer = nn.Conv2d(in_channels, out_channels, tuple(kernel_size), padding="same")
+    std = math.sqrt(1.0 / (in_channels * math.prod(kernel_size))) / _TRUNCATED_NORMAL_STD
+    with torch.no_grad():
+        nn.init.trunc_normal_(layer.weight, std=std, a=-2.0 * std, b=2.0 * std,
+                              generator=generator)
+        layer.bias.zero_()
+    return layer
+
+
+class ConvNet(nn.Module):
+    """2-D CNN over the floor-plan grid: ``num_layers`` convolutions ("SAME"
+    padding) with ReLU between them.
+
+    Input (H, W, in_channels), output (H, W, num_groups, out_channels),
+    channels last as the flax module; the convolutions run NCHW on a batch
+    of one, permuted at the module's edges.
+    """
+
+    def __init__(
+        self,
+        in_channels: int,
+        out_channels: int,
+        num_groups: int,
+        hidden_channels: int,
+        num_layers: int = 3,
+        kernel_size: Sequence[int] = (3, 3),
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        self.out_shape = (num_groups, out_channels)
+        widths = [in_channels] + [hidden_channels] * (num_layers - 1) + [num_groups * out_channels]
+        self.conv = nn.ModuleList([
+            _lecun_normal_conv(a, b, kernel_size, generator)
+            for a, b in zip(widths[:-1], widths[1:])
+        ])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = x.permute(2, 0, 1)[None]  # (1, C, H, W)
+        for conv in self.conv[:-1]:
+            h = torch.relu(conv(h))
+        h = self.conv[-1](h)[0].permute(1, 2, 0)  # (H, W, G * O)
+        return h.reshape(x.shape[0], x.shape[1], *self.out_shape)

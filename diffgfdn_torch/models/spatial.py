@@ -4,11 +4,12 @@
 host (``ops/sph.py``); :class:`DirectionalBeamformerWeightsMLP` maps a
 receiver position to per-group SH beamforming weights, and
 :func:`directional_amplitudes` turns them into per-direction common-slope
-amplitudes; :class:`OmniAmplitudesMLP` maps a position to omni common-slope
-amplitudes. The floor-plan CNN head waits for ROADMAP A12's second slice.
+amplitudes; :class:`DirectionalBeamformerWeightsCNN` maps the whole
+floor-plan grid to those weights at once; :class:`OmniAmplitudesMLP` maps a
+position to omni common-slope amplitudes.
 """
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -16,7 +17,7 @@ from torch import nn
 
 from ..config.schema import BeamformerType
 from ..ops.sph import design_sph_filterbank, modal_weights
-from .dnn import MLP, MLPSkipConnections, scaled_sigmoid, sigmoid, SinusoidalEncoding
+from .dnn import ConvNet, MLP, MLPSkipConnections, scaled_sigmoid, sigmoid, SinusoidalEncoding
 
 
 def build_analysis_matrix(
@@ -85,6 +86,39 @@ class DirectionalBeamformerWeightsMLP(nn.Module):
         out = net(self.encoding(position))
         weights = out.reshape(position.shape[0], self.num_groups, self.num_out)
         return normalise_weights(weights) if normalise else weights
+
+
+class DirectionalBeamformerWeightsCNN(nn.Module):
+    """CNN over the floor-plan mesh -> SH beamforming weights per slope.
+
+    The batch's ``mesh_2d`` (H, W, 2) (normalized coordinates) is Fourier
+    encoded cell by cell, then the :class:`ConvNet` ``cnn`` (flax
+    ``ConvNet_0``) maps the (H, W, 4 * num_fourier_features) features to
+    weights (H*W, num_groups, (ambi_order+1)^2), cells in row-major order.
+    """
+
+    def __init__(
+        self,
+        num_groups: int,
+        ambi_order: int,
+        num_fourier_features: int,
+        num_hidden_channels: int,
+        num_layers: int = 3,
+        kernel_size: Sequence[int] = (3, 3),
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        self.num_groups = num_groups
+        self.num_out = (ambi_order + 1) ** 2
+        self.encoding = SinusoidalEncoding(num_fourier_features)
+        self.cnn = ConvNet(2 * num_fourier_features * 2, self.num_out, num_groups,
+                           num_hidden_channels, num_layers, kernel_size, generator=generator)
+
+    def forward(self, x: dict) -> torch.Tensor:
+        mesh = x["mesh_2d"]
+        h, w, ncoord = mesh.shape
+        feats = self.encoding(mesh.reshape(h * w, ncoord)).reshape(h, w, -1)
+        return self.cnn(feats).reshape(h * w, self.num_groups, self.num_out)
 
 
 class OmniAmplitudesMLP(nn.Module):

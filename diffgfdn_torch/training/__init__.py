@@ -37,7 +37,9 @@ from .solver import (
 from .spatial_trainer import (
     build_spatial_model,
     collapse_amplitudes_to_omni,
+    make_cnn_batch,
     run_training_spatial_sampling,
+    run_training_spatial_sampling_cnn,
     SpatialSamplingTrainer,
 )
 from .trainer import (
@@ -69,6 +71,7 @@ __all__ = [
     "load_latest_checkpoint",
     "load_latest_checkpoint_with_epoch",
     "load_opt_state",
+    "make_cnn_batch",
     "make_optimizer",
     "padded_batches",
     "param_labels",
@@ -77,6 +80,7 @@ __all__ = [
     "run_training_colorless_fdn",
     "run_training_single_pos",
     "run_training_spatial_sampling",
+    "run_training_spatial_sampling_cnn",
     "run_training_var_receiver_pos",
     "save_checkpoint",
     "save_colorless_fdn_parameters",

@@ -48,7 +48,7 @@ What a caller must keep in mind:
 import contextlib
 import gc
 import time
-from typing import Any, Callable, Dict, Iterator, Optional
+from typing import Any, Callable, Dict, Iterator, List, Optional
 
 import torch
 
@@ -268,3 +268,13 @@ class GraphedSteps:
         if len(inputs["idx"]) == batch_size:
             return self.run_step("valid", step, **inputs)
         return step(**inputs)
+
+    def run_batches(self, kind: str, step: Callable[..., Any],
+                    batches: List[Inputs]) -> Iterator[Any]:
+        """``step(**batch)`` for each of ``batches`` in turn, yielded: through
+        the graph of ``kind`` when all have one layout (the same keys and
+        shapes, as JAX's ``_stack`` requires for its scanned epoch); a ragged
+        list runs eagerly, as JAX does when ``_stack`` returns None."""
+        layouts = {tuple(sorted((k, tuple(v.shape)) for k, v in b.items())) for b in batches}
+        for batch in batches:
+            yield self.run_step(kind, step, **batch) if len(layouts) == 1 else step(**batch)

@@ -1,41 +1,46 @@
 """Common-slopes spatial-sampling trainer and sweep (port of ``training/spatial_trainer.py``).
 
-Position MLPs map a receiver position to omni common-slope (CS) amplitudes
-or to SH beamforming weights per slope (directional), trained with Adam and
+DNNs map receiver positions to omni common-slope (CS) amplitudes or to SH
+beamforming weights per slope (directional), trained with Adam and
 StepLR(20 epochs, 0.1) at several grid resolutions, one checkpoint directory
-``grid_resolution=<res>`` per resolution. The MLP path of the JAX trainer:
+``grid_resolution=<res>`` per resolution. Two heads, two epoch loops:
 
-* the positions and CS targets are uploaded once (:meth:`upload_arrays`);
+* the position MLPs train on receiver batches (:meth:`SpatialSamplingTrainer.fit_indexed`):
+  the positions and CS targets are uploaded once (:meth:`upload_arrays`);
   batches are gathered on the device from an index matrix uploaded once per
   epoch, in the order ``np.random.RandomState(seed)`` draws, wrap-padded;
-* the losses are summed on the device and read by the host once per epoch;
   the validation loss is the exact item-weighted mean over full batches and
   the unpadded remainder;
-* with ``scan_epochs`` (the default) each step and each full validation
-  batch runs through a step graph (``training/scan.py``), captured once on
-  the card and replayed, the batch's indices its one static input; the
-  validation remainder runs eagerly. Each resolution's trainer of a sweep
-  captures its own;
-* checkpoints are flax trees (``utils/params.py``), readable by the JAX
-  package.
+* the floor-plan CNN (``spatial_directional_1000Hz_cnn``) trains on one
+  full-grid batch per resolution (:func:`make_cnn_batch`: the normalized
+  mesh, the labels nearest-interpolated onto it, the floor mask), through
+  the generator-batch loop :meth:`SpatialSamplingTrainer.fit`; cells outside
+  the floor plan take their targets, so they add nothing to the loss but
+  still count in its mean.
 
-The floor-plan CNN (``spatial_directional_1000Hz_cnn.yml``) and the
-generator-batch ``fit`` wait for ROADMAP A12's second slice; the beamformer
-maps need ``utils/plot.py`` (ROADMAP A14) and are skipped.
+In both, the losses are summed on the device and read by the host once per
+epoch, and with ``scan_epochs`` (the default) each step and each full
+validation batch runs through a step graph (``training/scan.py``), captured
+once on the card and replayed: the batch's indices, or the generator's
+batch, are its static inputs. Each resolution's trainer of a sweep captures
+its own. Checkpoints are flax trees (``utils/params.py``), readable by the
+JAX package. The beamformer maps need ``utils/plot.py`` (ROADMAP A14) and
+are skipped.
 """
 
 import copy
 import logging
 from pathlib import Path
 import time
-from typing import Dict, List, Optional, Tuple, Union
+from typing import Callable, Dict, Iterable, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from ..config.schema import DNNType, MLPConfig, SpatialSamplingConfig
+from ..config.schema import CNNConfig, DNNType, MLPConfig, SpatialSamplingConfig
 from ..data.spatial_dataset import (
     arrays_from_spatial_dataset,
+    create_2d_grid_data,
     SpatialRoomDataset,
     split_by_grid_resolution,
 )
@@ -50,6 +55,7 @@ from ..losses.spatial import (
 from ..models.spatial import (
     build_analysis_matrix,
     directional_amplitudes,
+    DirectionalBeamformerWeightsCNN,
     DirectionalBeamformerWeightsMLP,
     OmniAmplitudesMLP,
 )
@@ -65,8 +71,6 @@ logger = logging.getLogger("diffgfdn_torch")
 Batch = Dict[str, torch.Tensor]
 DECAY_EPOCHS = 20  # StepLR(20, 0.1), as the JAX trainer's exponential_decay
 SMOOTHNESS_WEIGHT = 1e-4
-_CNN_NOT_PORTED = ("the floor-plan CNN of the common-slopes models is not ported yet "
-                   "(ROADMAP A12, second slice)")
 
 
 def build_spatial_model(
@@ -75,19 +79,26 @@ def build_spatial_model(
     ambi_order: Optional[int],
     device: Union[str, torch.device] = "cuda",
 ) -> torch.nn.Module:
-    """The configured CS-amplitude MLP on ``device``, parameters drawn from a
+    """The configured CS-amplitude DNN on ``device``, parameters drawn from a
     ``torch.Generator`` seeded with ``config.seed``.
 
-    A missing ``mlp_config`` means default hyperparameters for the omni head,
-    as in the JAX package; a directional config without one is the CNN.
+    A missing ``mlp_config`` or ``cnn_config`` means default hyperparameters,
+    as in the JAX package; a directional config without ``mlp_config`` is
+    the floor-plan CNN (``network_type``).
     """
     dev = resolve_device(device)
     dnn = config.dnn_config
     mlp = dnn.mlp_config or MLPConfig()
     generator = torch.Generator().manual_seed(config.seed)
-    if config.use_directional_rirs:
-        if config.network_type == DNNType.CNN:
-            raise NotImplementedError(_CNN_NOT_PORTED)
+    if config.use_directional_rirs and config.network_type == DNNType.CNN:
+        cnn = dnn.cnn_config or CNNConfig()
+        model = DirectionalBeamformerWeightsCNN(
+            num_groups=num_slopes, ambi_order=ambi_order,
+            num_fourier_features=dnn.num_fourier_features,
+            num_hidden_channels=cnn.num_hidden_channels, num_layers=cnn.num_layers,
+            kernel_size=tuple(cnn.kernel_size), generator=generator,
+        )
+    elif config.use_directional_rirs:
         model = DirectionalBeamformerWeightsMLP(
             num_groups=num_slopes, ambi_order=ambi_order,
             num_fourier_features=dnn.num_fourier_features,
@@ -104,7 +115,8 @@ def build_spatial_model(
 
 
 class SpatialSamplingTrainer(GraphedSteps):
-    """Trainer of a CS-amplitude MLP (omni amplitudes or directional weights).
+    """Trainer of a CS-amplitude DNN: the position MLPs (omni amplitudes or
+    directional weights) or the floor-plan CNN.
 
     ``device`` defaults to CUDA and raises without a card unless the caller
     passes ``device="cpu"``; the model is moved there.
@@ -122,8 +134,6 @@ class SpatialSamplingTrainer(GraphedSteps):
         grid_resolution_m: Optional[float] = None,
         device: Union[str, torch.device] = "cuda",
     ):
-        if config.network_type == DNNType.CNN:
-            raise NotImplementedError(_CNN_NOT_PORTED)
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.cfg = config
@@ -168,6 +178,10 @@ class SpatialSamplingTrainer(GraphedSteps):
     def _losses(self, batch: Batch) -> Dict[str, torch.Tensor]:
         amps, weights = self._predict(batch)
         target = batch["target_common_slope_amps"]
+        if "floor_mask" in batch:
+            # the CNN's grid: cells outside the floor plan take their targets
+            mask = batch["floor_mask"].reshape((-1,) + (1,) * (amps.ndim - 1))
+            amps = amps * mask + (1.0 - mask) * target
         out: Dict[str, torch.Tensor] = {}
         if self.envelopes is not None:
             out["edc_loss"] = spatial_edc_loss(amps, target, self.envelopes)
@@ -287,17 +301,132 @@ class SpatialSamplingTrainer(GraphedSteps):
                         self.epoch_s[-1])
         return self.model
 
-    def fit(self, *args, **kwargs):
-        """The generator-batch epoch loop (CNN grids) is not ported."""
-        raise NotImplementedError("the generator-batch SpatialSamplingTrainer.fit is not "
-                                  "ported yet (ROADMAP A12, second slice); use fit_indexed")
+    def _batch_step(self, **batch: torch.Tensor) -> torch.Tensor:
+        """The step closure of :meth:`fit`: loss, backward and optimizer step."""
+        total = self.loss_and_grads(batch)
+        self.optimizer.step()
+        return total
+
+    def _batch_valid_step(self, **batch: torch.Tensor) -> torch.Tensor:
+        with torch.no_grad():
+            return sum(self._losses(batch).values())
+
+    def to_device(self, batch: Dict) -> Batch:
+        """A batch of arrays as float32 tensors on the trainer's device."""
+        return {k: torch.as_tensor(np.asarray(v, np.float32), device=self.device)
+                if not torch.is_tensor(v) else v.to(self.device) for k, v in batch.items()}
+
+    def fit_batch(self, batch: Batch) -> torch.Tensor:
+        """One optimizer step on a batch of device tensors (:meth:`to_device`),
+        through the step graph of its layout with ``scan_epochs``; returns the
+        device-resident loss (no host sync; graphed on the card, valid until
+        the next step)."""
+        total = self.run_step("train", self._batch_step, **batch)
+        self.scheduler.step()
+        return total
+
+    def _epoch_losses(self, batches: List[Batch], train: bool) -> Tuple[torch.Tensor, int]:
+        """(sum of the batches' losses on the device, number of batches): the
+        optimizer steps of an epoch, or its validation, through
+        :meth:`run_batches`."""
+        step = self._batch_step if train else self._batch_valid_step
+        total = torch.zeros((), device=self.device)
+        for out in self.run_batches("train" if train else "valid", step, batches):
+            if train:
+                self.scheduler.step()
+            total = total + out
+        return total, len(batches)
+
+    def fit(
+        self,
+        train_batches: Callable[[int], Iterable[Dict]],
+        valid_batches: Optional[Callable[[], Iterable[Dict]]] = None,
+        static_batches: bool = False,
+    ) -> torch.nn.Module:
+        """Generator-batch epoch loop (the CNN's grids, custom batch sources);
+        returns the trained model.
+
+        ``train_batches(epoch)`` yields the epoch's batches (dicts of arrays or
+        tensors); the decay of StepLR(20 epochs) counts epoch 0's batches.
+        ``static_batches=True`` declares that every epoch yields the same
+        batches (the CNN's one full-grid batch): they are uploaded once. The
+        train loss is the mean of the epoch's batch losses, the valid loss the
+        mean over ``valid_batches()``. Each epoch writes its checkpoint; the
+        host reads the losses once an epoch.
+        """
+        steps_per_epoch = max(1, sum(1 for _ in train_batches(0)))
+        self.optimizer, self.scheduler = make_single_lr_optimizer(
+            self.model, self.cfg.lr, steps_per_epoch, DECAY_EPOCHS)
+        static = [self.to_device(b) for b in train_batches(0)] if static_batches else None
+        valid = None if valid_batches is None else [self.to_device(b) for b in valid_batches()]
+        for epoch in range(self.cfg.max_epochs):
+            t0 = time.time()
+            batches = static if static is not None else [
+                self.to_device(b) for b in train_batches(epoch)]
+            ep_total, nb = self._epoch_losses(batches, train=True)
+            v_total, nv = (torch.zeros((), device=self.device), 0) if valid is None else \
+                self._epoch_losses(valid, train=False)
+            host = torch.stack([ep_total, v_total]).tolist()  # the epoch's one read
+            self.train_loss.append(host[0] / max(nb, 1))
+            if valid is not None:
+                self.valid_loss.append(host[1] / max(nv, 1))
+            save_checkpoint(self._checkpoint_dir(), epoch, jax_params_from_torch(self.model))
+            self.epoch_s.append(time.time() - t0)
+            logger.info("spatial epoch %d train %.4f%s (%.2fs)", epoch, self.train_loss[-1],
+                        f" valid {self.valid_loss[-1]:.4f}" if valid is not None else "",
+                        self.epoch_s[-1])
+        return self.model
 
     @torch.no_grad()
     def predict_amplitudes(self, batch: Dict) -> torch.Tensor:
-        """CS amplitudes at the batch positions, on the trainer's device."""
-        batch = {k: torch.as_tensor(np.asarray(v, np.float32), device=self.device)
-                 if not torch.is_tensor(v) else v.to(self.device) for k, v in batch.items()}
-        return self._predict(batch)[0]
+        """CS amplitudes at the batch positions (the CNN: at every cell of the
+        batch's grid, unmasked), on the trainer's device."""
+        return self._predict(self.to_device(batch))[0]
+
+
+def make_cnn_batch(
+    room_data: SpatialRoomDataset, indices: Optional[np.ndarray] = None
+) -> Dict[str, np.ndarray]:
+    """One full-grid CNN batch (float32 numpy) from the receivers ``indices``
+    (all by default): the normalized mesh ``mesh_2d`` (H, W, 2), the mesh in
+    metres ``mesh_2d_raw``, the labels ``target_common_slope_amps``
+    (H*W, J, num_slopes) and the flattened floor mask ``floor_mask`` (H*W,)."""
+    if indices is None:
+        indices = np.arange(room_data.num_rec)
+    mesh, norm_mesh, labels = create_2d_grid_data(room_data, indices)
+    return {
+        "mesh_2d": norm_mesh,
+        "mesh_2d_raw": mesh,
+        "target_common_slope_amps": labels,
+        "floor_mask": room_data.get_binary_mask(mesh).ravel().astype(np.float32),
+    }
+
+
+def run_training_spatial_sampling_cnn(
+    config: SpatialSamplingConfig,
+    room_data: SpatialRoomDataset,
+    grid_resolutions: Optional[List[float]] = None,
+    use_edc_loss: bool = True,
+    device: Union[str, torch.device] = "cuda",
+) -> Dict[float, Tuple[SpatialSamplingTrainer, torch.nn.Module]]:
+    """The CNN's resolution sweep (by default ``grid_spacing_m * k`` for k =
+    ``num_grid_spacing`` (1 if unset) .. 1): per resolution one full-grid
+    batch of its training receivers, ``max_epochs`` steps on it from the
+    same seeded initialization. Returns {resolution: (trainer, model)}."""
+    dev = resolve_device(device)
+    if grid_resolutions is None:
+        n = config.num_grid_spacing or 1
+        grid_resolutions = [room_data.grid_spacing_m * k for k in range(n, 0, -1)]
+    results = {}
+    for res in grid_resolutions:
+        train_idx, _ = split_by_grid_resolution(room_data, res)
+        batch = make_cnn_batch(room_data, train_idx)
+        model = build_spatial_model(config, room_data.num_rooms, room_data.ambi_order, dev)
+        trainer = SpatialSamplingTrainer(model, config, room_data, use_edc_loss=use_edc_loss,
+                                         grid_resolution_m=res, device=dev)
+        trainer.fit(lambda epoch, b=batch: iter([b]), static_batches=True)
+        results[res] = (trainer, model)
+    return results
 
 
 def collapse_amplitudes_to_omni(room_data: SpatialRoomDataset) -> SpatialRoomDataset:
@@ -324,16 +453,18 @@ def run_training_spatial_sampling(
     """Sweep the grid resolutions (by default ``grid_spacing_m * k`` for k =
     ``num_grid_spacing`` (3 if unset) .. 1), training one model per
     resolution from the same seeded initialization. Returns
-    {resolution: (trainer, model)}."""
+    {resolution: (trainer, model)}. The CNN goes to
+    :func:`run_training_spatial_sampling_cnn`."""
     dev = resolve_device(device)
-    if config.network_type == DNNType.CNN:
-        raise NotImplementedError(_CNN_NOT_PORTED)
     if room_data is None:
         from ..data.spatial_dataset import SpatialThreeRoomDataset
 
         room_data = SpatialThreeRoomDataset(config.room_dataset_path)
     if not config.use_directional_rirs:
         room_data = collapse_amplitudes_to_omni(room_data)
+    if config.network_type == DNNType.CNN:
+        return run_training_spatial_sampling_cnn(config, room_data, grid_resolutions,
+                                                 use_edc_loss, dev)
     if grid_resolutions is None:
         n = config.num_grid_spacing or 3
         grid_resolutions = [room_data.grid_spacing_m * k for k in range(n, 0, -1)]

@@ -6,9 +6,11 @@ optionally under a top-level ``"params"`` key) maps onto the port's
 common-slopes heads' ``{"MLP_0": ...}`` alike):
 
 * ``MLP_0`` -> ``mlp``; ``MLPSkipConnections_0`` -> ``skip_mlp``;
-  ``ResidualBlock_i`` -> ``blocks.i``;
+  ``ConvNet_0`` -> ``cnn``; ``ResidualBlock_i`` -> ``blocks.i``;
 * ``Dense_i/kernel`` (in, out) -> ``dense.i.weight`` (out, in), transposed;
   ``Dense_i/bias`` -> ``dense.i.bias``;
+* ``Conv_i/kernel`` (kh, kw, in, out) -> ``conv.i.weight`` (out, in, kh, kw),
+  axes permuted (3, 2, 0, 1); ``Conv_i/bias`` -> ``conv.i.bias``;
 * ``LayerNorm_i/scale`` -> ``norm.i.weight``; ``LayerNorm_i/bias`` -> ``norm.i.bias``;
 * every other key keeps its name (``input_gains``, ``output_gains``,
   ``feedback_loop/M``, ``feedback_loop/alpha``, ``output_filters``,
@@ -22,12 +24,13 @@ optimizer's parameter groups are labelled on the flax path
 
 Band-stacked parameters (the band-parallel trainer's, and JAX's
 ``BandParallelTrainer``'s) carry a leading band axis on every leaf; the
-rules transpose only the last two axes, so they map such trees as they map
-one band's. :func:`stack_jax_trees` and :func:`unstack_jax_tree` turn
-per-band trees (per-band checkpoints) into one band-stacked tree and back.
+rules permute only the trailing axes of a leaf, so they map such trees as
+they map one band's. :func:`stack_jax_trees` and :func:`unstack_jax_tree`
+turn per-band trees (per-band checkpoints) into one band-stacked tree and
+back.
 """
 
-from typing import Dict, Iterable, List, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,8 +38,25 @@ from torch import nn
 
 
 # flax module names -> the port's attribute names
-_MODULES = {"MLP_0": "mlp", "MLPSkipConnections_0": "skip_mlp"}
+_MODULES = {"MLP_0": "mlp", "MLPSkipConnections_0": "skip_mlp", "ConvNet_0": "cnn"}
 _FLAX_MODULES = {v: k for k, v in _MODULES.items()}
+# the axes of a port weight, taken from its flax kernel's trailing axes
+DENSE_AXES = (1, 0)
+CONV_AXES = (3, 2, 0, 1)
+# flax layer prefix -> (port container, the weight's axes from the kernel's)
+_LAYERS = {"Dense": ("dense", DENSE_AXES), "Conv": ("conv", CONV_AXES)}
+_FLAX_LAYERS = {v[0]: (k, v[1]) for k, v in _LAYERS.items()}
+
+
+def _permute_trailing(arr: np.ndarray, axes: Tuple[int, ...]) -> np.ndarray:
+    """``arr`` with its trailing ``len(axes)`` axes permuted by ``axes``
+    (leading axes, such as a band axis, kept in place)."""
+    lead = arr.ndim - len(axes)
+    return np.transpose(arr, tuple(range(lead)) + tuple(lead + a for a in axes))
+
+
+def _inverse(axes: Tuple[int, ...]) -> Tuple[int, ...]:
+    return tuple(int(i) for i in np.argsort(axes))
 
 
 def torch_state_from_jax(tree: Dict) -> Dict[str, torch.Tensor]:
@@ -46,10 +66,12 @@ def torch_state_from_jax(tree: Dict) -> Dict[str, torch.Tensor]:
 
     def walk(node: Dict, prefix: str) -> None:
         for key, val in node.items():
-            if key.startswith("Dense_"):
-                i = key.split("_")[1]
-                state[f"{prefix}dense.{i}.weight"] = _tensor(np.swapaxes(val["kernel"], -1, -2))
-                state[f"{prefix}dense.{i}.bias"] = _tensor(val["bias"])
+            layer, _, i = key.partition("_")
+            if layer in _LAYERS and i.isdigit():
+                name, axes = _LAYERS[layer]
+                state[f"{prefix}{name}.{i}.weight"] = _tensor(
+                    _permute_trailing(np.asarray(val["kernel"]), axes))
+                state[f"{prefix}{name}.{i}.bias"] = _tensor(val["bias"])
             elif key.startswith("LayerNorm_"):
                 i = key.split("_")[1]
                 state[f"{prefix}norm.{i}.weight"] = _tensor(val["scale"])
@@ -72,22 +94,25 @@ def load_jax_params(model: nn.Module, tree: Dict) -> nn.Module:
     return model
 
 
-def flax_path(name: str) -> Tuple[List[str], bool]:
-    """The flax tree keys of a port parameter name, and whether its array is
-    the transpose of the flax leaf (the rules above, in reverse)."""
+def flax_path(name: str) -> Tuple[List[str], Optional[Tuple[int, ...]]]:
+    """The flax tree keys of a port parameter name, and the axes of the port
+    array taken from the flax leaf's trailing axes (``DENSE_AXES``, the
+    transpose, for a Dense kernel; ``CONV_AXES`` for a Conv kernel), None
+    when the two are the same array (the rules above, in reverse)."""
     parts = name.split(".")
     keys: List[str] = []
-    transpose = False
+    axes = None
     i = 0
     while i < len(parts):
         part = parts[i]
-        if part in ("dense", "norm"):
+        if part in _FLAX_LAYERS or part == "norm":
             layer, leaf = parts[i + 1], parts[i + 2]
-            if part == "dense":
-                keys += [f"Dense_{layer}", "kernel" if leaf == "weight" else "bias"]
-                transpose = leaf == "weight"
-            else:
+            if part == "norm":
                 keys += [f"LayerNorm_{layer}", "scale" if leaf == "weight" else "bias"]
+            else:
+                flax_layer, weight_axes = _FLAX_LAYERS[part]
+                keys += [f"{flax_layer}_{layer}", "kernel" if leaf == "weight" else "bias"]
+                axes = weight_axes if leaf == "weight" else None
             i += 3
             continue
         if part == "blocks":
@@ -96,7 +121,7 @@ def flax_path(name: str) -> Tuple[List[str], bool]:
             continue
         keys.append(_FLAX_MODULES.get(part, part))
         i += 1
-    return keys, transpose
+    return keys, axes
 
 
 def flax_tree(named: Iterable[Tuple[str, torch.Tensor]]) -> Dict:
@@ -104,12 +129,13 @@ def flax_tree(named: Iterable[Tuple[str, torch.Tensor]]) -> Dict:
     arrays; band-stacked tensors give leaves that carry the band axis first."""
     tree: Dict = {}
     for name, value in named:
-        keys, transpose = flax_path(name)
+        keys, axes = flax_path(name)
         arr = value.detach().cpu().numpy()
         node = tree
         for k in keys[:-1]:
             node = node.setdefault(k, {})
-        node[keys[-1]] = np.ascontiguousarray(np.swapaxes(arr, -1, -2) if transpose else arr)
+        node[keys[-1]] = np.ascontiguousarray(
+            arr if axes is None else _permute_trailing(arr, _inverse(axes)))
     return {"params": tree}
 
 
@@ -136,8 +162,8 @@ def jax_params_from_torch(model: nn.Module) -> Dict:
 
 def jax_grads_from_torch(model: nn.Module) -> Dict:
     """The port's ``.grad``s as a flax tree, mapped by the same rules as the
-    parameters (Dense kernels transposed); parameters without a gradient are
-    left out."""
+    parameters (Dense and Conv kernels permuted); parameters without a
+    gradient are left out."""
     return flax_tree(
         (name, p.grad) for name, p in model.named_parameters() if p.grad is not None
     )

@@ -32,6 +32,27 @@ def test_profile_window_is_the_host_span_of_the_label():
     assert chip_smoke.profile_window(events[::-1], "step").elapsed_us() == 80
 
 
+def test_profile_window_takes_in_device_work_placed_before_the_host_span():
+    """Device times converted to the host's clock can put a step's first
+    kernels before the host span opens: the label's device annotation, which
+    spans the step's device ops, widens the window, and those kernels count."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+
+    def event(name, start, end, device, annotation):
+        return SimpleNamespace(name=name, time_range=Interval(start, end), device_type=device,
+                               is_user_annotation=annotation)
+
+    events = [event("step", 10, 90, DeviceType.CPU, False),
+              event("step", 6, 80, DeviceType.CUDA, True),
+              event("cinv_kernel<4>", 6, 9, DeviceType.CUDA, False),
+              event("lut_apply_kernel<4>", 40, 60, DeviceType.CUDA, False)]
+    window = chip_smoke.profile_window(events, "step")
+    assert (window.start, window.end) == (6, 90)
+    assert chip_smoke.wrapper_launches(chip_smoke.device_kernels(events, window)) == {
+        "cinv": 1, "lut_apply": 1}
+
+
 def test_profiled_kernels_count_by_the_wrapper_that_launches_them():
     sys.path.insert(0, str(ROOT))
     import chip_smoke

@@ -88,8 +88,9 @@ def test_missing_checkpoint_raises(tmp_path):
 
 def test_subband_configs_raise_naming_the_roadmap_item(tmp_path):
     """A subband config serves (ROADMAP A11, ported: its RIRs carry the band
-    filter's energy compensation); what A11 leaves raises naming its item:
-    the directional octave-band merge (A10)."""
+    filter's energy compensation); what is left raises naming its item: the
+    octave-band merge of source-conditioned models (A10). (The directional
+    merge is ported: tests/test_torch_directional_octave_bands.py.)"""
     from diffgfdn_torch.inference import infer_all_octave_bands
     from diffgfdn_torch.training import build_gfdn_model
     from diffgfdn_torch.utils.params import jax_params_from_torch
@@ -111,4 +112,5 @@ def test_subband_configs_raise_naming_the_roadmap_item(tmp_path):
                                infer.subband_filter_norm_factor * plain.rirs_at([0, 1]),
                                rtol=1e-6, atol=1e-9)
     with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        infer_all_octave_bands([cfg], port_room, [0], variant="directional", device="cpu")
+        infer_all_octave_bands([cfg], port_room, [0], variant="var_source_receiver",
+                               device="cpu")

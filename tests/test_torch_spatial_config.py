@@ -1,6 +1,7 @@
 """Common-slopes spatial sampling in the port: the 17 presets against the JAX
-schema, the two preset mappings against their YAML, the models the 16 MLP
-presets build against JAX's parameter trees, and the CNN preset's error.
+schema, the three preset mappings against their YAML, the models the 17
+presets build against JAX's parameter trees, the CNN preset through the
+trainer, the sweep and serving, and the generator-batch ``fit`` against JAX.
 """
 
 import dataclasses
@@ -87,27 +88,65 @@ def test_mlp_presets_build_jax_shaped_models(name):
 
 
 def test_cnn_preset_raises_naming_a12(tmp_path):
+    """The CNN preset no longer raises (ROADMAP A12's second slice is ported):
+    its model carries the parameter tree JAX's ``build_spatial_model``
+    initializes, and the trainer, the sweep and serving take it (their
+    numbers against JAX: tests/test_torch_spatial_cnn.py)."""
     cfg = load_and_validate_config(SPATIAL_DIR / "spatial_directional_1000Hz_cnn.yml",
                                    SpatialSamplingConfig)
     assert cfg.network_type.value == "cnn"
     room = SpatialThreeRoomDataset(cs_room_path(tmp_path))
-    with pytest.raises(NotImplementedError, match="A12"):
-        build_spatial_model(cfg, NUM_SLOPES, AMBI_ORDER, device="cpu")
-    with pytest.raises(NotImplementedError, match="A12"):
-        run_training_spatial_sampling(cfg, room, device="cpu")
-    with pytest.raises(NotImplementedError, match="A12"):
-        SpatialSamplingTrainer(None, cfg, room, device="cpu")
-    with pytest.raises(NotImplementedError, match="A12"):
-        get_output_from_trained_model(cfg, room, room.receiver_position[:2], device="cpu")
+    model = build_spatial_model(cfg, NUM_SLOPES, AMBI_ORDER, device="cpu")
+    jcfg = jax_load_config(SPATIAL_DIR / "spatial_directional_1000Hz_cnn.yml",
+                           JaxSpatialSamplingConfig)
+    shapes = jax.eval_shape(
+        jax_build(jcfg, NUM_SLOPES, AMBI_ORDER).init, jax.random.PRNGKey(0),
+        {"mesh_2d": jax.ShapeDtypeStruct((5, 7, 2), np.float32)})
+    assert (jax.tree_util.tree_map(lambda x: tuple(x.shape), jax_params_from_torch(model))
+            == jax.tree_util.tree_map(lambda x: tuple(x.shape), shapes))
+    short = dataclasses.replace(cfg, max_epochs=1, train_dir=str(tmp_path / "train"))
+    results = run_training_spatial_sampling(short, room, grid_resolutions=[1.2], device="cpu")
+    trainer, _ = results[1.2]
+    assert isinstance(trainer, SpatialSamplingTrainer) and np.isfinite(trainer.train_loss).all()
+    amps = get_output_from_trained_model(short, room, room.receiver_position[:2], 1.2,
+                                         device="cpu")
+    assert amps.shape == (2, 12, NUM_SLOPES)
 
 
 def test_generator_batch_fit_raises_naming_a12(tmp_path):
-    cfg = SpatialSamplingConfig.from_dict(cs_raw_config(tmp_path, True))
-    room = SpatialThreeRoomDataset(cs_room_path(tmp_path))
-    model = build_spatial_model(cfg, NUM_SLOPES, AMBI_ORDER, device="cpu")
+    """The generator-batch ``fit`` is ported: on MLP receiver batches (a
+    ragged last batch, so that epoch steps eagerly) and a validation batch,
+    2 epochs from JAX's initialization give JAX's ``fit`` losses (1e-3
+    relative at epoch 1, 1e-2 at epoch 2)."""
+    from diffgfdn_tpu.training.spatial_trainer import (
+        SpatialSamplingTrainer as JaxSpatialSamplingTrainer,
+    )
+    from torch_port_helpers import cs_configs, cs_models, cs_rooms
+
+    jax_room, room = cs_rooms(cs_room_path(tmp_path))
+    jcfg, cfg = cs_configs(cs_raw_config(tmp_path / "port", True, 2))
+    jcfg.train_dir = str(tmp_path / "jax")
+    jmodel, params, model = cs_models(jcfg, cfg, jax_room)
+    keys = ("norm_listener_position", "listener_position")
+    amps = np.asarray(room.amplitudes, np.float32)
+
+    def batch(idx):
+        out = {k: getattr(room, k.replace("listener", "receiver"))[idx].astype(np.float32)
+               for k in keys}
+        return {**out, "target_common_slope_amps": amps[idx]}
+
+    order = np.random.RandomState(3).permutation(room.num_rec)
+    train = [batch(order[a:b]) for a, b in ((0, 16), (16, 32), (32, 40))]
+    valid = [batch(order[40:56])]
+    jtrainer = JaxSpatialSamplingTrainer(jmodel, jcfg, jax_room)
+    jtrainer.fit(params, lambda epoch: iter(train), lambda: iter(valid))
     trainer = SpatialSamplingTrainer(model, cfg, room, device="cpu")
-    with pytest.raises(NotImplementedError, match="A12"):
-        trainer.fit(lambda epoch: iter(()))
+    trainer.fit(lambda epoch: iter(train), lambda: iter(valid))
+    for port, ref in ((trainer.train_loss, jtrainer.train_loss),
+                      (trainer.valid_loss, jtrainer.valid_loss)):
+        errs = [abs(p - r) / abs(r) for p, r in zip(port, ref)]
+        assert len(errs) == 2 and errs[0] <= 1e-3 and errs[1] <= 1e-2, errs
+    assert len(list(trainer.graphs)) == 1  # the valid batch; the ragged epochs step eagerly
 
 
 def test_spatial_config_rejects_unknown_keys_and_bad_values():
