@@ -166,6 +166,36 @@ Phases (any failure raises and exits non-zero, with no result line):
    and B4 within 1e-4, and timed. Per preset the step's (and a prototype
    step's) graphed and eager paths are held and timed as in phase 5; the
    phase prints them and one prototype epoch's time.
+11. train the floor-plan CNN preset through the spatial CLI at 0.9, 0.6 and
+   0.3 m and serve every receiver from it (no hand-written kernel), and
+   merge the eight directional band presets (one epoch each) into broadband
+   SRIRs (B5 exactly 24 times, against the plain versions);
+12. (a) build each of the nine synth presets by name and run it forward
+   once at its bins on a synthetic stand-in grid at 48 kHz (96 receivers,
+   2 s RIRs, decay times of 0.7 / 1.1 / 0.9 s for the preset's groups, per
+   octave band for GEQ absorption); (b) serve ``synth_subband_single_room``
+   at full width (8 lines in one group coupled by one dense RANDOM matrix,
+   nfft 96000, batch 10, SVF heads of 3 x 32, GEQ absorption) through
+   ``InferDiffGFDN.rirs_at``: B1 on (48001, 8, 8) and B3 exactly once and
+   twice a batch, the RIRs within 1e-3 rel L2 and 0.01 dB of the plain
+   path; one gradient of the trainer's EDC and EDR loss on a gathered
+   batch (B2 on (48001, 8, 8) and B4 once; kernels vs plain: loss 1e-6,
+   gradients 1e-3; B1 / B2 bit for bit, B3 / B4 1e-4, timed); the
+   time-domain factory timed; ``fit_indexed`` must raise ROADMAP C16
+   before any step; (c) run ``synth_subband_hyp_tuning`` through the CLI,
+   its search cut to 2 trials of 1 epoch and the winner to 2 epochs: each
+   trial's architecture, objective and reserved memory are printed, and the
+   reserved memory may not grow from trial to trial by a tenth of what the
+   first trial reserved; then train
+   ``DiffGFDNVarSourceReceiverPos`` at the widths of
+   ``fullband_grid_colorless`` (input heads like the output heads, a seeded
+   source position per receiver of phase 2's grid) with scalar heads and
+   with SVF heads on both sides, 2 epochs of ``fit_indexed`` each: one step
+   on the kernels against the plain versions, the step graphed and eagerly
+   as in phase 5 with its launches per step as the model's structure
+   says, and 96 receivers served through
+   ``InferDiffGFDN(variant="var_source_receiver")`` (launches per batch as
+   the structure says, against the plain path; RIRs per second).
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``. ``--kernel-times ROOT``
@@ -292,10 +322,13 @@ def profile_window(events, label: str):
 
 def profile_events(fn, label: str):
     """Run ``fn`` once under torch.profiler, within a ``record_function``
-    named ``label``: (the profiler, its events, the label's window)."""
+    named ``label``: (the profiler, its events, the label's window). The
+    card is idle when the profiler starts and ``fn``'s work has finished
+    when it stops, so every device event of the profile is ``fn``'s."""
     import torch
     from torch.profiler import profile as tprofile, ProfilerActivity, record_function
 
+    torch.cuda.synchronize()
     with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         with record_function(label):
             fn()
@@ -304,14 +337,14 @@ def profile_events(fn, label: str):
     return prof, events, profile_window(events, label)
 
 
-def device_kernels(events, window) -> list:
-    """The kernels the card ran that started within ``window`` (no copies,
-    no annotations)."""
+def device_kernels(events, window=None) -> list:
+    """The kernels the card ran (no copies, no annotations): all of them, or
+    those that started within ``window``."""
     from torch.autograd import DeviceType
 
     return [e for e in events if e.device_type == DeviceType.CUDA
             and not e.is_user_annotation and not e.name.startswith(("Memcpy", "Memset"))
-            and window.start <= e.time_range.start < window.end]
+            and (window is None or window.start <= e.time_range.start < window.end)]
 
 
 def wrapper_launches(kernels) -> dict:
@@ -850,7 +883,7 @@ def graphed_vs_eager(label: str, trainer, params: dict, step, log_dir, generator
     must be equal. Then one graphed step runs under the profiler: it must
     replay a graph, and the launches the wrappers count for it (those a
     replay adds, ``training/scan.py`` ``ReplayCounts``) must be the kernels
-    the card ran in it, kernel by kernel (``WRAPPER_SYMBOLS``); with
+    the card ran in the profile, kernel by kernel (``WRAPPER_SYMBOLS``); with
     ``log_dir`` its tables are written there. Returns the numbers, with the
     warm-up and capture times, each path's peak memory and the profiled
     step's busy time and idle share.
@@ -914,8 +947,12 @@ def graphed_vs_eager(label: str, trainer, params: dict, step, log_dir, generator
     reset_counts()
     prof, events, window = profile_events(step, f"graphed_{label}")
     counted = {k: v for k, v in launch_counts().items() if v}
-    kernels = device_kernels(events, window)
+    # the whole profile, not the window: device times converted to the
+    # host's clock have placed a replay's first kernels before both the
+    # host span and the label's device annotation
+    kernels = device_kernels(events)
     ran = wrapper_launches(kernels)
+    outside = len(kernels) - len(device_kernels(events, window))
     require(sum(g.replays for g in trainer.graphs) > replays and len(kernels) > 0,
             f"{label}: the profiled graphed step replayed no graph or ran no kernel")
     require(ran == counted, f"{label}: a graphed step counted the launches {counted}, "
@@ -924,7 +961,8 @@ def graphed_vs_eager(label: str, trainer, params: dict, step, log_dir, generator
     wall, busy, ours, count = profile_numbers(prof, events, window, f"graphed_{label}", table)
     out.update(graphed_profiled_step_ms=wall, graphed_profiled_device_busy_ms=busy,
                graphed_profiled_kernels_ms=ours, graphed_profiled_kernel_count=count,
-               graphed_profiled_launches=ran, graphed_profiled_idle_share=1.0 - busy / wall)
+               graphed_profiled_launches=ran, graphed_profiled_idle_share=1.0 - busy / wall,
+               graphed_profiled_kernels_outside_window=outside)
     return out
 
 
@@ -2471,6 +2509,9 @@ def spatial_sampling(tmp: Path, log_dir):
     return result
 
 
+# the kernels of a step whose rows slice_rows makes, in its order
+SLICE_KERNELS = ("cinv", "neg_ptgpt", "sos", "sos_backward")
+
 # phase 10: single-RIR fits and the colorless prototype warm start, through
 # the CLI, each preset in a working directory holding its wav at its ir_path
 SINGLE_RIR_PRESETS = ("single_rir_example", "single_rir_two_stage_colorless_proto",
@@ -2500,12 +2541,11 @@ def colorless_counts(cfg, nfft: int):
     return n_train // min(ccfg.batch_size, n_train), (max(1, n_valid // vbs) if n_valid else 0)
 
 
-def single_rir_rows(name: str, inputs: dict, colorless_inputs: dict, per_epoch: dict,
-                    launches: dict) -> list:
-    """Phase 10, kernels: B1 and B2 bit for bit, B3 and B4 within KERNEL_TOL,
-    against their plain versions at the inputs one GFDN step and one
-    colorless step of the preset gave them, timed beside their bounds, plain
-    versions and library calls."""
+def slice_rows(label: str, inputs: dict, launches: dict) -> list:
+    """Rows of B1 and B2 (bit for bit) and B3 and B4 (within KERNEL_TOL)
+    against their plain versions at the inputs one step gave them (those it
+    launched, in the order of SLICE_KERNELS), timed beside their bounds,
+    plain versions and library calls."""
     import torch
 
     from diffgfdn_torch.kernels import sos as sos_mod
@@ -2523,58 +2563,71 @@ def single_rir_rows(name: str, inputs: dict, colorless_inputs: dict, per_epoch: 
         with plain_versions():
             return fn(*args)
 
-    rows, differ = [], {}
-    for label, rec in (("", inputs), (" colorless", colorless_inputs)):
-        if not rec:
-            continue
-        (m,) = rec["cinv"]
+    rows, differ, errs = [], {}, {}
+    if "cinv" in inputs:
+        (m,) = inputs["cinv"]
         out, ref = both(cinv, m)
-        differ[f"cinv{label}"] = int((out != ref).sum())
+        differ["cinv"] = int((out != ref).sum())
         rows.append(timed_row(
-            f"cinv [{name}{label}]", "cinv.cu", "diffgfdn_tpu/kernels/pallas_cinv.py:34",
-            launches["cinv"], float(torch.max(torch.abs(out - ref))), lambda: cinv(m),
+            f"cinv [{label}]", "cinv.cu", "diffgfdn_tpu/kernels/pallas_cinv.py:34",
+            launches.get("cinv", 0), float(torch.max(torch.abs(out - ref))), lambda: cinv(m),
             lambda: plain(cinv, m), lambda: cinv(m), cinv_cost(m.shape[0], m.shape[1]),
             lambda: torch.linalg.inv(m), m.shape))
-        rows[-1]["launches_per_epoch"] = per_epoch[f"cinv{label}"]
-        p, g = rec["neg_ptgpt"]
+    if "neg_ptgpt" in inputs:
+        p, g = inputs["neg_ptgpt"]
         out, ref = both(neg_ptgpt, p, g)
-        differ[f"neg_ptgpt{label}"] = int((out != ref).sum())
+        differ["neg_ptgpt"] = int((out != ref).sum())
         rows.append(timed_row(
-            f"neg_ptgpt [{name}{label}]", "cinv.cu", "diffgfdn_tpu/kernels/pallas_cinv.py:146",
-            launches["neg_ptgpt"], float(torch.max(torch.abs(out - ref))),
+            f"neg_ptgpt [{label}]", "cinv.cu", "diffgfdn_tpu/kernels/pallas_cinv.py:146",
+            launches.get("neg_ptgpt", 0), float(torch.max(torch.abs(out - ref))),
             lambda: neg_ptgpt(p, g), lambda: plain(neg_ptgpt, p, g), lambda: neg_ptgpt(p, g),
             neg_ptgpt_cost(p.shape[0], p.shape[1]), lambda: -(p.mH @ g @ p.mH), p.shape))
-        rows[-1]["launches_per_epoch"] = per_epoch[f"neg_ptgpt{label}"]
-    errs = {}
-    num, den, w = inputs["sos"]
-    if num.shape[0] > 1:  # the SVF heads of 2 and 3 groups; the single room's one is printed
+    if "sos" in inputs:
+        num, den, w = inputs["sos"]
         out, ref = both(sos_mod.sos_cascade, num, den, w)
         errs["sos"] = rel_err(out, ref)
         rows.append(timed_row(
-            f"sos_cascade_response [{name}]", "sos.cu", "diffgfdn_tpu/kernels/pallas_sos.py:47",
-            launches["sos"], float(torch.max(torch.abs(out - ref))),
+            f"sos_cascade_response [{label}]", "sos.cu", "diffgfdn_tpu/kernels/pallas_sos.py:47",
+            launches.get("sos", 0), float(torch.max(torch.abs(out - ref))),
             lambda: sos_mod.sos_cascade(num, den, w),
             lambda: plain(sos_mod.sos_cascade, num, den, w),
             lambda: sos_mod.sos_cascade(num, den, w),
             sos_cost(num.shape[0], num.shape[1], w.shape[0]), None, num.shape))
-        rows[-1]["launches_per_epoch"] = per_epoch["sos"]
+    if "sos_backward" in inputs:
         bn, bd, bw, bg, bh = inputs["sos_backward"]
         (dn, dd), (dn_p, dd_p) = both(sos_mod.sos_cascade_backward, bn, bd, bw, bg, bh)
         errs["sos_backward"] = max(rel_err(dn, dn_p), rel_err(dd, dd_p))
         rows.append(timed_row(
-            f"sos_cascade_backward [{name}]", "sos.cu", "diffgfdn_tpu/kernels/pallas_sos.py:64",
-            launches["sos_backward"],
+            f"sos_cascade_backward [{label}]", "sos.cu", "diffgfdn_tpu/kernels/pallas_sos.py:64",
+            launches.get("sos_backward", 0),
             float(max(torch.max(torch.abs(dn - dn_p)), torch.max(torch.abs(dd - dd_p)))),
             lambda: sos_mod.sos_cascade_backward(bn, bd, bw, bg, bh),
             lambda: plain(sos_mod.sos_cascade_backward, bn, bd, bw, bg, bh),
             lambda: sos_mod.sos_cascade_backward(bn, bd, bw, bg, bh),
             sos_backward_saved_h_cost(bn.shape[0], bn.shape[1], bw.shape[0]), None, bn.shape))
-        rows[-1]["launches_per_epoch"] = per_epoch["sos_backward"]
-    shapes = {r["name"]: r["shape"] for r in rows}
-    print(f"phase 10 kernels, {name}: {shapes}; elements differing from plain {differ}; "
-          f"B3 / B4 rel err {errs}")
+    print(f"kernels, {label}: { {r['name']: r['shape'] for r in rows} }; elements "
+          f"differing from plain {differ}; B3 / B4 rel err {errs}")
     require(all(v == 0 for v in differ.values()) and all(v <= KERNEL_TOL for v in errs.values()),
-            f"{name}: kernels vs plain: B1 / B2 differ in {differ}, B3 / B4 {errs}")
+            f"{label}: kernels vs plain: B1 / B2 differ in {differ}, B3 / B4 {errs}")
+    return rows
+
+
+def single_rir_rows(name: str, inputs: dict, colorless_inputs: dict, per_epoch: dict,
+                    launches: dict) -> list:
+    """Phase 10, kernels: :func:`slice_rows` at the inputs one GFDN step and
+    one colorless step of the preset gave them, each row with its launches
+    per epoch (``per_epoch``, keyed by kernel and " colorless"). The single
+    room's one SVF head (R = 1) gets no B3 / B4 row."""
+    if inputs["sos"][0].shape[0] == 1:
+        inputs = {k: v for k, v in inputs.items() if k not in ("sos", "sos_backward")}
+    rows = []
+    for label, rec in (("", inputs), (" colorless", colorless_inputs)):
+        if not rec:
+            continue
+        keys = [k for k in SLICE_KERNELS if k in rec]
+        for key, row in zip(keys, slice_rows(f"{name}{label}", rec, launches)):
+            row["launches_per_epoch"] = per_epoch[key + label]
+            rows.append(row)
     return rows
 
 
@@ -3186,6 +3239,464 @@ def directional_merge(tmp: Path):
     return result, row
 
 
+# phase 12: the nine synth presets by name, synth_subband_single_room (the
+# RANDOM-coupled GFDN) at full width, the MLP search through the CLI, and the
+# source-and-receiver model at the full-band preset's widths
+SYNTH_FS = 48000.0
+SYNTH_DECAYS = (0.7, 1.1, 0.9)  # the stand-in decay time of each group
+SINGLE_ROOM_PRESET = "synth_subband_single_room"
+HYP_TUNING_PRESET = "synth_subband_hyp_tuning"
+# the search cut to 2 trials of 1 epoch (the preset's: 50 of 2), the winner
+# trained for 2 epochs (20)
+HYP_TUNING_CUT = {"num_trials": 2, "trial_epochs": 1}
+HYP_TUNING_EPOCHS = 2
+SOURCE_RECEIVER_BASE = "fullband_grid_colorless"
+SOURCE_RECEIVER_HEADS = {"scalar_scalar": False, "svf_svf": True}
+# the launches of one source-and-receiver training step: both sides' SVF
+# heads and the absorption cascades (B3), their gradients (B4), the blocks'
+# and the sub-FDNs' inverses (B1) and their gradients (B2); scalar heads
+# normalize the io gains before every step, from the sub-FDN inverse the
+# colorless loss then reuses
+SOURCE_RECEIVER_STEP = {
+    "scalar_scalar": {"cinv": 2, "neg_ptgpt": 2, "sos": 1},
+    "svf_svf": {"cinv": 2, "neg_ptgpt": 2, "sos": 3, "sos_backward": 2},
+}
+# ... and of one served batch: the blocks' inverse, the heads' and the
+# absorption cascades
+SOURCE_RECEIVER_SERVE = {"scalar_scalar": {"cinv": 1, "sos": 1},
+                         "svf_svf": {"cinv": 1, "sos": 3}}
+OFF_PATH = ("lu", "lut_apply", "tdgfdn")
+
+
+def write_synth_pickle(path: Path, num_groups: int, geq: bool) -> Path:
+    """A synthetic 3-room grid at 48 kHz (96 receivers, 2 s RIRs) whose
+    common decay times are the first ``num_groups`` of SYNTH_DECAYS, per
+    octave band (8 bands, scaled 1.2 .. 0.8) for GEQ absorption."""
+    import pickle
+
+    from diffgfdn_torch.data import generate_three_room_pickle
+
+    generate_three_room_pickle(path, fs=SYNTH_FS, num_rec_per_room=NUM_RECEIVERS // 3,
+                               rir_len_s=2.0, decay_times=SYNTH_DECAYS, seed=SEED)
+    with open(path, "rb") as f:
+        data = pickle.load(f)
+    base = np.asarray(SYNTH_DECAYS[:num_groups])
+    bands = len(data["band_centre_hz"])
+    data["common_decay_times"] = (base[None, :] * np.linspace(1.2, 0.8, bands)[:, None]
+                                  if geq else base[None, :])
+    with open(path, "wb") as f:
+        pickle.dump(data, f)
+    return path
+
+
+def synth_room(tmp: Path, num_groups: int, geq: bool, nfft=None):
+    """The stand-in dataset of a synth preset (:func:`write_synth_pickle`),
+    written once per group count and absorption kind, read at ``nfft``."""
+    from diffgfdn_torch.data import ThreeRoomDataset
+
+    path = tmp / "synth" / f"g{num_groups}_{'geq' if geq else 'scalar'}" / "srirs.pkl"
+    if not path.exists():
+        write_synth_pickle(path, num_groups, geq)
+    return ThreeRoomDataset(path, nfft=nfft)
+
+
+def served_vs_plain(label: str, infer, idx: np.ndarray, batch_size: int, fs: float) -> dict:
+    """Phase 12's serving check: ``infer.rirs_at`` over ``idx`` on the kernels
+    (launches counted) and on the plain versions; finite, decaying RIRs
+    within RIR_TOL and EDC_TOL_DB over 0.5 s of the plain path; RIRs per
+    second, median of 3."""
+    import torch
+
+    from diffgfdn_torch.kernels.dispatch import plain_versions
+
+    infer.rirs_at(idx[:batch_size], batch_size)  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    rirs = infer.rirs_at(idx, batch_size)
+    launches = {k: v for k, v in launch_counts().items() if v}
+    require(bool(np.isfinite(rirs).all()), f"{label}: non-finite RIRs")
+    edc = edc_db(rirs)
+    drop = edc[:, int(0.05 * fs)] - edc[:, int(1.0 * fs)]
+    require(bool((drop > 10.0).all()), f"{label}: RIRs do not decay (min drop {drop.min()} dB)")
+    with plain_versions():
+        plain = infer.rirs_at(idx, batch_size)
+    rel = float(np.linalg.norm(rirs - plain) / np.linalg.norm(plain))
+    edc_err = float(np.abs(edc - edc_db(plain))[:, : int(0.5 * fs)].max())
+    require(rel <= RIR_TOL and edc_err <= EDC_TOL_DB,
+            f"{label}: RIRs vs plain path rel L2 {rel}, EDC {edc_err} dB")
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        infer.rirs_at(idx, batch_size)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return {"rirs": rirs, "launches": launches, "rel_l2_vs_plain": rel,
+            "edc_max_abs_db_vs_plain": edc_err,
+            "rirs_per_s": len(idx) / float(np.median(times)), "serve_s": times}
+
+
+def synth_presets(tmp: Path) -> list:
+    """Phase 12 (a): each synth preset built by name on the card and run
+    forward once at its bins on a batch of its stand-in grid."""
+    import torch
+
+    from diffgfdn_torch.config import PRESETS, preset_config
+    from diffgfdn_torch.data import arrays_from_room_dataset
+    from diffgfdn_torch.training import build_gfdn_model
+    from diffgfdn_torch.training.trainer import upload_model_inputs
+
+    results = []
+    for name in sorted(p for p in PRESETS if p.startswith("synth_")):
+        cfg = preset_config(name)
+        tc = cfg.trainer_config
+        room = synth_room(tmp, cfg.num_groups, cfg.decay_filter_config.use_absorption_filters,
+                          tc.num_freq_bins)
+        model = build_gfdn_model(cfg, room.common_decay_times, room.band_centre_hz,
+                                 device=DEVICE)
+        data = upload_model_inputs(arrays_from_room_dataset(room), torch.device(DEVICE))
+        bs = min(tc.batch_size, NUM_RECEIVERS)
+        batch = {k: v if k == "z_values" else v[:bs] for k, v in data.items()}
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            h = model(batch)
+        torch.cuda.synchronize()
+        forward_s = time.perf_counter() - t0
+        bins = room.num_freq_bins // 2 + 1
+        require(tuple(h.shape) == (bs, bins) and bool(torch.isfinite(h).all()),
+                f"{name}: H {tuple(h.shape)}, finite {bool(torch.isfinite(h).all())}")
+        results.append({
+            "preset": name, "model": type(model).__name__,
+            "delay_lines": model.num_delay_lines, "groups": model.num_groups, "bins": bins,
+            "batch": bs, "coupling": cfg.feedback_loop_config.coupling_matrix_type.value,
+            "heads": "svf" if model.use_svf_in_output else "scalar",
+            "forward_s": forward_s, "launches": {k: v for k, v in launch_counts().items() if v},
+        })
+        print(f"phase 12 (a): {name}: {type(model).__name__} N = {model.num_delay_lines}, "
+              f"G = {model.num_groups}, {bins} bins, batch {bs}")
+        del model, data, batch, h
+    return results
+
+
+def single_room(tmp: Path) -> tuple:
+    """Phase 12 (b): ``synth_subband_single_room`` at full width (8 lines in
+    one group coupled by one dense RANDOM matrix, nfft 96000, batch 10, SVF
+    heads of 3 x 32, GEQ absorption). Returns (result, kernel rows)."""
+    import torch
+
+    from diffgfdn_torch.config import preset_config
+    from diffgfdn_torch.data import arrays_from_room_dataset
+    from diffgfdn_torch.inference import InferDiffGFDN, make_time_domain_synthesis_fn
+    from diffgfdn_torch.training import build_gfdn_model, GFDNTrainer, save_checkpoint
+    from diffgfdn_torch.training.solver import steps_per_epoch
+    from diffgfdn_torch.utils.params import jax_params_from_torch
+
+    cfg = preset_config(SINGLE_ROOM_PRESET)
+    tc = cfg.trainer_config
+    tc.train_dir = str(tmp / "synth" / "single_room")
+    bs, nfft, fs = tc.batch_size, tc.num_freq_bins, cfg.sample_rate
+    room = synth_room(tmp, cfg.num_groups, True, nfft)
+    seeded = build_gfdn_model(cfg, room.common_decay_times, room.band_centre_hz, device=DEVICE)
+    save_checkpoint(tc.train_dir, -1, jax_params_from_torch(seeded))
+    infer = InferDiffGFDN(cfg, room, device=DEVICE)
+    n = infer.model.num_delay_lines
+    require(tuple(infer.model.feedback_loop.random_feedback_matrix.shape) == (n, n)
+            and not infer.model.feedback_loop.is_block_diagonal,
+            f"{SINGLE_ROOM_PRESET}: not a dense RANDOM loop")
+
+    # serving: one dense (F, N, N) inverse (B1) and two cascades (B3: the
+    # heads, the absorption) a batch
+    idx = np.arange(NUM_RECEIVERS)
+    served = served_vs_plain(SINGLE_ROOM_PRESET, infer, idx, bs, fs)
+    batches = -(-NUM_RECEIVERS // bs)
+    require(served["launches"] == {"cinv": batches, "sos": 2 * batches},
+            f"{SINGLE_ROOM_PRESET}: served launches {served['launches']} in {batches} batches")
+
+    # one gradient of the trainer's EDC + EDR loss on a gathered batch
+    arrays = arrays_from_room_dataset(room)
+    trainer = GFDNTrainer(seeded, tc, steps_per_epoch(NUM_RECEIVERS, bs),
+                          common_decay_times=room.common_decay_times, sample_rate=fs,
+                          device=DEVICE)
+    trainer.upload_arrays(arrays)
+    batch = trainer.gather(torch.arange(bs, device=DEVICE))
+    torch.cuda.synchronize()
+    reset_counts()
+    trainer.loss_and_grads(batch)
+    torch.cuda.synchronize()
+    grad_launches = {k: v for k, v in launch_counts().items() if v}
+    require(grad_launches == {"cinv": 1, "neg_ptgpt": 1, "sos": 2, "sos_backward": 1},
+            f"{SINGLE_ROOM_PRESET}: one gradient launched {grad_launches}")
+
+    def step():
+        loss, _ = trainer.loss_and_grads(batch)
+        return loss, list(seeded.parameters())
+
+    loss_rel, grad_err, inputs = kernel_step(step)
+    require(loss_rel <= LOSS_TOL and grad_err <= GRAD_TOL,
+            f"{SINGLE_ROOM_PRESET}: gradient kernels vs plain: loss {loss_rel}, "
+            f"gradient {grad_err}")
+    launches = {**served["launches"], **{k: v for k, v in grad_launches.items()
+                                         if k in ("neg_ptgpt", "sos_backward")}}
+    rows = slice_rows(SINGLE_ROOM_PRESET, inputs, launches)
+    del inputs
+
+    # the time-domain factory (GEQ absorption: the exact filtered path) and one batch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    synth = make_time_domain_synthesis_fn(infer.model, nfft)
+    torch.cuda.synchronize()
+    factory_s = time.perf_counter() - t0
+    positions = {k: v[:bs] for k, v in trainer.data.items()
+                 if k in ("listener_position", "norm_listener_position")}
+    t0 = time.perf_counter()
+    td = synth(positions)
+    torch.cuda.synchronize()
+    mix_s = time.perf_counter() - t0
+    require(tuple(td.shape) == (bs, nfft) and bool(torch.isfinite(td).all()),
+            f"{SINGLE_ROOM_PRESET}: time-domain RIRs {tuple(td.shape)}")
+
+    # fit_indexed refuses the io-gain normalization before any step (C16)
+    refused = GFDNTrainer(seeded, tc, steps_per_epoch(NUM_RECEIVERS, bs),
+                          common_decay_times=room.common_decay_times, sample_rate=fs,
+                          device=DEVICE)
+    reset_counts()
+    try:
+        refused.fit_indexed(arrays, idx[:80], idx[80:], seed=cfg.seed)
+        raise RuntimeError(f"check failed: {SINGLE_ROOM_PRESET}: fit_indexed did not raise C16")
+    except ValueError as exc:
+        require("C16" in str(exc), f"{SINGLE_ROOM_PRESET}: fit_indexed raised {exc}")
+    require(not any(launch_counts().values()) and not list(refused.graphs)
+            and not refused.train_loss, f"{SINGLE_ROOM_PRESET}: fit_indexed ran before C16")
+    result = {
+        "preset": SINGLE_ROOM_PRESET, "delay_lines": n, "groups": cfg.num_groups,
+        "bins": nfft // 2 + 1, "batch": bs, "receivers": NUM_RECEIVERS,
+        "served_launches": served["launches"], "rirs_per_s": served["rirs_per_s"],
+        "serve_s": served["serve_s"], "rel_l2_vs_plain": served["rel_l2_vs_plain"],
+        "edc_max_abs_db_vs_plain": served["edc_max_abs_db_vs_plain"],
+        "gradient_launches": grad_launches, "step_loss_rel_vs_plain": loss_rel,
+        "max_grad_rel_l2_vs_plain": grad_err, "td_factory_s": factory_s,
+        "td_batch_s": mix_s, "fit_indexed_refused": "C16",
+    }
+    del trainer, refused, infer, seeded, synth, td
+    return result, rows
+
+
+def hyp_tuning(tmp: Path) -> dict:
+    """Phase 12 (c): ``synth_subband_hyp_tuning`` through the CLI
+    (``python -m diffgfdn_torch.cli.run_model -c <preset>``) in a working
+    directory that holds its stand-in grid at its ``room_dataset_path``, the
+    search cut to HYP_TUNING_CUT and the winner to HYP_TUNING_EPOCHS epochs.
+    Each trial's architecture, objective and the card's reserved memory are
+    read around the solver's trial function: the first trial may leave
+    behind half of what it reserved at most, and the reserved memory may
+    grow by a tenth of that from trial to trial at most (a graph pool each
+    would pile up over the preset's 50 trials)."""
+    import copy
+
+    import torch
+    from scipy.io import loadmat
+
+    from diffgfdn_torch.cli import run_model
+    from diffgfdn_torch.config import PRESETS
+    from diffgfdn_torch.training import hypertuning
+
+    raw = PRESETS[HYP_TUNING_PRESET]
+    cut = copy.deepcopy(raw)
+    cut["output_filter_config"]["mlp_tuning_config"].update(HYP_TUNING_CUT)
+    cut["trainer_config"]["max_epochs"] = HYP_TUNING_EPOCHS
+    work = tmp / "synth" / "hyp_tuning"
+    write_synth_pickle(work / raw["room_dataset_path"], raw["num_groups"], True)
+    trials, search = [], hypertuning.mlp_hyperparameter_tuning
+    torch.cuda.empty_cache()  # what a trial reserves, it reserves anew
+
+    def recorded(config, train_fn, **kw):
+        def trial(cand):
+            torch.cuda.synchronize()
+            start = torch.cuda.memory_reserved()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            objective = train_fn(cand)
+            torch.cuda.synchronize()
+            trials.append({
+                "layers": cand.output_filter_config.num_hidden_layers,
+                "neurons": cand.output_filter_config.num_neurons_per_layer,
+                "objective": float(objective), "trial_s": time.perf_counter() - t0,
+                "reserved_before_mb": start / 2 ** 20,
+                "peak_reserved_mb": torch.cuda.max_memory_reserved() / 2 ** 20,
+                "reserved_after_mb": torch.cuda.memory_reserved() / 2 ** 20,
+            })
+            print(f"phase 12 (c): trial {trials[-1]}")
+            return objective
+
+        best, results = search(config, trial, **kw)
+        trials.append({"winner": [best.output_filter_config.num_hidden_layers,
+                                  best.output_filter_config.num_neurons_per_layer]})
+        return best, results
+
+    hypertuning.mlp_hyperparameter_tuning = recorded
+    PRESETS[HYP_TUNING_PRESET] = cut
+    try:
+        with contextlib.chdir(work):
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            run_model.main(["-c", HYP_TUNING_PRESET, "--device", DEVICE])
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            launches = {k: v for k, v in launch_counts().items() if v}
+    finally:
+        hypertuning.mlp_hyperparameter_tuning = search
+        PRESETS[HYP_TUNING_PRESET] = raw
+    winner = trials.pop()["winner"]
+    require(len(trials) == HYP_TUNING_CUT["num_trials"]
+            and all(np.isfinite(t["objective"]) for t in trials),
+            f"{HYP_TUNING_PRESET}: trials {trials}")
+    best = min(trials, key=lambda t: t["objective"])
+    require(winner == [best["layers"], best["neurons"]]
+            or sum(t["objective"] == best["objective"] for t in trials) > 1,
+            f"{HYP_TUNING_PRESET}: winner {winner}, trials {trials}")
+    # the first trial leaves what the process keeps (FFT plans, the side
+    # stream's cuBLAS workspace); a later one may add a tenth of that trial's
+    # graph pool and cached blocks at most
+    first = trials[0]
+    held = first["peak_reserved_mb"] - first["reserved_before_mb"]
+    left = first["reserved_after_mb"] - first["reserved_before_mb"]
+    require(0.0 < held and left <= 0.5 * held, f"{HYP_TUNING_PRESET}: the first trial left "
+            f"{left} of the {held} MB it reserved")
+    for t in trials[1:]:
+        require(t["reserved_after_mb"] <= first["reserved_after_mb"] + 0.1 * held,
+                f"{HYP_TUNING_PRESET}: reserved memory grew from trial to trial: {trials}")
+    for kernel in ("cinv", "neg_ptgpt", "sos", "sos_backward"):
+        require(launches.get(kernel, 0) > 0, f"{HYP_TUNING_PRESET}: {kernel} never launched")
+    require(not any(launches.get(k, 0) for k in OFF_PATH),
+            f"{HYP_TUNING_PRESET}: kernels off the path launched {launches}")
+    train_dir = work / raw["trainer_config"]["train_dir"]
+    losses = loadmat(str(train_dir / "losses.mat"))
+    final = losses["train_loss"].reshape(-1)
+    require(final.size == HYP_TUNING_EPOCHS and bool(np.isfinite(final).all()),
+            f"{HYP_TUNING_PRESET}: the winner's losses {final}")
+    return {"preset": HYP_TUNING_PRESET, "cut": {**HYP_TUNING_CUT,
+                                                 "max_epochs": HYP_TUNING_EPOCHS},
+            "trials": trials, "winner": winner, "run_s": run_s, "launches": launches,
+            "winner_train_loss": final.tolist(),
+            "winner_valid_loss": losses["valid_loss"].reshape(-1).tolist()}
+
+
+def source_receiver(tmp: Path, log_dir) -> tuple:
+    """Phase 12 (c): ``DiffGFDNVarSourceReceiverPos`` at the widths of
+    ``fullband_grid_colorless`` (N = 12 in 3 groups, 65537 bins, batch 32,
+    GEQ absorption, the colorless loss), input heads like the output heads,
+    each receiver of phase 2's grid with a seeded source position: both
+    heads scalar, then both SVF. Per kind: 2 epochs of ``fit_indexed``
+    (graphed), one step on the kernels and on the plain versions, the step
+    graphed and eagerly with its launches against SOURCE_RECEIVER_STEP, and
+    96 RIRs served through ``InferDiffGFDN(variant="var_source_receiver")``.
+    Returns (results, kernel rows)."""
+    import copy
+
+    import torch
+
+    from diffgfdn_torch.config import preset_config
+    from diffgfdn_torch.data.batching import (
+        arrays_from_room_dataset,
+        fixed_test_split,
+        train_valid_split,
+    )
+    from diffgfdn_torch.inference import InferDiffGFDN
+    from diffgfdn_torch.losses import edc_mask
+    from diffgfdn_torch.training import build_gfdn_model, GFDNTrainer
+    from diffgfdn_torch.training.solver import steps_per_epoch
+
+    results, rows = [], []
+    for heads, svf in SOURCE_RECEIVER_HEADS.items():
+        label = f"var_source_receiver {heads}"
+        cfg = preset_config(SOURCE_RECEIVER_BASE)
+        cfg.output_filter_config.use_svfs = svf
+        cfg.input_filter_config = copy.deepcopy(cfg.output_filter_config)
+        tc = cfg.trainer_config
+        tc.max_epochs = TRAIN_EPOCHS
+        tc.train_dir = str(tmp / "source_receiver" / heads)
+        room = make_room(tmp, SOURCE_RECEIVER_BASE, cfg.sample_rate, tc.num_freq_bins)
+        room.source_position = np.random.RandomState(SEED).uniform(
+            [0.5, 0.5, 1.0], [9.5, 12.5, 2.0], (room.num_rec, 3))
+        model = build_gfdn_model(cfg, room.common_decay_times, room.band_centre_hz,
+                                 variant="var_source_receiver", device=DEVICE)
+        arrays = arrays_from_room_dataset(room)
+        _, indices = fixed_test_split(arrays.num_items, tc.hold_out_test_set.ratio,
+                                      tc.hold_out_test_set.seed)
+        train_idx, valid_idx = train_valid_split(indices, tc.train_valid_split, seed=cfg.seed)
+        trainer = GFDNTrainer(model, tc, steps_per_epoch(len(train_idx), tc.batch_size),
+                              common_decay_times=room.common_decay_times,
+                              sample_rate=cfg.sample_rate, device=DEVICE)
+        trainer.precompute_target_features(arrays)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        trainer.fit_indexed(arrays, train_idx, valid_idx, seed=cfg.seed)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = {k: v for k, v in launch_counts().items() if v}
+        peak_run = torch.cuda.max_memory_allocated()
+        for kernel in SOURCE_RECEIVER_STEP[heads]:
+            require(launches.get(kernel, 0) > 0, f"{label}: {kernel} never launched")
+        require(not any(launches.get(k, 0) for k in OFF_PATH),
+                f"{label}: kernels off the path launched {launches}")
+        losses = trainer.train_loss + trainer.valid_loss
+        require(len(trainer.train_loss) == TRAIN_EPOCHS and bool(np.isfinite(losses).all()),
+                f"{label}: training losses {losses}")
+        require(any(g.replays for g in trainer.graphs), f"{label}: the run replayed no step")
+        require("source_position" in trainer.data, f"{label}: no source positions uploaded")
+
+        # one step on the kernels and on the plain versions
+        idx = torch.arange(BATCH, device=DEVICE)
+        batch = trainer.gather(idx)
+        mask = edc_mask(trainer.edc_mask_length(batch["z_values"].shape[0]),
+                        torch.Generator(device=DEVICE).manual_seed(SEED), idx.device)
+
+        def step():
+            loss, _ = trainer.loss_and_grads(batch, mask)
+            return loss, list(model.parameters())
+
+        loss_rel, grad_err, inputs = kernel_step(step)
+        require(loss_rel <= LOSS_TOL and grad_err <= GRAD_TOL,
+                f"{label}: step kernels vs plain: loss {loss_rel}, gradient {grad_err}")
+        expected = {k: float(v) for k, v in SOURCE_RECEIVER_STEP[heads].items()}
+        graph = graphed_vs_eager(f"source_receiver_{heads}", trainer,
+                                 dict(model.named_parameters()),
+                                 lambda: trainer.fit_step(idx)[0], log_dir,
+                                 trainer.mask_generator)
+        require(graph["launches_per_step"] == expected,
+                f"{label}: launches per step {graph['launches_per_step']}, expected {expected}")
+        rows += slice_rows(label, inputs, {k: launches.get(k, 0) for k in inputs})
+        del inputs
+
+        # serving from the trained checkpoint
+        infer = InferDiffGFDN(cfg, room, variant="var_source_receiver", device=DEVICE)
+        served = served_vs_plain(label, infer, np.arange(NUM_RECEIVERS), BATCH,
+                                 cfg.sample_rate)
+        per_batch = {k: v * (NUM_RECEIVERS // BATCH)
+                     for k, v in SOURCE_RECEIVER_SERVE[heads].items()}
+        require(served["launches"] == per_batch,
+                f"{label}: served launches {served['launches']}, expected {per_batch}")
+        results.append({
+            "model": label, "delay_lines": model.num_delay_lines, "groups": model.num_groups,
+            "bins": tc.num_freq_bins // 2 + 1, "batch": BATCH, "epochs": TRAIN_EPOCHS,
+            "steps_per_epoch": trainer.steps_per_epoch, "run_s": run_s,
+            "train_loss": trainer.train_loss, "valid_loss": trainer.valid_loss,
+            "launches": launches, "peak_mem_run_mb": peak_run / 2 ** 20,
+            "step_loss_rel_vs_plain": loss_rel, "max_grad_rel_l2_vs_plain": grad_err,
+            **graph, "served_launches": served["launches"],
+            "rirs_per_s": served["rirs_per_s"], "serve_s": served["serve_s"],
+            "rel_l2_vs_plain": served["rel_l2_vs_plain"],
+            "edc_max_abs_db_vs_plain": served["edc_max_abs_db_vs_plain"],
+        })
+        del trainer, model, infer, served
+        torch.cuda.empty_cache()
+    return results, rows
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--log-dir", default=None,
@@ -3324,6 +3835,18 @@ def main(argv=None) -> int:
         rows.append(merge_row)
         print(f"phase 11: directional octave-band merge in {time.perf_counter() - t0:.1f} s: "
               + json.dumps(result))
+        t0 = time.perf_counter()
+        for result in synth_presets(tmp):
+            print("phase 12 (a): " + json.dumps(result))
+        result, synth_rows = single_room(tmp)
+        rows += synth_rows
+        print(f"phase 12 (b): {SINGLE_ROOM_PRESET}: " + json.dumps(result))
+        print("phase 12 (c): MLP search: " + json.dumps(hyp_tuning(tmp)))
+        results, synth_rows = source_receiver(tmp, log_dir)
+        rows += synth_rows
+        for result in results:
+            print("phase 12 (c): " + json.dumps(result))
+        print(f"phase 12: synth presets and source heads in {time.perf_counter() - t0:.1f} s")
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({

@@ -5,7 +5,7 @@
 ``-c`` takes a YAML file or the name of a preset in ``config/presets.py``
 (``fullband_grid_colorless``, ``three_room_example``, ``subband_<f>Hz``,
 ``directional_<f>Hz_res<r>m``, ``single_rir_example``, the ``single_rir_*``
-presets, ``synth_broadband_colorless_proto``), which needs no YAML parser.
+presets, the nine ``synth_*`` presets), which needs no YAML parser.
 Trains on CUDA unless ``--device cpu`` is given. A config with ``ir_path``
 fits the one RIR in that wav; one with ``ambi_order`` trains a directional
 FDN on the spatial dataset at ``room_dataset_path``; any other trains on the

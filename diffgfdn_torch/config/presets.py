@@ -17,9 +17,10 @@ Each mapping is exactly what ``yaml.safe_load`` returns for its file, so
 * ``single_rir_<variant>``: ``configs/presets/single_rir/`` (8 lines in 2
   groups, or 1 for the single room; SVF input heads; the colorless loss or
   the colorless prototype; fs 48 kHz, nfft from the data);
-* ``synth_broadband_colorless_proto``:
-  ``configs/presets/synth/synth_broadband_colorless_proto.yml`` (a grid fit
-  warm-started from colorless prototypes).
+* ``synth_<variant>``: ``configs/presets/synth/`` (grid fits of 8 lines in
+  2 groups at 48 kHz on the synthetic datasets: scalar or SVF heads, the
+  colorless loss or prototype; ``synth_subband_single_room`` one group with
+  a RANDOM feedback matrix, ``synth_subband_hyp_tuning`` the MLP search).
 """
 
 import copy
@@ -297,12 +298,70 @@ SINGLE_RIR_PRESETS = {
         {"max_epochs": 20, "num_freq_bins": 96000}, {}, {"use_svfs": True},
         absorption_filters=True, room_dataset_path="resources/synthetic_dataset/two_coupled_rooms_freq_dep/"
         "bb_wgn_0000.pkl"),
-    "synth_broadband_colorless_proto": _synth_preset(
-        "synth_grid/broadband_colorless_proto", None,
-        {"batch_size": 10, "edr_loss_weight": 0.0, "io_lr": 0.01, "max_epochs": 10,
-         "train_valid_split": 0.9, "use_colorless_loss": False}, PROTO_15,
-        {"num_neurons_per_layer": 32}, input_filter_config=None),
 }
+
+SYNTH_DATA = "resources/synthetic_dataset/"
+
+
+def _synth_grid_preset(name: str, trainer: dict, output: dict = None, colorless: dict = None,
+                       absorption_filters: bool = False, room: str = "two_coupled_rooms",
+                       **top) -> dict:
+    """A preset of ``configs/presets/synth/``: a grid fit (``name`` its output
+    directory's under ``synth_grid/``) on the synthetic dataset ``room``, a
+    3 x 32 output MLP, no input heads, batch 10, with the given trainer,
+    output-head, colorless-FDN and top-level updates."""
+    return _synth_preset(
+        f"synth_grid/{name}", None,
+        {"batch_size": 10, "io_lr": 0.01, "train_valid_split": 0.9, "use_colorless_loss": False,
+         **trainer},
+        colorless or {}, {"num_neurons_per_layer": 32, **(output or {})},
+        absorption_filters=absorption_filters, input_filter_config=None,
+        room_dataset_path=f"{SYNTH_DATA}{room}/bb_wgn_0000.pkl", **top)
+
+
+FREQ_DEP = "two_coupled_rooms_freq_dep"
+MULTI_SOURCE = "two_coupled_rooms_multi_source"
+SYNTH_96K = {"num_freq_bins": 96000}
+SYNTH_PRESETS = {
+    "synth_broadband": _synth_grid_preset(
+        "broadband", {"batch_size": 100, "max_epochs": 20}, room="two_coupled_rooms_more_data"),
+    "synth_broadband_colorless_loss": _synth_grid_preset(
+        "broadband_colorless_loss",
+        {"max_epochs": 20, "use_colorless_loss": True, "use_edc_mask": True}),
+    "synth_broadband_colorless_proto": _synth_grid_preset(
+        "broadband_colorless_proto", {"edr_loss_weight": 0.0, "max_epochs": 10},
+        colorless=PROTO_15),
+    "synth_low_rank_proto": _synth_grid_preset(
+        "low_rank_proto", {"batch_size": 1, "max_epochs": 10, **SYNTH_96K}, colorless=PROTO_15,
+        room=MULTI_SOURCE),
+    "synth_subband": _synth_grid_preset(
+        "subband", {"max_epochs": 20, **SYNTH_96K}, {"use_svfs": True}, absorption_filters=True,
+        room=FREQ_DEP),
+    "synth_subband_colorless_loss": _synth_grid_preset(
+        "subband_colorless_loss", {"max_epochs": 10, "use_colorless_loss": True, **SYNTH_96K},
+        {"num_hidden_layers": 5, "use_svfs": True}, absorption_filters=True, room=FREQ_DEP),
+    "synth_subband_hyp_tuning": _synth_grid_preset(
+        "subband_hyp_tuning", {"max_epochs": 20, **SYNTH_96K},
+        {"use_svfs": True, "mlp_tuning_config": {
+            "max_layers": 20, "max_neurons": 128, "min_layers": 1, "min_neurons": 16,
+            "num_trials": 50, "sampler": "tpe", "step_size": 16, "trial_epochs": 2,
+            "tune_hyperparameters": True}},
+        absorption_filters=True, room=FREQ_DEP),
+    "synth_subband_single_room": _synth_grid_preset(
+        "subband_single_room", {"max_epochs": 10, **SYNTH_96K}, {"use_svfs": True},
+        absorption_filters=True, room="single_room_freq_dep", num_groups=1,
+        feedback_loop_config={"coupling_matrix_type": "random_matrix", "pu_matrix_order": 32,
+                              "use_zero_coupling": True}),
+}
+# the multi-source fit names input heads like its output heads (7 x 128
+# scalar MLPs); neither package's grid build reads them
+SYNTH_PRESETS["synth_multi_source_colorless_loss"] = _synth_grid_preset(
+    "multi_source_colorless_loss",
+    {"batch_size": 100, "max_epochs": 10, "use_colorless_loss": True, "use_edc_mask": True,
+     **SYNTH_96K},
+    {"num_hidden_layers": 7, "num_neurons_per_layer": 128}, room=MULTI_SOURCE)
+SYNTH_PRESETS["synth_multi_source_colorless_loss"]["input_filter_config"] = copy.deepcopy(
+    SYNTH_PRESETS["synth_multi_source_colorless_loss"]["output_filter_config"])
 
 PRESETS: Dict[str, dict] = {
     "fullband_grid_colorless": FULLBAND_GRID_COLORLESS,
@@ -311,6 +370,7 @@ PRESETS: Dict[str, dict] = {
     **{f"directional_{f}Hz_res{r}m": _directional_preset(f, r) for f, r in DIRECTIONAL_RUNS},
     "single_rir_example": SINGLE_RIR_EXAMPLE,
     **SINGLE_RIR_PRESETS,
+    **SYNTH_PRESETS,
 }
 
 

@@ -16,6 +16,10 @@ band models into broadband SH-domain SRIRs,
 RIRs' EDCs on the card without any RIR reaching the host
 (:func:`broadband_edc_errors_device`). Their time-domain synthesis and
 merge are not ported yet (ROADMAP A11).
+
+Models with source heads (``variant="var_source_receiver"``) serve RIRs
+at the dataset's source and receiver positions, one model or one per
+octave band.
 """
 
 import logging
@@ -31,7 +35,11 @@ from ..data.batching import arrays_from_room_dataset
 from ..data.room_dataset import RoomDataset
 from ..data.spatial_dataset import arrays_from_spatial_dataset, SpatialRoomDataset
 from ..kernels.tdgfdn import delay_line_outputs, delay_line_outputs_filtered, filter_bank_from_sos
-from ..models import DiffDirectionalFDNVarReceiverPos, DiffGFDNVarReceiverPos
+from ..models import (
+    DiffDirectionalFDNVarReceiverPos,
+    DiffGFDNVarReceiverPos,
+    DiffGFDNVarSourceReceiverPos,
+)
 from ..models.gain_heads import expand_groups_to_delay_lines
 from ..ops.basic import db, ms_to_samps, schroeder_backward_int
 from ..ops.filterbanks import reconstructing_fractional_octave_bands
@@ -47,6 +55,8 @@ logger = logging.getLogger("diffgfdn_torch")
 # the batch entries DiffGFDNVarReceiverPos reads
 MODEL_INPUTS = ("z_values", "listener_position", "norm_listener_position",
                 "target_early_response")
+# ... and DiffGFDNVarSourceReceiverPos
+SOURCE_RECEIVER_INPUTS = MODEL_INPUTS + ("source_position",)
 # the batch entries DiffDirectionalFDNVarReceiverPos reads
 DIRECTIONAL_INPUTS = ("z_values", "listener_position", "norm_listener_position")
 
@@ -102,11 +112,20 @@ def make_time_domain_synthesis_fn(
       delay and absorption part is diagonal), and each position's SH weights
       mix the line outputs per SH channel: (B, L, num_samples) SRIRs.
 
-    The direct part is not added (renderers splice it separately). ``batch``
-    holds ``listener_position`` and ``norm_listener_position`` (B, 3) on the
-    model's device.
+    The loop's feedback matrix is the coupled one, dense with RANDOM
+    coupling. The direct part is not added (renderers splice it separately).
+    ``batch`` holds ``listener_position`` and ``norm_listener_position`` (B,
+    3) on the model's device. A :class:`DiffGFDNVarSourceReceiverPos`
+    raises ``ValueError``: the JAX package's synthesis of it leaves out the
+    source heads (ROADMAP C17).
     """
     directional = isinstance(model, DiffDirectionalFDNVarReceiverPos)
+    if isinstance(model, DiffGFDNVarSourceReceiverPos):
+        raise ValueError(
+            "time-domain synthesis of DiffGFDNVarSourceReceiverPos: the JAX package's drives "
+            "the loop with the input gains alone and leaves out the source heads, so its "
+            "RIRs depart from the model's own frequency path (ROADMAP C17)"
+        )
     if not (directional or isinstance(model, DiffGFDNVarReceiverPos)):
         raise NotImplementedError(
             f"time-domain synthesis of {type(model).__name__} is not ported yet (ROADMAP A10)"
@@ -173,7 +192,9 @@ class InferDiffGFDN:
     ``params``: a flax-layout parameter tree (as a checkpoint holds it);
     None loads the newest checkpoint under ``trainer_config.train_dir``.
     ``device`` defaults to CUDA and raises without a card unless the caller
-    passes ``device="cpu"``. ``variant="directional"`` takes a spatial
+    passes ``device="cpu"``. ``variant="var_source_receiver"`` serves a
+    :class:`DiffGFDNVarSourceReceiverPos` at the dataset's source and
+    receiver positions. ``variant="directional"`` takes a spatial
     dataset and builds the model as the directional solver does, for the
     dataset's directions: it serves (B, L, nfft) SH-domain RIRs. (The JAX
     package's class cannot build that model: it passes no directions.)
@@ -209,7 +230,8 @@ class InferDiffGFDN:
         self.model.eval()
         self._synth = make_rir_synthesis_fn(self.model, tc.reduced_pole_radius)
         self._amp_synth = None  # built on the first rirs_with_amplitudes call
-        self._inputs = DIRECTIONAL_INPUTS if directional else MODEL_INPUTS
+        self._inputs = {"directional": DIRECTIONAL_INPUTS,
+                        "var_source_receiver": SOURCE_RECEIVER_INPUTS}.get(variant, MODEL_INPUTS)
         to_arrays = arrays_from_spatial_dataset if directional else arrays_from_room_dataset
         self.arrays = to_arrays(
             room_data,

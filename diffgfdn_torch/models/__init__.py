@@ -1,5 +1,6 @@
 """GFDN models: MLP heads, the feedback loop, DiffGFDNVarReceiverPos, the
-single-position DiffGFDNSinglePos, the directional
+source-and-receiver DiffGFDNVarSourceReceiverPos, the single-position
+DiffGFDNSinglePos, the directional
 DiffDirectionalFDNVarReceiverPos and the colorless prototype ColorlessFDN."""
 
 from .colorless import ColorlessFDN
@@ -9,7 +10,9 @@ from .gfdn import (
     DiffGFDN,
     DiffGFDNSinglePos,
     DiffGFDNVarReceiverPos,
+    DiffGFDNVarSourceReceiverPos,
 )
 
 __all__ = ["ColorlessFDN", "DiffDirectionalFDNVarReceiverPos", "DiffGFDN",
-           "DiffGFDNSinglePos", "DiffGFDNVarReceiverPos", "FeedbackLoop"]
+           "DiffGFDNSinglePos", "DiffGFDNVarReceiverPos", "DiffGFDNVarSourceReceiverPos",
+           "FeedbackLoop"]

@@ -69,7 +69,10 @@ def _check_encoding(encoding_type: FeatureEncodingType) -> None:
 
 
 class SVFFromMLP(nn.Module):
-    """MLP: position -> SVF cascade per group -> (B, G, F) complex responses."""
+    """MLP: position -> SVF cascade per group -> (B, G, F) complex responses.
+
+    ``position_key``: the batch entry the MLP reads (the listener's raw
+    position by default; a source head reads ``"source_position"``)."""
 
     def __init__(
         self,
@@ -81,9 +84,11 @@ class SVFFromMLP(nn.Module):
         encoding_type: FeatureEncodingType = FeatureEncodingType.SINE,
         compress_pole_factor: float = 1.0,
         generator: Optional[torch.Generator] = None,
+        position_key: str = "listener_position",
     ):
         super().__init__()
         _check_encoding(encoding_type)
+        self.position_key = position_key
         self.cutoffs = svf_cutoff_frequencies(sample_rate)
         # device copies of the constants, so a forward uploads nothing
         self.register_buffer(
@@ -105,7 +110,7 @@ class SVFFromMLP(nn.Module):
         """(B, G, F) complex responses at ``x["z_values"]``; with
         ``return_params`` also the constrained SVF parameters and the biquads
         as {"svf_params" (B, G, K, 2), "biquad_num", "biquad_den"}."""
-        svf = self.mlp(self.encoding(x["listener_position"]))  # (B, G, K, 2)
+        svf = self.mlp(self.encoding(x[self.position_key]))  # (B, G, K, 2)
         resp, num, den = svf_params_to_response(
             svf, self.cutoff_values, x["z_values"], self.compress_pole_factor,
             self.filter_types,
@@ -122,7 +127,11 @@ class SVFFromMLP(nn.Module):
 
 
 class GainsFromMLP(nn.Module):
-    """MLP: position -> bounded scalar gain per group, shape (B, G)."""
+    """MLP: position -> bounded scalar gain per group, shape (B, G).
+
+    ``position_key``: the batch entry the MLP reads (the listener's
+    normalized position by default; a source head reads the raw
+    ``"source_position"``)."""
 
     def __init__(
         self,
@@ -132,9 +141,11 @@ class GainsFromMLP(nn.Module):
         num_neurons: int,
         encoding_type: FeatureEncodingType = FeatureEncodingType.SINE,
         generator: Optional[torch.Generator] = None,
+        position_key: str = "norm_listener_position",
     ):
         super().__init__()
         _check_encoding(encoding_type)
+        self.position_key = position_key
         self.encoding = SinusoidalEncoding(num_fourier_features)
         self.mlp = MLP(
             3 * 2 * num_fourier_features, num_hidden_layers, num_neurons, num_groups,
@@ -142,7 +153,7 @@ class GainsFromMLP(nn.Module):
         )
 
     def forward(self, x: dict) -> torch.Tensor:
-        out = self.mlp(self.encoding(x["norm_listener_position"]))
+        out = self.mlp(self.encoding(x[self.position_key]))
         return scaled_sigmoid(out[..., 0, 0], -1.0, 1.0)
 
 

@@ -9,6 +9,8 @@ rFFT bins at once.
   per-group responses ``sub_fdn_output``;
 * :class:`DiffGFDNVarReceiverPos` — output gains (scalar heads) or SVF
   filters (SVF heads) conditioned on the listener position via an MLP;
+* :class:`DiffGFDNVarSourceReceiverPos` — output heads conditioned on the
+  listener position and input heads on the source position;
 * :class:`DiffGFDNSinglePos` — one source / receiver pair: per-group scalars
   or SVF cascades as plain parameters, on the output and the input side;
 * :class:`DiffDirectionalFDNVarReceiverPos` — SH-domain output gains for
@@ -278,6 +280,86 @@ class DiffGFDNVarReceiverPos(DiffGFDN):
             _, params = self.output_filters(x, return_params=True)
             return params
         return {"gains": self.output_scalars(x)}
+
+
+class DiffGFDNVarSourceReceiverPos(DiffGFDN):
+    """Output heads conditioned on the listener position and input heads on
+    the source position, each scalar gains or SVF filters per group."""
+
+    def __init__(
+        self,
+        *args,
+        use_svf_in_output: bool = True,
+        use_svf_in_input: bool = True,
+        num_fourier_features: int = 10,
+        num_hidden_layers: int = 3,
+        num_neurons: int = 128,
+        encoding_type: FeatureEncodingType = FeatureEncodingType.SINE,
+        compress_pole_factor: float = 1.0,
+        input_num_fourier_features: int = 10,
+        input_num_hidden_layers: int = 3,
+        input_num_neurons: int = 128,
+        generator: Optional[torch.Generator] = None,
+        **kwargs,
+    ):
+        super().__init__(*args, generator=generator, **kwargs)
+        self.use_svf_in_output = use_svf_in_output
+        self.use_svf_in_input = use_svf_in_input
+        heads = (
+            ("output", use_svf_in_output, "listener_position", "norm_listener_position",
+             (num_fourier_features, num_hidden_layers, num_neurons)),
+            ("input", use_svf_in_input, "source_position", "source_position",
+             (input_num_fourier_features, input_num_hidden_layers, input_num_neurons)),
+        )
+        for side, svf, svf_key, gains_key, (fourier, layers, neurons) in heads:
+            head = dict(num_groups=self.num_groups, num_fourier_features=fourier,
+                        num_hidden_layers=layers, num_neurons=neurons,
+                        encoding_type=encoding_type, generator=generator)
+            if svf:
+                setattr(self, f"{side}_filters", SVFFromMLP(
+                    sample_rate=self.sample_rate, compress_pole_factor=compress_pole_factor,
+                    position_key=svf_key, **head))
+            else:
+                setattr(self, f"{side}_scalars", GainsFromMLP(position_key=gains_key, **head))
+
+    def forward(self, x: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """(B, F) complex transfer function at the batch's listener and source
+        positions (``listener_position``, ``norm_listener_position`` and
+        ``source_position`` (B, 3)), plus ``target_early_response`` when present.
+
+        Both heads scalar: H[b] = vec(c~ b~^T) . vec(P), one (B, G Nper^2) x
+        (G Nper^2, F) product over the diagonal blocks of a block-diagonal
+        loop, or (B, N^2) x (N^2, F) over the dense (F, N, N) inverse. Any SVF
+        head: the group-pooled transfer function, scalar heads broadcast to
+        (B, G, F).
+        """
+        z = x["z_values"]
+        direct = x.get("target_early_response")
+        batch, f = x["listener_position"].shape[0], z.shape[0]
+        g, nper, n = self.num_groups, self.num_delay_lines_per_group, self.num_delay_lines
+        if not self.use_svf_in_output and not self.use_svf_in_input:
+            c_s = (expand_groups_to_delay_lines(self.output_scalars(x), nper)
+                   * self.output_gains[:, 0])
+            b_s = (expand_groups_to_delay_lines(self.input_scalars(x), nper)
+                   * self.input_gains[:, 0])
+            if self.feedback_loop.is_block_diagonal:
+                pb = self.feedback_loop.block_responses(z)  # (G, F, n, n)
+                w = torch.einsum("bgn,bgm->bgnm", c_s.reshape(batch, g, nper),
+                                 b_s.reshape(batch, g, nper)).reshape(batch, g * nper * nper)
+                pf = pb.permute(1, 0, 2, 3).reshape(f, g * nper * nper)
+            else:
+                w = torch.einsum("bn,bm->bnm", c_s, b_s).reshape(batch, n * n)
+                pf = self.feedback_loop(z).reshape(f, n * n)
+            h = torch.matmul(w.to(torch.complex64), pf.T)
+            return h if direct is None else h + direct
+        groups = []
+        for side in ("output", "input"):
+            if getattr(self, f"use_svf_in_{side}"):
+                groups.append(getattr(self, f"{side}_filters")(x))  # (B, G, F)
+            else:
+                scalars = getattr(self, f"{side}_scalars")(x).to(torch.complex64)
+                groups.append(scalars[..., None].expand(batch, g, f))
+        return self.transfer_function_group_heads(z, groups[0], direct, b_group=groups[1])
 
 
 class DiffGFDNSinglePos(DiffGFDN):

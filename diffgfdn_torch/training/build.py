@@ -4,7 +4,9 @@ Host-side: fits the absorption filters (GEQ) or gains once, resolves the
 colorless warm start (a host matrix logarithm, so that the skew
 parametrization starts at the prototypes' optimized matrices), then builds a
 :class:`DiffGFDNVarReceiverPos` (``variant="var_receiver"``), a
-:class:`DiffGFDNSinglePos` (``variant="single_pos"``) or a
+:class:`DiffGFDNVarSourceReceiverPos` (``variant="var_source_receiver"``:
+input heads from ``input_filter_config``, or like the output heads when it
+is None), a :class:`DiffGFDNSinglePos` (``variant="single_pos"``) or a
 :class:`DiffDirectionalFDNVarReceiverPos` (``variant="directional"``, with
 the analysis matrix designed for the dataset's directions) with parameters
 drawn from a seeded ``torch.Generator``, and moves it to the device.
@@ -30,6 +32,7 @@ from ..models import (
     DiffDirectionalFDNVarReceiverPos,
     DiffGFDNSinglePos,
     DiffGFDNVarReceiverPos,
+    DiffGFDNVarSourceReceiverPos,
 )
 from ..models.spatial import build_analysis_matrix
 from ..ops.absorption import (
@@ -155,7 +158,8 @@ def build_gfdn_model(
     device: Union[str, torch.device] = "cuda",
     desired_directions: Optional[np.ndarray] = None,
     colorless_params: Optional[List[ColorlessFDNResults]] = None,
-) -> Union[DiffGFDNVarReceiverPos, DiffGFDNSinglePos, DiffDirectionalFDNVarReceiverPos]:
+) -> Union[DiffGFDNVarReceiverPos, DiffGFDNVarSourceReceiverPos, DiffGFDNSinglePos,
+           DiffDirectionalFDNVarReceiverPos]:
     """Build the configured model on ``device``, parameters drawn from a
     ``torch.Generator`` seeded with ``config.seed``. The directional variant
     needs ``desired_directions`` (2, J), the dataset's (azimuth, elevation).
@@ -166,8 +170,8 @@ def build_gfdn_model(
     ported yet.
     """
     dev = resolve_device(device)
-    if variant not in ("var_receiver", "single_pos", "directional"):
-        raise NotImplementedError(f"model variant {variant!r} is not ported yet (ROADMAP A10)")
+    if variant not in ("var_receiver", "var_source_receiver", "single_pos", "directional"):
+        raise ValueError(f"unknown variant {variant}")
     fl_cfg = config.feedback_loop_config
     if (config.trainer_config.use_colorless_loss
             and fl_cfg.coupling_matrix_type is CouplingMatrixType.RANDOM):
@@ -176,10 +180,9 @@ def build_gfdn_model(
             "coupling_matrix_type=RANDOM has no per-group sub-FDNs to evaluate the "
             "colorless loss on"
         )
-    if fl_cfg.coupling_matrix_type is not CouplingMatrixType.SCALAR:
+    if fl_cfg.coupling_matrix_type is CouplingMatrixType.FILTER:
         raise NotImplementedError(
-            f"coupling_matrix_type={fl_cfg.coupling_matrix_type.value} is not ported "
-            "yet for a GFDN (ROADMAP A4)"
+            "coupling_matrix_type=filter_matrix is not ported yet for a GFDN (ROADMAP A4)"
         )
     kw = absorption_arrays(config, common_decay_times, band_centre_hz)
     if colorless_params is not None:
@@ -218,6 +221,18 @@ def build_gfdn_model(
             analysis_matrix=build_analysis_matrix(
                 config.ambi_order, desired_directions, out_cfg.beamformer_type
             ),
+            **common,
+        )
+    elif variant == "var_source_receiver":
+        in_cfg = config.input_filter_config or out_cfg
+        model = DiffGFDNVarSourceReceiverPos(
+            use_svf_in_output=out_cfg.use_svfs,
+            use_svf_in_input=in_cfg.use_svfs,
+            encoding_type=out_cfg.encoding_type,
+            compress_pole_factor=out_cfg.compress_pole_factor,
+            input_num_fourier_features=in_cfg.num_fourier_features,
+            input_num_hidden_layers=in_cfg.num_hidden_layers,
+            input_num_neurons=in_cfg.num_neurons_per_layer,
             **common,
         )
     else:

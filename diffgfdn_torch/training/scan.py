@@ -11,12 +11,12 @@ captured once in a CUDA graph and replayed. This module owns that skeleton:
   refills the buffers with ``copy_`` before each call, and the closure reads
   its inputs only from them.
 * On CUDA tensors the first :data:`WARMUP_STEPS` calls run the closure
-  eagerly on a side stream. They are steps of the run, and they create what
-  a capture must find in place: Adam's state, cuFFT plans, cuBLAS
-  workspaces, the kernels' libraries. The next call captures the closure
-  with ``torch.cuda.graph`` and replays it, and every later call refills the
-  buffers and replays. A capture that fails raises: there is no eager
-  fallback.
+  eagerly on a side stream (one a card, shared by every graph). They are
+  steps of the run, and they create what a capture must find in place:
+  Adam's state, cuFFT plans, cuBLAS workspaces, the kernels' libraries. The
+  next call captures the closure with ``torch.cuda.graph`` and replays it,
+  and every later call refills the buffers and replays. A capture that
+  fails raises: there is no eager fallback.
 * On CPU tensors every call runs the same closure on the same buffers,
   eagerly, so the CPU tests exercise the plumbing that the graph relies on.
 * :class:`StepGraphs` keeps the graphs of one trainer (one per step kind and
@@ -58,6 +58,21 @@ from ..kernels.dispatch import plain_on_card
 WARMUP_STEPS = 1  # eager steps on the side stream before the capture
 
 Inputs = Dict[str, torch.Tensor]
+
+# the side stream of each card, shared by every step graph of the process:
+# PyTorch keeps a cuBLAS workspace for each stream that runs a product, for
+# the life of the process, so a stream per graph would leave one behind with
+# every trainer (some 50 MB a trial of the MLP search)
+_SIDE_STREAMS: Dict[int, "torch.cuda.Stream"] = {}
+
+
+def side_stream(device: torch.device) -> "torch.cuda.Stream":
+    """The one side stream of the card ``device`` that step graphs warm up
+    and capture on."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _SIDE_STREAMS:
+        _SIDE_STREAMS[index] = torch.cuda.Stream(index)
+    return _SIDE_STREAMS[index]
 
 
 class ReplayCounts:
@@ -146,7 +161,7 @@ class StepGraph:
         if self.graph is not None:
             return self._replay()
         if self._stream is None:
-            self._stream = torch.cuda.Stream(self.device)
+            self._stream = side_stream(self.device)
         if self.eager_steps < WARMUP_STEPS:
             return self._warm_up()
         return self._capture()

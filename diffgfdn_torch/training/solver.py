@@ -25,11 +25,16 @@ A config with ``subband_process_config`` trains one octave band: the
 trainer multiplies H by the band filter's response on the training grid
 (:func:`subband_resp`), as the JAX solver does.
 
-Not ported yet: the MLP hyper-parameter search (raises NotImplementedError
-naming ROADMAP A10), and frequency sharding over several cards
+A grid config with ``mlp_tuning_config.tune_hyperparameters`` first
+searches the output MLP's architecture (``training/hypertuning.py``), one
+short training run a trial, then trains the winner.
+
+Not ported yet: frequency sharding over several cards
 (``use_freq_parallel``: one card trains unsharded, ROADMAP A14).
 """
 
+import copy
+import gc
 import logging
 import os
 from pathlib import Path
@@ -66,6 +71,7 @@ from .build import (
     load_colorless_fdn_params,
     load_colorless_result,
 )
+from . import hypertuning
 from .colorless_trainer import ColorlessFDNTrainer
 from .save_results import save_colorless_fdn_parameters, save_diff_gfdn_parameters, save_loss
 from .trainer import DirectionalGFDNTrainer, GFDNTrainer, SinglePosGFDNTrainer
@@ -107,14 +113,6 @@ def steps_per_epoch(num_train: int, batch_size: int) -> int:
     """fit_indexed's padded batch count: ceil(n / min(bs, n))."""
     n = max(1, num_train)
     return -(-n // min(batch_size, n))
-
-
-def _check_ported(config: DiffGFDNConfig) -> None:
-    tuning = config.output_filter_config.mlp_tuning_config
-    if tuning is not None and tuning.tune_hyperparameters:
-        raise NotImplementedError(
-            "the MLP hyper-parameter search (mlp_tuning_config) is not ported yet (ROADMAP A10)"
-        )
 
 
 def run_training_colorless_fdn(
@@ -168,16 +166,19 @@ def run_training_var_receiver_pos(
     in the training directory (parameters and optimizer state).
     """
     dev = resolve_device(device)
-    _check_ported(config)
     tc = config.trainer_config
     if room_data is None:
         room_data = ThreeRoomDataset(config.room_dataset_path, nfft=tc.num_freq_bins)
     check_sample_rate(config, room_data)
+    colorless_params = colorless_prototypes(config, room_data.num_freq_bins, dev)
+    tuning = config.output_filter_config.mlp_tuning_config
+    if tuning is not None and tuning.tune_hyperparameters:
+        config = _tuned_config(config, tuning, room_data, dev)
+        tc = config.trainer_config
 
     model = build_gfdn_model(
         config, common_decay_times=room_data.common_decay_times,
-        band_centre_hz=room_data.band_centre_hz, device=dev,
-        colorless_params=colorless_prototypes(config, room_data.num_freq_bins, dev),
+        band_centre_hz=room_data.band_centre_hz, device=dev, colorless_params=colorless_params,
     )
     arrays = arrays_from_room_dataset(
         room_data,
@@ -216,6 +217,38 @@ def run_training_var_receiver_pos(
     return trainer, model
 
 
+def _tuned_config(config: DiffGFDNConfig, tuning, room_data: RoomDataset,
+                  device: torch.device) -> DiffGFDNConfig:
+    """The MLP search of ``mlp_tuning_config``: each trial trains the
+    candidate (``trial_epochs`` epochs at most, under ``<train_dir>/tuning``)
+    and is scored by its last validation loss, or its last training loss
+    without a validation split. Each trial's trainer and step graphs are
+    dropped, and the card's cached blocks released, before the next trial,
+    so that the trials' graph memory pools do not pile up. Returns the
+    winner's config, its ``mlp_tuning_config`` set to None."""
+
+    def trial(cand: DiffGFDNConfig) -> float:
+        trial_cfg = copy.deepcopy(cand)
+        trial_cfg.output_filter_config.mlp_tuning_config = None
+        if tuning.trial_epochs is not None:
+            trial_cfg.trainer_config.max_epochs = min(tuning.trial_epochs,
+                                                      config.trainer_config.max_epochs)
+        trial_cfg.trainer_config.train_dir = str(Path(config.trainer_config.train_dir) / "tuning")
+        trainer, _ = run_training_var_receiver_pos(trial_cfg, room_data=room_data, device=device)
+        objective = trainer.valid_loss[-1] if trainer.valid_loss else trainer.train_loss[-1]
+        trainer.graphs.clear()
+        del trainer
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        return objective
+
+    best, _ = hypertuning.mlp_hyperparameter_tuning(config, trial, num_trials=tuning.num_trials,
+                                                    seed=config.seed)
+    best.output_filter_config.mlp_tuning_config = None
+    return best
+
+
 def run_training_anisotropic_decay_var_receiver_pos(
     config: DiffGFDNConfig,
     room_data: SpatialRoomDataset,
@@ -229,7 +262,6 @@ def run_training_anisotropic_decay_var_receiver_pos(
     checkpoint in the training directory.
     """
     dev = resolve_device(device)
-    _check_ported(config)
     check_sample_rate(config, room_data)
     tc = config.trainer_config
     model = build_gfdn_model(

@@ -22,6 +22,9 @@ precomputed-target path of the JAX trainer, which
   ``scan_epochs = False`` runs the same step closure eagerly;
 * the sub-FDN energy normalization runs under ``no_grad``, before every step
   for scalar heads and once per epoch for SVF heads, as in the JAX trainer.
+  A RANDOM-coupled loop has no sub-FDNs to normalize on: ``fit_indexed``
+  raises ``ValueError`` before its first step (ROADMAP C16), where the JAX
+  trainer fails with an ``AttributeError``.
 
 A subband config's trainer (``subband_filter_resp``) multiplies H by the
 band filter's response before the losses, against the dataset's own
@@ -62,7 +65,7 @@ from typing import Dict, Iterable, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from ..config.schema import TrainerConfig
+from ..config.schema import CouplingMatrixType, TrainerConfig
 from ..data.audio import write_wav
 from ..losses import amse_loss, directional_edc_loss_from_sh, edc_loss, edc_loss_from_rir
 from ..losses import edc_mask, edr_loss, edr_loss_from_rir, mse_loss, sparsity_loss
@@ -198,11 +201,13 @@ def _omni_losses(cfg: TrainerConfig, batch: Batch, h: torch.Tensor, mixing: int,
 @torch.no_grad()
 def upload_model_inputs(arrays, device: torch.device) -> Batch:
     """The model's inputs for every receiver on the device, from one upload:
-    z, the positions and the early spectra (rfft of the early segments there)."""
+    z, the source and listener positions and the early spectra (rfft of the
+    early segments there)."""
     nfft = 2 * (arrays.z_values.shape[0] - 1)
     early = torch.as_tensor(arrays.target_early_time, dtype=torch.float32, device=device)
     return {
         "z_values": torch.as_tensor(arrays.z_values, device=device),
+        "source_position": torch.as_tensor(arrays.source_position, device=device),
         "listener_position": torch.as_tensor(arrays.listener_position, device=device),
         "norm_listener_position": torch.as_tensor(arrays.norm_listener_position, device=device),
         "target_early_response": torch.fft.rfft(early, n=nfft, dim=-1),
@@ -410,6 +415,18 @@ class GFDNTrainer(GraphedSteps):
 
     # ---------------------------- normalization ------------------------------
 
+    def _require_sub_fdns(self) -> None:
+        """Raise ``ValueError`` when the io gains would be normalized on a
+        loop without per-group sub-FDNs (RANDOM coupling: one dense matrix).
+        The JAX trainer fails at that point with an ``AttributeError``
+        (ROADMAP C16); the port does not invent a normalization for it."""
+        fl = self.model.feedback_loop
+        if fl.coupling_matrix_type is CouplingMatrixType.RANDOM:
+            raise ValueError(
+                "the io-gain normalization needs per-group sub-FDNs, and a RANDOM feedback "
+                "matrix has none: the JAX trainer cannot train this model either "
+                "(ROADMAP C16)")
+
     def _normalize_params(self, keep_inverse: bool = False) -> Optional[torch.Tensor]:
         """Scale b and c so each sub-FDN has unit average energy: divide each
         group's io gains by E[|H_sub_g|^2]^(1/4), in place. A no-op returning
@@ -421,6 +438,7 @@ class GFDNTrainer(GraphedSteps):
         """
         if self.model.io_gains_fixed:
             return None
+        self._require_sub_fdns()
         z = sub_fdn_bins(self.model, self.data["z_values"])
         with torch.set_grad_enabled(keep_inverse):
             p = self.model.sub_fdn_inverse(z)
@@ -450,6 +468,8 @@ class GFDNTrainer(GraphedSteps):
         in ``train_dir`` and its optimizer-state sidecar.
         """
         cfg = self.cfg
+        if not self.model.io_gains_fixed:
+            self._require_sub_fdns()
         start_epoch, resumed = 0, None
         if resume:
             found = load_latest_checkpoint_with_epoch(cfg.train_dir, cfg.max_epochs - 1)

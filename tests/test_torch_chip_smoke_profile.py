@@ -2,7 +2,8 @@
 ``record_function``, not the device annotation of the same name (which
 spans only the window's device ops and may come first in the event list);
 and the kernels of a profiled window counted by the wrapper that launches
-each, as a graphed step's counted launches are held to them.
+each; a graphed step's counted launches are held to the kernels of the
+whole profile, which holds that step alone.
 """
 
 from pathlib import Path
@@ -51,6 +52,31 @@ def test_profile_window_takes_in_device_work_placed_before_the_host_span():
     assert (window.start, window.end) == (6, 90)
     assert chip_smoke.wrapper_launches(chip_smoke.device_kernels(events, window)) == {
         "cinv": 1, "lut_apply": 1}
+
+
+def test_graphed_step_kernels_placed_before_the_window_count_in_the_whole_profile():
+    """A replay's first kernels, placed on the host's clock before both the
+    host span and the label's device annotation, fall outside the window;
+    the whole profile, which holds only the profiled step, counts them."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+
+    def event(name, start, end, device, annotation):
+        return SimpleNamespace(name=name, time_range=Interval(start, end), device_type=device,
+                               is_user_annotation=annotation)
+
+    events = [event("step", 10, 90, DeviceType.CPU, False),
+              event("step", 8, 80, DeviceType.CUDA, True),
+              event("sos_cascade_kernel<11>", 2, 4, DeviceType.CUDA, False),
+              event("lu_solve_kernel<4>", 5, 7, DeviceType.CUDA, False),
+              event("Memset (Device)", 7, 8, DeviceType.CUDA, False),
+              event("cinv_kernel<4>", 20, 30, DeviceType.CUDA, False),
+              event("lut_apply_kernel<4>", 40, 60, DeviceType.CUDA, False)]
+    window = chip_smoke.profile_window(events, "step")
+    assert chip_smoke.wrapper_launches(chip_smoke.device_kernels(events, window)) == {
+        "cinv": 1, "lut_apply": 1}
+    assert chip_smoke.wrapper_launches(chip_smoke.device_kernels(events)) == {
+        "cinv": 1, "sos": 1, "lu": 1, "lut_apply": 1}
 
 
 def test_profiled_kernels_count_by_the_wrapper_that_launches_them():

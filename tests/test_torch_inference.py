@@ -88,12 +88,15 @@ def test_missing_checkpoint_raises(tmp_path):
 
 def test_subband_configs_raise_naming_the_roadmap_item(tmp_path):
     """A subband config serves (ROADMAP A11, ported: its RIRs carry the band
-    filter's energy compensation); what is left raises naming its item: the
-    octave-band merge of source-conditioned models (A10). (The directional
-    merge is ported: tests/test_torch_directional_octave_bands.py.)"""
+    filter's energy compensation), and the octave-band merge of
+    source-and-receiver models (A10's first remainder) matches JAX's. (The
+    directional merge is ported: tests/test_torch_directional_octave_bands.py.)"""
     from diffgfdn_torch.inference import infer_all_octave_bands
     from diffgfdn_torch.training import build_gfdn_model
     from diffgfdn_torch.utils.params import jax_params_from_torch
+    from diffgfdn_tpu.inference.gfdn_inference import (
+        infer_all_octave_bands as jax_infer_all_octave_bands,
+    )
 
     raw = raw_config(tmp_path, svf=False, nfft=1024)
     raw["trainer_config"]["subband_process_config"] = {
@@ -111,6 +114,14 @@ def test_subband_configs_raise_naming_the_roadmap_item(tmp_path):
     np.testing.assert_allclose(infer.rirs_at([0, 1]),
                                infer.subband_filter_norm_factor * plain.rirs_at([0, 1]),
                                rtol=1e-6, atol=1e-9)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        infer_all_octave_bands([cfg], port_room, [0], variant="var_source_receiver",
-                               device="cpu")
+    # the octave-band merge of source-and-receiver models, against JAX's
+    source = build_gfdn_model(cfg, port_room.common_decay_times,
+                              variant="var_source_receiver", device="cpu")
+    save_checkpoint(cfg.trainer_config.train_dir, -1, jax_params_from_torch(source))
+    jax_room, _ = rooms(tmp_path, False, 1024)
+    ref = jax_infer_all_octave_bands([JaxDiffGFDNConfig.model_validate(raw)], jax_room, [0, 1],
+                                     variant="var_source_receiver")
+    merged = infer_all_octave_bands([cfg], port_room, [0, 1], variant="var_source_receiver",
+                                    device="cpu")
+    assert merged.shape == ref.shape == (2, 1024)
+    assert rel_l2(merged, ref) <= RIR_TOL

@@ -98,7 +98,7 @@ def test_seeded_init_is_deterministic():
     "override,item",
     [
         ({"feedback_loop_config": {"coupling_matrix_type": "filter_matrix"}}, "A4"),
-        ({"feedback_loop_config": {"coupling_matrix_type": "random_matrix"}}, "A4"),
+        ({"output_filter_config": {"encoding_type": "meshgrid", "use_svfs": False}}, "A4"),
         ({"output_filter_config": {"encoding_type": "meshgrid"}}, "A4"),
         ({"decay_filter_config": {"learn_common_decay_times": True}}, "A7"),
     ],
@@ -113,16 +113,22 @@ def test_unported_options_raise_naming_the_roadmap_item(override, item):
 
 
 def test_other_variants_raise():
-    """The source-conditioned variant still raises naming ROADMAP A10; the
+    """The source-conditioned variant builds, with input heads from
+    ``input_filter_config`` (its parity with JAX is in
+    test_torch_var_source.py); an unknown variant raises. The
     single-position one builds (its parity with JAX is in
     test_torch_single_pos.py), and so does the directional one (in
     test_torch_directional_model.py). RANDOM coupling with the colorless
     loss is refused as JAX refuses it."""
     cfg = DiffGFDNConfig.from_dict(dict(seed=3, sample_rate=8000.0, num_delay_lines=6,
                                         delay_range_ms=[20.0, 45.0]))
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        build_gfdn_model(cfg, np.array([0.5, 0.6, 0.7]), variant="var_source_receiver",
-                         device="cpu")
+    source = build_gfdn_model(cfg, np.array([0.5, 0.6, 0.7]), variant="var_source_receiver",
+                              device="cpu")
+    assert source.use_svf_in_output and source.use_svf_in_input
+    assert source.input_filters.position_key == "source_position"
+    assert source.input_filters.mlp.dense[0].out_features == 128
+    with pytest.raises(ValueError, match="unknown variant"):
+        build_gfdn_model(cfg, np.array([0.5, 0.6, 0.7]), variant="var_source", device="cpu")
     single = build_gfdn_model(cfg, np.array([0.5, 0.6, 0.7]), variant="single_pos",
                               device="cpu")
     assert {n for n, _ in single.named_parameters()} == {
@@ -145,6 +151,28 @@ def test_other_variants_raise():
     with pytest.raises(ValueError, match="desired_directions"):
         build_gfdn_model(directional, np.array([0.5, 0.6, 0.7]), variant="directional",
                          device="cpu")
+
+
+def test_random_coupling_builds_a_dense_loop():
+    """RANDOM coupling of a GFDN builds (ROADMAP A4's part that the synth
+    preset ``synth_subband_single_room`` needs): one (N, N) skew pre-image,
+    a dense loop, H at every bin (its parity with JAX is in
+    test_torch_random_gfdn.py)."""
+    cfg = DiffGFDNConfig.from_dict(dict(
+        seed=3, sample_rate=8000.0, num_delay_lines=6, delay_range_ms=[20.0, 45.0],
+        feedback_loop_config=dict(coupling_matrix_type="random_matrix"),
+        decay_filter_config=dict(use_absorption_filters=False),
+        output_filter_config=dict(use_svfs=False, num_hidden_layers=1,
+                                  num_neurons_per_layer=8, num_fourier_features=2)))
+    model = build_gfdn_model(cfg, np.array([0.5, 0.6, 0.7]), device="cpu")
+    assert {n for n, _ in model.named_parameters() if n.startswith("feedback_loop")} == {
+        "feedback_loop.random_feedback_matrix"}
+    assert not model.feedback_loop.is_block_diagonal
+    z = torch.exp(1j * torch.linspace(0.0, np.pi, 65)).to(torch.complex64)
+    pos = torch.rand((2, 3), generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        h = model({"z_values": z, "listener_position": pos, "norm_listener_position": pos})
+    assert h.shape == (2, 65) and bool(torch.isfinite(h).all())
 
 
 @pytest.mark.parametrize("zero_coupling", [True, False], ids=["zero_coupling", "learned_alpha"])

@@ -35,8 +35,7 @@ PRESET_FILES = {
     **{p.stem: p for p in sorted((ROOT / "configs/presets/subband").glob("subband_*Hz.yml"))},
     "single_rir_example": ROOT / "configs/single_rir_example.yml",
     **{p.stem: p for p in sorted((ROOT / "configs/presets/single_rir").glob("*.yml"))},
-    "synth_broadband_colorless_proto":
-        ROOT / "configs/presets/synth/synth_broadband_colorless_proto.yml",
+    **{p.stem: p for p in sorted((ROOT / "configs/presets/synth").glob("*.yml"))},
 }
 # computed fields of the JAX schema, not stored in YAML
 _COMPUTED = ("delay_length_samps", "load_fixed_parameters", "network_type")

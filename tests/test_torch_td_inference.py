@@ -147,14 +147,23 @@ def test_head_outputs_match_jax(tmp_path, svf):
             infer.rirs_with_amplitudes(idx, np.zeros((3, 3), np.float32))
 
 
-def test_directional_models_raise_naming_the_roadmap_item():
-    """The GFDN variants still to port raise naming ROADMAP A10; the
-    directional model now synthesizes (test_torch_directional_inference.py)."""
-    class DiffGFDNVarSourceReceiverPos(torch.nn.Module):
+def test_directional_models_raise_naming_the_roadmap_item(tmp_path):
+    """The directional model synthesizes (test_torch_directional_inference.py);
+    the source-and-receiver model raises ``ValueError`` naming ROADMAP C17
+    (JAX's synthesis of it leaves out the source heads:
+    test_torch_var_source.py); a model of no ported kind raises naming A10."""
+    raw = raw_config(tmp_path, False, nfft=NUM_SAMPLES, batch=BATCH)
+    _, port_room = rooms(tmp_path, False, NUM_SAMPLES)
+    model = build_gfdn_model(DiffGFDNConfig.from_dict(raw), port_room.common_decay_times,
+                             variant="var_source_receiver", device="cpu")
+    with pytest.raises(ValueError, match="ROADMAP C17"):
+        make_time_domain_synthesis_fn(model, NUM_SAMPLES)
+
+    class UnportedModel(torch.nn.Module):
         pass
 
     with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        make_time_domain_synthesis_fn(DiffGFDNVarSourceReceiverPos(), NUM_SAMPLES)
+        make_time_domain_synthesis_fn(UnportedModel(), NUM_SAMPLES)
 
 
 def test_subband_helpers_match_jax():

@@ -103,8 +103,10 @@ def rooms(tmp_path, svf: bool, nfft: int):
     return jax_room, port_room
 
 
-def jax_model_and_params(cfg, room, batch: int, inference_solve: bool = False):
-    """JAX DiffGFDNVarReceiverPos (XLA path on CPU) and its initial params."""
+def jax_model_and_params(cfg, room, batch: int, inference_solve: bool = False,
+                         variant: str = "var_receiver"):
+    """JAX model of ``variant`` (DiffGFDNVarReceiverPos by default; XLA path
+    on CPU) and its initial params."""
     import jax
 
     from diffgfdn_tpu.data.batching import arrays_from_room_dataset, init_example_batch
@@ -114,7 +116,7 @@ def jax_model_and_params(cfg, room, batch: int, inference_solve: bool = False):
     model = build_gfdn_model(
         cfg, common_decay_times=room.common_decay_times,
         band_centre_hz=room.band_centre_hz, inference_solve=inference_solve,
-        use_pallas_inverse=False,
+        use_pallas_inverse=False, variant=variant,
     )
     arrays = arrays_from_room_dataset(room)
     params = init_with_batch(model, jax.random.PRNGKey(3), init_example_batch(arrays, batch))
