@@ -196,6 +196,36 @@ Phases (any failure raises and exits non-zero, with no result line):
    says, and 96 receivers served through
    ``InferDiffGFDN(variant="var_source_receiver")`` (launches per batch as
    the structure says, against the plain path; RIRs per second).
+13. render BASELINE's fifth configuration, a 6DoF moving-listener binaural
+   render, through the user entry points of ``inference/rendering.py`` and
+   ``inference/sofa.py``, with a seeded order-2 HRIR set of 256 taps on the
+   icosahedron (its SH representation through ``HRIRSOFAReader``): (a) the
+   common-slopes chain: phase 9's 0.3 m checkpoint of
+   ``spatial_directional_1000Hz`` serves all 847 receivers ((847, 9, 16000)
+   SRIRs at 32 kHz), ``convert_srir_to_brir`` makes BRIRs at 1 and at 12
+   head orientations, and a 30-hop walk (100 ms hops over 30 receivers, yaw
+   0 to 2 pi, pitch within +-0.3 rad, a 1 s seeded stimulus) is rendered
+   four ways: the host loop, ``backend="device"`` through the einsum
+   program and through the dictionary program (both forced), and the multi
+   render of 8 walks; (b) the same four ways at tools/binaural_bench.py's
+   sizes (a 1.2 m grid, 1 s SRIRs, decays 0.4 / 0.8 / 0.6 s, 30 hops over 4
+   receivers, 8 walks); (c) phase 8's 96 served SRIRs (96, 9, 131072)
+   through the conversion at one orientation; every launch count must stay
+   0 across (a)-(c). Each batched render must be finite and within 1e-4 of
+   the peak of the host loop, the dictionary program within 2e-5 of the
+   einsum program, walk 0 of the multi render within 1e-5 of the single
+   render, each program within 1e-5 of the same render on the CPU and the
+   BRIRs within 1e-5 relative L2 of the CPU's. The phase prints the
+   x-real-time of each way and size, the host's rotation time apart from
+   the device program, BRIRs per second, peak memory and (with
+   ``--log-dir``) the card's idle share of one device render. (d) The native
+   streaming renderer (``diffgfdn_torch/native``, g++) must give B7's
+   impulse response of phase 6's three-room model at receiver 0 (131072
+   samples) within 1e-4 of the peak; its x-real-time is printed. (e) With
+   h5py, a synthetic HRIR SOFA file is written and the spatial CLI's
+   ``--infer-dataset`` and ``--return-brirs --hrtf`` run on phase 9's
+   checkpoint; both files are read back and held to (a)'s SRIRs and BRIRs
+   (1e-6 relative L2). Without h5py the phase prints ``h5py: absent``.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``. ``--kernel-times ROOT``
@@ -2122,7 +2152,8 @@ def directional_b7_row(model, launches: int) -> dict:
 
 def directional(tmp: Path, log_dir):
     """Phase 8: the directional preset trained, served and synthesized in
-    the time domain at full width. Returns (result, kernel rows)."""
+    the time domain at full width. Returns (result, kernel rows, the served
+    SRIRs (96, 9, 131072), which phase 13 converts to BRIRs)."""
     import torch
 
     from diffgfdn_torch.config import preset_config
@@ -2319,7 +2350,7 @@ def directional(tmp: Path, log_dir):
         "td_rel_l2_vs_plain": td_rel, "td_max_abs_over_peak_vs_freq_path": freq_err,
         "td_edc_max_abs_db_vs_freq_path": td_edc,
     }
-    return result, rows
+    return result, rows, rirs
 
 
 SPATIAL_PRESETS = ("spatial_directional_1000Hz", "spatial_omni_1000Hz")
@@ -3697,6 +3728,429 @@ def source_receiver(tmp: Path, log_dir) -> tuple:
     return results, rows
 
 
+# ----------------------------- phase 13: 6DoF rendering -----------------------------
+
+RENDER_HOPS = 30
+RENDER_HOP_MS = 100.0
+RENDER_PITCH = 0.3  # the walk's pitch swings between -0.3 and 0.3 rad
+RENDER_TRAJECTORIES = 8
+RENDER_PRESET = "spatial_directional_1000Hz"
+RENDER_GRID_RESOLUTION_M = 0.3  # phase 9's finest resolution
+HRIR_TAPS = 256
+BRIR_ORIENTATIONS = 12
+BRIR_CPU_RECEIVERS = 16  # the conversion's card-vs-CPU check, on the first receivers
+BENCH_GRID_M = 1.2  # tools/binaural_bench.py's grid, SRIR length, decays and receivers
+BENCH_RIR_S = 1.0
+BENCH_DECAYS = (0.4, 0.8, 0.6)
+BENCH_RECEIVERS = 4
+RENDER_HOST_TOL = 1e-4  # batched render vs the host loop: max abs error / peak
+RENDER_DICT_TOL = 2e-5  # dictionary program vs einsum program: max abs error / peak
+RENDER_MULTI_TOL = 1e-5  # multi render's walk 0 vs the single render: max abs error / peak
+RENDER_CPU_TOL = 1e-5  # the batched render, card vs CPU: max abs error / peak
+BRIR_CPU_TOL = 1e-5  # BRIRs, card vs CPU: relative L2 of each BRIR
+SRIR_CLI_TOL = 1e-6  # the CLI's SOFA SRIRs and pickled BRIRs vs (a)'s: relative L2
+NATIVE_TOL = 1e-4  # the native renderer vs B7's: max abs error / peak
+
+
+def hrir_set(fs: float):
+    """A synthetic order-2 HRIR set: (12, 2, HRIR_TAPS) decaying noise with
+    a direct tap, seeded, on the icosahedron (a spherical 5-design), and its
+    (M, 3) source positions in degrees."""
+    from diffgfdn_torch.ops.sph import t_design_directions
+
+    dirs = t_design_directions(5)
+    views = np.stack([np.rad2deg(dirs[0]), 90.0 - np.rad2deg(dirs[1]),
+                      np.ones(dirs.shape[1])], axis=-1)
+    rng = np.random.RandomState(SEED)
+    t = np.arange(HRIR_TAPS)
+    irs = rng.randn(len(views), 2, HRIR_TAPS) * np.exp(-t / 32.0)
+    irs[:, :, 0] += 1.0
+    return irs, views
+
+
+def max_over_peak(got, want) -> float:
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def brir_rel_l2(got: np.ndarray, want: np.ndarray) -> float:
+    """The largest relative L2 error of one BRIR (a receiver and orientation)."""
+    d = np.linalg.norm((got - want).reshape(got.shape[0], got.shape[1], -1), axis=-1)
+    return float((d / np.linalg.norm(want.reshape(d.shape + (-1,)), axis=-1)).max())
+
+
+def brir_conversion(srirs: np.ndarray, reader, orientations: np.ndarray, cpu_receivers: int):
+    """``convert_srir_to_brir`` on the card, twice (the first call sets up
+    cuFFT's plans), and on the CPU for the first receivers. Returns (BRIRs,
+    result)."""
+    import torch
+
+    from diffgfdn_torch.inference import convert_srir_to_brir
+
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        brirs = convert_srir_to_brir(srirs, reader, orientations, device=DEVICE)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    p, o = srirs.shape[0], orientations.shape[0]
+    require(brirs.shape[:2] == (p, o) and brirs.shape[-1] == 2 and bool(np.isfinite(brirs).all()),
+            f"BRIRs {brirs.shape}, finite {np.isfinite(brirs).all()}")
+    cpu = convert_srir_to_brir(srirs[:cpu_receivers], reader, orientations, device="cpu")
+    err = brir_rel_l2(brirs[:cpu_receivers], cpu)
+    require(err <= BRIR_CPU_TOL, f"BRIRs card vs CPU rel L2 {err}")
+    return brirs, {"srirs": list(srirs.shape), "orientations": o, "brirs": list(brirs.shape),
+                   "first_s": walls[0], "wall_s": walls[1], "brirs_per_s": p * o / walls[1],
+                   "peak_mem_mb": peak / 2 ** 20, "cpu_receivers": cpu_receivers,
+                   "max_rel_l2_card_vs_cpu": err}
+
+
+def fft_flops(n: int, count: int) -> float:
+    """Operations of ``count`` real FFTs of length n, 2.5 n log2 n each."""
+    return count * 2.5 * n * np.log2(n)
+
+
+def render_cost(rend, walks: int, dictionary: bool):
+    """Bytes and fp32 operations of a batched render's device program for
+    ``walks`` walks: its inputs read once (the stimulus segments; the
+    rotations and gather index, or the atom weights; the RTFs and the
+    HRTF-SH set, or the dictionary) and its (B, T, 2) output written once;
+    the smoothing and the two einsums (4 operations a real-by-complex, 8 a
+    complex multiply-add), or the (B K, J) x (J, 2 F2 2) product, and the
+    FFTs."""
+    k, hop, nfft = rend.num_pos, rend.hop_size, rend.num_freq_bins
+    nfft2 = rend._conv_nfft()
+    f, f2 = nfft // 2 + 1, nfft2 // 2 + 1
+    u, s = rend._rtf_uniq.shape[:2]
+    bk = walks * k
+    io = 4 * bk * hop * 3  # the segments in, two ears out
+    spectra = 6 * bk * 2 * f2  # the stimulus spectrum times each ear's
+    if dictionary:
+        j = u * s * s
+        return (io + 4 * bk * j + 16 * j * f2,
+                2 * bk * j * 4 * f2 + spectra + fft_flops(nfft2, 3 * bk))
+    return (io + 4 * bk * s * s + 8 * bk + 8 * (u * s * f + s * 2 * f),
+            4 * bk * s * f + 4 * bk * s * s * f + 8 * bk * s * 2 * f + spectra
+            + fft_flops(nfft, 2 * bk) + fft_flops(nfft2, 5 * bk))
+
+
+def timed_device_render(rend, render, stimuli: np.ndarray, stored_orientations: np.ndarray):
+    """``render()`` (a batched render of the renderer, host arrays in, host
+    float64 out) once (uploads, dictionary, cuFFT plans) and three times
+    more, and its halves apart: the host's inputs (one rotation recursion per
+    hop and walk, from ``stored_orientations``, pitch negated) and the
+    device program. Returns (the first output, result)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = render()
+    first_s = time.perf_counter() - t0
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        render()
+        walls.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    args = rend.device_inputs(stimuli, stored_orientations)
+    host_s = time.perf_counter() - t0
+    device = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rend.render_device(*args)
+        torch.cuda.synchronize()
+        device.append(time.perf_counter() - t0)
+    audio_s = stimuli.shape[0] * rend.total_sim_len / rend.sample_rate
+    b_ms, b_by = bound(*render_cost(rend, stimuli.shape[0], rend._use_dict_path()))
+    return out, {"program": "dictionary" if rend._use_dict_path() else "einsum",
+                 "walks": stimuli.shape[0], "first_s": first_s, "wall_s": walls,
+                 "x_real_time": audio_s / float(np.median(walls)),
+                 "host_inputs_s": host_s, "device_program_s": device,
+                 "device_program_x_real_time": audio_s / float(np.median(device)),
+                 "device_program_bound_ms": b_ms, "bound_by": b_by,
+                 "peak_mem_mb": torch.cuda.max_memory_allocated() / 2 ** 20}
+
+
+def render_ways(label: str, room, rec_idx, orientations, stimulus, hrir_sh,
+                multi_orientations, log_dir) -> dict:
+    """A walk of ``len(rec_idx)`` hops over the room's receivers, four ways:
+    the host loop (``stream_host`` from a fresh renderer), the default
+    ``backend="device"`` through the
+    einsum program and through the dictionary program (both forced), and
+    the multi render of RENDER_TRAJECTORIES walks (seeded stimuli, walk 0
+    this one) through the program the auto policy picks. Each batched
+    render is held against the host loop, the two programs against each
+    other, walk 0 against the single render and each program against the
+    same render on the CPU."""
+    from diffgfdn_torch.inference import BinauralDynamicRendering
+
+    pos = room.receiver_position[rec_idx]
+
+    def renderer(device):
+        return BinauralDynamicRendering(room, pos, orientations, stimulus, hrir_sh,
+                                        update_ms=RENDER_HOP_MS, use_whole_rir=True,
+                                        device=device)
+
+    rend = renderer(DEVICE)
+    audio_s = rend.total_sim_len / room.sample_rate
+    t0 = time.perf_counter()
+    host = renderer(DEVICE).stream_host()
+    host_s = time.perf_counter() - t0
+    require(bool(np.isfinite(host).all()), f"{label}: host loop not finite")
+    result = {"hops": len(rec_idx), "unique_receivers": int(rend._rtf_uniq.shape[0]),
+              "num_freq_bins": rend.num_freq_bins, "conv_nfft": rend._conv_nfft(),
+              "dictionary_mb": rend._dict_nbytes() / 2 ** 20,
+              "auto_program": "dictionary" if rend._use_dict_path() else "einsum",
+              "audio_s": audio_s, "host": {"wall_s": host_s, "x_real_time": audio_s / host_s}}
+    outs = {}
+    cpu = renderer("cpu")
+    for name, dict_path in (("einsum", False), ("dictionary", True)):
+        rend.dict_path = cpu.dict_path = dict_path
+        out, row = timed_device_render(
+            rend, lambda: rend.binaural_filter_overlap_add(backend="device"),
+            rend.extended_stimulus[None], rend.orientation_list[None])
+        require(bool(np.isfinite(out).all()), f"{label} {name}: render not finite")
+        row["max_abs_over_peak_vs_host"] = max_over_peak(out, host)
+        row["max_abs_over_peak_card_vs_cpu"] = max_over_peak(
+            out, cpu.binaural_filter_overlap_add(backend="device"))
+        require(row["max_abs_over_peak_vs_host"] <= RENDER_HOST_TOL,
+                f"{label} {name}: device vs host {row['max_abs_over_peak_vs_host']}")
+        require(row["max_abs_over_peak_card_vs_cpu"] <= RENDER_CPU_TOL,
+                f"{label} {name}: card vs CPU {row['max_abs_over_peak_card_vs_cpu']}")
+        outs[name] = out
+        result[f"device_{name}"] = row
+    result["dictionary_vs_einsum"] = max_over_peak(outs["dictionary"], outs["einsum"])
+    require(result["dictionary_vs_einsum"] <= RENDER_DICT_TOL,
+            f"{label}: dictionary vs einsum {result['dictionary_vs_einsum']}")
+    del cpu
+
+    rend.dict_path = None
+    rng = np.random.RandomState(SEED + 1)
+    stimuli = np.concatenate([rend.extended_stimulus[None], rng.randn(
+        RENDER_TRAJECTORIES - 1, rend.total_sim_len).astype(np.float32)])
+    multi_oris = np.concatenate([orientations[None], multi_orientations[1:]])
+    multi, row = timed_device_render(
+        rend, lambda: rend.binaural_filter_overlap_add_multi(stimuli, multi_oris), stimuli,
+        multi_oris * np.array([1.0, -1.0]))
+    require(multi.shape == (RENDER_TRAJECTORIES, rend.total_sim_len, 2)
+            and bool(np.isfinite(multi).all()), f"{label}: multi render {multi.shape}")
+    row["walk0_max_abs_over_peak_vs_single"] = max_over_peak(multi[0], outs[row["program"]])
+    require(row["walk0_max_abs_over_peak_vs_single"] <= RENDER_MULTI_TOL,
+            f"{label}: multi walk 0 vs single {row['walk0_max_abs_over_peak_vs_single']}")
+    result["multi"] = row
+    if log_dir is not None:
+        wall, busy, _, kernels = profile_once(
+            lambda: rend.binaural_filter_overlap_add(backend="device"), f"render_{label}",
+            Path(log_dir) / f"profile_render_{label}.txt")
+        result.update(profiled_render_ms=wall, profiled_device_busy_ms=busy,
+                      profiled_idle_share=1.0 - busy / wall, profiled_device_kernels=kernels)
+    return result
+
+
+def receiver_output_gains(infer, receiver: int) -> "torch.Tensor":
+    """(N,) output gains of one receiver of a scalar-head model: the mix that
+    ``make_time_domain_synthesis_fn`` applies to the delay-line outputs."""
+    import torch
+
+    from diffgfdn_torch.models.gain_heads import expand_groups_to_delay_lines
+
+    model = infer.model
+    with torch.no_grad():
+        c = expand_groups_to_delay_lines(model.output_scalars(infer._device_batch(
+            np.array([receiver]))), model.num_delay_lines_per_group)
+        return (c * model.output_gains[:, 0])[0]
+
+
+def native_vs_b7(native_inputs, fs: float) -> dict:
+    """(d): the native streaming renderer against B7 on phase 6's
+    three-room model (its delays, gains, A and b, receiver 0's output
+    gains), on an impulse of 131072 samples."""
+    import torch
+
+    from diffgfdn_torch.kernels.tdgfdn import delay_line_outputs
+    from diffgfdn_torch.native import NativeGFDNRenderer
+    from diffgfdn_torch.native import tdfdn
+
+    delays, g, a, b, c = native_inputs
+    t_len = 131072
+    impulse = torch.zeros(t_len, device=g.device)
+    impulse[0] = 1.0
+    reset_counts()
+    with torch.no_grad():
+        ref = (delay_line_outputs(delays, g, a, b, impulse) @ c).cpu().numpy()
+    require(launch_counts()["tdgfdn"] == 1, f"native reference: B7 launched {launch_counts()}")
+    t0 = time.perf_counter()
+    renderer = NativeGFDNRenderer(delays, g.cpu().numpy(), a.cpu().numpy(), b.cpu().numpy())
+    build_s = time.perf_counter() - t0
+    c_np = c.cpu().numpy()[None]
+    out = renderer.process(impulse.cpu().numpy(), c_np)[0]
+    err = max_over_peak(out, ref)
+    require(bool(np.isfinite(out).all()) and err <= NATIVE_TOL, f"native vs B7 {err} of peak")
+    walls = []
+    for _ in range(3):
+        renderer.reset()
+        t0 = time.perf_counter()
+        renderer.process(impulse.cpu().numpy(), c_np)
+        walls.append(time.perf_counter() - t0)
+    x_real_time = t_len / fs / float(np.median(walls))
+    require(x_real_time > 1, f"native renderer {x_real_time}x real time: cannot stream")
+    return {"library": str(tdfdn.library_path()), "build_and_create_s": build_s,
+            "delay_lines": len(delays), "samples": t_len, "max_abs_over_peak_vs_b7": err,
+            "process_s": walls, "x_real_time": x_real_time}
+
+
+def sofa_files(tmp: Path, room_path: Path, srirs: np.ndarray, brirs: np.ndarray,
+               hrirs, fs: float) -> dict:
+    """(e): with h5py, a synthetic HRIR SOFA file, then the spatial CLI's
+    ``--infer-dataset`` (SOFA out) and ``--return-brirs --hrtf`` on phase
+    9's checkpoint, run from a working directory that holds it at the
+    preset's ``train_dir``; both files read back and held to (a)'s SRIRs and
+    1-orientation BRIRs."""
+    import pickle
+
+    import torch
+
+    try:
+        import h5py
+    except ImportError:
+        print("phase 13 (e): h5py: absent; the HRIR readers were built from arrays")
+        return {"h5py": "absent"}
+
+    from diffgfdn_torch.cli import run_spatial_sampling
+    from diffgfdn_torch.config import spatial_preset_config
+
+    work = tmp / "render_cli"
+    ckpt = work / spatial_preset_config(RENDER_PRESET).train_dir
+    ckpt.parent.mkdir(parents=True, exist_ok=True)
+    ckpt.symlink_to(tmp / "spatial" / RENDER_PRESET)
+    irs, views = hrirs
+    hrtf = work / "hrir.sofa"
+    with h5py.File(hrtf, "w") as f:
+        f.create_dataset("Data.IR", data=irs)
+        f.create_dataset("Data.SamplingRate", data=np.array([fs]))
+        f.create_dataset("SourcePosition", data=views).attrs["Units"] = "degree, degree, metre"
+    args = ["-c", RENDER_PRESET, "--infer-dataset", str(room_path), "--grid-resolution",
+            str(RENDER_GRID_RESOLUTION_M), "--device", DEVICE]
+    with contextlib.chdir(work):
+        reset_counts()
+        t0 = time.perf_counter()
+        sofa = run_spatial_sampling.main(args + ["--output", "out/srirs_est"])
+        sofa_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pkl = run_spatial_sampling.main(args + ["--output", "out/brirs", "--return-brirs",
+                                                "--hrtf", str(hrtf)])
+        pkl_s = time.perf_counter() - t0
+        require(all(v == 0 for v in launch_counts().values()),
+                f"spatial CLI inference: hand-written kernels launched {launch_counts()}")
+        with h5py.File(sofa, "r") as f:
+            sofa_ir = f["Data.IR"][()]
+            conventions = f.attrs["SOFAConventions"]
+        with open(pkl, "rb") as f:
+            pickled = pickle.load(f)
+    sofa_err = rel_l2(torch.from_numpy(sofa_ir), torch.from_numpy(srirs).double())
+    brir_err = rel_l2(torch.from_numpy(pickled["brirs"]), torch.from_numpy(brirs))
+    require(conventions == "SingleRoomSRIR" and sofa_ir.shape == srirs.shape
+            and sofa_err <= SRIR_CLI_TOL,
+            f"CLI SOFA: {conventions}, {sofa_ir.shape}, rel L2 vs served {sofa_err}")
+    require(pickled["brirs"].shape == brirs.shape and brir_err <= SRIR_CLI_TOL,
+            f"CLI BRIRs {pickled['brirs'].shape}, rel L2 vs (a) {brir_err}")
+    return {"h5py": h5py.__version__, "sofa": list(sofa_ir.shape), "sofa_s": sofa_s,
+            "sofa_rel_l2_vs_served": sofa_err, "brirs": list(pickled["brirs"].shape),
+            "brirs_s": pkl_s, "brirs_rel_l2_vs_conversion": brir_err}
+
+
+def walk_orientations(hops: int, pitch: float, turns: float = 1.0) -> np.ndarray:
+    """(hops, 2) yaw from 0 to 2 pi turns and pitch swinging through +-pitch."""
+    phase = np.linspace(0.0, 2.0 * np.pi, hops)
+    return np.stack([turns * phase, pitch * np.sin(phase)], axis=-1)
+
+
+def rendering(tmp: Path, log_dir, directional_srirs: np.ndarray, native_inputs) -> dict:
+    """Phase 13: BASELINE's fifth configuration (a 6DoF moving-listener
+    binaural render) on the common-slopes chain, at the repo's benchmark
+    sizes, the directional GFDN's SRIRs through the conversion, the native
+    renderer against B7, and the spatial CLI's SOFA and BRIR output. No
+    hand-written kernel lies on (a)-(c): every launch count must stay 0."""
+    import torch
+
+    from diffgfdn_torch.config import spatial_preset_config
+    from diffgfdn_torch.data import generate_spatial_three_room_pickle, SpatialThreeRoomDataset
+    from diffgfdn_torch.inference import get_ambisonic_rirs, HRIRSOFAReader
+
+    room_path = tmp / "directional" / "srirs.pkl"
+    room = SpatialThreeRoomDataset(room_path)
+    fs = room.sample_rate
+    hrirs = hrir_set(fs)
+    reader = HRIRSOFAReader.from_arrays(*hrirs[:1], fs, hrirs[1])
+    hrir_sh = reader.get_spherical_harmonic_representation(2)
+    result = {"hrir_sh": list(hrir_sh.shape)}
+    reset_counts()
+
+    # (a) the CS chain: SRIRs served from phase 9's 0.3 m checkpoint, BRIRs, a walk
+    cfg = spatial_preset_config(RENDER_PRESET, max_epochs=SPATIAL_EPOCHS,
+                                train_dir=str(tmp / "spatial" / RENDER_PRESET))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    served = get_ambisonic_rirs(room.receiver_position, room, use_trained_model=True,
+                                configs=[cfg], grid_resolution_m=RENDER_GRID_RESOLUTION_M,
+                                device=DEVICE)
+    serve_s = time.perf_counter() - t0
+    require(served.rirs.shape == (room.num_rec, 9, room.rir_length)
+            and bool(np.isfinite(served.rirs).all()), f"(a): served {served.rirs.shape}")
+    ori1 = np.zeros((1, 2))
+    brirs1, conv1 = brir_conversion(served.rirs, reader, ori1, BRIR_CPU_RECEIVERS)
+    oris = walk_orientations(BRIR_ORIENTATIONS + 1, RENDER_PITCH)[:-1]
+    _, conv12 = brir_conversion(served.rirs, reader, oris, BRIR_CPU_RECEIVERS)
+    rng = np.random.RandomState(SEED)
+    stim = rng.randn(int(fs)).astype(np.float32)
+    multi = np.stack([walk_orientations(RENDER_HOPS, RENDER_PITCH, (i + 1) / RENDER_TRAJECTORIES)
+                      for i in range(RENDER_TRAJECTORIES)])
+    walk = render_ways("cs", served, np.arange(RENDER_HOPS),
+                       walk_orientations(RENDER_HOPS, RENDER_PITCH), stim, hrir_sh, multi,
+                       log_dir)
+    result["a"] = {"preset": RENDER_PRESET, "served": list(served.rirs.shape), "serve_s": serve_s,
+                   "brirs_1_orientation": conv1, f"brirs_{BRIR_ORIENTATIONS}_orientations": conv12,
+                   "walk": walk}
+    print("phase 13 (a): " + json.dumps(result["a"]), flush=True)
+
+    # (b) tools/binaural_bench.py's sizes: a 1.2 m grid, 1 s SRIRs, 30 hops over 4 receivers
+    path = generate_spatial_three_room_pickle(
+        tmp / "render" / "s.pkl", fs=fs, grid_spacing_m=BENCH_GRID_M, rir_len_s=BENCH_RIR_S,
+        decay_times=BENCH_DECAYS, seed=SEED)
+    bench = SpatialThreeRoomDataset(path)
+    rng = np.random.RandomState(0)
+    t = np.arange(HRIR_TAPS)
+    bench_sh = rng.randn(9, 2, HRIR_TAPS) * np.exp(-t / 64.0)[None, None, :]
+    idx = np.tile(np.arange(BENCH_RECEIVERS), RENDER_HOPS // BENCH_RECEIVERS + 1)[:RENDER_HOPS]
+    bench_stim = rng.randn(int(fs)).astype(np.float32)
+    bench_multi = np.stack([walk_orientations(RENDER_HOPS, 0.0, (i + 1) / RENDER_TRAJECTORIES)
+                            for i in range(RENDER_TRAJECTORIES)])
+    result["b"] = {"grid_m": BENCH_GRID_M, "srirs": list(bench.rirs.shape), "walk": render_ways(
+        "bench", bench, idx, walk_orientations(RENDER_HOPS, 0.0), bench_stim, bench_sh,
+        bench_multi, log_dir)}
+    print("phase 13 (b): " + json.dumps(result["b"]), flush=True)
+    del bench
+
+    # (c) the directional GFDN's served SRIRs (phase 8) through the conversion
+    _, result["c"] = brir_conversion(directional_srirs, reader, ori1, 4)
+    print("phase 13 (c): " + json.dumps(result["c"]), flush=True)
+    require(all(v == 0 for v in launch_counts().values()),
+            f"rendering and conversion: hand-written kernels launched {launch_counts()}")
+
+    # (d) the native streaming renderer against B7
+    result["d"] = native_vs_b7(native_inputs, fs)
+    print("phase 13 (d): " + json.dumps(result["d"]), flush=True)
+
+    # (e) SOFA files through the spatial CLI
+    result["e"] = sofa_files(tmp, room_path, served.rirs, brirs1, hrirs, fs)
+    print("phase 13 (e): " + json.dumps(result["e"]), flush=True)
+    return result
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--log-dir", default=None,
@@ -3806,6 +4260,7 @@ def main(argv=None) -> int:
                   + json.dumps(result))
             if b7_inputs is not None:
                 rows.append(tdgfdn_row(b7_inputs, counts["tdgfdn"]))
+                native_inputs = b7_inputs + (receiver_output_gains(served[name], 0),)
         del served
         print("phase 6: B7 matches its plain version and numpy")
         t0 = time.perf_counter()
@@ -3813,7 +4268,7 @@ def main(argv=None) -> int:
         rows += band_kernel_rows
         print(f"phase 7: subband in {time.perf_counter() - t0:.1f} s: " + json.dumps(result))
         t0 = time.perf_counter()
-        result, directional_kernel_rows = directional(tmp, log_dir)
+        result, directional_kernel_rows, directional_srirs = directional(tmp, log_dir)
         rows += directional_kernel_rows
         print(f"phase 8: directional in {time.perf_counter() - t0:.1f} s: " + json.dumps(result))
         t0 = time.perf_counter()
@@ -3847,6 +4302,10 @@ def main(argv=None) -> int:
         for result in results:
             print("phase 12 (c): " + json.dumps(result))
         print(f"phase 12: synth presets and source heads in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        rendering(tmp, log_dir, directional_srirs, native_inputs)
+        print(f"phase 13: 6DoF rendering and SOFA I/O in {time.perf_counter() - t0:.1f} s",
+              flush=True)
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({

@@ -208,6 +208,13 @@ class RoomDataset:
         hi = p.max(axis=0, keepdims=True)
         return (p - lo) / (hi - lo + self._eps)
 
+    def find_rec_idx(self, rec_pos_list: np.ndarray) -> np.ndarray:
+        """Nearest dataset receiver index for each query position."""
+        d = np.linalg.norm(
+            self.receiver_position[:, None, :] - np.atleast_2d(rec_pos_list), axis=2
+        )
+        return np.argmin(d, axis=0)
+
     def get_2d_meshgrid(self) -> Meshgrid:
         """Union of per-room uniform floor-plan grids."""
         xs, ys = [], []

@@ -8,9 +8,10 @@ Provides:
   (analysis ∘ synthesis = identity);
 * ``t_design_directions`` — small spherical t-designs (icosahedron 5-design
   for 2nd-order work) plus a Fibonacci fallback;
-* ``cart_to_sph`` / ``sph_to_cart``.
-
-The SH rotation functions are not copied yet (ROADMAP A13).
+* ``cart_to_sph`` / ``sph_to_cart``;
+* SH rotations (``sh_rotation_matrix``, ``sh_rotation_yaw_pitch_roll``): the
+  Ivanic-Ruedenberg recursion, in float64, for head rotation in the binaural
+  renderer and the SRIR-to-BRIR conversion.
 """
 
 from math import factorial
@@ -184,3 +185,132 @@ def sph_to_cart(azi: np.ndarray, colat: np.ndarray) -> np.ndarray:
         [np.sin(colat) * np.cos(azi), np.sin(colat) * np.sin(azi), np.cos(colat)],
         axis=-1,
     )
+
+
+# ------------------------------- SH rotation --------------------------------
+
+
+def rotation_matrix_zyz(alpha: float, beta: float, gamma: float) -> np.ndarray:
+    """3x3 rotation from z-y-z Euler angles (rad)."""
+
+    def rz(a):
+        return np.array(
+            [[np.cos(a), -np.sin(a), 0], [np.sin(a), np.cos(a), 0], [0, 0, 1]]
+        )
+
+    def ry(a):
+        return np.array(
+            [[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]]
+        )
+
+    return rz(alpha) @ ry(beta) @ rz(gamma)
+
+
+def rotation_matrix_ypr(yaw: float, pitch: float, roll: float) -> np.ndarray:
+    """3x3 rotation from yaw (about z), pitch (about y), roll (about x)."""
+    cy, sy = np.cos(yaw), np.sin(yaw)
+    cp, sp = np.cos(pitch), np.sin(pitch)
+    cr, sr = np.cos(roll), np.sin(roll)
+    rz = np.array([[cy, -sy, 0], [sy, cy, 0], [0, 0, 1]])
+    ry = np.array([[cp, 0, sp], [0, 1, 0], [-sp, 0, cp]])
+    rx = np.array([[1, 0, 0], [0, cr, -sr], [0, sr, cr]])
+    return rz @ ry @ rx
+
+
+def sh_rotation_yaw_pitch_roll(
+    n_max: int, yaw: float, pitch: float, roll: float = 0.0
+) -> np.ndarray:
+    """Real-SH rotation matrix for a yaw/pitch/roll head orientation."""
+    return sh_rotation_matrix(n_max, rotation_matrix_ypr(yaw, pitch, roll))
+
+
+def sh_rotation_matrix(n_max: int, rot: np.ndarray) -> np.ndarray:
+    """Block-diagonal real-SH rotation matrix for a 3x3 rotation ``rot``.
+
+    Ivanic & Ruedenberg recursion (J. Phys. Chem. 1996/1998 erratum);
+    returns ((n_max+1)^2, (n_max+1)^2). Rotating SH coefficients x by R3 is
+    x' = Rsh @ x with Rsh block-diagonal per order.
+    """
+    q = (n_max + 1) ** 2
+    rsh = np.zeros((q, q))
+    rsh[0, 0] = 1.0
+    if n_max == 0:
+        return rsh
+
+    # order-1 block in ACN (m = -1, 0, 1) <-> cartesian (y, z, x)
+    perm = np.array([1, 2, 0])  # ACN m=-1,0,1 maps to y,z,x
+    r1 = rot[np.ix_(perm, perm)]
+    rsh[1:4, 1:4] = r1
+
+    blocks = {1: r1}
+    for n in range(2, n_max + 1):
+        prev = blocks[n - 1]
+        cur = np.zeros((2 * n + 1, 2 * n + 1))
+        for m1 in range(-n, n + 1):
+            for m2 in range(-n, n + 1):
+                u, v, w = _uvw(n, m1, m2)
+                total = 0.0
+                if u != 0:
+                    total += u * _func_u(n, m1, m2, r1, prev)
+                if v != 0:
+                    total += v * _func_v(n, m1, m2, r1, prev)
+                if w != 0:
+                    total += w * _func_w(n, m1, m2, r1, prev)
+                cur[m1 + n, m2 + n] = total
+        blocks[n] = cur
+        rsh[n * n : (n + 1) ** 2, n * n : (n + 1) ** 2] = cur
+    return rsh
+
+
+def _uvw(n, m1, m2):
+    d = 1.0 if m1 == 0 else 0.0
+    if abs(m2) < n:
+        denom = (n + m2) * (n - m2)
+    else:
+        denom = (2 * n) * (2 * n - 1)
+    u = np.sqrt((n + m1) * (n - m1) / denom)
+    v = 0.5 * np.sqrt(
+        (1 + d) * (n + abs(m1) - 1) * (n + abs(m1)) / denom
+    ) * (1 - 2 * d)
+    w = -0.5 * np.sqrt((n - abs(m1) - 1) * (n - abs(m1)) / denom) * (1 - d)
+    return u, v, w
+
+
+def _p(i, n, a, b, r1, prev):
+    """Helper P_i^{a,b} from Ivanic-Ruedenberg (r1 indexed by m in {-1,0,1})."""
+    ri1 = r1[i + 1, 1 + 1]
+    rim1 = r1[i + 1, -1 + 1]
+    ri0 = r1[i + 1, 0 + 1]
+    if b == n:
+        return ri1 * prev[a + (n - 1), n - 1 + (n - 1)] - rim1 * prev[
+            a + (n - 1), -n + 1 + (n - 1)
+        ]
+    if b == -n:
+        return ri1 * prev[a + (n - 1), -n + 1 + (n - 1)] + rim1 * prev[
+            a + (n - 1), n - 1 + (n - 1)
+        ]
+    return ri0 * prev[a + (n - 1), b + (n - 1)]
+
+
+def _func_u(n, m1, m2, r1, prev):
+    return _p(0, n, m1, m2, r1, prev)
+
+
+def _func_v(n, m1, m2, r1, prev):
+    if m1 == 0:
+        return _p(1, n, 1, m2, r1, prev) + _p(-1, n, -1, m2, r1, prev)
+    if m1 > 0:
+        if m1 == 1:
+            return np.sqrt(2.0) * _p(1, n, 0, m2, r1, prev)
+        return _p(1, n, m1 - 1, m2, r1, prev) - _p(-1, n, -m1 + 1, m2, r1, prev)
+    if m1 == -1:
+        return np.sqrt(2.0) * _p(-1, n, 0, m2, r1, prev)
+    return _p(1, n, m1 + 1, m2, r1, prev) + _p(-1, n, -m1 - 1, m2, r1, prev)
+
+
+def _func_w(n, m1, m2, r1, prev):
+    if m1 == 0:
+        return 0.0
+    if m1 > 0:
+        return _p(1, n, m1 + 1, m2, r1, prev) + _p(-1, n, -m1 - 1, m2, r1, prev)
+    return _p(1, n, m1 - 1, m2, r1, prev) - _p(-1, n, -m1 + 1, m2, r1, prev)

@@ -213,3 +213,53 @@ def test_no_try_around_a_capture_falls_back_to_eager():
             names = {f.attr if isinstance(f, ast.Attribute) else getattr(f, "id", "")
                      for f in calls}
             assert not (t.handlers and names & graphed), (rel, t.lineno, names & graphed)
+
+
+RENDERING_MODULES = ("diffgfdn_torch.inference.rendering", "diffgfdn_torch.inference.sofa",
+                     "diffgfdn_torch.native", "diffgfdn_torch.native.tdfdn")
+
+
+def test_rendering_modules_import_no_jax_and_no_h5py():
+    """The rendering, SOFA and native modules are among those the import
+    check loads without JAX, and importing them loads neither JAX nor h5py
+    (the SOFA file I/O imports it when it reads or writes; the card may lack it)."""
+    assert set(RENDERING_MODULES) <= set(PORT_MODULES)
+    code = ("import sys, importlib\n"
+            f"for name in {RENDERING_MODULES!r}:\n"
+            "    importlib.import_module(name)\n"
+            "print([m for m in sys.modules if m.split('.')[0] in ('jax', 'diffgfdn_tpu', 'h5py')])\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "[]", out.stderr
+
+
+def test_rendering_entry_points_default_to_cuda_and_raise_without_a_card(tmp_path):
+    """convert_srir_to_brir, the binaural render (backend="device", its
+    default) and the multi render; the streaming host loop needs no card."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card: the default device is valid here")
+    from diffgfdn_torch.data import generate_spatial_three_room_pickle, SpatialThreeRoomDataset
+    from diffgfdn_torch.inference import (
+        BinauralDynamicRendering,
+        convert_srir_to_brir,
+        HRIRSOFAReader,
+    )
+    from diffgfdn_torch.ops.sph import t_design_directions
+
+    dirs = np.rad2deg(t_design_directions(5))
+    views = np.stack([dirs[0], 90.0 - dirs[1], np.ones(12)], axis=-1)
+    reader = HRIRSOFAReader.from_arrays(np.random.RandomState(0).randn(12, 2, 16), 8000.0, views)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert_srir_to_brir(np.zeros((1, 9, 64)), reader, np.zeros((1, 2)))
+    room = SpatialThreeRoomDataset(generate_spatial_three_room_pickle(
+        tmp_path / "s.pkl", grid_spacing_m=1.2, rir_len_s=0.1, decay_times=(0.03, 0.05, 0.04)))
+    rend = BinauralDynamicRendering(room, room.receiver_position[:3], np.zeros((3, 2)),
+                                    np.ones(800, np.float32),
+                                    reader.get_spherical_harmonic_representation(2),
+                                    update_ms=50, use_whole_rir=True)
+    assert np.isfinite(rend.stream_host()).all()
+    for backend in ((), ("device",)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            rend.binaural_filter_overlap_add(*backend)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        rend.binaural_filter_overlap_add_multi(rend.extended_stimulus[None])

@@ -139,8 +139,18 @@ def test_cli_trains_one_epoch_per_resolution_on_the_cpu(tmp_path, room_path):
 
 @pytest.mark.parametrize("flag", [["--infer-dataset", "x.pkl"], ["--return-brirs"]])
 def test_cli_sofa_and_brir_output_raise_naming_a13(tmp_path, room_path, flag):
-    with pytest.raises(NotImplementedError, match="A13"):
-        cli_main(["-c", str(_yaml_config(tmp_path, room_path)), "--device", "cpu"] + flag)
+    """All-band inference to SOFA files and BRIRs (ROADMAP A13, ported)
+    raises on a bad request before it writes or trains anything: a missing
+    dataset names its path, BRIRs without an HRIR set name ``--hrtf``."""
+    args = ["-c", str(_yaml_config(tmp_path, room_path)), "--device", "cpu",
+            "--output", str(tmp_path / "out" / "srirs")]
+    if flag[0] == "--infer-dataset":
+        with pytest.raises(FileNotFoundError, match="x.pkl"):
+            cli_main(args + [flag[0], str(tmp_path / flag[1])])
+    else:
+        with pytest.raises(ValueError, match="--hrtf"):
+            cli_main(args + ["--infer-dataset", str(room_path)] + flag)
+    assert not (tmp_path / "out").exists() and not (tmp_path / "cli").exists()
 
 
 @pytest.mark.parametrize("flag", [["--band-configs", "a.yml"], ["--grid-resolution", "0.6"],
