@@ -34,13 +34,19 @@ from ..config.schema import DiffGFDNConfig
 from ..data.batching import arrays_from_room_dataset
 from ..data.room_dataset import RoomDataset
 from ..data.spatial_dataset import arrays_from_spatial_dataset, SpatialRoomDataset
-from ..kernels.tdgfdn import delay_line_outputs, delay_line_outputs_filtered, filter_bank_from_sos
+from ..kernels.tdgfdn import (
+    delay_line_outputs,
+    delay_line_outputs_filtered,
+    filter_bank_from_gains,
+    filter_bank_from_iir,
+    filter_bank_from_sos,
+)
 from ..models import (
     DiffDirectionalFDNVarReceiverPos,
     DiffGFDNVarReceiverPos,
     DiffGFDNVarSourceReceiverPos,
 )
-from ..models.gain_heads import expand_groups_to_delay_lines
+from ..models.gain_heads import expand_groups_to_delay_lines, uses_meshgrid
 from ..ops.basic import db, ms_to_samps, schroeder_backward_int
 from ..ops.filterbanks import reconstructing_fractional_octave_bands
 from ..training.build import build_gfdn_model, colorless_result_path
@@ -101,8 +107,11 @@ def make_time_domain_synthesis_fn(
     recursion (``kernels/tdgfdn.py``): its delay-line impulse response is
     position-independent, so the infinite tail has no time aliasing whatever
     its length (the frequency-sampled path wraps the energy beyond nfft).
-    Scalar absorption runs kernel B7 on the card; GEQ (SOS) absorption runs
-    the exact block state-space path. Per batch:
+    Scalar absorption (fixed or learned gains) with a static feedback matrix
+    runs kernel B7 on the card; absorption filters (GEQ SOS cascades, or
+    warped-Prony IIR filters), and FILTER coupling (its polynomial feedback
+    A(z), with the scalar gains as a stateless filter bank), run the exact
+    block state-space path. Per batch:
 
     * scalar heads: the per-position mix is one (B, N) x (N, T) product;
     * SVF heads: the per-group output filters (short IIRs) are applied by a
@@ -112,8 +121,9 @@ def make_time_domain_synthesis_fn(
       delay and absorption part is diagonal), and each position's SH weights
       mix the line outputs per SH channel: (B, L, num_samples) SRIRs.
 
-    The loop's feedback matrix is the coupled one, dense with RANDOM
-    coupling. The direct part is not added (renderers splice it separately).
+    The loop's feedback matrix is the coupled one, dense with RANDOM and
+    learned SCALAR coupling, a polynomial with FILTER coupling. The direct
+    part is not added (renderers splice it separately).
     ``batch`` holds ``listener_position`` and ``norm_listener_position`` (B,
     3) on the model's device. A :class:`DiffGFDNVarSourceReceiverPos`
     raises ``ValueError``: the JAX package's synthesis of it leaves out the
@@ -134,17 +144,24 @@ def make_time_domain_synthesis_fn(
     nper = model.num_delay_lines_per_group
     delays = model.delays
     with torch.no_grad():
-        a = fl.coupled_feedback_matrix()
+        a = fl.coupled_feedback_matrix()  # (N, N), or (order, N, N) taps of A(z)
         if directional:
-            a = a.T.contiguous()
+            a = a.transpose(-1, -2).contiguous()
         b = model.input_gains[:, 0]
         impulse = torch.zeros(num_samples, dtype=torch.float32, device=b.device)
         impulse[0] = 1.0
-        if fl.use_absorption_filters:
+        if fl.sos_coeffs is not None:
             bank = filter_bank_from_sos(fl.sos_coeffs_host, delays)
-            y = delay_line_outputs_filtered(delays, bank, a, b, impulse)
+        elif fl.iir_coeffs is not None:
+            bank = filter_bank_from_iir(fl.iir_coeffs_host, delays)
+        elif a.dim() == 3:
+            bank = filter_bank_from_gains(fl.gamma_scalar().cpu().numpy(), delays)
         else:
+            bank = None
+        if bank is None:
             y = delay_line_outputs(delays, fl.gamma_scalar(), a, b, impulse)  # (T, N)
+        else:
+            y = delay_line_outputs_filtered(delays, bank, a, b, impulse)
 
     if directional:
         y_gl = y.reshape(num_samples, model.num_groups, nper)
@@ -230,6 +247,7 @@ class InferDiffGFDN:
         self.model.eval()
         self._synth = make_rir_synthesis_fn(self.model, tc.reduced_pole_radius)
         self._amp_synth = None  # built on the first rirs_with_amplitudes call
+        self._reads_mesh = uses_meshgrid(self.model)
         self._inputs = {"directional": DIRECTIONAL_INPUTS,
                         "var_source_receiver": SOURCE_RECEIVER_INPUTS}.get(variant, MODEL_INPUTS)
         to_arrays = arrays_from_spatial_dataset if directional else arrays_from_room_dataset
@@ -275,6 +293,8 @@ class InferDiffGFDN:
         """The model's inputs only: the late and full target planes are never read."""
         batch = {k: getattr(self.arrays, k)[idx] for k in self._inputs if k != "z_values"}
         batch["z_values"] = self.arrays.z_values  # shared by every receiver
+        if self._reads_mesh:  # and, for meshgrid heads, the floor-plan mesh
+            batch["mesh_2d"] = self.arrays.mesh_2d
         return {k: torch.from_numpy(v).to(self.device) for k, v in batch.items()}
 
     def _batched_synth(

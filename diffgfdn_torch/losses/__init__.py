@@ -11,6 +11,9 @@ from .gfdn import (
     edc_mask,
     edr_loss,
     edr_loss_from_rir,
+    frequency_weighting,
+    reg_loss,
+    scaled_shifted_sigmoid_inverse,
 )
 from .spatial import (
     find_position_idx,
@@ -31,9 +34,12 @@ __all__ = [
     "edr_loss",
     "edr_loss_from_rir",
     "find_position_idx",
+    "frequency_weighting",
     "make_decay_envelopes",
     "make_smoothness_kernel",
     "mse_loss",
+    "reg_loss",
+    "scaled_shifted_sigmoid_inverse",
     "sparsity_loss",
     "spatial_edc_loss",
     "spatial_mse_loss",

@@ -10,7 +10,7 @@ eps = 1e-6.
 """
 
 import math
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -51,6 +51,25 @@ class SinusoidalEncoding(nn.Module):
         phase = freqs[None, :, None] * np.pi * pos[:, None, :]
         enc = torch.cat([torch.sin(phase), torch.cos(phase)], dim=-1)
         return enc.reshape(pos.shape[0], -1)
+
+
+def one_hot_mesh_encoding(
+    mesh_2d: torch.Tensor, receiver_pos: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One-hot receiver encoding over the floor-plan meshgrid.
+
+    ``mesh_2d``: (L, 2) flattened (x, y) mesh; ``receiver_pos``: (B, >= 2).
+    Returns (input (L, 3) float32: each point's x, y and a 1 where it is the
+    point nearest some receiver; the closest points (B, 2); their indices
+    (B,), the first nearest point on a tie).
+    """
+    d2 = ((mesh_2d[None, :, 0] - receiver_pos[:, None, 0]) ** 2
+          + (mesh_2d[None, :, 1] - receiver_pos[:, None, 1]) ** 2)
+    rec_idx = torch.argmin(d2, dim=1)
+    one_hot = torch.zeros(mesh_2d.shape[0], dtype=mesh_2d.dtype, device=mesh_2d.device)
+    one_hot = one_hot.index_fill(0, rec_idx, 1.0)
+    inp = torch.cat([mesh_2d[:, :2], one_hot[:, None]], dim=1)
+    return inp.to(torch.float32), mesh_2d[rec_idx, :2], rec_idx
 
 
 def _kaiming_uniform_linear(

@@ -34,6 +34,7 @@ from .gain_heads import (
     GainsFromMLP,
     svf_cutoff_frequencies,
     svf_filter_types,
+    svf_params_to_biquads,
     svf_params_to_response,
     SVFFromMLP,
 )
@@ -72,7 +73,8 @@ class DiffGFDN(nn.Module):
     ``colorless_feedback_matrix_skew`` (G, Nper, Nper) warm-start the model
     from colorless prototypes: the io gains are then buffers, not parameters
     (the optimizer and the checkpoints do not see them), and ``M`` starts at
-    the prototypes' optima.
+    the prototypes' optima. The coupling and absorption arguments go to
+    :class:`FeedbackLoop`.
     """
 
     def __init__(
@@ -88,6 +90,10 @@ class DiffGFDN(nn.Module):
         fixed_input_gains: Optional[np.ndarray] = None,
         fixed_output_gains: Optional[np.ndarray] = None,
         colorless_feedback_matrix_skew: Optional[np.ndarray] = None,
+        coupling_matrix_order: Optional[int] = None,
+        iir_coeffs: Optional[np.ndarray] = None,
+        learn_common_decay_times: bool = False,
+        common_decay_times_init: Optional[Sequence[float]] = None,
     ):
         super().__init__()
         self.sample_rate = sample_rate
@@ -112,6 +118,11 @@ class DiffGFDN(nn.Module):
             sos_coeffs=sos_coeffs,
             generator=generator,
             colorless_feedback_matrix_skew=colorless_feedback_matrix_skew,
+            coupling_matrix_order=coupling_matrix_order,
+            iir_coeffs=iir_coeffs,
+            learn_common_decay_times=learn_common_decay_times,
+            common_decay_times_init=common_decay_times_init,
+            sample_rate=sample_rate,
         )
 
     @property
@@ -281,6 +292,12 @@ class DiffGFDNVarReceiverPos(DiffGFDN):
             return params
         return {"gains": self.output_scalars(x)}
 
+    def output_filter_params(self, x: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The SVF heads' biquads {"biquad_num", "biquad_den"} (B, G, K, 3) at
+        the batch's positions (the aliasing regularizer's input)."""
+        num, den = self.output_filters.biquads(x)
+        return {"biquad_num": num, "biquad_den": den}
+
 
 class DiffGFDNVarSourceReceiverPos(DiffGFDN):
     """Output heads conditioned on the listener position and input heads on
@@ -408,6 +425,13 @@ class DiffGFDNSinglePos(DiffGFDN):
             return resp
         scalars = getattr(self, f"{side}_scalars")[:, :1].to(torch.complex64)
         return scalars.expand(self.num_groups, z.shape[0])
+
+    def output_filter_params(self, x: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The output SVF cascade's biquads {"biquad_num", "biquad_den"} (1, G,
+        K, 3) (the aliasing regularizer's input)."""
+        num, den = svf_params_to_biquads(self.output_svf_params, self.cutoff_values,
+                                         self.compress_pole_factor, self.filter_types)
+        return {"biquad_num": num[None], "biquad_den": den[None]}
 
     def forward(self, x: Dict[str, torch.Tensor]) -> torch.Tensor:
         """(F,) complex transfer function at ``x["z_values"]``, plus

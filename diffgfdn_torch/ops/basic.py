@@ -32,6 +32,13 @@ def schroeder_backward_int(signal: torch.Tensor) -> torch.Tensor:
     return torch.flip(torch.cumsum(torch.flip(s2, dims=(-1,)), dim=-1), dims=(-1,))
 
 
+def db_np(x, is_squared: bool = False, min_value: float = -200.0):
+    """Linear scale to decibels (host numpy), floored at ``min_value``."""
+    factor = 10.0 if is_squared else 20.0
+    y = factor * np.log10(np.abs(x) + np.finfo(np.float32).eps)
+    return np.clip(y, a_min=min_value, a_max=None)
+
+
 def db2lin_np(x, is_squared: bool = False):
     """Decibels to linear scale (host numpy)."""
     exp_factor = 0.1 if is_squared else 0.05

@@ -3,7 +3,9 @@
 * :func:`svf_to_biquad` — state-variable-filter parameters -> biquad
   coefficients for whole cascades at once (torch, batched);
 * the host numpy designers the GEQ fit needs, and the host cascade response
-  :func:`sos_response_np` of the subband filters' Butterworth design.
+  :func:`sos_response_np` of the subband filters' Butterworth design;
+* :func:`iir_frequency_response` — direct-form IIR responses at complex
+  points (the warped-Prony absorption filters), Horner in z^-1, complex64.
 
 The cascade response at complex points z (the JAX package's
 ``sos_frequency_response``) is ``kernels.sos.sos_cascade_response``, which
@@ -134,6 +136,29 @@ def peak_filter_np(
     b = np.array([sg + gain_lin * t, -2.0 * sg * np.cos(omega), sg - gain_lin * t])
     a = np.array([sg + t, -2.0 * sg * np.cos(omega), sg - t])
     return b, a
+
+
+def iir_frequency_response(
+    num: torch.Tensor, den: torch.Tensor, z: torch.Tensor, eps: float = 1e-9,
+    dtype: torch.dtype = torch.complex64,
+) -> torch.Tensor:
+    """Responses of direct-form IIR filters at complex points ``z`` (F,).
+
+    ``num`` / ``den``: (..., order) polynomial coefficients in z^-1. Returns
+    (..., F) in ``dtype`` (complex64, as the JAX package evaluates them), each
+    polynomial evaluated by Horner's scheme in z^-1 and the ratio taken with
+    ``eps`` added to the denominator.
+    """
+    order = num.shape[-1]
+    zinv = 1.0 / z.to(dtype)
+    n = num.to(dtype)
+    d = den.to(dtype)
+    hnum = n[..., order - 1, None] * torch.ones_like(zinv)
+    hden = d[..., order - 1, None] * torch.ones_like(zinv)
+    for i in range(order - 2, -1, -1):
+        hnum = hnum * zinv + n[..., i, None]
+        hden = hden * zinv + d[..., i, None]
+    return hnum / (hden + eps)
 
 
 def sos_response_np(sos: np.ndarray, freqs_hz: np.ndarray, fs: float) -> np.ndarray:

@@ -1,4 +1,4 @@
-"""STFT and energy-decay relief (port of ``diffgfdn_tpu/ops/stft.py``, EDR subset).
+"""STFT, energy-decay relief and the ERB-grouping filterbank (port of ``diffgfdn_tpu/ops/stft.py``).
 
 The framing and padding are the JAX package's (``torch.stft`` with
 center=False, one-sided, a periodic Hann window), written out rather than
@@ -59,7 +59,39 @@ def stft(
 
 
 def edr_from_stft(s: torch.Tensor, in_db: bool = True) -> torch.Tensor:
-    """Energy decay relief: EDR[f, m] = sum_{u>=m} |S[f, u]|^2 (optionally in dB)."""
-    power = s.real * s.real + s.imag * s.imag
+    """Energy decay relief: EDR[f, m] = sum_{u>=m} |S[f, u]|^2 (optionally in
+    dB); ``s`` complex, or real (ERB-grouped magnitudes)."""
+    power = s.real * s.real + s.imag * s.imag if s.is_complex() else s * s
     edr = torch.flip(torch.cumsum(torch.flip(power, dims=(-1,)), dim=-1), dims=(-1,))
     return db(edr, is_squared=True) if in_db else edr
+
+
+def erb_filterbank(
+    sample_rate: float,
+    nfft: int,
+    num_bands: int,
+    freq_lims_hz: Tuple[float, float] = (63.0, 16e3),
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Triangular mel-spaced filterbank over the rFFT grid (host numpy).
+
+    Returns (weights (num_bands, nfft // 2 + 1) float64, band centres in Hz):
+    triangles between mel-spaced points of ``freq_lims_hz``, each scaled by
+    2 / its width (Slaney's constant-energy normalization); the ERB-grouped
+    EDR loss sums |STFT| through them.
+    """
+    def hz_to_mel(f):
+        return 2595.0 * np.log10(1.0 + np.asarray(f) / 700.0)
+
+    def mel_to_hz(m):
+        return 700.0 * (10.0 ** (np.asarray(m) / 2595.0) - 1.0)
+
+    fft_freqs = np.fft.rfftfreq(nfft, d=1.0 / sample_rate)
+    mel_pts = np.linspace(hz_to_mel(freq_lims_hz[0]), hz_to_mel(freq_lims_hz[1]), num_bands + 2)
+    hz_pts = mel_to_hz(mel_pts)
+    weights = np.zeros((num_bands, len(fft_freqs)))
+    for b in range(num_bands):
+        lo, ctr, hi = hz_pts[b], hz_pts[b + 1], hz_pts[b + 2]
+        up = (fft_freqs - lo) / max(ctr - lo, 1e-9)
+        down = (hi - fft_freqs) / max(hi - ctr, 1e-9)
+        weights[b] = np.maximum(0.0, np.minimum(up, down)) * (2.0 / (hi - lo))
+    return weights, hz_pts[1:-1]

@@ -1,7 +1,9 @@
-"""Orthogonal matrix parametrizations (port of ``diffgfdn_tpu/ops/unitary.py``).
+"""Orthogonal and paraunitary matrix parametrizations (port of ``diffgfdn_tpu/ops/unitary.py``).
 
-The skew/matrix-exponential orthogonal parametrization and the Givens-angle
-rotation used by SCALAR coupling.
+The skew/matrix-exponential orthogonal parametrization, the Givens-angle
+rotation used by SCALAR coupling, and the FIR paraunitary polynomial
+matrices of FILTER coupling (Householder factors, the polynomial algebra and
+its checks), the polynomial axis leading: (order, N, N).
 """
 
 import math
@@ -101,3 +103,70 @@ def nd_unitary(alpha: torch.Tensor, n: int) -> torch.Tensor:
         big[: m - 1, : m - 1] = u
         u = rot @ big
     return u
+
+
+def householder_pu_factor(unit_vector: torch.Tensor) -> torch.Tensor:
+    """Order-1 paraunitary Householder factor I - (1 - z^-1) v v^T, as its two
+    polynomial taps stacked (2, N, N): I - v v^T and v v^T."""
+    vv = torch.outer(unit_vector, unit_vector)
+    eye = torch.eye(unit_vector.shape[0], dtype=vv.dtype, device=vv.device)
+    return torch.stack([eye - vv, vv])
+
+
+def fir_paraunitary(unitary_matrix: torch.Tensor, unit_vectors: torch.Tensor) -> torch.Tensor:
+    """FIR paraunitary polynomial matrix (order, N, N), the polynomial axis
+    leading: a cascade of ``order - 1`` Householder factors built from the
+    unit-norm columns of ``unit_vectors`` (N, order - 1), each step
+    C[t] = H0 P[t] + H1 P[t - 1], then times the zeroth-order
+    ``unitary_matrix`` (N, N)."""
+    n = unitary_matrix.shape[0]
+    kw = dict(dtype=unitary_matrix.dtype, device=unitary_matrix.device)
+    poly = torch.eye(n, **kw)[None]
+    zero = torch.zeros((1, n, n), **kw)
+    for k in range(unit_vectors.shape[1]):
+        h = householder_pu_factor(unit_vectors[:, k])
+        ext = torch.cat([poly, zero])
+        shifted = torch.cat([zero, poly])
+        poly = torch.einsum("ij,tjk->tik", h[0], ext) + torch.einsum("ij,tjk->tik", h[1], shifted)
+    return torch.einsum("tij,jk->tik", poly, unitary_matrix)
+
+
+def matrix_convolution(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Product of two polynomial matrices, taps leading: (K, M, N) x (R, N, Q)
+    -> (K + R - 1, M, Q), C[t] = sum_{u + v = t} A[u] B[v]."""
+    k, r = a.shape[0], b.shape[0]
+    dtype = torch.promote_types(a.dtype, b.dtype)
+    out = torch.zeros((k + r - 1, a.shape[1], b.shape[2]), dtype=dtype, device=a.device)
+    for u in range(k):
+        out[u:u + r] += torch.einsum("ij,tjk->tik", a[u].to(dtype), b.to(dtype))
+    return out
+
+
+def hermitian_conjugate_polynomial_matrix(a: torch.Tensor) -> torch.Tensor:
+    """A(z^-1)^H of a polynomial matrix A(z) (taps leading)."""
+    return torch.conj(torch.flip(a, dims=(0,))).transpose(1, 2)
+
+
+def is_unitary(a: torch.Tensor, max_tol: float = 1e-6) -> Tuple[bool, float]:
+    """(A A^H == I within ``max_tol``, the largest deviation)."""
+    t = a @ torch.conj(a).T - torch.eye(a.shape[0], dtype=a.dtype, device=a.device)
+    err = float(torch.max(torch.abs(t)))
+    return err < max_tol, err
+
+
+def is_paraunitary(a: torch.Tensor, max_tol: float = 1e-6) -> Tuple[bool, float]:
+    """(A(z) A(z^-1)^H == I within ``max_tol``, the largest deviation), taps leading."""
+    t = matrix_convolution(a, hermitian_conjugate_polynomial_matrix(a))
+    t[a.shape[0] - 1] -= torch.eye(a.shape[1], dtype=t.dtype, device=t.device)
+    err = float(torch.max(torch.abs(t)))
+    return err < max_tol, err
+
+
+def paraunitary_frequency_response(poly: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """sum_t P[t] z^-t at each point: ``poly`` (order, N, N), ``z`` (F,) ->
+    (F, N, N) complex64, one (F, order) x (order, N^2) product."""
+    order, n = poly.shape[0], poly.shape[1]
+    zinv_pow = (1.0 / z[:, None]) ** torch.arange(order, device=z.device)[None, :]
+    out = torch.matmul(zinv_pow.to(torch.complex64),
+                       poly.to(torch.complex64).reshape(order, n * n))
+    return out.reshape(z.shape[0], n, n)

@@ -31,8 +31,10 @@ config, every band keeps its own config's model: its delay lines and
 absorption cascades are stacked as buffers beside its parameters, so each
 band trains on the delays that its checkpoint is served with.
 
-Not ported (raises naming ROADMAP A5, as the sequential trainer does): the
-ERB-grouped EDR, frequency weighting and the aliasing regularizer.
+The ERB-grouped EDR, frequency weighting and the aliasing regularizer of SVF
+output heads are the sequential trainer's (:func:`edr_options`,
+:func:`reg_length`): one filterbank and one set of weights for all bands of
+the group, the target features grouped alike.
 """
 
 import logging
@@ -48,8 +50,11 @@ from ..ops.basic import ms_to_samps
 from ..training.optim import make_optimizer
 from ..training.scan import GraphedSteps
 from ..training.trainer import (
+    edr_options,
     gfdn_losses,
     padded_batches,
+    reg_length,
+    SHARED_KEYS,
     target_features,
     target_rirs,
     upload_model_inputs,
@@ -65,17 +70,19 @@ class _BandLoss(nn.Module):
     """The loss of one band as a module, for ``torch.func.functional_call``."""
 
     def __init__(self, model: nn.Module, cfg: TrainerConfig, mixing: int, max_len: int,
-                 edr_win: int, edr_hop: int):
+                 edr_win: int, edr_hop: int, erb_filters: Optional[torch.Tensor],
+                 freq_weights: Optional[torch.Tensor], reg_len: Optional[int]):
         super().__init__()
         self.model = model
         self.cfg = cfg
         self.windows = (mixing, max_len, edr_win, edr_hop)
+        self.options = dict(erb_filters=erb_filters, freq_weights=freq_weights, reg_len=reg_len)
 
     def forward(self, batch: Batch, feats: Batch, band_resp: torch.Tensor,
                 mask: Optional[torch.Tensor]) -> Dict[str, torch.Tensor]:
         with self.model.feedback_loop.sharing_orthogonal_blocks():
             return gfdn_losses(self.model, self.cfg, {**batch, **feats}, *self.windows,
-                               band_resp, mask)
+                               band_resp, mask, **self.options)
 
 
 def _stack(models: Sequence[nn.Module], named: Callable, device: torch.device
@@ -108,15 +115,6 @@ class BandParallelTrainer(GraphedSteps):
         max_ir_len_ms: float = 2000.0,
         device: Union[str, torch.device] = "cuda",
     ):
-        if cfg.use_reg_loss and models[0].use_svf_in_output:
-            raise NotImplementedError(
-                "the aliasing regularizer (use_reg_loss) is not ported yet (ROADMAP A5)"
-            )
-        if cfg.use_frequency_weighting or cfg.use_erb_edr_loss:
-            raise NotImplementedError(
-                "frequency weighting and the ERB-grouped EDR loss are not ported yet "
-                "(ROADMAP A5)"
-            )
         if len(models) != len(band_responses):
             raise ValueError(f"{len(models)} models for {len(band_responses)} band responses")
         self.device = resolve_device(device)
@@ -138,8 +136,11 @@ class BandParallelTrainer(GraphedSteps):
         self.edr_hop = self.edr_win // 2
         self.mixing_time_samps = ms_to_samps(20.0, sample_rate)
         self.max_ir_len_samps = ms_to_samps(max_ir_len_ms, sample_rate)
+        self.erb_filters, self.freq_weights = edr_options(cfg, sample_rate, self.edr_win,
+                                                          self.device)
         self._loss = _BandLoss(self.model, cfg, self.mixing_time_samps, self.max_ir_len_samps,
-                               self.edr_win, self.edr_hop)
+                               self.edr_win, self.edr_hop, self.erb_filters, self.freq_weights,
+                               reg_length(cfg, self.model, sample_rate))
         self._band_losses = torch.func.vmap(self._one_band, in_dims=(0, 0, 0, 0, None, None))
         self.init_graphs(self.device)
         self.optimizer, self.scheduler = make_optimizer(cfg, self, self.steps_per_epoch)
@@ -256,7 +257,7 @@ class BandParallelTrainer(GraphedSteps):
                 spec = torch.fft.rfft(rirs[k : k + chunk], n=nfft, dim=-1) * resp
                 chunks.append(target_features(torch.fft.irfft(spec, nfft, dim=-1),
                                               self.mixing_time_samps, self.max_ir_len_samps,
-                                              self.edr_win, self.edr_hop))
+                                              self.edr_win, self.edr_hop, self.erb_filters))
             bands.append({k: torch.cat([c[k] for c in chunks]) for k in chunks[0]})
         self.band_feats = {k: torch.stack([b[k] for b in bands]) for k in bands[0]}
 
@@ -269,8 +270,9 @@ class BandParallelTrainer(GraphedSteps):
         return self.data
 
     def gather(self, idx: torch.Tensor) -> Batch:
-        """One batch of model inputs, gathered on the device (z is shared)."""
-        return {k: v if k == "z_values" else v[idx] for k, v in self.data.items()}
+        """One batch of model inputs, gathered on the device (z and the mesh
+        are shared)."""
+        return {k: v if k in SHARED_KEYS else v[idx] for k, v in self.data.items()}
 
     def gather_feats(self, idx: torch.Tensor) -> Batch:
         """The batch's target features of every band, (bands, B, ...)."""

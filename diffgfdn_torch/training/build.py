@@ -1,6 +1,6 @@
 """Model construction from a config and dataset metadata (port of ``training/build.py``).
 
-Host-side: fits the absorption filters (GEQ) or gains once, resolves the
+Host-side: fits the absorption filters (GEQ, or warped Prony) or gains once, resolves the
 colorless warm start (a host matrix logarithm, so that the skew
 parametrization starts at the prototypes' optimized matrices), then builds a
 :class:`DiffGFDNVarReceiverPos` (``variant="var_receiver"``), a
@@ -37,6 +37,7 @@ from ..models import (
 from ..models.spatial import build_analysis_matrix
 from ..ops.absorption import (
     decay_times_to_gain_filters_geq,
+    decay_times_to_gain_filters_prony,
     decay_times_to_gain_per_sample,
 )
 from ..utils.device import resolve_device
@@ -110,33 +111,45 @@ def absorption_arrays(
     config: DiffGFDNConfig,
     common_decay_times: Optional[np.ndarray],
     band_centre_hz: Optional[np.ndarray],
+    use_prony: bool = False,
 ) -> dict:
-    """Resolve the absorption configuration -> ``gains`` or ``sos_coeffs``.
+    """Resolve the absorption configuration -> the :class:`FeedbackLoop`
+    keywords ``gains``, ``sos_coeffs``, ``iir_coeffs``,
+    ``learn_common_decay_times`` and ``common_decay_times_init``.
 
-    ``common_decay_times``: (num_bands, num_groups) for GEQ filters, or
-    (num_groups,) broadband for per-line gains.
+    ``common_decay_times``: (num_bands, num_groups) for filters (GEQ cascades,
+    or warped-Prony IIR filters with ``use_prony``), or (num_groups,)
+    broadband for per-line gains. None, or ``learn_common_decay_times`` in
+    the config, makes the decay times learnable: started at the given ones
+    with ``initialise_with_opt_values`` (per-band ones averaged over the
+    bands), else drawn at random.
     """
     dcfg = config.decay_filter_config
-    if common_decay_times is None or dcfg.learn_common_decay_times:
-        raise NotImplementedError(
-            "learnable common decay times are not ported yet (ROADMAP A7)"
-        )
     delays = np.asarray(config.delay_length_samps)
     nper = len(delays) // config.num_groups
-    kw = dict(gains=None, sos_coeffs=None)
+    kw = dict(gains=None, sos_coeffs=None, iir_coeffs=None, learn_common_decay_times=False,
+              common_decay_times_init=None)
+    if common_decay_times is None or dcfg.learn_common_decay_times:
+        kw["learn_common_decay_times"] = True
+        if common_decay_times is not None and dcfg.initialise_with_opt_values:
+            cdt = np.asarray(common_decay_times)
+            if cdt.ndim == 2 and cdt.shape[0] > 1 and cdt.shape[1] == config.num_groups:
+                cdt = cdt.mean(axis=0)  # per band: each group's mean over the bands
+            else:
+                cdt = cdt.reshape(-1)[: config.num_groups]
+            kw["common_decay_times_init"] = tuple(float(t) for t in cdt)
+        return kw
     # keep the band axis even for single-group configs
     cdt = np.asarray(common_decay_times)
     if not (cdt.ndim == 2 and cdt.shape[0] > 1 and cdt.shape[1] == config.num_groups):
         cdt = np.squeeze(cdt)
     if dcfg.use_absorption_filters and cdt.ndim == 2:
-        per_group = [
-            decay_times_to_gain_filters_geq(
-                band_centre_hz, cdt[:, g], delays[g * nper : (g + 1) * nper],
-                config.sample_rate,
-            )
+        fit = decay_times_to_gain_filters_prony if use_prony else decay_times_to_gain_filters_geq
+        coeffs = np.concatenate([
+            fit(band_centre_hz, cdt[:, g], delays[g * nper : (g + 1) * nper], config.sample_rate)
             for g in range(config.num_groups)
-        ]
-        kw["sos_coeffs"] = np.concatenate(per_group, axis=0)
+        ], axis=0)
+        kw["iir_coeffs" if use_prony else "sos_coeffs"] = coeffs
     else:
         cdt = np.atleast_1d(cdt).reshape(-1)[: config.num_groups]
         kw["gains"] = np.concatenate(
@@ -164,10 +177,8 @@ def build_gfdn_model(
     ``torch.Generator`` seeded with ``config.seed``. The directional variant
     needs ``desired_directions`` (2, J), the dataset's (azimuth, elevation).
     ``colorless_params``, one result per group, fix the io gains and start
-    each group's feedback block at its prototype's matrix.
-
-    Raises NotImplementedError, naming the ROADMAP item, for what is not
-    ported yet.
+    each group's feedback block at its prototype's matrix. FILTER coupling
+    takes its order from ``feedback_loop_config.pu_matrix_order``.
     """
     dev = resolve_device(device)
     if variant not in ("var_receiver", "var_source_receiver", "single_pos", "directional"):
@@ -179,10 +190,6 @@ def build_gfdn_model(
             "use_colorless_loss requires block-structured coupling (SCALAR/FILTER): "
             "coupling_matrix_type=RANDOM has no per-group sub-FDNs to evaluate the "
             "colorless loss on"
-        )
-    if fl_cfg.coupling_matrix_type is CouplingMatrixType.FILTER:
-        raise NotImplementedError(
-            "coupling_matrix_type=filter_matrix is not ported yet for a GFDN (ROADMAP A4)"
         )
     kw = absorption_arrays(config, common_decay_times, band_centre_hz)
     if colorless_params is not None:
@@ -196,6 +203,7 @@ def build_gfdn_model(
         delays=config.delay_length_samps,
         coupling_matrix_type=fl_cfg.coupling_matrix_type,
         use_zero_coupling=fl_cfg.use_zero_coupling,
+        coupling_matrix_order=fl_cfg.pu_matrix_order,
         generator=torch.Generator().manual_seed(config.seed),
         **kw,
     )

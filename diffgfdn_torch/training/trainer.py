@@ -68,9 +68,10 @@ import torch
 from ..config.schema import CouplingMatrixType, TrainerConfig
 from ..data.audio import write_wav
 from ..losses import amse_loss, directional_edc_loss_from_sh, edc_loss, edc_loss_from_rir
-from ..losses import edc_mask, edr_loss, edr_loss_from_rir, mse_loss, sparsity_loss
+from ..losses import edc_mask, edr_loss, edr_loss_from_rir, frequency_weighting, mse_loss
+from ..losses import reg_loss, sparsity_loss
 from ..ops.basic import db, ms_to_samps, schroeder_backward_int
-from ..ops.stft import edr_from_stft, stft
+from ..ops.stft import edr_from_stft, erb_filterbank, stft
 from ..utils.device import resolve_device
 from ..utils.params import jax_params_from_torch, load_jax_params
 from .checkpoints import (
@@ -121,6 +122,9 @@ def gfdn_losses(
     mask: Optional[torch.Tensor] = None,
     envelopes: Optional[torch.Tensor] = None,
     sub_inverse: Optional[torch.Tensor] = None,
+    erb_filters: Optional[torch.Tensor] = None,
+    freq_weights: Optional[torch.Tensor] = None,
+    reg_len: Optional[int] = None,
 ) -> Dict[str, torch.Tensor]:
     """The weighted losses of one batch against its precomputed target
     features (JAX ``GFDNTrainer._losses``' fast path, and the band loss of
@@ -144,14 +148,19 @@ def gfdn_losses(
             h, model.analysis_matrix, batch["target_common_slope_amps"], envelopes, mixing,
             max_len, mask)}
     elif "target_edc_db" in batch:
-        losses = _omni_losses(cfg, batch, h, mixing, max_len, edr_win, edr_hop, mask)
+        losses = _omni_losses(cfg, batch, h, mixing, max_len, edr_win, edr_hop, mask,
+                              erb_filters, freq_weights)
     else:  # a single-position batch: the raw target spectrum
         target = batch["target_rir_response"]
         losses = {
             "edr_loss": cfg.edr_loss_weight * edr_loss(
-                target, h, edr_win, edr_hop, reduced_pole_radius=cfg.reduced_pole_radius),
+                target, h, edr_win, edr_hop, reduced_pole_radius=cfg.reduced_pole_radius,
+                erb_filters=erb_filters, frequency_weights=freq_weights),
             "edc_loss": cfg.edc_loss_weight * edc_loss(target, h, mixing, max_len, mask),
         }
+    if reg_len is not None:
+        head = model.output_filter_params(batch)
+        losses["reg_loss"] = reg_loss(head["biquad_num"], head["biquad_den"], reg_len)
     if cfg.use_colorless_loss:
         h_out, _ = model.sub_fdn_output(sub_fdn_bins(model, batch["z_values"]),
                                         sub_inverse)  # (F, G)
@@ -175,7 +184,8 @@ def sub_fdn_bins(model: torch.nn.Module, z: torch.Tensor) -> torch.Tensor:
 
 
 def _omni_losses(cfg: TrainerConfig, batch: Batch, h: torch.Tensor, mixing: int, max_len: int,
-                 edr_win: int, edr_hop: int, mask: Optional[torch.Tensor]
+                 edr_win: int, edr_hop: int, mask: Optional[torch.Tensor],
+                 erb_filters: Optional[torch.Tensor], freq_weights: Optional[torch.Tensor]
                  ) -> Dict[str, torch.Tensor]:
     """EDC and EDR of the responses h (B, F) against the batch's target features."""
     n = 2 * (h.shape[-1] - 1)
@@ -193,35 +203,84 @@ def _omni_losses(cfg: TrainerConfig, batch: Batch, h: torch.Tensor, mixing: int,
         )
     losses["edr_loss"] = cfg.edr_loss_weight * edr_loss_from_rir(
         batch["target_edr_db"], batch["target_edr_abs_sum"], rir_env,
-        win_size=edr_win, hop_size=edr_hop,
+        win_size=edr_win, hop_size=edr_hop, erb_filters=erb_filters,
+        frequency_weights=freq_weights,
     )
     return losses
+
+
+ERB_BANDS = 2 ** 6
+
+
+def edr_options(cfg: TrainerConfig, sample_rate: float, edr_win: int, device: torch.device
+                ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """(ERB filters (64, edr_win / 2 + 1), frequency weights) of the EDR loss
+    on ``device``, each None when the config leaves it off. With ERB grouping
+    the weights are taken at the ERB band centres (the EDR's frequency axis
+    is then the bands), else at the STFT's bins."""
+    erb, centres = None, None
+    if cfg.use_erb_edr_loss:
+        fb, centres = erb_filterbank(sample_rate, edr_win, ERB_BANDS)
+        erb = torch.as_tensor(fb, dtype=torch.float32, device=device)
+    weights = None
+    if cfg.use_frequency_weighting:
+        freqs = centres if centres is not None else np.fft.rfftfreq(edr_win, d=1.0 / sample_rate)
+        weights = frequency_weighting(freqs).to(device)
+    return erb, weights
+
+
+def reg_length(cfg: TrainerConfig, model: torch.nn.Module, sample_rate: float) -> Optional[int]:
+    """Samples of the aliasing regularizer's impulse responses
+    (``output_filt_ir_len_ms``) when ``use_reg_loss`` is on and the model has
+    SVF output heads, else None (the regularizer is off). A
+    :class:`DiffGFDNVarSourceReceiverPos` with it raises ``ValueError``: the
+    JAX trainer fails there (the model has no ``output_filter_params``,
+    ROADMAP C19)."""
+    if not (cfg.use_reg_loss and getattr(model, "use_svf_in_output", False)):
+        return None
+    if not hasattr(model, "output_filter_params"):
+        raise ValueError(
+            f"use_reg_loss with {type(model).__name__}: the JAX trainer has no output-filter "
+            "parameters to regularize for this model and fails there (ROADMAP C19)")
+    return ms_to_samps(cfg.output_filt_ir_len_ms, sample_rate)
 
 
 @torch.no_grad()
 def upload_model_inputs(arrays, device: torch.device) -> Batch:
     """The model's inputs for every receiver on the device, from one upload:
-    z, the source and listener positions and the early spectra (rfft of the
-    early segments there)."""
+    z, the source and listener positions, the early spectra (rfft of the
+    early segments there) and, when the dataset has one, the floor-plan mesh
+    that meshgrid heads read."""
     nfft = 2 * (arrays.z_values.shape[0] - 1)
     early = torch.as_tensor(arrays.target_early_time, dtype=torch.float32, device=device)
-    return {
+    data = {
         "z_values": torch.as_tensor(arrays.z_values, device=device),
         "source_position": torch.as_tensor(arrays.source_position, device=device),
         "listener_position": torch.as_tensor(arrays.listener_position, device=device),
         "norm_listener_position": torch.as_tensor(arrays.norm_listener_position, device=device),
         "target_early_response": torch.fft.rfft(early, n=nfft, dim=-1),
     }
+    if arrays.mesh_2d is not None:  # the meshgrid heads' floor plan
+        data["mesh_2d"] = torch.as_tensor(arrays.mesh_2d, dtype=torch.float32, device=device)
+    return data
+
+
+# batch entries every receiver shares: gathered whole, never indexed
+SHARED_KEYS = ("z_values", "mesh_2d")
 
 
 @torch.no_grad()
 def target_features(rirs: torch.Tensor, mixing: int, max_len: int, edr_win: int,
-                    edr_hop: int) -> Batch:
+                    edr_hop: int, erb_filters: Optional[torch.Tensor] = None) -> Batch:
     """Target EDC (dB) from sample ``mixing`` to ``max_len``, target EDR (dB)
-    and its |.| sum of a chunk of RIRs (..., nfft)."""
+    (grouped by ``erb_filters`` when given) and its |.| sum of a chunk of
+    RIRs (..., nfft)."""
     edc = db(schroeder_backward_int(rirs[..., mixing:min(max_len, rirs.shape[-1])]),
              is_squared=True)
-    edr = edr_from_stft(stft(rirs, edr_win, edr_hop))
+    s = stft(rirs, edr_win, edr_hop)
+    if erb_filters is not None:
+        s = torch.matmul(erb_filters, torch.abs(s))
+    edr = edr_from_stft(s)
     return {"target_edc_db": edc, "target_edr_db": edr,
             "target_edr_abs_sum": torch.sum(torch.abs(edr), dim=(-2, -1))}
 
@@ -255,15 +314,6 @@ class GFDNTrainer(GraphedSteps):
         device: Union[str, torch.device] = "cuda",
     ):
         cfg = trainer_config
-        if cfg.use_reg_loss and model.use_svf_in_output:
-            raise NotImplementedError(
-                "the aliasing regularizer (use_reg_loss) is not ported yet (ROADMAP A5)"
-            )
-        if cfg.use_frequency_weighting or cfg.use_erb_edr_loss:
-            raise NotImplementedError(
-                "frequency weighting and the ERB-grouped EDR loss are not ported yet "
-                "(ROADMAP A5)"
-            )
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.cfg = cfg
@@ -278,6 +328,9 @@ class GFDNTrainer(GraphedSteps):
         time_len = cfg.num_freq_bins if cfg.num_freq_bins is not None else 2 ** 17
         self.edr_win = min(2 ** 12, 2 ** int(np.log2(max(time_len // 4, 8))))
         self.edr_hop = self.edr_win // 2
+        self.erb_filters, self.freq_weights = edr_options(cfg, self.sample_rate, self.edr_win,
+                                                          self.device)
+        self.reg_len = reg_length(cfg, model, self.sample_rate)
 
         # subband training: H is multiplied by the band filter's response on
         # the training grid (F,); the targets are the dataset's own
@@ -324,7 +377,8 @@ class GFDNTrainer(GraphedSteps):
             return gfdn_losses(
                 self.model, self.cfg, batch, self.mixing_time_samps, self.max_ir_len_samps,
                 self.edr_win, self.edr_hop, self.subband_filter_resp, mask,
-                self.directional_envelopes, sub_inverse,
+                self.directional_envelopes, sub_inverse, self.erb_filters, self.freq_weights,
+                None if self.directional_envelopes is not None else self.reg_len,
             )
 
     def loss_and_grads(self, batch: Batch, edc_mask_values: Optional[torch.Tensor] = None,
@@ -392,7 +446,7 @@ class GFDNTrainer(GraphedSteps):
         rirs = target_rirs(arrays, 2 * (arrays.z_values.shape[0] - 1), self.device)
         chunks = [
             target_features(rirs[k : k + chunk], self.mixing_time_samps, self.max_ir_len_samps,
-                            self.edr_win, self.edr_hop)
+                            self.edr_win, self.edr_hop, self.erb_filters)
             for k in range(0, rirs.shape[0], chunk)
         ]
         self.features = {k: torch.cat([c[k] for c in chunks]) for k in chunks[0]}
@@ -410,8 +464,9 @@ class GFDNTrainer(GraphedSteps):
         return self.data
 
     def gather(self, idx: torch.Tensor) -> Batch:
-        """One batch gathered on the device (z is shared by every receiver)."""
-        return {k: v if k == "z_values" else v[idx] for k, v in self.data.items()}
+        """One batch gathered on the device (z and the mesh are shared by
+        every receiver)."""
+        return {k: v if k in SHARED_KEYS else v[idx] for k, v in self.data.items()}
 
     # ---------------------------- normalization ------------------------------
 

@@ -13,12 +13,15 @@ common-slopes heads' ``{"MLP_0": ...}`` alike):
   axes permuted (3, 2, 0, 1); ``Conv_i/bias`` -> ``conv.i.bias``;
 * ``LayerNorm_i/scale`` -> ``norm.i.weight``; ``LayerNorm_i/bias`` -> ``norm.i.bias``;
 * every other key keeps its name (``input_gains``, ``output_gains``,
-  ``feedback_loop/M``, ``feedback_loop/alpha``, ``output_filters``,
+  ``feedback_loop/M``, ``feedback_loop/alpha``, FILTER coupling's
+  ``feedback_loop/unit_vectors`` and ``feedback_loop/unitary_matrix``, the
+  learnable ``feedback_loop/common_decay_times``, ``output_filters``,
   ``output_scalars``, ``sh_output_scalars``; a source-and-receiver model's
   ``input_filters`` and ``input_scalars``; a single-position model's
   ``output_svf_params``, ``input_svf_params``, ``input_scalars`` and
   ``output_scalars``; the ``feedback_loop/random_feedback_matrix`` of a
-  RANDOM-coupled GFDN and of a colorless FDN).
+  RANDOM-coupled GFDN and of a colorless FDN). A meshgrid head's MLP maps
+  as any other: its first Dense kernel is (3, width).
 
 Gradients map by the same rules (:func:`jax_grads_from_torch`), and the
 optimizer's parameter groups are labelled on the flax path

@@ -22,6 +22,7 @@ from diffgfdn_torch.utils.params import (
 )
 from diffgfdn_tpu.config.schema import DiffGFDNConfig as JaxDiffGFDNConfig
 from diffgfdn_tpu.data.batching import arrays_from_room_dataset, gather_batch
+from diffgfdn_tpu.training.build import build_gfdn_model as jax_build_gfdn_model
 from torch_port_helpers import jax_model_and_params, raw_config, rel_l2, rooms
 
 NFFT = 4096
@@ -95,21 +96,39 @@ def test_seeded_init_is_deterministic():
 
 
 @pytest.mark.parametrize(
-    "override,item",
+    "override",
     [
-        ({"feedback_loop_config": {"coupling_matrix_type": "filter_matrix"}}, "A4"),
-        ({"output_filter_config": {"encoding_type": "meshgrid", "use_svfs": False}}, "A4"),
-        ({"output_filter_config": {"encoding_type": "meshgrid"}}, "A4"),
-        ({"decay_filter_config": {"learn_common_decay_times": True}}, "A7"),
+        {"feedback_loop_config": {"coupling_matrix_type": "filter_matrix"}},
+        {"output_filter_config": {"encoding_type": "meshgrid", "use_svfs": False}},
+        {"output_filter_config": {"encoding_type": "meshgrid"}},
+        {"decay_filter_config": {"learn_common_decay_times": True}},
     ],
+    ids=["filter_coupling", "meshgrid_scalar_heads", "meshgrid_svf_heads",
+         "learned_decay_times"],
 )
-def test_unported_options_raise_naming_the_roadmap_item(override, item):
+def test_options_build_the_jax_parameter_tree(override):
+    """FILTER coupling, meshgrid heads and learnable decay times (ROADMAP A4,
+    A7) build, with JAX's ``init`` tree: every leaf's name and shape."""
     raw = dict(seed=3, sample_rate=8000.0, num_delay_lines=6, delay_range_ms=[20.0, 45.0],
                decay_filter_config=dict(use_absorption_filters=False))
     for key, val in override.items():
         raw[key] = {**raw.get(key, {}), **val}
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        build_gfdn_model(DiffGFDNConfig.from_dict(raw), np.array([0.5, 0.6, 0.7]), device="cpu")
+    cdt = np.array([0.5, 0.6, 0.7])
+    model = build_gfdn_model(DiffGFDNConfig.from_dict(raw), cdt, device="cpu")
+    jmodel = jax_build_gfdn_model(JaxDiffGFDNConfig.model_validate(raw), common_decay_times=cdt,
+                                  use_pallas_inverse=False)
+    rng = np.random.RandomState(0)
+    pos = rng.uniform(0.0, 5.0, (2, 3)).astype(np.float32)
+    example = {"z_values": np.exp(1j * np.linspace(0.0, np.pi, 9)).astype(np.complex64),
+               "listener_position": pos, "norm_listener_position": pos / 5.0,
+               "source_position": pos, "mesh_2d": rng.uniform(0.0, 5.0, (7, 2)).astype(
+                   np.float32), "target_early_response": np.zeros((2, 9), np.complex64)}
+    example = jax.tree_util.tree_map(jax.numpy.asarray, example)  # a traced mesh is indexed
+    tree = jax.eval_shape(lambda k: jmodel.init(k, example), jax.random.PRNGKey(0))
+    mapped = torch_state_from_jax(jax.tree_util.tree_map(lambda v: np.zeros(v.shape), tree))
+    assert len(mapped) == len(jax.tree_util.tree_leaves(tree))
+    assert ({k: tuple(v.shape) for k, v in mapped.items()}
+            == {k: tuple(v.shape) for k, v in model.state_dict().items()})
 
 
 def test_other_variants_raise():
