@@ -251,6 +251,27 @@ Phases (any failure raises and exits non-zero, with no result line):
    synthesized in the time domain (the time domain against the frequency
    path with the IIR responses in float64; the served complex64 path's own
    error beside it, ROADMAP C19).
+15. run the tools (``tools``): (a) ``cli/inspect_checkpoint.py``'s metrics
+   step on phase 2's checkpoints of both configurations (96 receivers, the
+   EDR's STFT on the card, the common-slopes baseline for the three-room
+   model, whose decay times are broadband), its launches equal to phase 2's
+   for the same batches, its metrics within 0.01 dB of the same call on the
+   plain versions and the diagonal measure equal; the call's wall time,
+   serving share and RIRs/s; with matplotlib, the whole CLI through
+   ``main`` from a working directory holding the dataset and checkpoint at
+   the preset's paths, its figures checked (without, ``matplotlib:
+   absent``); (b) ``csolve`` at (3 x 65537, 4, 4) and (65537, 12, 12) with 3
+   right-hand sides: B1 forward and B2 backward once each, the solution bit
+   for bit with the plain versions' and within 1e-4 of
+   ``torch.linalg.solve``, both timed; (c) the int8 target codec on a
+   288-receiver grid of 2 s at 32 kHz (73.7 MB of float32 targets): the
+   uploaded targets bit for bit with the host's dequantization, the upload's
+   time and bytes, and one graphed ``fullband_grid_colorless`` step on them;
+   (d) ``cli/compare_baselines.py`` on phase 9's grid at 0.9 m (2 epochs):
+   a finite summary, the barycentric maps equal to a CPU run of the same
+   call (serving the card's checkpoint), the NAF exports read back, no
+   kernel launched; (e) ``utils/profiling.trace`` around one served batch
+   writes a Chrome trace that holds B5.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``. ``--kernel-times ROOT``
@@ -440,14 +461,16 @@ def edc_db(x: np.ndarray) -> np.ndarray:
     return 10.0 * np.log10(e + 1e-300)
 
 
-def make_room(tmp: Path, name: str, fs: float, nfft: int):
-    """Synthetic 3-room dataset; per-band decay times for the GEQ configs."""
+def make_room(tmp: Path, name: str, fs: float, nfft: int, receivers: int = NUM_RECEIVERS,
+              folder: str = None):
+    """Synthetic 3-room dataset of ``receivers`` 2 s RIRs under
+    ``tmp / (folder or name)``; per-band decay times for the GEQ configs."""
     from diffgfdn_torch.data import ThreeRoomDataset, generate_three_room_pickle
 
     rng = np.random.RandomState(SEED)
     base = rng.uniform(0.6, 1.5, 3)
     path = generate_three_room_pickle(
-        tmp / name / "srirs.pkl", fs=fs, num_rec_per_room=NUM_RECEIVERS // 3,
+        tmp / (folder or name) / "srirs.pkl", fs=fs, num_rec_per_room=receivers // 3,
         rir_len_s=2.0, decay_times=tuple(base), seed=SEED,
     )
     room = ThreeRoomDataset(path, nfft=nfft)
@@ -4750,6 +4773,373 @@ def options(tmp: Path, log_dir) -> tuple:
     return results, rows
 
 
+# ------------------------------- phase 15: tools -------------------------------
+
+INSPECT_TOL_DB = 0.01  # inspect's metrics, kernels vs plain versions on the card
+CSOLVE_SHAPES = ((3 * 65537, 4), (65537, 12))  # (K, N): the fullband blocks, a FILTER loop
+CSOLVE_RHS = 3
+CSOLVE_SOLVE_TOL = 1e-4  # vs torch.linalg.solve, relative L2
+CSOLVE_GRAD_TOL = 1e-5  # gradients vs the plain versions', relative L2
+INT8_RECEIVERS = 288  # 2 s at 32 kHz: 73.7 MB of float32 targets, past 64 MiB
+TOOLS_CS_RESOLUTION_M = 0.9
+TOOLS_CS_EPOCHS = 2
+BARY_TOL_DB = 1e-10  # barycentric EDC-error maps, card vs CPU run
+INSPECT_FIGURES = ("edc_error_map.png", "edr_error_map.png", "coupling_matrix.png")
+INSPECT_TAGGED = ("edc_overlay", "edr_true", "edr_synth", "echo_density")
+
+
+def matplotlib_present() -> bool:
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
+@contextlib.contextmanager
+def timed_serving(times: list):
+    """Within the block, each ``InferDiffGFDN.rirs_at`` call's wall time
+    (host arrays out: the card is done) is appended to ``times``."""
+    from diffgfdn_torch.inference import InferDiffGFDN
+
+    original = InferDiffGFDN.rirs_at
+
+    def rirs_at(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = original(self, *args, **kwargs)
+        times.append(time.perf_counter() - t0)
+        return out
+
+    InferDiffGFDN.rirs_at = rirs_at
+    try:
+        yield
+    finally:
+        InferDiffGFDN.rirs_at = original
+
+
+def inspect_cli(tmp: Path, name: str, cfg, room, cs: bool) -> dict:
+    """(a) with matplotlib: ``inspect_checkpoint.main`` by preset name from a
+    working directory holding phase 2's dataset (with the room's decay
+    times) and checkpoint at the preset's paths; its figures checked."""
+    import os
+    import pickle
+
+    from diffgfdn_torch.cli import inspect_checkpoint
+    from diffgfdn_torch.config import preset_config
+
+    work = tmp / "tools_cli" / name
+    data = work / cfg.room_dataset_path
+    data.parent.mkdir(parents=True, exist_ok=True)
+    with open(tmp / name / "srirs.pkl", "rb") as f:
+        raw = pickle.load(f)
+    raw.update(common_decay_times=np.asarray(room.common_decay_times),
+               band_centre_hz=room.band_centre_hz)
+    with open(data, "wb") as f:
+        pickle.dump(raw, f)
+    ckpt = work / preset_config(name).trainer_config.train_dir  # the preset's own path
+    ckpt.parent.mkdir(parents=True, exist_ok=True)
+    ckpt.symlink_to(tmp / name / "train")
+    out = tmp / "tools_cli" / f"{name}_figures"
+    here = os.getcwd()
+    os.chdir(work)
+    try:
+        t0 = time.perf_counter()
+        inspect_checkpoint.main(["-c", name, "--max-receivers", str(NUM_RECEIVERS), "--out",
+                                 str(out), "--device", DEVICE]
+                                + (["--cs-baseline"] if cs else []))
+        cli_s = time.perf_counter() - t0
+    finally:
+        os.chdir(here)
+    files = sorted(p.name for p in out.iterdir())
+    require(all(f in files for f in INSPECT_FIGURES)
+            and all(any(f.startswith(t) for f in files) for t in INSPECT_TAGGED),
+            f"{name}: inspect_checkpoint wrote {files}")
+    return {"cli_s": cli_s, "figures": len(files)}
+
+
+def inspect_checkpoints(tmp: Path, rooms: dict, serve_launches: dict, plots: bool) -> dict:
+    """(a): the metrics step of ``cli/inspect_checkpoint.py`` on phase 2's
+    checkpoints, on the kernels and on the plain versions; the CLI with
+    matplotlib."""
+    import torch
+
+    from diffgfdn_torch.cli import inspect_checkpoint
+    from diffgfdn_torch.config import preset_config
+    from diffgfdn_torch.kernels.dispatch import plain_versions
+
+    out = {}
+    for name in CONFIGS:
+        cfg = preset_config(name)
+        cfg.trainer_config.train_dir = str(tmp / name / "train")
+        room = rooms[name]
+        cs = name == "three_room_example"  # the baseline reads one decay time a slope
+
+        def metrics():
+            return inspect_checkpoint.inspect_metrics(cfg, room, max_receivers=NUM_RECEIVERS,
+                                                      cs_baseline=cs, device=DEVICE).metrics
+
+        serving = []
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        with timed_serving(serving):
+            got = metrics()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in launch_counts().items() if v}
+        require(launches == serve_launches[name],
+                f"{name}: inspect launched {launches}, phase 2 served the same receivers "
+                f"with {serve_launches[name]}")
+        with plain_versions():
+            plain = metrics()
+        db_keys = [k for k in got if k.endswith("_db")]
+        errs = {k: abs(got[k] - plain[k]) for k in db_keys}
+        require(all(np.isfinite(v) for v in got.values()), f"{name}: inspect metrics {got}")
+        require(max(errs.values()) <= INSPECT_TOL_DB and got["rec_index"] == plain["rec_index"]
+                and got["coupling_diagonal_measure"] == plain["coupling_diagonal_measure"],
+                f"{name}: inspect metrics kernels {got} vs plain {plain}")
+        result = {"metrics": got, "abs_db_vs_plain": errs, "launches": launches,
+                  "wall_s": wall, "serve_s": sum(serving), "serving_share": sum(serving) / wall,
+                  "rirs_per_s": NUM_RECEIVERS / sum(serving)}
+        if plots:
+            result.update(inspect_cli(tmp, name, cfg, room, cs))
+        out[name] = result
+    if not plots:
+        print("phase 15 (a): matplotlib: absent; ran the metrics step", flush=True)
+    return out
+
+
+def csolve_check() -> dict:
+    """(b): ``kernels.csolve`` forward and backward at the path shapes:
+    launches, the plain versions, ``torch.linalg.solve``, times."""
+    import torch
+
+    from diffgfdn_torch.kernels import csolve
+    from diffgfdn_torch.kernels.dispatch import plain_versions
+    from diffgfdn_torch.kernels.linalg import cinv
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    out = {}
+    for k, n in CSOLVE_SHAPES:
+        m = 0.4 * torch.randn((k, n, n), dtype=torch.complex64, device=DEVICE, generator=gen)
+        m = m + 2.0 * torch.eye(n, device=DEVICE)
+        m[: k // 3, 0, 0] = 0.0  # zero leading pivots: elimination must pivot
+        b = torch.randn((k, n, CSOLVE_RHS), dtype=torch.complex64, device=DEVICE, generator=gen)
+        w = torch.randn((k, n, CSOLVE_RHS), device=DEVICE, generator=gen)
+
+        def solve_and_grad():
+            mm, bb = m.clone().requires_grad_(), b.clone().requires_grad_()
+            x = csolve(mm, bb)
+            torch.sum(w * torch.abs(x) ** 2).backward()
+            return x.detach(), mm.grad, bb.grad
+
+        torch.cuda.synchronize()
+        reset_counts()
+        x, gm, gb = solve_and_grad()
+        torch.cuda.synchronize()
+        launches = {key: v for key, v in launch_counts().items() if v}
+        require(launches == {"cinv": 1, "neg_ptgpt": 1},
+                f"csolve {(k, n)}: launched {launches}, not B1 and B2 once each")
+        with plain_versions():
+            xp, gmp, gbp = solve_and_grad()
+        ref = torch.linalg.solve(m, b)
+        p = cinv(m)  # csolve's two parts, timed apart below
+        solve_rel = rel_l2(x, ref)
+        grad_rel = max(rel_l2(gm, gmp), rel_l2(gb, gbp))
+        require(torch.equal(x, xp), f"csolve {(k, n)}: not bit for bit with the plain versions")
+        require(solve_rel <= CSOLVE_SOLVE_TOL and grad_rel <= CSOLVE_GRAD_TOL,
+                f"csolve {(k, n)}: vs torch.linalg.solve {solve_rel}, gradients vs plain "
+                f"{grad_rel}")
+        out[f"{k}x{n}x{n}"] = {
+            "launches": launches, "rel_l2_vs_linalg_solve": solve_rel,
+            "grad_rel_l2_vs_plain": grad_rel, "bit_equal_plain": True,
+            "csolve_ms": device_ms(lambda: csolve(m, b)),
+            "inverse_ms": device_ms(lambda: cinv(m)),
+            "product_ms": device_ms(lambda: p @ b),
+            "linalg_solve_ms": device_ms(lambda: torch.linalg.solve(m, b)),
+            "csolve_with_backward_ms": device_ms(solve_and_grad, reps=5),
+        }
+    return out
+
+
+def int8_targets(tmp: Path) -> dict:
+    """(c): the int8 codec on a grid past 64 MiB: the uploaded targets bit for
+    bit with the host's dequantization, the upload, one graphed step."""
+    import torch
+
+    from diffgfdn_torch.config import preset_config
+    from diffgfdn_torch.data import arrays_from_room_dataset
+    from diffgfdn_torch.training import build_gfdn_model, GFDNTrainer
+    from diffgfdn_torch.training.optim import make_optimizer
+    from diffgfdn_torch.training.trainer import target_rirs
+    from diffgfdn_torch.utils import cio
+
+    name = "fullband_grid_colorless"
+    cfg = preset_config(name)
+    tc = cfg.trainer_config
+    tc.train_dir = str(tmp / "int8" / "train")
+    t0 = time.perf_counter()
+    room = make_room(tmp, name, cfg.sample_rate, tc.num_freq_bins, INT8_RECEIVERS, "int8")
+    arrays = arrays_from_room_dataset(room)
+    data_s = time.perf_counter() - t0
+    rirs = room.rirs32
+    require(rirs.nbytes >= cio.QUANT_MIN_BYTES,
+            f"int8: {rirs.nbytes} bytes of targets, under the {cio.QUANT_MIN_BYTES} threshold")
+    q, scale, t = cio.quantize_int8_blocks(rirs)
+    host = (q.astype(np.float32) * scale).reshape(q.shape[0], -1)[:, :t]
+    nfft = tc.num_freq_bins
+    upload = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dev = target_rirs(arrays, nfft, torch.device(DEVICE))
+        torch.cuda.synchronize()
+        upload.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    exact = torch.as_tensor(rirs, device=DEVICE)
+    torch.cuda.synchronize()
+    float32_s = time.perf_counter() - t0
+    n = min(t, nfft)  # zero padded (or cut) to nfft, as the trainer takes them
+    require(torch.equal(dev[:, :n].cpu(), torch.from_numpy(host[:, :n]))
+            and not bool(dev[:, n:].any()),
+            "int8: the uploaded targets differ from the host's dequantization")
+    quant_err = float((dev[:, :n] - exact[:, :n]).abs().max() / exact[:, :n].abs().max())
+    del dev, exact
+
+    model = build_gfdn_model(cfg, room.common_decay_times, room.band_centre_hz, device=DEVICE)
+    trainer = GFDNTrainer(model, tc, 1, common_decay_times=room.common_decay_times,
+                          sample_rate=cfg.sample_rate, device=DEVICE)
+    trainer.optimizer, trainer.scheduler = make_optimizer(tc, model, 1)
+    trainer.precompute_target_features(arrays)
+    trainer.upload_arrays(arrays)
+    idx = torch.arange(min(BATCH, INT8_RECEIVERS), device=DEVICE)
+    reset_counts()
+    losses = [float(trainer.fit_step(idx)[0]) for _ in range(3)]
+    launches = {k: v for k, v in launch_counts().items() if v}
+    graph = trainer.graphs.get("train")
+    require(graph is not None and graph.captured and graph.replays > 0,
+            "int8: the fullband step was not captured and replayed")
+    require(all(np.isfinite(losses)), f"int8: step losses {losses}")
+    require(all(launches.get(k, 0) > 0 for k in TRAIN_KERNELS[name]),
+            f"int8: the steps launched {launches}")
+    return {"receivers": INT8_RECEIVERS, "float32_bytes": rirs.nbytes,
+            "int8_bytes": q.nbytes + scale.nbytes, "upload_s": upload,
+            "float32_upload_s": float32_s, "max_abs_err_over_peak": quant_err,
+            "data_s": data_s, "step_losses": losses, "launches": launches}
+
+
+def compare_baselines_check(tmp: Path, plots: bool) -> dict:
+    """(d): ``cli/compare_baselines.py``'s comparison on phase 9's grid, on the
+    card; the barycentric maps against a CPU run serving the card's model."""
+    import torch
+
+    from diffgfdn_torch.cli import compare_baselines
+    from diffgfdn_torch.data import generate_spatial_three_room_pickle
+    from diffgfdn_torch.data.naf import load_pickle_tolerant
+
+    path = tmp / "directional" / "srirs.pkl"
+    if not path.exists():  # phase 8's grid, when phase 15 runs alone
+        generate_spatial_three_room_pickle(
+            path, fs=SPATIAL_FS, grid_spacing_m=DIRECTIONAL_GRID_M, rir_len_s=DIRECTIONAL_RIR_S,
+            decay_times=DIRECTIONAL_DECAYS, seed=SEED)
+    maps = {}
+    original = compare_baselines.edc_error_db
+
+    def run(out: Path, device: str, train_dir=None, export_naf=True):
+        store = maps.setdefault(device, [])
+
+        def record(ref, pred, mix):
+            store.append(original(ref, pred, mix))
+            return store[-1]
+
+        compare_baselines.edc_error_db = record
+        try:
+            return compare_baselines.compare(str(path), str(out), TOOLS_CS_RESOLUTION_M,
+                                             train_dir=train_dir, max_epochs=TOOLS_CS_EPOCHS,
+                                             export_naf=export_naf, device=device)
+        finally:
+            compare_baselines.edc_error_db = original
+
+    out = tmp / "tools_compare"
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    summary, err, valid_pos, room = run(out, DEVICE)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    require(all(v == 0 for v in launch_counts().values()),
+            f"compare_baselines: hand-written kernels launched {launch_counts()}")
+    values = [summary["common_slopes_model_mean_edc_error_db"],
+              summary["barycentric_mean_edc_error_db"]]
+    values += summary["common_slopes_model_per_direction_db"]
+    values += summary["barycentric_per_direction_db"]
+    require(bool(np.isfinite(values).all()), f"compare_baselines: summary {summary}")
+    train = load_pickle_tolerant(summary["naf_exports"]["naf_train"])
+    infer = load_pickle_tolerant(summary["naf_exports"]["naf_infer"])
+    require(train.rirs.shape[0] == summary["num_train"]
+            and infer.receiver_position.shape[0] == summary["num_heldout"],
+            "compare_baselines: the NAF exports do not hold the split")
+    t0 = time.perf_counter()
+    run(tmp / "tools_compare_cpu", "cpu", train_dir=str(out / "cs_model"), export_naf=False)
+    cpu_s = time.perf_counter() - t0
+    bary_err = float(np.abs(maps[DEVICE][1] - maps["cpu"][1]).max())
+    require(bary_err <= BARY_TOL_DB, f"compare_baselines: barycentric maps card vs CPU {bary_err}")
+    result = {"summary": {k: v for k, v in summary.items() if k != "naf_exports"},
+              "card_s": card_s, "cpu_serve_s": cpu_s, "barycentric_max_abs_db_card_vs_cpu": bary_err,
+              "model_max_abs_db_card_vs_cpu_noise_differs": float(
+                  np.abs(maps[DEVICE][0] - maps["cpu"][0]).max())}
+    if plots:
+        compare_baselines.plot_error_maps(err, valid_pos, room, TOOLS_CS_RESOLUTION_M, str(out))
+        require(all((out / f"edc_error_map_{m}.png").exists()
+                    for m in ("common_slopes_model", "barycentric")),
+                "compare_baselines: the maps were not written")
+    return result
+
+
+def trace_check(tmp: Path, rooms: dict, log_dir) -> dict:
+    """(e): ``utils/profiling.trace`` around one served batch of the
+    three-room model (B5) writes a Chrome trace that holds the kernel."""
+    import torch
+
+    from diffgfdn_torch.config import preset_config
+    from diffgfdn_torch.inference import InferDiffGFDN
+    from diffgfdn_torch.utils import profiling
+
+    name = "three_room_example"
+    cfg = preset_config(name)
+    cfg.trainer_config.train_dir = str(tmp / name / "train")
+    infer = InferDiffGFDN(cfg, rooms[name], device=DEVICE)
+    idx = np.arange(BATCH)
+    infer.rirs_at(idx, BATCH)
+    torch.cuda.synchronize()
+    where = Path(log_dir) / "trace" if log_dir is not None else tmp / "trace"
+    t0 = time.perf_counter()
+    with profiling.trace(str(where)):
+        infer.rirs_at(idx, BATCH)
+        torch.cuda.synchronize()
+    traced_s = time.perf_counter() - t0
+    path = where / profiling.TRACE_FILE
+    text = path.read_text()
+    require("lu_solve_kernel" in text, f"the trace {path} holds no B5")
+    return {"trace_bytes": path.stat().st_size, "traced_s": traced_s}
+
+
+def tools(tmp: Path, log_dir, rooms: dict, serve_launches: dict) -> dict:
+    """Phase 15: (a)-(e) of the module docstring; returns their results."""
+    plots = matplotlib_present()
+    result = {"matplotlib": plots}
+    for part, run in (("a", lambda: inspect_checkpoints(tmp, rooms, serve_launches, plots)),
+                      ("b", csolve_check), ("c", lambda: int8_targets(tmp)),
+                      ("d", lambda: compare_baselines_check(tmp, plots)),
+                      ("e", lambda: trace_check(tmp, rooms, log_dir))):
+        t0 = time.perf_counter()
+        result[part] = run()
+        result[part]["part_s"] = time.perf_counter() - t0
+        print(f"phase 15 ({part}): " + json.dumps(result[part]), flush=True)
+    return result
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--log-dir", default=None,
@@ -4763,6 +5153,10 @@ def main(argv=None) -> int:
                         help="only build the kernels and run phase 14 (the coupling, "
                              "absorption, encoding and loss options at full width); prints "
                              "its kernel rows; no result line")
+    parser.add_argument("--tools", action="store_true",
+                        help="only build the kernels, serve phase 2's two configurations "
+                             "and run phase 15 (the inspection, comparison and dataset "
+                             "tools, csolve, the int8 targets); no result line")
     parser.add_argument("--edc-loss", action="store_true",
                         help="only hold the directional EDC loss against autograd through "
                              "db, time both and print their peak memory as one JSON line "
@@ -4803,6 +5197,23 @@ def main(argv=None) -> int:
             print(f"phase 14 in {time.perf_counter() - t0:.1f} s")
         print(json.dumps({"kernels": option_rows}))
         return 0
+    if args.tools:
+        print(card)
+        t0 = time.perf_counter()
+        print(f"phase 1: built {sorted(_build.build_all())} in {time.perf_counter() - t0:.1f} s")
+        with tempfile.TemporaryDirectory() as tmp_name:
+            tmp = Path(tmp_name)
+            rooms, serve_launches = {}, {}
+            for name in CONFIGS:
+                infer, counts, result = serve(name, tmp, None)
+                rooms[name] = infer.room_data
+                serve_launches[name] = {k: v for k, v in counts.items() if v}
+                print(f"phase 2: served {name}: " + json.dumps(result))
+                del infer
+            t0 = time.perf_counter()
+            tools(tmp, log_dir, rooms, serve_launches)
+            print(f"phase 15: tools in {time.perf_counter() - t0:.1f} s", flush=True)
+        return 0
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
 
@@ -4839,10 +5250,11 @@ def main(argv=None) -> int:
 
     with tempfile.TemporaryDirectory() as tmp_name:
         tmp = Path(tmp_name)
-        served, launches, results = {}, {}, []
+        served, launches, results, serve_launches = {}, {}, [], {}
         for name in CONFIGS:
             t0 = time.perf_counter()
             served[name], counts, result = serve(name, tmp, log_dir)
+            serve_launches[name] = {k: v for k, v in counts.items() if v}
             for kernel in CONFIGS[name]:
                 launches[kernel] = counts[kernel]
             results.append(result)
@@ -4874,6 +5286,7 @@ def main(argv=None) -> int:
             if b7_inputs is not None:
                 rows.append(tdgfdn_row(b7_inputs, counts["tdgfdn"]))
                 native_inputs = b7_inputs + (receiver_output_gains(served[name], 0),)
+        rooms = {name: served[name].room_data for name in CONFIGS}
         del served
         print("phase 6: B7 matches its plain version and numpy")
         t0 = time.perf_counter()
@@ -4925,6 +5338,9 @@ def main(argv=None) -> int:
         rows += option_rows
         print(f"phase 14: coupling, absorption, encoding and loss options in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        tools(tmp, log_dir, rooms, serve_launches)
+        print(f"phase 15: tools in {time.perf_counter() - t0:.1f} s", flush=True)
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({

@@ -1,7 +1,14 @@
 """Config schema (stdlib dataclasses), YAML loader and the slice presets."""
 
-from .loader import load_and_validate_config
-from .presets import PRESETS, preset_config, SPATIAL_PRESETS, spatial_preset_config
+from .loader import dump_config, load_and_validate_config
+from .presets import (
+    preset_config,
+    preset_library,
+    PRESETS,
+    SPATIAL_PRESETS,
+    spatial_preset_config,
+    write_preset_library,
+)
 from .schema import (
     BeamformerType,
     CNNConfig,
@@ -36,7 +43,10 @@ __all__ = [
     "SPATIAL_PRESETS",
     "SpatialSamplingConfig",
     "TrainerConfig",
+    "dump_config",
     "load_and_validate_config",
     "preset_config",
+    "preset_library",
     "spatial_preset_config",
+    "write_preset_library",
 ]

@@ -20,11 +20,18 @@ Each mapping is exactly what ``yaml.safe_load`` returns for its file, so
 * ``synth_<variant>``: ``configs/presets/synth/`` (grid fits of 8 lines in
   2 groups at 48 kHz on the synthetic datasets: scalar or SVF heads, the
   colorless loss or prototype; ``synth_subband_single_room`` one group with
-  a RANDOM feedback matrix, ``synth_subband_hyp_tuning`` the MLP search).
+  a RANDOM feedback matrix, ``synth_subband_hyp_tuning`` the MLP search);
+* ``spatial_<directional|omni>_<f>Hz`` and ``spatial_directional_1000Hz_cnn``:
+  ``configs/presets/spatial/`` (the 17 common-slopes presets).
+
+:func:`preset_library` names the production presets as the JAX package's
+``preset_library`` does; :func:`write_preset_library` writes them as YAML.
 """
 
 import copy
-from typing import Dict
+import functools
+from pathlib import Path
+from typing import Callable, Dict, Union
 
 from .schema import DiffGFDNConfig, SpatialSamplingConfig
 
@@ -381,41 +388,45 @@ def preset_config(name: str, **overrides) -> DiffGFDNConfig:
     return DiffGFDNConfig.from_dict(raw)
 
 
-SPATIAL_DIRECTIONAL_1000HZ = {
-    "batch_size": 50,
-    "device": "tpu",
-    "dnn_config": {
-        "beamformer_type": "max_directivity",
-        "cnn_config": None,
-        "mlp_config": {"num_hidden_layers": 12, "num_neurons_per_layer": 128},
-        "num_fourier_features": 20,
-    },
-    "lr": 0.001,
-    "max_epochs": 20,
-    "num_grid_spacing": 3,
-    "room_dataset_path": "resources/Georg_3room_FDTD/srirs_spatial_band_centre=1000Hz.pkl",
-    "seed": 241924,
-    "train_dir": "output/spatial_sampling/band_1000Hz_directional/",
-    "use_directional_rirs": True,
+# the spatial_<kind>_<f>Hz presets of configs/presets/spatial/, one per octave band
+_SPATIAL_OMNI = {  # band -> (layers, neurons, seed, epochs)
+    63: (1, 8, 23526, 15), 125: (1, 16, 23644, 15), 250: (5, 16, 23759, 15),
+    500: (10, 128, 24051, 15), 1000: (5, 16, 24521, 20), 2000: (3, 128, 25500, 15),
+    4000: (3, 128, 27515, 15), 8000: (3, 128, 31474, 15),
 }
+_SPATIAL_DIR = {  # band -> (layers, epochs); 128 neurons, the schema's default seed
+    63: (5, 20), 125: (5, 20), 250: (10, 20), 500: (12, 20), 1000: (12, 20),
+    2000: (10, 15), 4000: (10, 20), 8000: (10, 20),
+}
+_TREBLE = "resources/Georg_3room_FDTD"
 
-SPATIAL_OMNI_1000HZ = {
-    "batch_size": 50,
-    "device": "tpu",
-    "dnn_config": {
-        "beamformer_type": "max_directivity",
-        "cnn_config": None,
-        "mlp_config": {"num_hidden_layers": 5, "num_neurons_per_layer": 16},
-        "num_fourier_features": 20,
-    },
-    "lr": 0.001,
-    "max_epochs": 20,
-    "num_grid_spacing": 10,
-    "room_dataset_path": "resources/Georg_3room_FDTD/srirs_band_centre=1000Hz.pkl",
-    "seed": 24521,
-    "train_dir": "output/spatial_sampling/band_1000Hz_omni/",
-    "use_directional_rirs": False,
-}
+
+def _spatial_preset(freq: int, directional: bool) -> dict:
+    """The common-slopes MLP preset of one octave band, as its YAML."""
+    kind = "directional" if directional else "omni"
+    if directional:
+        (layers, epochs), neurons, seed, grid = _SPATIAL_DIR[freq], 128, 241924, 3
+    else:
+        (layers, neurons, seed, epochs), grid = _SPATIAL_OMNI[freq], 10
+    stem = "srirs_spatial" if directional else "srirs"
+    return {
+        "batch_size": 50,
+        "device": "tpu",
+        "dnn_config": {
+            "beamformer_type": "max_directivity",
+            "cnn_config": None,
+            "mlp_config": {"num_hidden_layers": layers, "num_neurons_per_layer": neurons},
+            "num_fourier_features": 20,
+        },
+        "lr": 0.001,
+        "max_epochs": epochs,
+        "num_grid_spacing": grid,
+        "room_dataset_path": f"{_TREBLE}/{stem}_band_centre={freq}Hz.pkl",
+        "seed": seed,
+        "train_dir": f"output/spatial_sampling/band_{freq}Hz_{kind}/",
+        "use_directional_rirs": directional,
+    }
+
 
 SPATIAL_DIRECTIONAL_1000HZ_CNN = {
     "batch_size": 25,
@@ -429,16 +440,16 @@ SPATIAL_DIRECTIONAL_1000HZ_CNN = {
     "lr": 0.001,
     "max_epochs": 15,
     "num_grid_spacing": 3,
-    "room_dataset_path": "resources/Georg_3room_FDTD/srirs_spatial_band_centre=1000Hz.pkl",
+    "room_dataset_path": f"{_TREBLE}/srirs_spatial_band_centre=1000Hz.pkl",
     "seed": 24051,
     "train_dir": "output/spatial_sampling/band_1000Hz_directional_cnn/",
     "use_directional_rirs": True,
 }
 
 SPATIAL_PRESETS: Dict[str, dict] = {
-    "spatial_directional_1000Hz": SPATIAL_DIRECTIONAL_1000HZ,
+    **{f"spatial_{kind}_{f}Hz": _spatial_preset(f, kind == "directional")
+       for kind in ("directional", "omni") for f in _SPATIAL_OMNI},
     "spatial_directional_1000Hz_cnn": SPATIAL_DIRECTIONAL_1000HZ_CNN,
-    "spatial_omni_1000Hz": SPATIAL_OMNI_1000HZ,
 }
 
 
@@ -448,3 +459,39 @@ def spatial_preset_config(name: str, **overrides) -> SpatialSamplingConfig:
     raw = copy.deepcopy(SPATIAL_PRESETS[name])
     raw.update(overrides)
     return SpatialSamplingConfig.from_dict(raw)
+
+
+# the library: every preset of the JAX package's ``preset_library``, by name
+_LIBRARY_FAMILIES = {"fullband": "fullband", "subband": "subband", "directional": "directional",
+                     "spatial": "spatial", "single": "single_rir", "synth": "synth"}
+_NOT_IN_LIBRARY = ("three_room_example", "single_rir_example")  # configs/*.yml, not presets
+
+
+def preset_library() -> Dict[str, Callable[[], Union[DiffGFDNConfig, SpatialSamplingConfig]]]:
+    """name -> zero-argument factory of every production preset (the JAX
+    package's names: the grid, subband, directional, single-RIR and synth
+    presets of :data:`PRESETS` and the 17 common-slopes presets; not the
+    two example configs)."""
+    lib: Dict[str, Callable] = {
+        name: functools.partial(preset_config, name)
+        for name in PRESETS if name not in _NOT_IN_LIBRARY
+    }
+    lib.update({name: functools.partial(spatial_preset_config, name) for name in SPATIAL_PRESETS})
+    return lib
+
+
+def write_preset_library(dest: Union[str, Path]) -> Dict[str, Path]:
+    """Write every preset of :func:`preset_library` as YAML under ``dest``,
+    one subdirectory a family (``fullband``, ``subband``, ``directional``,
+    ``spatial``, ``single_rir``, ``synth``); each file loads back through
+    :func:`load_and_validate_config` with its schema. Returns {name: path}."""
+    from .loader import dump_config
+
+    dest = Path(dest)
+    paths: Dict[str, Path] = {}
+    for name, factory in preset_library().items():
+        path = dest / _LIBRARY_FAMILIES[name.split("_")[0]] / f"{name}.yml"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        dump_config(factory(), path)
+        paths[name] = path
+    return paths

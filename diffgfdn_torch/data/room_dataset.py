@@ -134,6 +134,7 @@ class RoomDataset:
         mixing_time_ms: float = 20.0,
         nfft: Optional[int] = None,
         grid_spacing_m: float = 0.3,
+        aperture_coords: Optional[List] = None,
     ):
         self.num_rooms = num_rooms
         self.sample_rate = sample_rate
@@ -146,6 +147,7 @@ class RoomDataset:
         self.noise_floor = noise_floor
         self.room_dims = room_dims
         self.room_start_coord = room_start_coord
+        self.aperture_coords = aperture_coords  # the floor plan's openings, for plots
         self.mixing_time_ms = mixing_time_ms
         self.nfft = nfft
         self.grid_spacing_m = grid_spacing_m
@@ -240,6 +242,7 @@ class RoomDataset:
 # Three-room coupled-space geometry of the Treble FDTD dataset
 THREE_ROOM_DIMS = [(4.0, 8.0, 3.0), (6.0, 3.0, 3.0), (4.0, 8.0, 3.0)]
 THREE_ROOM_START = [(0.0, 0.0, 0.0), (4.0, 2.0, 0.0), (6.0, 5.0, 0.0)]
+THREE_ROOM_APERTURES = [[(4, 3), (4, 4.5)], [(8.5, 5), (10, 5)]]
 
 
 class ThreeRoomDataset(RoomDataset):
@@ -260,6 +263,7 @@ class ThreeRoomDataset(RoomDataset):
             common_decay_times=np.asarray(srir_mat["common_decay_times"]),
             room_dims=THREE_ROOM_DIMS,
             room_start_coord=THREE_ROOM_START,
+            aperture_coords=THREE_ROOM_APERTURES,
             band_centre_hz=srir_mat.get("band_centre_hz"),
             amplitudes=np.asarray(srir_mat["amplitudes"]).T,
             noise_floor=np.asarray(srir_mat["noise_floor"]).T,

@@ -30,7 +30,13 @@ from scipy.interpolate import griddata
 from ..ops.basic import LOG10E6
 from ..ops.sph import t_design_directions
 from .batching import BatchArrays
-from .room_dataset import early_split, late_split, THREE_ROOM_DIMS, THREE_ROOM_START
+from .room_dataset import (
+    early_split,
+    late_split,
+    THREE_ROOM_APERTURES,
+    THREE_ROOM_DIMS,
+    THREE_ROOM_START,
+)
 from .synthetic import room_centers, synthesize_amplitudes
 
 
@@ -59,6 +65,7 @@ class SpatialRoomDataset:
         ambi_order: Optional[int] = None,
         grid_spacing_m: float = 0.3,
         mixing_time_ms: float = 50.0,
+        aperture_coords: Optional[List] = None,
     ):
         self.num_rooms = num_rooms
         self.sample_rate = sample_rate
@@ -71,6 +78,7 @@ class SpatialRoomDataset:
         self.noise_floor = noise_floor
         self.room_dims = room_dims
         self.room_start_coord = room_start_coord
+        self.aperture_coords = aperture_coords  # the floor plan's openings, for plots
         self.sph_directions = sph_directions
         self.ambi_order = ambi_order
         self.grid_spacing_m = grid_spacing_m
@@ -160,6 +168,7 @@ class SpatialThreeRoomDataset(SpatialRoomDataset):
             common_decay_times=np.asarray(srir_mat["common_decay_times"]),
             room_dims=THREE_ROOM_DIMS,
             room_start_coord=THREE_ROOM_START,
+            aperture_coords=THREE_ROOM_APERTURES,
             band_centre_hz=srir_mat.get("band_centre_hz"),
             amplitudes=np.asarray(srir_mat[amps_key]).T,
             noise_floor=np.asarray(srir_mat[nf_key]).T,

@@ -158,7 +158,8 @@ def normalise_loudness(
 class DynamicRenderingMovingReceiver:
     """Time-varying convolution for a listener moving over the RIR grid.
 
-    Reference: sound_examples.py:80-353 (minus the matplotlib animation).
+    Reference: sound_examples.py:80-353; :meth:`animate_trajectory` draws
+    the walk (matplotlib).
     """
 
     def __init__(
@@ -191,10 +192,19 @@ class DynamicRenderingMovingReceiver:
         return np.tile(self.stimulus, reps)[:total]
 
     def animate_trajectory(self, save_path: str, yaw_angles: Optional[np.ndarray] = None):
-        """The moving-listener animation needs ``utils/plot.py``, which is not
-        ported yet (ROADMAP A14)."""
-        raise NotImplementedError(
-            "animate_trajectory needs utils/plot.py, which is not ported yet (ROADMAP A14)"
+        """The walk as a floor-plan animation at the renderer's hop rate: an
+        .mp4 (ffmpeg) or, without ffmpeg, a .gif beside ``save_path``
+        (``utils/plot.py animate_moving_listener``)."""
+        from ..utils.plot import animate_moving_listener
+
+        return animate_moving_listener(
+            self.rec_pos_list,
+            room_dims=self.room.room_dims,
+            room_start_coords=self.room.room_start_coord,
+            yaw_angles=yaw_angles,
+            source_position=np.asarray(self.room.source_position).reshape(-1),
+            save_path=save_path,
+            fps=max(1, int(round(1000.0 / self.update_ms))),
         )
 
     def _rirs(self, use_whole_rir: bool) -> np.ndarray:

@@ -7,11 +7,17 @@
 * ``lu``    — batched pivoted-LU single-RHS solve and the conjugate-transposed
   solve from its factors (``csrc/lu.cu``);
 * ``linalg`` — the batch-shape front ends ``cinv`` and ``csolve1`` as
-  autograd functions.
+  autograd functions, and ``csolve`` (``cinv(M) @ B``), exported here as
+  the JAX package's ``kernels`` exports it (its ``cinv`` stays
+  ``linalg.cinv``: here ``kernels.cinv`` is the kernel's module).
 
 Kernels build with ``nvcc`` at first use (``_build``); nothing is compiled
 or loaded when a module is imported.
 """
+
+from .linalg import csolve
+
+__all__ = ["counted_wrappers", "csolve"]
 
 
 def counted_wrappers() -> dict:

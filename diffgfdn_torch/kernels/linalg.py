@@ -8,6 +8,9 @@ cotangent):
 
 * :func:`cinv` — pivoted Gauss-Jordan inverse P = M^-1 (``kernels/cinv.py``),
   grad_M = -P^H G P^H (``neg_ptgpt``);
+* :func:`csolve` — M X = B for R right-hand sides as cinv(M) @ B, as the
+  JAX package computes it (B1 forward, B2 backward, then one batched
+  product);
 * :func:`csolve1` — pivoted product-form LU solve x = M^-1 b
   (``kernels/lu.py``), y = M^-H G from the saved factors (``lut_apply``),
   grad_M = -y x^H, grad_b = y summed over the broadcast of b.
@@ -128,3 +131,16 @@ def csolve1(m: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return csolve1_with(
         m.to(torch.complex64), b.to(torch.complex64), _lu.lu_solve, _lu.lut_apply
     )
+
+
+def csolve_with(m: torch.Tensor, b: torch.Tensor, inverse: Callable, vjp: Callable
+                ) -> torch.Tensor:
+    """M X = B as :func:`cinv_with` (the given inverse and backward) times B."""
+    return cinv_with(m, inverse, vjp) @ b.to(m.dtype)
+
+
+def csolve(m: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve M X = B for batched complex M (..., N, N) and B (..., N, R):
+    ``cinv(m) @ b`` in complex64, as ``kernels/linalg.py:118`` of the JAX
+    package computes it (B1 forward, B2 in the backward)."""
+    return csolve_with(m.to(torch.complex64), b, _cinv.cinv, _cinv.neg_ptgpt)

@@ -24,8 +24,10 @@ validation batch runs through a step graph (``training/scan.py``), captured
 once on the card and replayed: the batch's indices, or the generator's
 batch, are its static inputs. Each resolution's trainer of a sweep captures
 its own. Checkpoints are flax trees (``utils/params.py``), readable by the
-JAX package. The beamformer maps need ``utils/plot.py`` (ROADMAP A14) and
-are skipped.
+JAX package. After each resolution of a directional MLP sweep, the predicted
+amplitudes at the first training receiver are drawn as beamformer maps
+(``utils/plot.py``) under ``train_dir``; a failure to plot is logged, not
+raised, as in the JAX package.
 """
 
 import copy
@@ -478,6 +480,30 @@ def run_training_spatial_sampling(
                                          grid_resolution_m=res, device=dev)
         trainer.fit_indexed(arrays, train_idx, valid_idx, seed=config.seed)
         results[res] = (trainer, model)
-        if trainer.use_directional:
-            logger.info("beamformer maps skipped: utils/plot.py is not ported (ROADMAP A14)")
+        _save_beamformer_maps(config, room_data, trainer, arrays, train_idx, res)
     return results
+
+
+def _save_beamformer_maps(config: SpatialSamplingConfig, room_data: SpatialRoomDataset,
+                          trainer: SpatialSamplingTrainer, arrays, train_idx: np.ndarray,
+                          resolution: float) -> None:
+    """The directional amplitudes at the first training receiver as
+    beamformer maps, ``beamformer_map_grid_resolution_m=<res>.png`` under
+    ``train_dir``; a plotting failure (matplotlib missing) is logged."""
+    if not trainer.use_directional or config.train_dir is None:
+        return
+    try:
+        from ..utils.plot import plot_beamformer_map
+
+        first = train_idx[:1]
+        amps = trainer.predict_amplitudes({
+            "listener_position": arrays.listener_position[first],
+            "norm_listener_position": arrays.norm_listener_position[first],
+        }).cpu().numpy()
+        plot_beamformer_map(
+            amps[0], room_data.sph_directions, room_data.ambi_order, room_data.num_rooms,
+            save_path=str(Path(config.train_dir)
+                          / f"beamformer_map_grid_resolution_m={resolution:.3f}.png"),
+        )
+    except Exception as exc:  # plotting must never stop a training run
+        logger.warning("beamformer map plotting failed: %s", exc)

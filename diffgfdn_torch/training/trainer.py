@@ -72,6 +72,7 @@ from ..losses import edc_mask, edr_loss, edr_loss_from_rir, frequency_weighting,
 from ..losses import reg_loss, sparsity_loss
 from ..ops.basic import db, ms_to_samps, schroeder_backward_int
 from ..ops.stft import edr_from_stft, erb_filterbank, stft
+from ..utils.cio import upload_target_rirs
 from ..utils.device import resolve_device
 from ..utils.params import jax_params_from_torch, load_jax_params
 from .checkpoints import (
@@ -286,8 +287,12 @@ def target_features(rirs: torch.Tensor, mixing: int, max_len: int, edr_win: int,
 
 
 def target_rirs(arrays, nfft: int, device: torch.device) -> torch.Tensor:
-    """The dataset's target RIRs (R, nfft) on the device, zero padded or cut."""
-    rirs = torch.as_tensor(arrays.target_rir_time, dtype=torch.float32, device=device)
+    """The dataset's target RIRs (R, nfft) on the device, zero padded or cut.
+
+    The one upload site of the targets: from 64 MiB of float32 they travel
+    as int8 blocks and are dequantized on the device, as the JAX package's
+    ``device_target_rir_time`` does (``utils/cio.py``)."""
+    rirs = upload_target_rirs(arrays.target_rir_time, device)
     return torch.nn.functional.pad(rirs[:, :nfft], (0, max(0, nfft - rirs.shape[1])))
 
 

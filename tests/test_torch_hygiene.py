@@ -15,14 +15,26 @@ PORT_MODULES = sorted(
 )
 
 
+# the checkpoint-inspection, baseline and dataset CLIs and the modules they
+# brought in: the import check above must load each of them without JAX
+TOOL_MODULES = ("diffgfdn_torch.cli.compare_baselines", "diffgfdn_torch.cli.convert_dataset",
+                "diffgfdn_torch.cli.inspect_checkpoint", "diffgfdn_torch.data.naf",
+                "diffgfdn_torch.low_rank", "diffgfdn_torch.utils.cio",
+                "diffgfdn_torch.utils.flops", "diffgfdn_torch.utils.plot",
+                "diffgfdn_torch.utils.profiling")
+
+
 def test_port_imports_no_jax():
-    """Every module of diffgfdn_torch, and chip_smoke.py, loads without JAX."""
+    """Every module of diffgfdn_torch, and chip_smoke.py, loads without JAX
+    and without matplotlib (the card's image lacks it: ``utils/plot.py``
+    imports it when it draws)."""
     code = (
         "import sys, importlib\n"
         f"for name in {PORT_MODULES!r}:\n"
         "    importlib.import_module(name)\n"
         "import chip_smoke\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'diffgfdn_tpu')]\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m.split('.')[0] in ('jax', 'flax', 'diffgfdn_tpu', 'matplotlib')]\n"
         "assert not bad, bad\n"
         "print('ok', len(sys.modules))\n"
     )
@@ -30,7 +42,8 @@ def test_port_imports_no_jax():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
-    assert len(PORT_MODULES) >= 25
+    assert len(PORT_MODULES) >= 78
+    assert set(TOOL_MODULES) <= set(PORT_MODULES)
 
 
 def test_entry_points_default_to_cuda_and_raise_without_a_card(tmp_path):
@@ -263,3 +276,25 @@ def test_rendering_entry_points_default_to_cuda_and_raise_without_a_card(tmp_pat
             rend.binaural_filter_overlap_add(*backend)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         rend.binaural_filter_overlap_add_multi(rend.extended_stimulus[None])
+
+
+def test_tool_clis_default_to_cuda_and_raise_without_a_card(tmp_path, monkeypatch):
+    """inspect_checkpoint, compare_baselines and convert_dataset, without
+    ``--device cpu``, raise the device error before they read or write a file."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card: the default device is valid here")
+    from diffgfdn_torch.cli import compare_baselines, convert_dataset, inspect_checkpoint
+
+    monkeypatch.chdir(tmp_path)
+    calls = [
+        (inspect_checkpoint.main, ["-c", "three_room_example", "--out", "insp"]),
+        (inspect_checkpoint.main, ["-c", "x", "--compare-runs", "a", "b", "--out", "c.png"]),
+        (compare_baselines.main, ["--dataset", "missing.pkl", "--out", "cmp",
+                                  "--grid-resolution", "1.2"]),
+        (convert_dataset.main, ["missing.mat", "out/srirs.pkl", "--ambi"]),
+        (convert_dataset.main, ["missing.mat", "out/srirs.pkl", "--per-band-dir", "bands"]),
+    ]
+    for main, argv in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            main(argv)
+    assert not list(tmp_path.iterdir())
