@@ -7,6 +7,7 @@ Run from the repository root on a machine with one CUDA card:
     python3 chip_smoke.py --kernel-times ROOT   (alias: --cascade-times)
     python3 chip_smoke.py --edc-loss
     python3 chip_smoke.py --options
+    python3 chip_smoke.py --parallel
 
 Phases (any failure raises and exits non-zero, with no result line):
 
@@ -271,7 +272,32 @@ Phases (any failure raises and exits non-zero, with no result line):
    a finite summary, the barycentric maps equal to a CPU run of the same
    call (serving the card's checkpoint), the NAF exports read back, no
    kernel launched; (e) ``utils/profiling.trace`` around one served batch
-   writes a Chrome trace that holds B5.
+   writes a Chrome trace that holds B5;
+16. run the sharded paths over ``torch.distributed`` process groups
+   (``parallel``), the topology printed first: with two or more cards one
+   NCCL group over all of them, its steps graphed; with one card NCCL at
+   world 1 in this process, graphed (the collectives captured in the step
+   graphs), then gloo at world 2 with both ranks on ``cuda:0``, eager
+   (gloo's collectives cannot be captured), so that bins, bands and
+   receivers really split and gather. On each rank: (a) ``single_rir_example``
+   fit for 3 epochs through ``run_training_single_pos`` with its 65537 bins
+   sharded (B1 / B2 / B3 x 2 / B4 x 2 a step at the shard shape, launches
+   checked exactly), then one step against an unsharded trainer from the
+   same parameters (loss 1e-6 relative, gradients 1e-3, one Adam step
+   1e-5), the parameters bit for bit the same on every rank, and both
+   paths' step times; (b) the eight ``subband_*Hz`` presets' groups (2, 4,
+   2 bands) each on ``make_mesh(len(group))`` at full width (phase 7's grid):
+   a step's per-band losses and gradients against the one-rank trainer,
+   one launch of B1, B2, B3, B5, B6 a step, group and one-rank step times,
+   each band's checkpoint written by its owner, read back and continued;
+   (c) ``spatial_directional_1000Hz`` at 0.9 m, two epochs batch-sharded
+   against the unsharded ones (losses 1e-6, parameters 1e-5). The kernels
+   at the gloo (or multi-card) run's shard shapes join the kernel line.
+   Then, in this process, (d) ``ops/mxu_fft.irfft_matmul`` against
+   ``torch.fft.irfft`` on a directional batch's (32, 9, 65537) SH spectra
+   over the loss window (1e-5 of the peak; both times), and phase 8's step,
+   graphed, with ``use_mxu_fft`` off and on (both step times; the losses
+   within 1e-5). ``--parallel`` runs phase 16 alone.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``. ``--kernel-times ROOT``
@@ -288,6 +314,7 @@ phase-2, phase-5, phase-7, phase-8, phase-9 and phase-10 lines.
 
 import argparse
 import contextlib
+import copy
 import dataclasses
 import json
 import re
@@ -5140,6 +5167,504 @@ def tools(tmp: Path, log_dir, rooms: dict, serve_launches: dict) -> dict:
     return result
 
 
+# ------------------- phase 16: ranks (torch.distributed) -------------------
+
+PARALLEL_SINGLE_RIR = "single_rir_example"
+PARALLEL_EPOCHS = 3  # the frequency-sharded fit's epochs
+PARALLEL_BAND_STEPS = 2  # band-parallel steps of each group on its mesh
+PARALLEL_TIMED = 3  # timed steps of each path
+PARALLEL_SPATIAL = "spatial_directional_1000Hz"
+PARALLEL_SPATIAL_RES = 0.9
+PARALLEL_SPATIAL_EPOCHS = 2  # the second epoch's time is the steady one
+SHARD_LOSS_TOL = 1e-6  # sharded vs unsharded loss, relative
+SHARD_GRAD_TOL = 1e-3  # sharded vs unsharded gradients on the card, relative L2
+# parameters after one Adam step from zero moments, relative L2: a first
+# step moves each element by the learning rate times its gradient's sign, so
+# an element whose gradient is summation-order noise can flip (1.04e-6 on
+# the card where the CPU test reads 7e-9: ROADMAP C21)
+SHARD_ADAM_TOL = 1e-5
+SHARD_FIT_TOL = 1e-5  # parameters after the batch-sharded epoch, relative L2
+MXU_PEAK_TOL = 1e-5  # matmul irfft vs torch.fft.irfft: max abs error / max |irfft|
+MXU_LOSS_TOL = 1e-5  # the directional loss with and without the matmul irfft, relative
+# B1-B4 launches a frequency-sharded step; B1, B2, B3, B5, B6 a band step
+SHARD_STEP_KERNELS = {"cinv": 1, "neg_ptgpt": 1, "sos": 2, "sos_backward": 2}
+BAND_STEP_KERNELS = {"cinv": 1, "neg_ptgpt": 1, "sos": 1, "lu": 1, "lut_apply": 1}
+
+
+def parallel_data(tmp: Path) -> dict:
+    """Phase 16's inputs on disk, made where an earlier phase has not made
+    them: the single-RIR preset's wav, phase 7's 96-receiver grid at 32
+    kHz, phase 8's spatial grid."""
+    from diffgfdn_torch.config import preset_config
+    from diffgfdn_torch.data import generate_spatial_three_room_pickle, write_wav
+
+    cfg = preset_config(PARALLEL_SINGLE_RIR)
+    work = tmp / "parallel" / "single_rir"
+    wav = work / cfg.ir_path
+    wav.parent.mkdir(parents=True, exist_ok=True)
+    write_wav(wav, two_slope_rir(cfg.sample_rate), cfg.sample_rate)
+    if not (tmp / "subband" / "srirs.pkl").exists():
+        make_room(tmp, "subband", SUBBAND_FS, SUBBAND_NFFT)
+    spatial = tmp / "directional" / "srirs.pkl"
+    if not spatial.exists():
+        generate_spatial_three_room_pickle(
+            spatial, fs=SPATIAL_FS, grid_spacing_m=DIRECTIONAL_GRID_M,
+            rir_len_s=DIRECTIONAL_RIR_S, decay_times=DIRECTIONAL_DECAYS, seed=SEED)
+    return {"tmp": str(tmp), "single_rir_work": str(work), "wav": str(wav),
+            "spatial": str(spatial)}
+
+
+def subband_room(tmp: Path):
+    """Phase 7's grid read back, with its per-band decay times (as make_room sets them)."""
+    from diffgfdn_torch.data import ThreeRoomDataset
+
+    base = np.random.RandomState(SEED).uniform(0.6, 1.5, 3)
+    room = ThreeRoomDataset(tmp / "subband" / "srirs.pkl", nfft=SUBBAND_NFFT)
+    room.common_decay_times = base[None, :] * np.linspace(1.2, 0.8, 8)[:, None]
+    room.band_centre_hz = [63.0, 125.0, 250.0, 500.0, 1000.0, 2000.0, 4000.0, 8000.0]
+    return room
+
+
+def flat_params(named) -> "torch.Tensor":
+    import torch
+
+    return torch.cat([p.detach().reshape(-1).float() for _, p in named])
+
+
+def same_on_every_rank(x, group) -> bool:
+    """True when ``x`` is bit for bit the same tensor on every rank of ``group``."""
+    import torch
+    import torch.distributed as dist
+
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return all(torch.equal(p, parts[0]) for p in parts)
+
+
+def timed_steps(step, n: int = PARALLEL_TIMED, warmup: int = 2) -> list:
+    """Wall time (ms) of ``n`` calls of ``step`` after ``warmup`` untimed ones
+    (a graphed step's warm-up and capture), the card synchronized around each."""
+    import torch
+
+    for _ in range(warmup):
+        step()
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def shard_single_rir(spec: dict, mesh, device, rows: list) -> dict:
+    """(a): ``single_rir_example`` fit through ``run_training_single_pos``
+    with its bins sharded over the mesh, then one step against an unsharded
+    trainer from the same parameters. Rank 0 appends the shard shapes'
+    kernel rows to ``rows``."""
+    import torch
+
+    from diffgfdn_torch.config import preset_config
+    from diffgfdn_torch.data import RIRData
+    from diffgfdn_torch.losses import edc_mask
+    from diffgfdn_torch.parallel import all_reduce_grads
+    from diffgfdn_torch.training import build_gfdn_model, make_optimizer, SinglePosGFDNTrainer
+    from diffgfdn_torch.training.solver import run_training_single_pos, single_pos_batch
+    from diffgfdn_torch.utils.params import jax_params_from_torch, load_jax_params
+
+    cfg = preset_config(PARALLEL_SINGLE_RIR)
+    tc = cfg.trainer_config
+    tc.max_epochs = PARALLEL_EPOCHS
+    tc.train_dir = str(Path(spec["single_rir_work"]) / f"train_{spec['run']}")
+    cdt = np.array([0.5] * cfg.num_groups)
+    data = RIRData.from_wav(spec["wav"], common_decay_times=cdt, nfft=tc.num_freq_bins)
+    bins = data.num_freq_bins // 2 + 1
+    reset_counts()
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    trainer, model = run_training_single_pos(cfg, data, device=device, freq_mesh=mesh)
+    torch.cuda.synchronize(device)
+    run_s = time.perf_counter() - t0
+    launches = launch_counts()
+    epochs = len(trainer.train_loss)
+    expected = {"cinv": epochs + 1, "neg_ptgpt": epochs, "sos": 2 * epochs,
+                "sos_backward": 2 * epochs, "lu": 0, "lut_apply": 0, "tdgfdn": 0}
+    require(epochs == PARALLEL_EPOCHS and bool(np.isfinite(trainer.train_loss).all()),
+            f"(a): losses {trainer.train_loss}")
+    require({k: launches[k] for k in expected} == expected,
+            f"(a): launches {launches}, expected {expected}")
+    require(trainer.used_freq_parallel, "(a): the fit did not shard its bins")
+    require(same_on_every_rank(flat_params(model.named_parameters()), mesh.batch_group),
+            "(a): the parameters differ across ranks after the fit")
+    graphs = trainer.graphs.get("train")
+    replays = 0 if graphs is None else graphs.replays
+    require(not trainer.scan_epochs or replays > 0, "(a): the sharded step was not replayed")
+
+    # one step from the same parameters and mask: sharded against unsharded
+    other = build_gfdn_model(cfg, cdt, variant="single_pos", device=device)
+    load_jax_params(other, jax_params_from_torch(model))
+    unsharded = SinglePosGFDNTrainer(other, tc, 1, common_decay_times=cdt,
+                                     sample_rate=cfg.sample_rate, device=device)
+    unsharded.upload_batch(single_pos_batch(cfg, data))
+    mask = None
+    if tc.use_edc_mask:
+        mask = edc_mask(unsharded.edc_mask_length(bins),
+                        torch.Generator(device=device).manual_seed(SEED), device)
+    trainer._step_mask = mask
+    inputs = {}
+    params = list(model.parameters())
+    for p in params:
+        p.grad = None
+    with recording_kernel_inputs(inputs, forward=True):
+        loss_s, _ = trainer._sharded_losses(trainer.data, trainer._shard)
+        loss_s.backward()
+    all_reduce_grads(params, mesh.batch_group)
+    loss_u, _ = unsharded.loss_and_grads(unsharded.data, mask)
+    loss_rel = abs(float(loss_s.detach()) - float(loss_u)) / abs(float(loss_u))
+    grad_errs = {n: rel_l2(p.grad, q.grad) for (n, p), q in
+                 zip(model.named_parameters(), other.parameters())}
+    opt_s, _ = make_optimizer(tc, model, 1)
+    opt_u, _ = make_optimizer(tc, other, 1)
+    opt_s.step()
+    opt_u.step()
+    adam_errs = {n: rel_l2(p.detach(), q.detach()) for (n, p), q in
+                 zip(model.named_parameters(), other.parameters())}
+    require(loss_rel <= SHARD_LOSS_TOL and max(grad_errs.values()) <= SHARD_GRAD_TOL
+            and max(adam_errs.values()) <= SHARD_ADAM_TOL,
+            f"(a): sharded vs unsharded: loss {loss_rel}, gradients {grad_errs}, "
+            f"Adam {adam_errs}")
+    shard_shape = tuple(inputs["cinv"][0].shape)
+    require(shard_shape[0] == cfg.num_groups * trainer._shard.block,
+            f"(a): B1 ran on {shard_shape}, not this rank's {trainer._shard.block} bins")
+
+    # step times: the fit's trainer (sharded) and the unsharded one, each on its path
+    unsharded.optimizer, unsharded.scheduler = make_optimizer(tc, other, 1)
+    sharded_ms = timed_steps(lambda: trainer.fit_step())
+    unsharded_ms = timed_steps(lambda: unsharded.fit_step())
+    if rows is not None:
+        keys = [k for k in SLICE_KERNELS if k in inputs]
+        for key, row in zip(keys, slice_rows(
+                f"{PARALLEL_SINGLE_RIR}, {trainer._shard.block} bins of {bins} a rank, "
+                f"{mesh.size} ranks", inputs, launches)):
+            row["launches_per_epoch"] = SHARD_STEP_KERNELS[key]
+            rows.append(row)
+    return {"bins": bins, "bins_per_rank": trainer._shard.block, "B1_shape": list(shard_shape),
+            "epochs": epochs, "run_s": run_s, "losses": trainer.train_loss,
+            "launches": {k: launches[k] for k in expected}, "replays": replays,
+            "step_loss_rel_vs_unsharded": loss_rel,
+            "max_grad_rel_l2_vs_unsharded": max(grad_errs.values()),
+            "max_adam_rel_l2_vs_unsharded": max(adam_errs.values()),
+            "sharded_step_ms": sharded_ms, "unsharded_step_ms": unsharded_ms}
+
+
+def shard_subband(spec: dict, device, rows: list) -> dict:
+    """(b): the eight subband presets' band-parallel groups (2, 4, 2 bands),
+    each on ``make_mesh(len(group))``: a step's losses and gradients against
+    the one-rank trainer (gathered to rank 0), the launches of each step,
+    step times, and each band's checkpoint written by its owner, read back
+    and continued."""
+    import torch
+    import torch.distributed as dist
+
+    from diffgfdn_torch.cli import run_subband_training as rst
+    from diffgfdn_torch.data.batching import arrays_from_room_dataset, train_valid_split
+    from diffgfdn_torch.parallel import make_mesh, Mesh
+    from diffgfdn_torch.training import load_checkpoint, save_checkpoint
+    from diffgfdn_torch.training.trainer import padded_batches
+    from diffgfdn_torch.utils.params import (
+        flax_tree,
+        stack_jax_trees,
+        torch_state_from_jax,
+        unstack_jax_tree,
+    )
+
+    tmp = Path(spec["tmp"])
+    room = subband_room(tmp)
+    base = tmp / "parallel" / "subband" / spec["run"]
+    configs = [rst.create_config(f, str(tmp / "subband" / "srirs.pkl"), str(base), SUBBAND_NFFT,
+                                 sample_rate=SUBBAND_FS, max_epochs=TRAIN_EPOCHS,
+                                 batch_size=BATCH) for f in rst.DEFAULT_FREQS]
+    groups = rst.architecture_groups(configs)
+    require([len(g) for g in groups] == SUBBAND_GROUP_SIZES,
+            f"(b): group sizes {[len(g) for g in groups]}")
+    arrays = arrays_from_room_dataset(room)
+    rank = dist.get_rank()
+    out = {"groups": []}
+    for gi, group in enumerate(groups):
+        mesh = make_mesh(len(group))
+        train_idx, _ = train_valid_split(np.arange(arrays.num_items),
+                                         group[0].trainer_config.train_valid_split,
+                                         seed=group[0].seed)
+        trainer = rst.band_parallel_trainer(group, room, arrays, train_idx, device, mesh)
+        idx = torch.as_tensor(next(padded_batches(train_idx, BATCH)), device=device)
+        trainer.mask_generator.manual_seed(SEED)
+        mask = trainer._edc_mask()
+        inputs = {}
+        with recording_kernel_inputs(inputs, forward=True):
+            totals, _ = trainer.loss_and_grads(idx, mask)
+        mine = {"bands": (trainer.bands.start, trainer.bands.stop),
+                "totals": totals.cpu().numpy(),
+                "grads": {k: p.grad.cpu().numpy() for k, p in trainer.params.items()}}
+        gathered = [None] * dist.get_world_size()
+        dist.all_gather_object(gathered, mine)
+        group_result = {"bands": len(group), "mesh": list(mesh.shape),
+                        "bands_per_rank": trainer.bands.stop - trainer.bands.start}
+        one_ms = None
+        if rank == 0:  # the one-rank trainer of the whole group, the same batch and mask
+            one = rst.band_parallel_trainer(group, room, arrays, train_idx, device, Mesh((1, 1)))
+            ref_totals, _ = one.loss_and_grads(idx, mask)
+            ref_grads = {k: p.grad for k, p in one.params.items()}
+            loss_rel, grad_rel = 0.0, 0.0
+            for part in gathered:
+                lo, hi = part["bands"]
+                for b in range(lo, hi):
+                    ref = float(ref_totals[b])
+                    loss_rel = max(loss_rel, abs(float(part["totals"][b - lo]) - ref) / abs(ref))
+                    for k, g in part["grads"].items():
+                        grad_rel = max(grad_rel, rel_l2(torch.as_tensor(g[b - lo]),
+                                                        ref_grads[k][b].cpu()))
+            require(loss_rel <= SHARD_LOSS_TOL and grad_rel <= SHARD_GRAD_TOL,
+                    f"(b) group {gi}: sharded vs one-rank loss {loss_rel}, gradients {grad_rel}")
+            group_result.update(loss_rel_vs_one_rank=loss_rel,
+                                max_grad_rel_l2_vs_one_rank=grad_rel)
+            one_ms = timed_steps(lambda: one.step(idx))
+            del one, ref_grads
+        # the steps on the mesh: launches per step and times
+        reset_counts()
+        for _ in range(PARALLEL_BAND_STEPS):
+            trainer.step(idx)
+        torch.cuda.synchronize(device)
+        per_step = {k: v / PARALLEL_BAND_STEPS for k, v in launch_counts().items() if v}
+        require(per_step == BAND_STEP_KERNELS, f"(b) group {gi}: launches per step {per_step}")
+        group_ms = timed_steps(lambda: trainer.step(idx))
+        # each band's checkpoint by its owner, read back by its ranks, continued
+        dirs = [Path(c.trainer_config.train_dir) for c in group]
+        bands = range(trainer.bands.start, trainer.bands.stop)
+        if trainer.writes_checkpoints():
+            tree = flax_tree(trainer.params.items())
+            for b, g in enumerate(bands):
+                save_checkpoint(dirs[g], 0, unstack_jax_tree(tree, b))
+        dist.barrier()
+        before = flat_params(trainer.params.items())
+        trainer.load_band_params(torch_state_from_jax(stack_jax_trees(
+            [load_checkpoint(dirs[g], 0) for g in bands])))
+        require(torch.equal(before, flat_params(trainer.params.items())),
+                f"(b) group {gi}: a checkpoint read back differs")
+        continued, _ = trainer.step(idx)
+        require(bool(torch.isfinite(continued).all()), f"(b) group {gi}: continued {continued}")
+        require(same_on_every_rank(flat_params(trainer.params.items()), mesh.batch_group),
+                f"(b) group {gi}: a band's parameters differ across its ranks")
+        group_result.update(launches_per_step=per_step, group_step_ms=group_ms,
+                            one_rank_step_ms=one_ms)
+        if rank == 0 and rows is not None and len(group) == max(SUBBAND_GROUP_SIZES):
+            local = trainer.bands.stop - trainer.bands.start
+            label = f"[{local} of the {len(group)}-band group, {mesh.size} ranks]"
+            counts = {k: int(v) for k, v in per_step.items()} | {"sos_backward": 0}
+            rows += [dict(r, name=r["name"].replace(f"[{local}-band group]", label),
+                          launches_per_step=BAND_STEP_KERNELS[k])
+                     for r, k in zip(band_rows(inputs, counts, local),
+                                     ("cinv", "neg_ptgpt", "sos", "sos_backward", "lu",
+                                      "lut_apply"))
+                     if k != "sos_backward"]
+        out["groups"].append(group_result)
+        del trainer
+        torch.cuda.empty_cache()
+    return out
+
+
+def shard_spatial(spec: dict, device) -> dict:
+    """(c): ``spatial_directional_1000Hz`` at 0.9 m, two epochs of
+    ``fit_indexed`` batch-sharded over the mesh, against the unsharded
+    epochs from the same initialization (rank 0)."""
+    import torch
+
+    from diffgfdn_torch.config import spatial_preset_config
+    from diffgfdn_torch.data import (
+        arrays_from_spatial_dataset,
+        SpatialThreeRoomDataset,
+        split_by_grid_resolution,
+    )
+    from diffgfdn_torch.parallel import make_mesh
+    from diffgfdn_torch.training import build_spatial_model, SpatialSamplingTrainer
+
+    tmp = Path(spec["tmp"])
+    room = SpatialThreeRoomDataset(spec["spatial"])
+    arrays = arrays_from_spatial_dataset(room)
+    train_idx, valid_idx = split_by_grid_resolution(room, PARALLEL_SPATIAL_RES)
+    mesh = make_mesh(1)
+    fits = {}
+    for name, m in (("sharded", mesh), ("unsharded", None)):
+        if m is None and mesh.index != 0:
+            break
+        cfg = spatial_preset_config(PARALLEL_SPATIAL, max_epochs=PARALLEL_SPATIAL_EPOCHS,
+                                    train_dir=str(tmp / "parallel" / "spatial" / spec["run"]
+                                                  / name))
+        model = build_spatial_model(cfg, room.num_rooms, room.ambi_order, device=device)
+        trainer = SpatialSamplingTrainer(model, cfg, room, grid_resolution_m=PARALLEL_SPATIAL_RES,
+                                         device=device)
+        reset_counts()
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        trainer.fit_indexed(arrays, train_idx, valid_idx, seed=cfg.seed, mesh=m)
+        torch.cuda.synchronize(device)
+        require(all(v == 0 for v in launch_counts().values()),
+                f"(c): hand-written kernels launched {launch_counts()}")
+        fits[name] = (time.perf_counter() - t0, trainer, model)
+    batch = fits["sharded"][1].cfg.batch_size
+    result = {"train": len(train_idx), "valid": len(valid_idx), "batch": batch,
+              "receivers_per_rank": -(-batch // mesh.shape[1]), "run_s": fits["sharded"][0],
+              "epoch_s": fits["sharded"][1].epoch_s,
+              "train_loss": fits["sharded"][1].train_loss,
+              "valid_loss": fits["sharded"][1].valid_loss}
+    require(same_on_every_rank(flat_params(fits["sharded"][2].named_parameters()),
+                               mesh.batch_group), "(c): parameters differ across ranks")
+    if "unsharded" in fits:
+        s, u = fits["sharded"], fits["unsharded"]
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(s[1].train_loss + s[1].valid_loss,
+                                                         u[1].train_loss + u[1].valid_loss))
+        param_rel = max(rel_l2(p.detach(), q.detach()) for p, q in
+                        zip(s[2].parameters(), u[2].parameters()))
+        require(loss_rel <= SHARD_LOSS_TOL and param_rel <= SHARD_FIT_TOL,
+                f"(c): sharded vs unsharded epoch: losses {loss_rel}, parameters {param_rel}")
+        result.update(unsharded_run_s=u[0], unsharded_epoch_s=u[1].epoch_s,
+                      loss_rel_vs_unsharded=loss_rel,
+                      max_param_rel_l2_vs_unsharded=param_rel)
+    return result
+
+
+def parallel_rank(rank: int, world: int, spec_path: str) -> None:
+    """Phase 16 on one rank of a process group: (a), (b) and (c) on this
+    rank's card (``cuda:rank`` under NCCL, ``cuda:0`` for every gloo rank,
+    whose steps run eagerly: gloo's collectives cannot be captured)."""
+    import torch
+    import torch.distributed as dist
+
+    from diffgfdn_torch.parallel import make_mesh
+    from diffgfdn_torch.training.scan import GraphedSteps
+    from diffgfdn_torch.utils.device import resolve_device
+
+    spec = json.loads(Path(spec_path).read_text())
+    backend = dist.get_backend()
+    device = resolve_device(f"cuda:{rank}" if backend == "nccl" else "cuda:0")
+    torch.cuda.set_device(device)
+    if backend != "nccl":
+        GraphedSteps.scan_epochs = False
+    rows = [] if rank == 0 and spec["rows"] else None
+    result = {"rank": rank, "world": world, "backend": backend, "device": str(device),
+              "graphed": GraphedSteps.scan_epochs}
+    t0 = time.perf_counter()
+    result["a"] = shard_single_rir(spec, make_mesh(1), device, rows)
+    result["b"] = shard_subband(spec, device, rows)
+    result["c"] = shard_spatial(spec, device)
+    result["s"] = time.perf_counter() - t0
+    out = Path(spec_path).parent / f"{spec['run']}_rank{rank}.json"
+    out.write_text(json.dumps({"result": result, "rows": rows}))
+
+
+def matmul_irfft(tmp: Path, spec: dict) -> dict:
+    """(d): ``irfft_matmul`` against ``torch.fft.irfft`` on a directional
+    batch's SH half-spectra over the loss window, then phase 8's directional
+    step, graphed, with ``use_mxu_fft`` off and on."""
+    import torch
+
+    from diffgfdn_torch.config import preset_config
+    from diffgfdn_torch.data import SpatialThreeRoomDataset
+    from diffgfdn_torch.losses import edc_mask
+    from diffgfdn_torch.ops.mxu_fft import irfft_matmul
+    from diffgfdn_torch.training import run_training_anisotropic_decay_var_receiver_pos
+
+    cfg = preset_config(DIRECTIONAL_PRESET)
+    tc = cfg.trainer_config
+    tc.train_dir = str(tmp / "parallel" / "directional")
+    tc.max_epochs = 1
+    room = SpatialThreeRoomDataset(spec["spatial"])
+    trainer, model = run_training_anisotropic_decay_var_receiver_pos(cfg, room, device=DEVICE)
+    idx = torch.arange(BATCH, device=DEVICE)
+    batch = trainer.gather(idx)
+    with torch.no_grad():
+        h = model(batch)
+    n = 2 * (h.shape[-1] - 1)
+    lo = trainer.mixing_time_samps
+    hi = min(trainer.max_ir_len_samps + lo, n)
+    got = irfft_matmul(h, n, lo, hi)
+    ref = torch.fft.irfft(h, n, dim=-1)[..., lo:hi]
+    err = float(torch.max(torch.abs(got - ref)) / torch.max(torch.abs(ref)))
+    require(err <= MXU_PEAK_TOL, f"(d): matmul irfft vs torch.fft.irfft: {err}")
+    result = {"h_shape": list(h.shape), "n": n, "window": [lo, hi], "max_err_over_peak": err,
+              "matmul_irfft_ms": device_ms(lambda: irfft_matmul(h, n, lo, hi)),
+              "torch_irfft_ms": device_ms(lambda: torch.fft.irfft(h, n, dim=-1)[..., lo:hi])}
+    mask = edc_mask(trainer.edc_mask_length(batch["z_values"].shape[0]),
+                    torch.Generator(device=DEVICE).manual_seed(SEED), DEVICE)
+    losses = {}  # the EDC term (the one the switch computes) at the same parameters
+    for flag in (False, True):
+        trainer.use_mxu_fft = flag
+        with torch.no_grad():
+            losses[flag] = float(trainer._losses(batch, mask)["edc_loss"])
+    for flag in (False, True):
+        trainer.use_mxu_fft = flag
+        trainer.graphs.clear()
+        times = timed_steps(lambda: trainer.fit_step(idx))
+        graph = trainer.graphs.get("train")
+        require(graph is not None and graph.replays >= PARALLEL_TIMED,
+                f"(d): the step with use_mxu_fft={flag} was not replayed")
+        result[f"step_ms_mxu_fft_{'on' if flag else 'off'}"] = times
+    trainer.use_mxu_fft = False
+    loss_rel = abs(losses[True] - losses[False]) / abs(losses[False])
+    require(loss_rel <= MXU_LOSS_TOL, f"(d): the loss with and without the matmul irfft "
+            f"differ by {loss_rel}")
+    result.update(edc_loss_off=losses[False], edc_loss_on=losses[True],
+                  edc_loss_rel_on_vs_off=loss_rel)
+    return result
+
+
+def parallel(tmp: Path, card: str) -> tuple:
+    """Phase 16: the sharded paths over process groups. With two or more
+    cards, one NCCL run over all of them (graphed); with one card, NCCL at
+    world 1 in this process (graphed: the collectives captured in the step
+    graphs), then gloo at world 2 with both ranks on ``cuda:0`` (eager), so
+    that bins, bands and receivers really split and gather on the card.
+    Then (d), the matmul irfft, in this process. Returns (result, rows)."""
+    import torch
+
+    from diffgfdn_torch.parallel import spawn
+    from diffgfdn_torch.parallel.mesh import run_rank
+
+    count = torch.cuda.device_count()
+    runs = [("nccl", count)] if count >= 2 else [("nccl", 1), ("gloo", 2)]
+    topology = {"cards": count, "runs": [{"backend": b, "world": w,
+                                          "devices": [f"cuda:{r}" for r in range(w)]
+                                          if b == "nccl" else ["cuda:0"] * w,
+                                          "graphed": b == "nccl"} for b, w in runs]}
+    print(f"phase 16: topology [{card}] " + json.dumps(topology), flush=True)
+    spec = parallel_data(tmp)
+    torch.cuda.empty_cache()
+    result, rows = {"topology": topology}, []
+    for backend, world in runs:
+        run = f"{backend}{world}"
+        spec_path = tmp / "parallel" / f"{run}.json"
+        spec_path.write_text(json.dumps(dict(spec, run=run, rows=world > 1)))
+        t0 = time.perf_counter()
+        if world == 1:
+            run_rank(0, parallel_rank, 1, backend, str(tmp / "parallel" / f"{run}.store"),
+                     (str(spec_path),))
+        else:
+            spawn(parallel_rank, world, backend, (str(spec_path),))
+        per_rank = [json.loads((tmp / "parallel" / f"{run}_rank{r}.json").read_text())
+                    for r in range(world)]
+        result[run] = {"s": time.perf_counter() - t0,
+                       "ranks": [p["result"] for p in per_rank]}
+        print(f"phase 16: {run} [{card}]: " + json.dumps(result[run]), flush=True)
+        if world > 1:  # the kernels at each rank's shard shapes
+            rows = per_rank[0]["rows"]
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    result["d"] = matmul_irfft(tmp, spec)
+    print(f"phase 16 (d) in {time.perf_counter() - t0:.1f} s [{card}]: "
+          + json.dumps(result["d"]), flush=True)
+    return result, rows
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--log-dir", default=None,
@@ -5157,6 +5682,10 @@ def main(argv=None) -> int:
                         help="only build the kernels, serve phase 2's two configurations "
                              "and run phase 15 (the inspection, comparison and dataset "
                              "tools, csolve, the int8 targets); no result line")
+    parser.add_argument("--parallel", action="store_true",
+                        help="only build the kernels and run phase 16 (the sharded paths over "
+                             "process groups and the matmul irfft); prints its kernel rows; "
+                             "no result line")
     parser.add_argument("--edc-loss", action="store_true",
                         help="only hold the directional EDC loss against autograd through "
                              "db, time both and print their peak memory as one JSON line "
@@ -5196,6 +5725,16 @@ def main(argv=None) -> int:
             _, option_rows = options(Path(tmp_name), log_dir)
             print(f"phase 14 in {time.perf_counter() - t0:.1f} s")
         print(json.dumps({"kernels": option_rows}))
+        return 0
+    if args.parallel:
+        print(card)
+        t0 = time.perf_counter()
+        print(f"phase 1: built {sorted(_build.build_all())} in {time.perf_counter() - t0:.1f} s")
+        with tempfile.TemporaryDirectory() as tmp_name:
+            t0 = time.perf_counter()
+            _, parallel_rows = parallel(Path(tmp_name), card)
+            print(f"phase 16 in {time.perf_counter() - t0:.1f} s", flush=True)
+        print(json.dumps({"kernels": parallel_rows}))
         return 0
     if args.tools:
         print(card)
@@ -5341,6 +5880,11 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         tools(tmp, log_dir, rooms, serve_launches)
         print(f"phase 15: tools in {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        _, parallel_rows = parallel(tmp, card)
+        rows += parallel_rows
+        print(f"phase 16: sharded paths and the matmul irfft in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({

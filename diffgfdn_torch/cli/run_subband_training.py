@@ -11,6 +11,15 @@ each architecture group as one step (``parallel/band_parallel.py``).
 ``--infer`` merges the bands' RIRs into broadband RIRs
 (``broadband_rirs.npy`` in the training directory). Runs on CUDA unless
 ``--device cpu`` is given.
+
+Under ``torchrun`` (``--band-parallel`` only) each rank joins the launch's
+process group (NCCL on ``cuda:LOCAL_RANK``; gloo with ``--device cpu``) and
+each architecture group trains over ``make_mesh(len(group))``, the JAX
+trainer's default mesh: its bands over the band axis, each batch's receivers
+over the batch axis; each band's checkpoints are written by one rank::
+
+    torchrun --nproc-per-node=<cards> -m diffgfdn_torch.cli.run_subband_training \
+        --dataset srirs.pkl --band-parallel
 """
 
 import argparse
@@ -107,10 +116,11 @@ def architecture_groups(configs) -> List[list]:
     return list(groups.values())
 
 
-def band_parallel_trainer(group, room_data, arrays, train_idx, device):
+def band_parallel_trainer(group, room_data, arrays, train_idx, device, mesh=None):
     """The band-parallel trainer of one architecture group: one model per
     band from its own config (seed, delays, absorption), each band's filter
-    response, target features on the device."""
+    response, target features on the device; over ``mesh`` (default
+    ``make_mesh(len(group))``) this rank keeps its bands."""
     from ..parallel import BandParallelTrainer
     from ..training.build import build_gfdn_model
     from ..training.solver import subband_resp
@@ -126,6 +136,7 @@ def band_parallel_trainer(group, room_data, arrays, train_idx, device):
         models, cfg0.trainer_config, np.stack([subband_resp(c) for c in group]),
         steps_per_epoch=-(-len(train_idx) // bs),
         max_ir_len_ms=float(np.max(room_data.common_decay_times)) * 1e3, device=device,
+        mesh=mesh,
     )
     trainer.upload_arrays(arrays)
     return trainer
@@ -139,9 +150,11 @@ def training_band_parallel(configs, room_data=None,
     included), per-band validation and early stopping, and per-epoch
     checkpoints in its own ``train_dir``; the group shares one train / valid
     split and batch order (from its first config's seed). Returns each
-    group's per-band train losses (epochs, bands).
+    group's per-band train losses (epochs, bands). Under a process group each
+    group trains over ``make_mesh(len(group))``.
     """
     from ..data.batching import arrays_from_room_dataset, train_valid_split
+    from ..parallel.mesh import make_mesh
     from ..training.checkpoints import save_checkpoint
     from ..training.solver import check_sample_rate
     from ..utils.device import resolve_device
@@ -158,13 +171,17 @@ def training_band_parallel(configs, room_data=None,
         train_idx, valid_idx = train_valid_split(
             np.arange(arrays.num_items), cfg0.trainer_config.train_valid_split, seed=cfg0.seed
         )
-        trainer = band_parallel_trainer(group, room_data, arrays, train_idx, dev)
+        trainer = band_parallel_trainer(group, room_data, arrays, train_idx, dev,
+                                        make_mesh(len(group)))
 
         def on_epoch(epoch, trainer, train_losses, valid_losses, trained, group=group):
-            tree = flax_tree(trainer.params.items())  # one read of every band's parameters
-            for b, cfg in enumerate(group):
-                if trained[b] or epoch == 0:
-                    save_checkpoint(cfg.trainer_config.train_dir, epoch, unstack_jax_tree(tree, b))
+            if not trainer.writes_checkpoints():
+                return
+            tree = flax_tree(trainer.params.items())  # one read of this rank's bands
+            for b, g in enumerate(range(trainer.bands.start, trainer.bands.stop)):
+                if trained[g] or epoch == 0:
+                    save_checkpoint(group[g].trainer_config.train_dir, epoch,
+                                    unstack_jax_tree(tree, b))
 
         history = trainer.fit_indexed(arrays, train_idx, valid_idx,
                                       max_epochs=cfg0.trainer_config.max_epochs,
@@ -206,9 +223,15 @@ def main(argv=None) -> None:
     args = parser.parse_args(argv)
 
     from ..data.room_dataset import ThreeRoomDataset
+    from ..parallel.mesh import init_process_group_from_env
     from ..utils.device import resolve_device
 
     device = resolve_device(args.device)  # raises before anything is read or written
+    ranked = init_process_group_from_env("nccl" if device.type == "cuda" else "gloo")
+    if ranked is not None:
+        device = ranked
+        if not args.band_parallel or args.infer:
+            parser.error("under torchrun only --band-parallel training shards over ranks")
     logging.basicConfig(level=logging.INFO)
     room_data = ThreeRoomDataset(args.dataset, nfft=args.num_freq_bins)
     sample_rate = args.sample_rate or float(room_data.sample_rate)

@@ -252,13 +252,22 @@ def directional_edc_loss_from_sh(
     mixing_time_samps: int,
     edc_len_samps: int,
     mask: Optional[torch.Tensor] = None,
+    use_matmul_irfft: bool = False,
 ) -> torch.Tensor:
     """The same loss fed the SH-domain response (B, L, F): the L SH channels
     are irfft'd, cut to the window, and beamformed to the J directions by the
     analysis matrix (J, L) as a real product (the matrix commutes with the
-    irfft), so no (B, J, F) complex intermediate is made."""
+    irfft), so no (B, J, F) complex intermediate is made.
+
+    ``use_matmul_irfft``: the irfft as the four-step matmul transform of
+    ``ops/mxu_fft.py``, computing only the window's samples."""
     n = 2 * (h_sh.shape[-1] - 1)
     hi = min(edc_len_samps + mixing_time_samps, n)
-    rir_sh = torch.fft.irfft(h_sh, n, dim=-1)[..., mixing_time_samps:hi]
+    if use_matmul_irfft:
+        from ..ops.mxu_fft import irfft_matmul
+
+        rir_sh = irfft_matmul(h_sh, n, mixing_time_samps, hi)
+    else:
+        rir_sh = torch.fft.irfft(h_sh, n, dim=-1)[..., mixing_time_samps:hi]
     pred_rir = torch.matmul(analysis_matrix.to(torch.float32), rir_sh)  # (B, J, T)
     return _directional_edc_from_rir(pred_rir, amps_true, envelopes, mask)

@@ -35,6 +35,22 @@ The ERB-grouped EDR, frequency weighting and the aliasing regularizer of SVF
 output heads are the sequential trainer's (:func:`edr_options`,
 :func:`reg_length`): one filterbank and one set of weights for all bands of
 the group, the target features grouped alike.
+
+Over a (band, batch) grid of ranks (``mesh``, ``parallel/mesh.py``; by
+default ``make_mesh(num_bands)`` over the initialized process group, as the
+JAX trainer's default mesh):
+
+* each band rank holds only its bands (:func:`band_slice`): their
+  parameters, Adam state, filter responses and precomputed target features;
+* each batch rank evaluates its block of every batch's receivers, the
+  responses are gathered, and every batch rank takes its bands' losses on
+  the whole batch (``parallel/collectives.py``); the gradients are summed
+  over the batch ranks, so a band's parameters stay bit-identical on them;
+* the EDC mask is drawn for the whole batch on every rank from the same
+  seeded generator, so each rank applies the unsharded draw;
+* the per-band losses of an epoch are gathered over the band axis, so every
+  rank stops each band at the same epoch; each band's checkpoints are
+  written by batch rank 0 of its band rank (:meth:`writes_checkpoints`).
 """
 
 import logging
@@ -60,6 +76,8 @@ from ..training.trainer import (
     upload_model_inputs,
 )
 from ..utils.device import resolve_device
+from .collectives import all_gather_rows, all_reduce_grads, broadcast_tensors, Shard, shard_of
+from .mesh import band_sizes, band_slice, make_mesh, Mesh
 
 logger = logging.getLogger("diffgfdn_torch")
 
@@ -77,12 +95,13 @@ class _BandLoss(nn.Module):
         self.cfg = cfg
         self.windows = (mixing, max_len, edr_win, edr_hop)
         self.options = dict(erb_filters=erb_filters, freq_weights=freq_weights, reg_len=reg_len)
+        self.shard: Optional[Shard] = None  # this rank's receivers of the batch
 
     def forward(self, batch: Batch, feats: Batch, band_resp: torch.Tensor,
                 mask: Optional[torch.Tensor]) -> Dict[str, torch.Tensor]:
         with self.model.feedback_loop.sharing_orthogonal_blocks():
             return gfdn_losses(self.model, self.cfg, {**batch, **feats}, *self.windows,
-                               band_resp, mask, **self.options)
+                               band_resp, mask, shard=self.shard, **self.options)
 
 
 def _stack(models: Sequence[nn.Module], named: Callable, device: torch.device
@@ -101,6 +120,8 @@ class BandParallelTrainer(GraphedSteps):
     seeded parameters); ``band_responses`` (bands, F) complex: each band's
     filter response on the training grid. ``device`` defaults to CUDA and
     raises without a card unless the caller passes ``device="cpu"``.
+    ``mesh``: the (band, batch) grid of ranks (default ``make_mesh(bands)``);
+    this rank keeps the bands ``self.bands`` of ``models``.
     """
 
     patience: int = 5
@@ -114,12 +135,16 @@ class BandParallelTrainer(GraphedSteps):
         steps_per_epoch: int,
         max_ir_len_ms: float = 2000.0,
         device: Union[str, torch.device] = "cuda",
+        mesh: Optional[Mesh] = None,
     ):
         if len(models) != len(band_responses):
             raise ValueError(f"{len(models)} models for {len(band_responses)} band responses")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.num_bands = len(models)
+        self.mesh = mesh if mesh is not None else make_mesh(self.num_bands)
+        self.bands = band_slice(self.num_bands, self.mesh)
+        models = list(models)[self.bands]
         self.params = {
             k: nn.Parameter(v)
             for k, v in _stack(models, nn.Module.named_parameters, self.device).items()
@@ -127,8 +152,12 @@ class BandParallelTrainer(GraphedSteps):
         self.buffers = _stack(models, nn.Module.named_buffers, self.device)
         self.model = models[0].to(self.device)
         self.band_responses = torch.as_tensor(
-            np.asarray(band_responses, np.complex64), device=self.device
+            np.asarray(band_responses, np.complex64)[self.bands], device=self.device
         )
+        if self.mesh.distributed:
+            self.collective_backend = self.mesh.backend
+            broadcast_tensors(self.params.values(), self.mesh.batch_group)
+        self._shards: Dict[int, Shard] = {}
         self.steps_per_epoch = max(1, steps_per_epoch)
         sample_rate = self.model.sample_rate
         time_len = cfg.num_freq_bins if cfg.num_freq_bins is not None else 2 ** 17
@@ -145,7 +174,7 @@ class BandParallelTrainer(GraphedSteps):
         self.init_graphs(self.device)
         self.optimizer, self.scheduler = make_optimizer(cfg, self, self.steps_per_epoch)
         self._stopped = {(False,) * self.num_bands: torch.zeros(
-            self.num_bands, dtype=torch.bool, device=self.device)}
+            self.bands.stop - self.bands.start, dtype=torch.bool, device=self.device)}
         self.mask_generator = torch.Generator(device=self.device).manual_seed(0)
         self.band_feats: Optional[Batch] = None
         self.data: Optional[Batch] = None
@@ -157,10 +186,16 @@ class BandParallelTrainer(GraphedSteps):
         optimizer labels its groups by them)."""
         return iter(self.params.items())
 
+    def writes_checkpoints(self) -> bool:
+        """True on the rank that writes the checkpoints of its bands: batch
+        rank 0 of its band rank."""
+        return self.mesh.batch_index == 0
+
     @torch.no_grad()
     def load_band_params(self, state: Dict[str, torch.Tensor]) -> None:
         """Overwrite the band-stacked parameters from a port-named state (as
-        ``utils/params.torch_state_from_jax`` gives it for a band-stacked tree)."""
+        ``utils/params.torch_state_from_jax`` gives it for a band-stacked tree)
+        of this rank's bands."""
         if set(state) != set(self.params):
             raise ValueError(f"band state keys {sorted(state)} != {sorted(self.params)}")
         for k, p in self.params.items():
@@ -172,11 +207,22 @@ class BandParallelTrainer(GraphedSteps):
         state = {f"model.{k}": v for k, v in {**params, **buffers}.items()}
         return torch.func.functional_call(self._loss, state, (batch, feats, band_resp, mask))
 
+    def batch_shard(self, batch_size: int) -> Shard:
+        """This rank's block of a batch of ``batch_size`` receivers along the
+        mesh's batch axis (trivial without process groups)."""
+        if batch_size not in self._shards:
+            self._shards[batch_size] = shard_of(self.mesh, "batch", batch_size, "receivers")
+        return self._shards[batch_size]
+
     def losses(self, idx: torch.Tensor, mask: Optional[torch.Tensor] = None
                ) -> Dict[str, torch.Tensor]:
-        """Each band's weighted losses on the receivers ``idx``: {name: (bands,)}."""
+        """Each of this rank's bands' weighted losses on the receivers ``idx``
+        (the whole batch; the model sees this rank's block of it): {name:
+        (bands,)}."""
+        shard = self.batch_shard(idx.shape[0])
+        self._loss.shard = None if shard.trivial else shard
         return self._band_losses(self.params, self.buffers, self.band_responses,
-                                 self.gather_feats(idx), self.gather(idx), mask)
+                                 self.gather_feats(idx), self.gather(shard.local(idx)), mask)
 
     def _edc_mask(self) -> Optional[torch.Tensor]:
         if not self.cfg.use_edc_mask:
@@ -195,6 +241,8 @@ class BandParallelTrainer(GraphedSteps):
         losses = self.losses(idx, mask)
         totals = sum(losses.values())
         totals.sum().backward()
+        if self.mesh.distributed:
+            all_reduce_grads(self.params.values(), self.mesh.batch_group)
         return totals.detach(), {k: v.detach() for k, v in losses.items()}
 
     def _train_step(self, idx: torch.Tensor, mask: Optional[torch.Tensor], keep: torch.Tensor
@@ -215,13 +263,13 @@ class BandParallelTrainer(GraphedSteps):
             return sum(self.losses(idx, mask).values())
 
     def stopped_bands(self, active: Optional[np.ndarray]) -> torch.Tensor:
-        """(bands,) bool on the device, True where ``active`` is 0 (None: every
-        band active). Each pattern is copied to the device once and kept, so
+        """(bands of this rank,) bool on the device, True where ``active``
+        (every band of the group) is 0 (None: every band active). Each pattern is copied to the device once and kept, so
         that the steps of a run copy nothing from the host."""
         stopped = ((False,) * self.num_bands if active is None
                    else tuple(bool(a == 0) for a in np.asarray(active)))
         if stopped not in self._stopped:
-            self._stopped[stopped] = torch.tensor(stopped, device=self.device)
+            self._stopped[stopped] = torch.tensor(stopped[self.bands], device=self.device)
         return self._stopped[stopped]
 
     def step(self, idx: torch.Tensor, active: Optional[np.ndarray] = None,
@@ -298,7 +346,8 @@ class BandParallelTrainer(GraphedSteps):
         ``patience`` epochs); stopped bands freeze while the rest train.
         ``on_epoch(epoch, trainer, train_losses, valid_losses, trained)`` runs
         after each epoch; ``trained[b] == 1`` when band b trained in it. The
-        host reads the device once per epoch.
+        host reads the device once per epoch; over a mesh the losses of every
+        band are gathered then, so each rank sees (epochs, bands) of the group.
         """
         if len(train_idx) == 0:
             raise ValueError("no training items: train_idx is empty")
@@ -332,7 +381,7 @@ class BandParallelTrainer(GraphedSteps):
                     v_total = v_total + self.run_step("valid", self._valid_step, idx=vidx,
                                                       mask=self._edc_mask())
                 row.append(v_total / len(valid_batches))
-            host = torch.stack(row).cpu().numpy()  # the epoch's one read of device values
+            host = self._all_bands(torch.stack(row)).cpu().numpy()  # the epoch's one read
             self.train_loss.append(host[0])
             v_epoch = host[1] if valid_batches else None
             if v_epoch is not None:
@@ -347,3 +396,11 @@ class BandParallelTrainer(GraphedSteps):
             if valid_batches and not active.any():
                 break
         return np.stack(self.train_loss)
+
+    def _all_bands(self, rows: torch.Tensor) -> torch.Tensor:
+        """(k, bands of this rank) -> (k, bands of the group), gathered over
+        the mesh's band axis."""
+        if not self.mesh.distributed:
+            return rows
+        sizes = band_sizes(self.num_bands, self.mesh.shape[0])
+        return all_gather_rows(rows.T.contiguous(), self.mesh.band_group, sizes).T

@@ -248,9 +248,17 @@ class GraphedSteps:
     step closure through the graph of its kind; False runs the same closure
     eagerly. Assigning ``optimizer`` drops every graph, which captured the
     old optimizer's state. Call :meth:`init_graphs` in ``__init__``.
+
+    A sharded trainer sets ``collective_backend`` to its process group's
+    backend: its step closures hold collectives (``parallel/collectives.py``).
+    NCCL's are captured into the step graph with the rest of the step and
+    replayed with it; gloo's cannot be captured, so on CUDA tensors
+    :meth:`run_step` raises unless ``scan_epochs`` is False (no eager
+    fallback).
     """
 
     scan_epochs = True
+    collective_backend: Optional[str] = None
 
     def init_graphs(self, device: torch.device) -> None:
         self.graphs = StepGraphs(device)
@@ -272,6 +280,10 @@ class GraphedSteps:
         stay None)."""
         if not self.scan_epochs:
             return step(**inputs)
+        if self.graphs.device.type == "cuda" and self.collective_backend not in (None, "nccl"):
+            raise RuntimeError(
+                f"a step graph cannot capture {self.collective_backend}'s collectives: "
+                "set scan_epochs = False on this trainer, or use NCCL")
         names = tuple(inputs)
         return self.graphs(kind, lambda b: step(**{k: b.get(k) for k in names}), **inputs)
 

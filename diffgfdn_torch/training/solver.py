@@ -29,8 +29,10 @@ A grid config with ``mlp_tuning_config.tune_hyperparameters`` first
 searches the output MLP's architecture (``training/hypertuning.py``), one
 short training run a trial, then trains the winner.
 
-Not ported yet: frequency sharding over several cards
-(``use_freq_parallel``: one card trains unsharded, ROADMAP A14).
+A single-position fit under a process group of more than one rank shards
+its rFFT bins over the ranks (``use_freq_parallel``, default auto:
+:func:`_resolve_freq_mesh`; ``parallel/freq_parallel.py``); only rank 0
+writes to the training directory.
 """
 
 import copy
@@ -44,6 +46,7 @@ from typing import List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config.schema import DiffGFDNConfig
 from ..data.audio import write_wav
@@ -329,17 +332,48 @@ def single_pos_batch(config: DiffGFDNConfig, rir_data: RIRData) -> dict:
     }
 
 
+def _resolve_freq_mesh(config: DiffGFDNConfig, world: Optional[int] = None):
+    """The mesh to shard a single-position fit's bins over, or None.
+
+    ``use_freq_parallel``: None = auto (shard when more than one rank runs),
+    True = require (warn and train unsharded when one rank runs), False =
+    off. ``world``: the ranks of the initialized process group by default
+    (one without a group); each rank is one device, as a device of JAX's
+    mesh.
+    """
+    use = config.trainer_config.use_freq_parallel
+    if use is False:
+        return None
+    if world is None:
+        world = dist.get_world_size() if dist.is_initialized() else 1
+    if world <= 1:
+        if use:
+            logger.warning("use_freq_parallel=true but only one device is visible; "
+                           "training unsharded")
+        return None
+    from ..parallel.mesh import make_mesh
+
+    logger.info("single-pos fit: sharding the rFFT bin axis over %d devices", world)
+    return make_mesh(1, world_size=world)
+
+
 def run_training_single_pos(
     config: DiffGFDNConfig,
     rir_data: Optional[RIRData] = None,
     device: Union[str, torch.device] = "cuda",
+    freq_mesh="auto",
 ) -> Tuple[SinglePosGFDNTrainer, torch.nn.Module]:
     """Single-RIR fit on whole-spectrum batches; returns (trainer, model).
 
     ``rir_data`` defaults to the wav at ``config.ir_path`` with a broadband
     0.5 s decay time per group (nfft from ``num_freq_bins``, else the next
-    power of 2 of 0.5 s). ``use_freq_parallel`` set to true trains unsharded
-    on the one card, with JAX's one-device warning.
+    power of 2 of 0.5 s). Under an initialized process group of more than
+    one rank the bins are sharded over the ranks (``use_freq_parallel``,
+    default auto: :func:`_resolve_freq_mesh`); only rank 0 writes to
+    ``train_dir`` (the colorless prototypes first, which the other ranks
+    then read). ``freq_mesh``: a ``parallel/mesh.Mesh`` (or None) to use
+    instead of that resolution, as JAX's ``devices`` argument chooses the
+    devices.
     """
     dev = resolve_device(device)
     tc = config.trainer_config
@@ -349,12 +383,19 @@ def run_training_single_pos(
             nfft=tc.num_freq_bins,
         )
     check_sample_rate(config, rir_data)
+    if isinstance(freq_mesh, str):
+        freq_mesh = _resolve_freq_mesh(config)
     colorless_params = None
     if config.colorless_fdn_config.use_colorless_prototype:
-        colorless_params = run_training_colorless_fdn(config, rir_data.num_freq_bins // 16, dev)
-    if tc.use_freq_parallel:
-        logger.warning("use_freq_parallel=true but only one device is visible; "
-                       "training unsharded")
+        writer = freq_mesh is None or freq_mesh.index == 0
+        if writer:
+            colorless_params = run_training_colorless_fdn(config, rir_data.num_freq_bins // 16,
+                                                          dev)
+        if freq_mesh is not None and freq_mesh.distributed:
+            dist.barrier()
+        if not writer:  # rank 0's prototypes, read back
+            colorless_params = run_training_colorless_fdn(config, rir_data.num_freq_bins // 16,
+                                                          dev)
     model = build_gfdn_model(
         config, common_decay_times=rir_data.common_decay_times,
         band_centre_hz=rir_data.band_centre_hz, variant="single_pos", device=dev,
@@ -363,10 +404,12 @@ def run_training_single_pos(
     trainer = SinglePosGFDNTrainer(
         model, tc, steps_per_epoch=1, common_decay_times=rir_data.common_decay_times,
         subband_filter_resp=subband_resp(config), sample_rate=config.sample_rate, device=dev,
+        freq_mesh=freq_mesh,
     )
     trainer.fit(single_pos_batch(config, rir_data), seed=config.seed)
-    save_diff_gfdn_parameters(model, tc.train_dir)
-    save_loss(trainer.train_loss, None, tc.train_dir)
+    if trainer.writes:
+        save_diff_gfdn_parameters(model, tc.train_dir)
+        save_loss(trainer.train_loss, None, tc.train_dir)
     return trainer, model
 
 

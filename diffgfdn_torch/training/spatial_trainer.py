@@ -147,6 +147,8 @@ class SpatialSamplingTrainer(GraphedSteps):
         self.init_graphs(self.device)
         self.scheduler = None
         self.data: Optional[Batch] = None
+        self.mesh = None  # fit_indexed's mesh with process groups, or None
+        self._shard = None
 
         self.analysis_matrix = None
         if self.use_directional:
@@ -177,8 +179,16 @@ class SpatialSamplingTrainer(GraphedSteps):
             return directional_amplitudes(self.analysis_matrix, weights), weights
         return self.model(batch), None
 
-    def _losses(self, batch: Batch) -> Dict[str, torch.Tensor]:
-        amps, weights = self._predict(batch)
+    def _losses(self, batch: Batch, local: Optional[Batch] = None) -> Dict[str, torch.Tensor]:
+        """The losses of ``batch``; with ``local`` (this rank's receivers of
+        it, under :meth:`fit_indexed`'s mesh) the model sees ``local`` and its
+        outputs are gathered whole (``parallel/collectives.py``)."""
+        if local is None:
+            amps, weights = self._predict(batch)
+        else:
+            amps, weights = self._predict(local)
+            amps = self._shard.whole(amps, 0)
+            weights = None if weights is None else self._shard.whole(weights, 0)
         target = batch["target_common_slope_amps"]
         if "floor_mask" in batch:
             # the CNN's grid: cells outside the floor plan take their targets
@@ -205,15 +215,35 @@ class SpatialSamplingTrainer(GraphedSteps):
         return total.detach()
 
     def _train_step(self, idx: torch.Tensor) -> torch.Tensor:
-        """The step closure: loss, backward and optimizer step on the batch."""
-        total = self.loss_and_grads(self.gather(idx))
+        """The step closure: loss, backward and optimizer step on the batch
+        (over the mesh: this rank's receivers evaluated, the loss on the whole
+        batch, the gradients summed over the batch axis)."""
+        if self.mesh is None:
+            total = self.loss_and_grads(self.gather(idx))
+        else:
+            from ..parallel.collectives import all_reduce_grads
+
+            for p in self.model.parameters():
+                p.grad = None
+            total = sum(self._losses(self.gather(idx), self._local(idx)).values())
+            total.backward()
+            all_reduce_grads(self.model.parameters(), self.mesh.batch_group)
+            total = total.detach()
         self.optimizer.step()
         return total
 
     def _valid_step(self, idx: torch.Tensor) -> torch.Tensor:
         """The validation closure: the batch's total loss, no gradient."""
         with torch.no_grad():
-            return sum(self._losses(self.gather(idx)).values())
+            local = None if self.mesh is None else self._local(idx)
+            return sum(self._losses(self.gather(idx), local).values())
+
+    def _local(self, idx: torch.Tensor) -> Batch:
+        """This rank's receivers of the batch ``idx`` along the mesh's batch axis."""
+        from ..parallel.collectives import shard_of
+
+        self._shard = shard_of(self.mesh, "batch", idx.shape[0], "receivers")
+        return self.gather(self._shard.local(idx))
 
     def fit_step(self, idx: torch.Tensor) -> torch.Tensor:
         """One optimizer step on the receivers ``idx`` (a device tensor),
@@ -252,18 +282,33 @@ class SpatialSamplingTrainer(GraphedSteps):
         train_idx: np.ndarray,
         valid_idx: Optional[np.ndarray] = None,
         seed: int = 0,
+        mesh=None,
     ) -> torch.nn.Module:
         """Epoch loop over device-resident data; returns the trained model.
 
         Training batches are wrap-padded (``padded_batches``); validation is
         the item-weighted mean over full batches and the unpadded remainder.
         Each epoch writes its checkpoint; the host reads the losses once.
+
+        ``mesh`` (``parallel/mesh.Mesh`` with process groups): data
+        parallelism over receivers, as JAX's ``fit_indexed(mesh=...)``. The
+        dataset stays whole on every rank; each batch rank evaluates its block
+        of each batch (training and validation), every rank takes the loss on
+        the gathered batch, and the gradients are summed over the batch axis,
+        so the parameters (from the batch axis's rank 0) stay bit-identical
+        and the validation means exact. Only mesh rank 0 writes checkpoints.
         """
         if len(train_idx) == 0:
             raise ValueError("no training items: train_idx is empty (check "
                              "split_by_grid_resolution / dataset size) - training "
                              "would silently run zero steps")
         train_idx = np.asarray(train_idx)
+        self.mesh = mesh if mesh is not None and mesh.distributed else None
+        if self.mesh is not None:
+            from ..parallel.collectives import broadcast_tensors
+
+            self.collective_backend = self.mesh.backend
+            broadcast_tensors(self.model.parameters(), self.mesh.batch_group)
         self.upload_arrays(arrays)
         bs = min(self.cfg.batch_size, len(train_idx))
         steps_per_epoch = -(-len(train_idx) // bs)  # padded_batches' count
@@ -296,7 +341,8 @@ class SpatialSamplingTrainer(GraphedSteps):
             self.train_loss.append(host[0] / idx_mat.shape[0])
             if v_weight:
                 self.valid_loss.append(host[1] / v_weight)
-            save_checkpoint(self._checkpoint_dir(), epoch, jax_params_from_torch(self.model))
+            if self.mesh is None or self.mesh.index == 0:
+                save_checkpoint(self._checkpoint_dir(), epoch, jax_params_from_torch(self.model))
             self.epoch_s.append(time.time() - t0)
             logger.info("spatial epoch %d train %.4f%s (%.2fs)", epoch, self.train_loss[-1],
                         f" valid {self.valid_loss[-1]:.4f}" if v_weight else "",

@@ -126,6 +126,8 @@ def gfdn_losses(
     erb_filters: Optional[torch.Tensor] = None,
     freq_weights: Optional[torch.Tensor] = None,
     reg_len: Optional[int] = None,
+    shard=None,
+    use_matmul_irfft: bool = False,
 ) -> Dict[str, torch.Tensor]:
     """The weighted losses of one batch against its precomputed target
     features (JAX ``GFDNTrainer._losses``' fast path, and the band loss of
@@ -139,15 +141,23 @@ def gfdn_losses(
     given (the model's ``sub_fdn_inverse`` there). With decay ``envelopes``
     (num_slopes, T) the model is directional and its EDC loss is the
     directional one, from sample ``mixing`` on, ``max_len`` long, against
-    the batch's common-slope amplitudes; there is no EDR loss then.
+    the batch's common-slope amplitudes; there is no EDR loss then, and
+    ``use_matmul_irfft`` runs its irfft as ``ops/mxu_fft.irfft_matmul``.
+
+    ``shard`` (``parallel/collectives.Shard``): the model is evaluated on this
+    rank's bins or receivers and gathered whole (for receivers, the batch's
+    model inputs are this rank's and its targets the whole batch's), every
+    loss is taken on the whole, and the terms of parameters alone (the
+    sub-FDN terms; the regularizer under a bin shard) carry their gradient
+    on the shard's first rank only.
     """
-    h = model(batch)
+    h = model(batch) if shard is None else shard.response(model, batch)
     if band_resp is not None:
         h = h * band_resp
     if envelopes is not None:
         losses = {"edc_loss": cfg.edc_loss_weight * directional_edc_loss_from_sh(
             h, model.analysis_matrix, batch["target_common_slope_amps"], envelopes, mixing,
-            max_len, mask)}
+            max_len, mask, use_matmul_irfft=use_matmul_irfft)}
     elif "target_edc_db" in batch:
         losses = _omni_losses(cfg, batch, h, mixing, max_len, edr_win, edr_hop, mask,
                               erb_filters, freq_weights)
@@ -161,7 +171,11 @@ def gfdn_losses(
         }
     if reg_len is not None:
         head = model.output_filter_params(batch)
-        losses["reg_loss"] = reg_loss(head["biquad_num"], head["biquad_den"], reg_len)
+        if shard is not None and shard.of == "receivers":
+            head = {k: shard.whole(v, 0) for k, v in head.items()}
+        reg = reg_loss(head["biquad_num"], head["biquad_den"], reg_len)
+        losses["reg_loss"] = reg if shard is None or shard.of == "receivers" else \
+            shard.replicated(reg)
     if cfg.use_colorless_loss:
         h_out, _ = model.sub_fdn_output(sub_fdn_bins(model, batch["z_values"]),
                                         sub_inverse)  # (F, G)
@@ -172,8 +186,11 @@ def gfdn_losses(
                 h_out[..., k], torch.ones_like(h_out[..., k].real)
             )
         ortho = model.feedback_loop.orthogonal_blocks()
+        sparsity = cfg.sparsity_loss_weight * sparsity_loss(ortho[-1])
+        if shard is not None:
+            spectral, sparsity = shard.replicated(spectral), shard.replicated(sparsity)
         losses["spectral_loss"] = spectral
-        losses["sparsity_loss"] = cfg.sparsity_loss_weight * sparsity_loss(ortho[-1])
+        losses["sparsity_loss"] = sparsity
     return losses
 
 
@@ -307,6 +324,9 @@ class GFDNTrainer(GraphedSteps):
     early_stop_tol: float = 1e-3
     # (num_slopes, T) decay envelopes of a directional trainer's EDC loss
     directional_envelopes: Optional[torch.Tensor] = None
+    # the directional loss's irfft as the four-step matmul transform
+    # (ops/mxu_fft.py); off by default, as in the JAX trainer
+    use_mxu_fft: bool = False
 
     def __init__(
         self,
@@ -364,13 +384,14 @@ class GFDNTrainer(GraphedSteps):
         return min(self.max_ir_len_samps, 2 * (num_bins - 1)) - self.mixing_time_samps
 
     def _losses(self, batch: Batch, edc_mask_values: Optional[torch.Tensor] = None,
-                sub_inverse: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+                sub_inverse: Optional[torch.Tensor] = None, shard=None
+                ) -> Dict[str, torch.Tensor]:
         """The weighted losses of one batch, as the JAX trainer's fast path.
 
         ``edc_mask_values``: the EDC time mask to use when ``use_edc_mask`` is
         on; None draws one from ``mask_generator``. ``sub_inverse``: the
         sub-FDN inverse at the batch's :func:`sub_fdn_bins`, when already
-        evaluated this step.
+        evaluated this step. ``shard``: as :func:`gfdn_losses` takes it.
         """
         mask = None
         if self.cfg.use_edc_mask:
@@ -383,7 +404,8 @@ class GFDNTrainer(GraphedSteps):
                 self.model, self.cfg, batch, self.mixing_time_samps, self.max_ir_len_samps,
                 self.edr_win, self.edr_hop, self.subband_filter_resp, mask,
                 self.directional_envelopes, sub_inverse, self.erb_filters, self.freq_weights,
-                None if self.directional_envelopes is not None else self.reg_len,
+                None if self.directional_envelopes is not None else self.reg_len, shard,
+                self.use_mxu_fft,
             )
 
     def loss_and_grads(self, batch: Batch, edc_mask_values: Optional[torch.Tensor] = None,
@@ -700,9 +722,57 @@ class SinglePosGFDNTrainer(GFDNTrainer):
     (unless fixed by a colorless warm start), then, when both heads are
     scalars, the io scalars are scaled so that the model's average energy
     matches the target's.
+
+    ``freq_mesh`` (``parallel/mesh.Mesh``): the ranks to shard the rFFT bin
+    axis over (the single-position batch is the whole unit circle, so
+    frequency is its one axis to share out). A mesh with process groups
+    trains through ``parallel/freq_parallel.make_freq_sharded_step``: each
+    rank evaluates its bins, every rank takes the loss on the gathered
+    spectrum, the energy match reads the gathered H, and the parameters
+    start from rank 0's and stay bit-identical, so every rank stops at the
+    same epoch. Only rank 0 writes checkpoints. None trains unsharded.
     """
 
     early_stop_tol = 1e-4
+
+    def __init__(self, *args, freq_mesh=None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.freq_mesh = freq_mesh
+        self.used_freq_parallel = False
+        self._fit_run = None
+        self._step_mask: Optional[torch.Tensor] = None
+        self._shard = None
+        if freq_mesh is not None:
+            self.collective_backend = freq_mesh.backend
+
+    @property
+    def sharded(self) -> bool:
+        return self.freq_mesh is not None and self.freq_mesh.distributed
+
+    @property
+    def writes(self) -> bool:
+        """True on the rank that writes checkpoints: rank 0 of a sharded fit."""
+        return not self.sharded or self.freq_mesh.index == 0
+
+    def _sharded_losses(self, batch: Batch, shard) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        losses = self._losses(batch, self._step_mask, shard=shard)
+        return sum(losses.values()), losses
+
+    def _make_fit_step(self):
+        """The step of each epoch on the uploaded batch: frequency-sharded on a
+        mesh with process groups (the JAX trainer's test is a mesh of more
+        than one device; a process group of one rank still runs its
+        collectives), else None (the unsharded step)."""
+        if not self.sharded:
+            return None
+        from ..parallel.collectives import shard_of
+        from ..parallel.freq_parallel import make_freq_sharded_step
+
+        self.used_freq_parallel = True
+        self._shard = shard_of(self.freq_mesh, "batch", self.data["z_values"].shape[0], "bins")
+        logger.info("single-pos fit: frequency axis sharded over %d ranks", self.freq_mesh.size)
+        return make_freq_sharded_step(self.model, self._sharded_losses, self.optimizer,
+                                      self.freq_mesh)
 
     @torch.no_grad()
     def upload_batch(self, batch: Dict[str, np.ndarray]) -> Batch:
@@ -720,7 +790,7 @@ class SinglePosGFDNTrainer(GFDNTrainer):
         model = self.model
         if model.use_svf_in_output or model.use_svf_in_input:
             return None
-        h = model(self.data)
+        h = model(self.data) if self._shard is None else self._shard.response(model, self.data)
         if self.subband_filter_resp is not None:
             h = h * self.subband_filter_resp
         energy_h = torch.mean(torch.abs(h) ** 2)
@@ -733,7 +803,11 @@ class SinglePosGFDNTrainer(GFDNTrainer):
     def _train_step(self, idx: Optional[torch.Tensor], mask: Optional[torch.Tensor]
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """The step closure: one optimizer step on the whole spectrum (the
-        batch is the single position, uploaded once: ``idx`` is None)."""
+        batch is the single position, uploaded once: ``idx`` is None), its
+        bins sharded over ``freq_mesh`` when it has process groups."""
+        if self._fit_run is not None:
+            self._step_mask = mask
+            return self._fit_run(self.data)
         total, aux = self.loss_and_grads(self.data, mask)
         self.optimizer.step()
         return total, aux
@@ -752,11 +826,17 @@ class SinglePosGFDNTrainer(GFDNTrainer):
         ``target_rir_response``) for up to ``max_epochs`` epochs of one step;
         returns the trained model."""
         cfg = self.cfg
-        self.optimizer, self.scheduler = make_optimizer(cfg, self.model, 1)
         self.mask_generator.manual_seed(seed)
         self.upload_batch(batch)
+        if self.sharded:
+            from ..parallel.collectives import broadcast_tensors
+
+            broadcast_tensors(self.model.parameters(), self.freq_mesh.batch_group)
+        self.optimizer, self.scheduler = make_optimizer(cfg, self.model, 1)
+        self._fit_run = self._make_fit_step()
         self._normalize_params()
-        save_checkpoint(cfg.train_dir, -1, jax_params_from_torch(self.model))
+        if self.writes:
+            save_checkpoint(cfg.train_dir, -1, jax_params_from_torch(self.model))
         start = time.time()
         for epoch in range(cfg.max_epochs):
             total, aux = self.fit_step()
@@ -764,7 +844,8 @@ class SinglePosGFDNTrainer(GFDNTrainer):
             host = torch.stack([total] + [aux[k] for k in keys]).tolist()  # one read
             self.train_loss.append(host[0])
             self.individual_train_loss.append(dict(zip(keys, host[1:])))
-            save_checkpoint(cfg.train_dir, epoch, jax_params_from_torch(self.model))
+            if self.writes:
+                save_checkpoint(cfg.train_dir, epoch, jax_params_from_torch(self.model))
             logger.info("epoch %d train %.4f", epoch, self.train_loss[-1])
             if len(self.train_loss) >= 2:
                 if abs(self.train_loss[-2] - self.train_loss[-1]) <= self.early_stop_tol:

@@ -1,5 +1,6 @@
 """Hygiene of the PyTorch port: imports, devices, lint, the chip smoke script."""
 
+import os
 from pathlib import Path
 import subprocess
 import sys
@@ -190,7 +191,9 @@ def test_plain_versions_is_scoped():
 STEP_GRAPH_USERS = ("diffgfdn_torch/training/trainer.py", "diffgfdn_torch/training/scan.py",
                     "diffgfdn_torch/training/spatial_trainer.py",
                     "diffgfdn_torch/training/colorless_trainer.py",
-                    "diffgfdn_torch/parallel/band_parallel.py")
+                    "diffgfdn_torch/parallel/band_parallel.py",
+                    "diffgfdn_torch/parallel/freq_parallel.py",
+                    "diffgfdn_torch/parallel/collectives.py")
 
 
 def test_step_graphs_import_no_jax():
@@ -298,3 +301,55 @@ def test_tool_clis_default_to_cuda_and_raise_without_a_card(tmp_path, monkeypatc
         with pytest.raises(RuntimeError, match="device='cpu'"):
             main(argv)
     assert not list(tmp_path.iterdir())
+
+
+PARALLEL_MODULES = ("diffgfdn_torch.parallel.mesh", "diffgfdn_torch.parallel.collectives",
+                    "diffgfdn_torch.parallel.freq_parallel", "diffgfdn_torch.ops.mxu_fft")
+
+
+def test_sharded_paths_and_rank_workers_import_no_jax():
+    """The mesh, the collectives, the frequency-sharded step and the matmul
+    irfft are among the modules the import check loads; the tests' rank
+    functions (``tests/torch_dist_workers.py``), with every port module they
+    reach, load no JAX either: the spawned ranks never import it."""
+    assert set(PARALLEL_MODULES) <= set(PORT_MODULES)
+    code = ("import sys, importlib\n"
+            "import torch_dist_workers\n"
+            "for name in torch_dist_workers.SPAWN['preload']:\n"
+            "    importlib.import_module(name)\n"
+            f"for name in {PARALLEL_MODULES!r}:\n"
+            "    importlib.import_module(name)\n"
+            "print([m for m in sys.modules if m.split('.')[0] in ('jax', 'diffgfdn_tpu')])\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT / "tests", capture_output=True,
+                         text=True, timeout=120, env={**os.environ, "PYTHONPATH": str(ROOT)})
+    assert out.returncode == 0 and out.stdout.strip() == "[]", out.stderr
+
+
+def test_no_entry_point_chooses_gloo_or_the_cpu_unless_asked(monkeypatch):
+    """``spawn`` and ``init_process_group_from_env`` default to NCCL; the
+    CLIs join a torchrun group over NCCL on their card, and over gloo only
+    with ``--device cpu``."""
+    import inspect
+
+    from diffgfdn_torch.cli import run_model, run_subband_training
+    from diffgfdn_torch.parallel import mesh
+
+    assert inspect.signature(mesh.spawn).parameters["backend"].default == "nccl"
+    assert inspect.signature(mesh.init_process_group_from_env).parameters[
+        "backend"].default == "nccl"
+    chosen = []
+
+    def record(backend="nccl"):
+        chosen.append(backend)
+        raise SystemExit(0)
+
+    monkeypatch.setattr(mesh, "init_process_group_from_env", record)
+    for main, argv in ((run_model.main, ["-c", "single_rir_example"]),
+                       (run_subband_training.main, ["--dataset", "x.pkl", "--band-parallel"])):
+        for device, backend in (("cpu", "gloo"), ("cuda", "nccl")):
+            monkeypatch.setattr("diffgfdn_torch.utils.device.resolve_device",
+                                lambda d, device=device: torch.device(device))
+            with pytest.raises(SystemExit):
+                main(argv + ["--device", device])
+            assert chosen[-1] == backend
+    assert len(chosen) == 4
