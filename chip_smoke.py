@@ -8,6 +8,7 @@ Run from the repository root on a machine with one CUDA card:
     python3 chip_smoke.py --edc-loss
     python3 chip_smoke.py --options
     python3 chip_smoke.py --parallel
+    python3 chip_smoke.py --host-batches
 
 Phases (any failure raises and exits non-zero, with no result line):
 
@@ -298,6 +299,30 @@ Phases (any failure raises and exits non-zero, with no result line):
    over the loss window (1e-5 of the peak; both times), and phase 8's step,
    graphed, with ``use_mxu_fft`` off and on (both step times; the losses
    within 1e-5). ``--parallel`` runs phase 16 alone.
+17. train on batches made on the host (``data/batching.iterate_batches``)
+   through the user entry points ``GFDNTrainer.fit`` and
+   ``BandParallelTrainer.init`` / ``fit``: (a) ``fullband_grid_colorless``
+   and (b) ``three_room_example`` at full width on a 321-receiver synthetic
+   grid (2 s RIRs at 32 kHz; a seeded split of 256 train receivers, 8
+   batches of 32, and 64 valid, 2 batches), one epoch; (c) the 4-band group
+   of phase 7 (one ``init`` from the bands' config seeds, which must give
+   the built models' parameters) on phase 7's 96 receivers, 2 epochs of 3
+   batches. Each kernel's launch count is set to 0 just before the fit and
+   read just after: every kernel of the path must have launched ((c):
+   exactly once a step each of B1, B2, B3, B5, B6), no other. Each part
+   checks: the same fit run eagerly (losses within 1e-6); one host batch on
+   the kernels and on the plain versions (loss 1e-6, gradients 1e-3); the
+   host step graphed and eagerly as in phase 5, with the launches per step
+   (and of the profiled graphed step) exactly ``HOST_STEP`` /
+   ``BAND_STEP_KERNELS``; ``fit`` against ``fit_indexed`` on the same
+   batches, (a) / (b) with precomputed target features, the EDC mask off
+   and the host's early spectra in both (per-epoch losses within 1e-5), (c)
+   across the loss branches (1e-3); one step's EDC and EDR terms on the raw
+   spectra against the features (1e-3). It prints the host-batch step (gather, copy,
+   replay) beside the ``fit_indexed`` step (median of 3 after 2 untimed),
+   the bytes copied a batch with the gather and copy times, and the card's
+   idle share in a profiled host-batch step. ``--host-batches`` runs phase
+   17 alone.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``. ``--kernel-times ROOT``
@@ -978,9 +1003,10 @@ def syncs_raise():
         torch.cuda.set_sync_debug_mode("default")
 
 
-def graphed_vs_eager(label: str, trainer, params: dict, step, log_dir, generator=None) -> dict:
+def graphed_vs_eager(label: str, trainer, params: dict, step, log_dir, generator=None,
+                     kind: str = "train") -> dict:
     """A trainer's step (``step()``, returning the step's loss) through its
-    CUDA graph and eagerly, in one process.
+    CUDA graph (of the step kind ``kind``) and eagerly, in one process.
 
     The step graphs are made anew: a warm-up step and the capture. From one
     state (``params``, Adam's, the schedule's and ``generator``'s), then
@@ -1001,9 +1027,9 @@ def graphed_vs_eager(label: str, trainer, params: dict, step, log_dir, generator
 
     trainer.scan_epochs = True
     trainer.graphs.clear()
-    while trainer.graphs.get("train") is None or not trainer.graphs.get("train").captured:
+    while trainer.graphs.get(kind) is None or not trainer.graphs.get(kind).captured:
         step()
-    graph = trainer.graphs.get("train")
+    graph = trainer.graphs.get(kind)
     state = TrainerState(params, trainer.optimizer, trainer.scheduler, generator)
     runs = {}
     for scan in (True, False):
@@ -5665,6 +5691,343 @@ def parallel(tmp: Path, card: str) -> tuple:
     return result, rows
 
 
+# ----------------------- phase 17: batches made on the host -----------------------
+
+# (a), (b): 321 receivers of 2 s (107 a room); a seeded split of 256 train (8
+# batches of 32, so that fit and fit_indexed see the same batches) and 64 valid
+# (2 batches); one epoch. (c): phase 7's 96 receivers, 2 epochs of 3 batches.
+HOST_RECEIVERS = 321
+HOST_TRAIN = 256
+HOST_VALID = 64
+HOST_EPOCHS = 1
+HOST_BAND_EPOCHS = 2
+HOST_FIT_TOL = 1e-5  # fit vs fit_indexed on the same batches, per epoch, relative
+HOST_BRANCH_TOL = 1e-3  # the raw-spectrum losses vs the feature losses, relative
+HOST_TIMED = 3  # timed host-batch and indexed steps, after 2 untimed
+# the loss terms whose targets the two branches take differently (the colorless
+# terms, which read no target, can dwarf them in the total: ROADMAP C2)
+HOST_TARGET_TERMS = ("edc_loss", "edr_loss")
+# the hand-written kernels of one host-batch step (as of one fit_indexed step)
+HOST_STEP = {"fullband_grid_colorless": {"cinv": 2, "neg_ptgpt": 2, "sos": 2, "sos_backward": 1},
+             "three_room_example": {"cinv": 1, "lu": 1, "lut_apply": 1}}
+
+
+def host_copy_numbers(send, uploader, arrays, idx: np.ndarray) -> dict:
+    """The host gather of one batch (``gather_batch``) and its copy to the
+    card (``send(batch)``, then ``synchronize``): median ms of HOST_TIMED
+    after 2 untimed, and the bytes the copy moved (``uploader.bytes``)."""
+    import torch
+
+    from diffgfdn_torch.data import gather_batch
+
+    gather, copies = [], []
+    for k in range(2 + HOST_TIMED):
+        t0 = time.perf_counter()
+        batch = gather_batch(arrays, idx)
+        t1 = time.perf_counter()
+        send(batch)
+        torch.cuda.synchronize()
+        if k >= 2:
+            gather.append((t1 - t0) * 1e3)
+            copies.append((time.perf_counter() - t1) * 1e3)
+    return {"bytes_a_batch": uploader.bytes, "gather_ms": float(np.median(gather)),
+            "copy_ms": float(np.median(copies))}
+
+
+def epoch_gap(ref, got) -> float:
+    """The largest relative difference of two runs' per-epoch losses (lists
+    of floats, or of per-band arrays)."""
+    ref, got = np.asarray(ref, np.float64), np.asarray(got, np.float64)
+    require(ref.shape == got.shape, f"histories {ref.shape} and {got.shape}")
+    return float(np.max(np.abs(got - ref) / np.abs(ref)))
+
+
+def host_grid(name: str, tmp: Path, log_dir) -> dict:
+    """Phase 17 (a) / (b): ``iterate_batches`` -> ``GFDNTrainer.fit`` at full
+    width for one configuration."""
+    import torch
+
+    from diffgfdn_torch.config import preset_config
+    from diffgfdn_torch.data import arrays_from_room_dataset, gather_batch, iterate_batches
+    from diffgfdn_torch.kernels.dispatch import plain_versions
+    from diffgfdn_torch.training import build_gfdn_model, GFDNTrainer
+
+    cfg = preset_config(name)
+    cfg.trainer_config.max_epochs = HOST_EPOCHS
+    room = make_room(tmp, name, cfg.sample_rate, cfg.trainer_config.num_freq_bins, HOST_RECEIVERS,
+                     folder=f"host_{name}")
+    arrays = arrays_from_room_dataset(room)
+    perm = np.random.RandomState(SEED).permutation(arrays.num_items)
+    train_idx, valid_idx = perm[:HOST_TRAIN], perm[HOST_TRAIN:HOST_TRAIN + HOST_VALID]
+    rng = np.random.RandomState(SEED)  # fit_indexed's batch order for seed SEED
+    perms = [train_idx[rng.permutation(HOST_TRAIN)] for _ in range(HOST_EPOCHS)]
+    t0 = time.perf_counter()
+    arrays.target_early_response, arrays.target_rir_response  # the host's rffts, once
+    spectra_s = time.perf_counter() - t0
+
+    def trainer(tag: str, **trainer_cfg):
+        c = copy.deepcopy(cfg)
+        c.trainer_config.train_dir = str(tmp / f"host_{name}" / tag)
+        for k, v in trainer_cfg.items():
+            setattr(c.trainer_config, k, v)
+        model = build_gfdn_model(c, room.common_decay_times, room.band_centre_hz, device=DEVICE)
+        return GFDNTrainer(model, c.trainer_config, HOST_TRAIN // BATCH,
+                           common_decay_times=room.common_decay_times, sample_rate=c.sample_rate,
+                           device=DEVICE)
+
+    def batches(source):
+        return (lambda e: iterate_batches(source, perms[e], BATCH, shuffle=False),
+                lambda: iterate_batches(source, valid_idx, BATCH, shuffle=False,
+                                        drop_last=False))
+
+    # the main path: fit on host batches without features (the raw spectra)
+    main = trainer("graphed")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    main.fit(*batches(arrays), seed=SEED)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = launch_counts()
+    for kernel in HOST_STEP[name]:
+        require(launches[kernel] > 0, f"host {name}: {kernel} never launched in fit")
+    require(all(launches[k] == 0 for k in launches if k not in HOST_STEP[name]),
+            f"host {name}: kernels off the path launched {launches}")
+    require(len(main.train_loss) == HOST_EPOCHS and bool(np.isfinite(main.train_loss + main.valid_loss).all()),
+            f"host {name}: losses {main.train_loss} {main.valid_loss}")
+    require(any(g.replays for g in main.graphs), f"host {name}: fit replayed no graph")
+    history = {"fit_train_loss": main.train_loss, "fit_valid_loss": main.valid_loss}
+
+    # the same fit eagerly: the graphed fit's losses within GRAPH_LOSS_TOL
+    eager = trainer("eager")
+    eager.scan_epochs = False
+    eager.fit(*batches(arrays), seed=SEED)
+    graph_gap = max(epoch_gap(eager.train_loss, main.train_loss),
+                    epoch_gap(eager.valid_loss, main.valid_loss))
+    require(graph_gap <= GRAPH_LOSS_TOL, f"host {name}: graphed vs eager fit {graph_gap}")
+    del eager
+
+    # one host batch on the kernels and on the plain versions
+    idx = perms[0][:BATCH]
+    sent = main.send(gather_batch(arrays, idx))
+    mask = main.draw_edc_mask(sent["z_values"].shape[0])
+    loss_k, _ = main.loss_and_grads(sent, mask)
+    grads_k = {n: p.grad.clone() for n, p in main.model.named_parameters()}
+    with plain_versions():
+        loss_p, _ = main.loss_and_grads(sent, mask)
+    loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    grad_rel = max(rel_l2(grads_k[n], p.grad) for n, p in main.model.named_parameters())
+    require(loss_rel <= LOSS_TOL and grad_rel <= GRAD_TOL,
+            f"host {name}: kernels vs plain loss {loss_rel}, gradients {grad_rel}")
+
+    # the host step graphed and eagerly, the profiled launches of a graphed step
+    graph = graphed_vs_eager(f"host_{name}", main, dict(main.model.named_parameters()),
+                             lambda: main.host_step(gather_batch(arrays, idx))[0], log_dir,
+                             main.mask_generator, kind="host_train")
+    require(graph["launches_per_step"] == {k: float(v) for k, v in HOST_STEP[name].items()}
+            and graph["graphed_profiled_launches"] == HOST_STEP[name],
+            f"host {name}: launches per step {graph['launches_per_step']}, profiled "
+            f"{graph['graphed_profiled_launches']}")
+    spectra_copy = host_copy_numbers(main.send, main.host_batches, arrays, idx)
+    host_spectra_ms = timed_steps(lambda: main.host_step(gather_batch(arrays, idx)), HOST_TIMED)
+    del main
+
+    # fit and fit_indexed on the same batches, the target features
+    # precomputed and the EDC mask off; fit_indexed takes the host's early
+    # spectra (its own rfft on the card differs from scipy's by rounding)
+    feat_arrays = copy.copy(arrays)  # the same spectra; precomputed features of its own
+    feat = trainer("features", use_edc_mask=False)
+    feat.precompute_target_features(feat_arrays)
+    indexed = trainer("indexed", use_edc_mask=False)
+    indexed.features = feat.features
+    indexed.upload_arrays(arrays)
+    indexed.data["target_early_response"] = torch.as_tensor(arrays.target_early_response,
+                                                            device=DEVICE)
+    feat.fit(*batches(feat_arrays), seed=SEED)
+    indexed.fit_indexed(arrays, train_idx, valid_idx, seed=SEED)
+    fit_gap = max(epoch_gap(indexed.train_loss, feat.train_loss),
+                  epoch_gap(indexed.valid_loss, feat.valid_loss),
+                  *(epoch_gap([d[k] for d in indexed.individual_train_loss],
+                              [d[k] for d in feat.individual_train_loss])
+                    for k in indexed.individual_train_loss[0]))
+    require(fit_gap <= HOST_FIT_TOL, f"host {name}: fit vs fit_indexed {fit_gap}")
+
+    # one step's target terms: the raw spectra against the precomputed features
+    with torch.no_grad():
+        by_spectra = feat._losses(feat.send(gather_batch(arrays, idx)))
+        by_features = feat._losses(feat.send(gather_batch(feat_arrays, idx)))
+    branch_rel = max(abs(float(by_spectra[k]) - float(by_features[k])) / abs(float(by_features[k]))
+                     for k in HOST_TARGET_TERMS)
+    require(branch_rel <= HOST_BRANCH_TOL, f"host {name}: spectra vs features {branch_rel}")
+
+    feature_copy = host_copy_numbers(feat.send, feat.host_batches, feat_arrays, idx)
+    host_feature_ms = timed_steps(lambda: feat.host_step(gather_batch(feat_arrays, idx)),
+                                  HOST_TIMED)
+    idx_dev = torch.as_tensor(idx, device=DEVICE)
+    indexed_ms = timed_steps(lambda: indexed.fit_step(idx_dev), HOST_TIMED)
+    del feat, indexed
+    torch.cuda.empty_cache()
+    return {
+        "config": name, "receivers": arrays.num_items, "train": HOST_TRAIN, "valid": HOST_VALID,
+        "batch": BATCH, "nfft": cfg.trainer_config.num_freq_bins, "epochs": HOST_EPOCHS,
+        "host_spectra_s": spectra_s, "fit_s": run_s, **history,
+        "launches": {k: launches[k] for k in HOST_STEP[name]},
+        "graphed_vs_eager_fit_loss_rel": graph_gap, "step_loss_rel_vs_plain": loss_rel,
+        "max_grad_rel_l2_vs_plain": grad_rel, "fit_vs_fit_indexed_rel": fit_gap,
+        "spectra_vs_features_loss_rel": branch_rel,
+        "host_step_ms_spectra": host_spectra_ms, "host_step_ms_features": host_feature_ms,
+        "indexed_step_ms": indexed_ms,
+        "host_step_ms_spectra_median": float(np.median(host_spectra_ms)),
+        "host_step_ms_features_median": float(np.median(host_feature_ms)),
+        "indexed_step_ms_median": float(np.median(indexed_ms)),
+        "copy_spectra": spectra_copy, "copy_features": feature_copy,
+        **{k: graph[k] for k in ("graphed_step_ms", "eager_step_ms", "graphed_profiled_step_ms",
+                                 "graphed_profiled_device_busy_ms",
+                                 "graphed_profiled_idle_share", "launches_per_step",
+                                 "graphed_profiled_launches", "graph_vs_eager_loss_rel")},
+    }
+
+
+def host_bands(tmp: Path, log_dir) -> dict:
+    """Phase 17 (c): the 4-band subband group of phase 7,
+    ``BandParallelTrainer.init`` then ``fit`` on host batches."""
+    import torch
+
+    from diffgfdn_torch.cli import run_subband_training as rst
+    from diffgfdn_torch.data import arrays_from_room_dataset, gather_batch, iterate_batches
+    from diffgfdn_torch.kernels.dispatch import plain_versions
+    from diffgfdn_torch.parallel import BandParallelTrainer
+    from diffgfdn_torch.training import build_gfdn_model
+    from diffgfdn_torch.training.host_batches import grid_keys
+    from diffgfdn_torch.training.solver import subband_resp
+
+    fs, nfft = SUBBAND_FS, SUBBAND_NFFT
+    room = make_room(tmp, "subband", fs, nfft, folder="host_subband")
+    configs = [rst.create_config(f, str(tmp / "host_subband" / "srirs.pkl"),
+                                 str(tmp / "host_subband" / "train"), nfft, sample_rate=fs,
+                                 max_epochs=HOST_BAND_EPOCHS, batch_size=BATCH)
+               for f in rst.DEFAULT_FREQS]
+    group = max(rst.architecture_groups(configs), key=len)
+    require(len(group) == max(SUBBAND_GROUP_SIZES), f"the largest group has {len(group)} bands")
+    arrays = arrays_from_room_dataset(room)
+    idx_all = np.arange(arrays.num_items)
+    rng = np.random.RandomState(SEED)  # fit_indexed's batch order for seed SEED
+    perms = [idx_all[rng.permutation(len(idx_all))] for _ in range(HOST_BAND_EPOCHS)]
+    steps = len(idx_all) // BATCH
+    seeds = [c.seed for c in group]
+    example = gather_batch(arrays, idx_all[:BATCH])
+
+    def trainer():
+        models = [build_gfdn_model(c, room.common_decay_times, room.band_centre_hz,
+                                   device=DEVICE) for c in group]
+        t = BandParallelTrainer(models, group[0].trainer_config,
+                                np.stack([subband_resp(c) for c in group]), steps,
+                                max_ir_len_ms=float(np.max(room.common_decay_times)) * 1e3,
+                                device=DEVICE)
+        built = {k: v.detach().clone() for k, v in t.params.items()}
+        t.init(example, seeds=seeds)  # each band's config seed: what its model drew
+        require(all(torch.equal(t.params[k], v) for k, v in built.items()),
+                "band init from the configs' seeds differs from the built models")
+        return t
+
+    def batches(e):
+        return iterate_batches(arrays, perms[e], BATCH, shuffle=False)
+
+    main = trainer()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    history = main.fit(batches, seed=SEED)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = launch_counts()
+    fit_steps = HOST_BAND_EPOCHS * steps
+    require({k: v for k, v in launches.items() if v} == {k: fit_steps for k in BAND_STEP_KERNELS},
+            f"host bands: {fit_steps} steps launched {launches}")
+    require(history.shape == (HOST_BAND_EPOCHS, len(group)) and bool(np.isfinite(history).all()),
+            f"host bands: history {history}")
+
+    eager = trainer()
+    eager.scan_epochs = False
+    graph_gap = epoch_gap(eager.fit(batches, seed=SEED), history)
+    require(graph_gap <= GRAPH_LOSS_TOL, f"host bands: graphed vs eager fit {graph_gap}")
+    del eager
+
+    idx = perms[0][:BATCH]
+    sent = main.host_batches(gather_batch(arrays, idx), grid_keys(example))
+    loss_k, _ = main.loss_and_grads(sent)
+    grads_k = {n: p.grad.clone() for n, p in main.params.items()}
+    with plain_versions():
+        loss_p, _ = main.loss_and_grads(sent)
+    loss_rel = float(torch.max(torch.abs(loss_k - loss_p) / torch.abs(loss_p)))
+    grad_rel = max(rel_l2(grads_k[n][b], p.grad[b]) for n, p in main.params.items()
+                   for b in range(len(group)))
+    require(loss_rel <= LOSS_TOL and grad_rel <= GRAD_TOL,
+            f"host bands: kernels vs plain loss {loss_rel}, gradients {grad_rel}")
+
+    graph = graphed_vs_eager("host_subband_4_bands", main, main.params,
+                             lambda: main.step(gather_batch(arrays, idx))[0], log_dir,
+                             main.mask_generator, kind="host_train")
+    require(graph["launches_per_step"] == {k: 1.0 for k in BAND_STEP_KERNELS},
+            f"host bands: launches per step {graph['launches_per_step']}")
+    band_copy = host_copy_numbers(lambda b: main.host_batches(b, grid_keys(b)),
+                                  main.host_batches, arrays, idx)
+    host_ms = timed_steps(lambda: main.step(gather_batch(arrays, idx)), HOST_TIMED)
+
+    # fit_indexed on the same batches takes each band's precomputed target
+    # features; the host batches carry none (the raw spectra times each band's
+    # response): the two branches agree to rounding
+    indexed = trainer()
+    indexed_history = indexed.fit_indexed(arrays, idx_all, None, max_epochs=HOST_BAND_EPOCHS,
+                                          seed=SEED)
+    fit_gap = epoch_gap(indexed_history, history)
+    require(fit_gap <= HOST_BRANCH_TOL, f"host bands: fit vs fit_indexed {fit_gap}")
+    with torch.no_grad():
+        by_spectra = indexed.host_losses(
+            indexed.host_batches(gather_batch(arrays, idx), grid_keys(example)))
+        by_features = indexed.losses(torch.as_tensor(idx, device=DEVICE))
+    branch_rel = max(float(torch.max(torch.abs(by_spectra[k] - by_features[k])
+                                     / torch.abs(by_features[k]))) for k in HOST_TARGET_TERMS)
+    require(branch_rel <= HOST_BRANCH_TOL, f"host bands: spectra vs features {branch_rel}")
+    idx_dev = torch.as_tensor(idx, device=DEVICE)
+    indexed_ms = timed_steps(lambda: indexed.step(idx_dev), HOST_TIMED)
+    del main, indexed
+    torch.cuda.empty_cache()
+    return {
+        "bands_hz": [c.trainer_config.subband_process_config.centre_frequency for c in group],
+        "receivers": arrays.num_items, "epochs": HOST_BAND_EPOCHS, "steps_per_epoch": steps,
+        "fit_s": run_s, "history": history.tolist(),
+        "launches": {k: launches[k] for k in BAND_STEP_KERNELS},
+        "graphed_vs_eager_fit_loss_rel": graph_gap, "step_loss_rel_vs_plain": loss_rel,
+        "max_grad_rel_l2_vs_plain": grad_rel, "fit_vs_fit_indexed_rel": fit_gap,
+        "spectra_vs_features_loss_rel": branch_rel, "host_step_ms": host_ms,
+        "indexed_step_ms": indexed_ms, "host_step_ms_median": float(np.median(host_ms)),
+        "indexed_step_ms_median": float(np.median(indexed_ms)), "copy": band_copy,
+        **{k: graph[k] for k in ("graphed_step_ms", "eager_step_ms", "graphed_profiled_step_ms",
+                                 "graphed_profiled_device_busy_ms",
+                                 "graphed_profiled_idle_share", "launches_per_step",
+                                 "graphed_profiled_launches", "graph_vs_eager_loss_rel")},
+    }
+
+
+def host_batches(tmp: Path, log_dir) -> dict:
+    """Phase 17: the host-batch training entry points at full width, (a)
+    ``fullband_grid_colorless``, (b) ``three_room_example``, (c) the 4-band
+    subband group. Returns each part's numbers."""
+    out = {}
+    for part, name in (("a", "fullband_grid_colorless"), ("b", "three_room_example")):
+        t0 = time.perf_counter()
+        out[part] = host_grid(name, tmp, log_dir)
+        print(f"phase 17 ({part}) in {time.perf_counter() - t0:.1f} s: " + json.dumps(out[part]),
+              flush=True)
+    t0 = time.perf_counter()
+    out["c"] = host_bands(tmp, log_dir)
+    print(f"phase 17 (c) in {time.perf_counter() - t0:.1f} s: " + json.dumps(out["c"]),
+          flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--log-dir", default=None,
@@ -5686,6 +6049,9 @@ def main(argv=None) -> int:
                         help="only build the kernels and run phase 16 (the sharded paths over "
                              "process groups and the matmul irfft); prints its kernel rows; "
                              "no result line")
+    parser.add_argument("--host-batches", action="store_true",
+                        help="only build the kernels and run phase 17 (training on batches "
+                             "made on the host); no result line")
     parser.add_argument("--edc-loss", action="store_true",
                         help="only hold the directional EDC loss against autograd through "
                              "db, time both and print their peak memory as one JSON line "
@@ -5735,6 +6101,15 @@ def main(argv=None) -> int:
             _, parallel_rows = parallel(Path(tmp_name), card)
             print(f"phase 16 in {time.perf_counter() - t0:.1f} s", flush=True)
         print(json.dumps({"kernels": parallel_rows}))
+        return 0
+    if args.host_batches:
+        print(card)
+        t0 = time.perf_counter()
+        print(f"phase 1: built {sorted(_build.build_all())} in {time.perf_counter() - t0:.1f} s")
+        with tempfile.TemporaryDirectory() as tmp_name:
+            t0 = time.perf_counter()
+            host_batches(Path(tmp_name), log_dir)
+            print(f"phase 17 in {time.perf_counter() - t0:.1f} s", flush=True)
         return 0
     if args.tools:
         print(card)
@@ -5885,6 +6260,10 @@ def main(argv=None) -> int:
         rows += parallel_rows
         print(f"phase 16: sharded paths and the matmul irfft in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        host_batches(tmp, log_dir)
+        print(f"phase 17: batches made on the host in {time.perf_counter() - t0:.1f} s",
+              flush=True)
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({

@@ -24,14 +24,18 @@ Each mapping is exactly what ``yaml.safe_load`` returns for its file, so
 * ``spatial_<directional|omni>_<f>Hz`` and ``spatial_directional_1000Hz_cnn``:
   ``configs/presets/spatial/`` (the 17 common-slopes presets).
 
-:func:`preset_library` names the production presets as the JAX package's
-``preset_library`` does; :func:`write_preset_library` writes them as YAML.
+:func:`fullband_grid`, :func:`subband_band`, :func:`directional_band`,
+:func:`spatial_band`, :func:`single_rir_fit` and :func:`synth_grid` are the
+JAX package's preset factories (its names and arguments: the dataset and
+output paths), built on these mappings; :func:`preset_library` names the
+production presets by them as the JAX package's ``preset_library`` does;
+:func:`write_preset_library` writes them as YAML.
 """
 
 import copy
 import functools
 from pathlib import Path
-from typing import Callable, Dict, Union
+from typing import Callable, Dict, Optional, Union
 
 from .schema import DiffGFDNConfig, SpatialSamplingConfig
 
@@ -461,22 +465,123 @@ def spatial_preset_config(name: str, **overrides) -> SpatialSamplingConfig:
     return SpatialSamplingConfig.from_dict(raw)
 
 
+# the JAX package's preset factories: each preset with its dataset and output
+# paths as arguments, returned as the port's config dataclasses
+OCTAVE_BANDS = (63, 125, 250, 500, 1000, 2000, 4000, 8000)
+_SYNTH = "resources/synthetic_dataset"
+
+
+def _with_paths(raw: dict, dataset: str, out: str) -> dict:
+    """``raw`` reading ``dataset``, writing its checkpoints under ``out`` and
+    its audio under ``out/audio``."""
+    raw = copy.deepcopy(raw)
+    raw["room_dataset_path"] = dataset
+    raw["trainer_config"].update(train_dir=f"{out}/", ir_dir=f"{out}/audio/")
+    return raw
+
+
+def fullband_grid(dataset: str = f"{_TREBLE}/srirs.pkl",
+                  out: str = "output/fullband_grid") -> DiffGFDNConfig:
+    """Full-band omni grid training with SVF heads and the colorless loss."""
+    return DiffGFDNConfig.from_dict(_with_paths(FULLBAND_GRID_COLORLESS, dataset, out))
+
+
+def subband_band(freq: float, dataset: str = f"{_TREBLE}/srirs_band_centre={{freq}}Hz.pkl",
+                 out: str = "output/subband") -> DiffGFDNConfig:
+    """One octave band of the 8-band subband training (the subband CLI's
+    ``create_config`` at the presets' widths)."""
+    from ..cli.run_subband_training import create_config
+
+    return create_config(float(freq), dataset.replace("{freq}", f"{freq:.0f}"), out,
+                         num_freq_bins=131072, sample_rate=32000.0, max_epochs=20, batch_size=32)
+
+
+def directional_band(freq: float, grid_resolution_m: float = 0.6,
+                     dataset: str = f"{_TREBLE}/srirs_spatial_band_centre={{freq}}Hz.pkl",
+                     out: str = "output/directional_fdn") -> DiffGFDNConfig:
+    """The directional (SH-domain) FDN of one octave band and grid resolution."""
+    f, res = int(freq), grid_resolution_m
+    return DiffGFDNConfig.from_dict(_with_paths(
+        _directional_preset(f, res), dataset.replace("{freq}", str(f)),
+        f"{out}/band_{f}Hz/grid_resolution={res:.1f}m"))
+
+
+def spatial_band(freq: float, directional: bool = True, cnn: bool = False,
+                 dataset: Optional[str] = None, out: str = "output/spatial_sampling"
+                 ) -> SpatialSamplingConfig:
+    """The common-slopes amplitude model of one octave band: an MLP, or the
+    floor-plan CNN (directional only)."""
+    f = int(freq)
+    kind = "directional" if directional else "omni"
+    if dataset is None:
+        dataset = f"{_TREBLE}/{'srirs_spatial' if directional else 'srirs'}_band_centre={f}Hz.pkl"
+    if cnn and not directional:
+        raise ValueError("the common-slopes CNN presets are directional")
+    raw = copy.deepcopy(SPATIAL_DIRECTIONAL_1000HZ_CNN) if cnn else _spatial_preset(f, directional)
+    raw.update(room_dataset_path=dataset,
+               train_dir=f"{out}/band_{f}Hz_{kind}{'_cnn' if cnn else ''}/")
+    return SpatialSamplingConfig.from_dict(raw)
+
+
+def _variant(presets: Dict[str, dict], family: str, variant: str, dataset_root: str, out: str
+             ) -> DiffGFDNConfig:
+    name = f"{family}_{variant}"
+    if name not in presets:
+        variants = sorted(k[len(family) + 1:] for k in presets)
+        raise ValueError(f"unknown {family} variant {variant!r}; one of {variants}")
+    room = Path(presets[name]["room_dataset_path"]).parent.name
+    return DiffGFDNConfig.from_dict(_with_paths(
+        presets[name], f"{dataset_root}/{room}/bb_wgn_0000.pkl", f"{out}/{variant}"))
+
+
+# the variants in the JAX package's order (its library lists them so)
+SINGLE_RIR_VARIANTS = (
+    "two_stage_colorless_loss", "two_stage_colorless_proto", "two_stage_colorless_loss_pos2",
+    "two_stage_colorless_proto_pos2", "single_room_colorless_loss",
+    "single_room_colorless_proto", "freq_dep_colorless_loss",
+)
+SYNTH_GRID_VARIANTS = (
+    "broadband", "broadband_colorless_loss", "broadband_colorless_proto",
+    "multi_source_colorless_loss", "subband", "subband_colorless_loss", "subband_single_room",
+    "subband_hyp_tuning", "low_rank_proto",
+)
+
+
+def single_rir_fit(variant: str = "two_stage_colorless_loss", dataset_root: str = _SYNTH,
+                   out: str = "output/single_rir") -> DiffGFDNConfig:
+    """A single-RIR fit preset: one of :data:`SINGLE_RIR_VARIANTS`."""
+    return _variant(SINGLE_RIR_PRESETS, "single_rir", variant, dataset_root, out)
+
+
+def synth_grid(variant: str = "broadband", dataset_root: str = _SYNTH,
+               out: str = "output/synth_grid") -> DiffGFDNConfig:
+    """A synthetic-data grid study: one of :data:`SYNTH_GRID_VARIANTS`."""
+    return _variant(SYNTH_PRESETS, "synth", variant, dataset_root, out)
+
+
 # the library: every preset of the JAX package's ``preset_library``, by name
 _LIBRARY_FAMILIES = {"fullband": "fullband", "subband": "subband", "directional": "directional",
                      "spatial": "spatial", "single": "single_rir", "synth": "synth"}
-_NOT_IN_LIBRARY = ("three_room_example", "single_rir_example")  # configs/*.yml, not presets
 
 
 def preset_library() -> Dict[str, Callable[[], Union[DiffGFDNConfig, SpatialSamplingConfig]]]:
     """name -> zero-argument factory of every production preset (the JAX
     package's names: the grid, subband, directional, single-RIR and synth
     presets of :data:`PRESETS` and the 17 common-slopes presets; not the
-    two example configs)."""
-    lib: Dict[str, Callable] = {
-        name: functools.partial(preset_config, name)
-        for name in PRESETS if name not in _NOT_IN_LIBRARY
-    }
-    lib.update({name: functools.partial(spatial_preset_config, name) for name in SPATIAL_PRESETS})
+    two example configs), built by the factories above."""
+    lib: Dict[str, Callable] = {"fullband_grid_colorless": fullband_grid}
+    for f in OCTAVE_BANDS:
+        lib[f"subband_{f}Hz"] = functools.partial(subband_band, float(f))
+        for res in (0.6, 0.9):
+            lib[f"directional_{f}Hz_res{res:.1f}m"] = functools.partial(
+                directional_band, float(f), res)
+        lib[f"spatial_omni_{f}Hz"] = functools.partial(spatial_band, float(f), False)
+        lib[f"spatial_directional_{f}Hz"] = functools.partial(spatial_band, float(f), True)
+    lib["spatial_directional_1000Hz_cnn"] = functools.partial(spatial_band, 1000.0, True, True)
+    for v in SINGLE_RIR_VARIANTS:
+        lib[f"single_rir_{v}"] = functools.partial(single_rir_fit, v)
+    for v in SYNTH_GRID_VARIANTS:
+        lib[f"synth_{v}"] = functools.partial(synth_grid, v)
     return lib
 
 

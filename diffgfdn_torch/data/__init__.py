@@ -7,6 +7,8 @@ from .batching import (
     fixed_test_split,
     gather_batch,
     index_batches,
+    iterate_batches,
+    num_batches,
     train_valid_split,
 )
 from .audio import read_wav, write_wav
@@ -36,6 +38,8 @@ __all__ = [
     "fixed_test_split",
     "gather_batch",
     "index_batches",
+    "iterate_batches",
+    "num_batches",
     "read_wav",
     "generate_spatial_three_room_pickle",
     "generate_three_room_pickle",

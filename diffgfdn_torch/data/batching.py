@@ -1,7 +1,9 @@
 """Batch arrays gathered by receiver index, and the dataset splits (port of ``data/batching.py``).
 
-The splits draw from ``np.random.RandomState`` exactly as the JAX package
-does, so both packages train and validate on the same receivers for a seed.
+The splits and the batch order (:func:`iterate_batches`, the batches of a
+trainer's ``fit``; :func:`index_batches`, their indices) draw from
+``np.random.RandomState`` exactly as the JAX package does, so both packages
+train and validate on the same receivers for a seed.
 """
 
 from typing import Callable, Dict, Iterator, Optional, Tuple, Union
@@ -30,6 +32,10 @@ class BatchArrays:
         mesh_2d: Optional[np.ndarray] = None,  # (L, 2)
         target_early_time: Optional[np.ndarray] = None,  # (R, mixing time) float32
         target_rir_time: Optional[np.ndarray] = None,    # (R, T) float32
+        # per-receiver loss features (target EDC / EDR in dB; numpy, or
+        # tensors on a device), gathered with the batch: a trainer's
+        # precompute_target_features fills them
+        precomputed: Optional[Dict] = None,
     ):
         self.z_values = z_values
         self.source_position = source_position
@@ -46,6 +52,7 @@ class BatchArrays:
         # spectrum and loss feature on the device
         self.target_early_time = target_early_time
         self.target_rir_time = target_rir_time
+        self.precomputed = precomputed
 
     def _spectrum(self, key: str) -> Optional[np.ndarray]:
         value = self._spectra[key]
@@ -106,7 +113,8 @@ def arrays_from_room_dataset(
 
 
 def gather_batch(arrays: BatchArrays, idx: np.ndarray) -> Dict[str, np.ndarray]:
-    """Materialize one batch dict (z values and mesh are shared constants)."""
+    """Materialize one batch dict (z values and mesh are shared constants).
+    Precomputed loss features that live on a device are gathered there."""
     batch = {
         "z_values": arrays.z_values,
         "source_position": arrays.source_position[idx],
@@ -120,6 +128,8 @@ def gather_batch(arrays: BatchArrays, idx: np.ndarray) -> Dict[str, np.ndarray]:
         batch["target_common_slope_amps"] = arrays.target_common_slope_amps[idx]
     if arrays.mesh_2d is not None:
         batch["mesh_2d"] = arrays.mesh_2d
+    for k, v in (arrays.precomputed or {}).items():
+        batch[k] = v[idx]
     return batch
 
 
@@ -153,3 +163,43 @@ def index_batches(
         idx = idx[np.random.RandomState(seed).permutation(len(idx))]
     for k in range(len(idx) // batch_size):
         yield idx[k * batch_size : (k + 1) * batch_size]
+
+
+def iterate_batches(
+    arrays: BatchArrays,
+    indices: np.ndarray,
+    batch_size: int,
+    shuffle: bool = True,
+    drop_last: bool = True,
+    seed: Optional[int] = None,
+    pad_to_batch: bool = False,
+) -> Iterator[Dict[str, np.ndarray]]:
+    """Batches (:func:`gather_batch` dicts) over ``indices``, shuffled by
+    ``np.random.RandomState(seed)`` as the JAX package draws them.
+
+    ``drop_last=True`` keeps every batch the same shape; otherwise the tail
+    is a last, shorter batch, or with ``pad_to_batch`` a full one whose
+    missing items repeat ``indices`` from the start (tiled, so that it fills
+    even when there are fewer indices than ``batch_size``).
+    """
+    idx = np.array(indices)
+    if shuffle:
+        idx = idx[np.random.RandomState(seed).permutation(len(idx))]
+    n = len(idx)
+    num_full = n // batch_size
+    for k in range(num_full):
+        yield gather_batch(arrays, idx[k * batch_size : (k + 1) * batch_size])
+    rem = n - num_full * batch_size
+    if rem and not drop_last:
+        tail = idx[num_full * batch_size :]
+        if pad_to_batch:
+            reps = int(np.ceil((batch_size - rem) / max(n, 1)))
+            tail = np.concatenate([tail, np.tile(idx, reps)[: batch_size - rem]])
+        yield gather_batch(arrays, tail)
+
+
+def num_batches(num_items: int, batch_size: int, drop_last: bool = True) -> int:
+    """The number of batches :func:`iterate_batches` yields."""
+    if drop_last:
+        return num_items // batch_size
+    return int(np.ceil(num_items / batch_size))

@@ -103,6 +103,10 @@ class RIRData:
         return rfftfreq(self.num_freq_bins) * 2 * np.pi
 
     @property
+    def freq_bins_hz(self) -> np.ndarray:
+        return rfftfreq(self.num_freq_bins, d=1.0 / self.sample_rate)
+
+    @property
     def rir_mag_response(self) -> np.ndarray:
         return rfft(self.rir, n=self.num_freq_bins)
 
@@ -153,6 +157,7 @@ class RoomDataset:
         self.grid_spacing_m = grid_spacing_m
         self._eps = 1e-12
         self.num_rec = self.receiver_position.shape[0]
+        self.num_src = self.source_position.shape[0]
         self.rir_length = self.rirs.shape[-1]
         self._rirs32 = np.ascontiguousarray(self.rirs, dtype=np.float32)
         self._lazy = {}
@@ -203,6 +208,10 @@ class RoomDataset:
         return rfftfreq(self.num_freq_bins) * 2 * np.pi
 
     @property
+    def freq_bins_hz(self) -> np.ndarray:
+        return rfftfreq(self.num_freq_bins, d=1.0 / self.sample_rate)
+
+    @property
     def norm_receiver_position(self) -> np.ndarray:
         """Receiver coordinates min-max normalized to [0, 1] per axis."""
         p = self.receiver_position
@@ -216,6 +225,39 @@ class RoomDataset:
             self.receiver_position[:, None, :] - np.atleast_2d(rec_pos_list), axis=2
         )
         return np.argmin(d, axis=0)
+
+    def update_receiver_pos(self, new_receiver_pos: np.ndarray) -> None:
+        self.receiver_position = np.asarray(new_receiver_pos)
+        self.num_rec = self.receiver_position.shape[0]
+
+    def update_rirs(self, new_rirs: np.ndarray) -> None:
+        """Replace the RIRs; the float32 copy is remade and the cached
+        spectra and splits of the old RIRs are dropped."""
+        self.rirs = np.asarray(new_rirs)
+        self.rir_length = self.rirs.shape[-1]
+        self._rirs32 = np.ascontiguousarray(self.rirs, dtype=np.float32)
+        self._lazy = {}
+
+    def save_individual_irs(self, directory: Union[str, Path], filename_prefix: str = "ir"
+                            ) -> None:
+        """Write each RIR as a wav file named by its receiver's position (and
+        its source's, when the dataset has several sources)."""
+        from .audio import write_wav
+
+        directory = Path(directory)
+        directory.mkdir(parents=True, exist_ok=True)
+        for src_idx in range(self.num_src):
+            for rec_idx in range(self.num_rec):
+                rp = self.receiver_position[rec_idx]
+                if self.num_src > 1:
+                    sp = self.source_position[src_idx]
+                    name = (f"{filename_prefix}_src_pos=({sp[0]:.2f}, {sp[1]:.2f}, {sp[2]:.2f})"
+                            f"_rec_pos=({rp[0]:.2f}, {rp[1]:.2f}, {rp[2]:.2f}).wav")
+                    rir = self.rirs[src_idx, rec_idx]
+                else:
+                    name = f"{filename_prefix}_({rp[0]:.2f}, {rp[1]:.2f}, {rp[2]:.2f}).wav"
+                    rir = self.rirs[rec_idx]
+                write_wav(directory / name, rir, self.sample_rate)
 
     def get_2d_meshgrid(self) -> Meshgrid:
         """Union of per-room uniform floor-plan grids."""

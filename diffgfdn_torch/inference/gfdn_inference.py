@@ -14,8 +14,8 @@ their reconstructing filterbank (:func:`infer_all_octave_bands`; directional
 band models into broadband SH-domain SRIRs,
 :func:`infer_all_octave_bands_directional`), or compared with the measured
 RIRs' EDCs on the card without any RIR reaching the host
-(:func:`broadband_edc_errors_device`). Their time-domain synthesis and
-merge are not ported yet (ROADMAP A11).
+(:func:`broadband_edc_errors_device`). Their time-domain synthesis is not
+offered: the JAX package's lacks the band's energy compensation.
 
 Models with source heads (``variant="var_source_receiver"``) serve RIRs
 at the dataset's source and receiver positions, one model or one per
@@ -43,6 +43,7 @@ from ..kernels.tdgfdn import (
 )
 from ..models import (
     DiffDirectionalFDNVarReceiverPos,
+    DiffGFDNSinglePos,
     DiffGFDNVarReceiverPos,
     DiffGFDNVarSourceReceiverPos,
 )
@@ -127,7 +128,9 @@ def make_time_domain_synthesis_fn(
     ``batch`` holds ``listener_position`` and ``norm_listener_position`` (B,
     3) on the model's device. A :class:`DiffGFDNVarSourceReceiverPos`
     raises ``ValueError``: the JAX package's synthesis of it leaves out the
-    source heads (ROADMAP C17).
+    source heads (ROADMAP C17). So does a :class:`DiffGFDNSinglePos`: the
+    JAX package's synthesis reads heads that model does not have and fails
+    (ROADMAP C22). Any other model raises ``TypeError``.
     """
     directional = isinstance(model, DiffDirectionalFDNVarReceiverPos)
     if isinstance(model, DiffGFDNVarSourceReceiverPos):
@@ -136,9 +139,16 @@ def make_time_domain_synthesis_fn(
             "the loop with the input gains alone and leaves out the source heads, so its "
             "RIRs depart from the model's own frequency path (ROADMAP C17)"
         )
+    if isinstance(model, DiffGFDNSinglePos):
+        raise ValueError(
+            "time-domain synthesis of DiffGFDNSinglePos: the JAX package's reads the model's "
+            "output_scalars / output_filters, which this model does not have, and fails "
+            "(ROADMAP C22)"
+        )
     if not (directional or isinstance(model, DiffGFDNVarReceiverPos)):
-        raise NotImplementedError(
-            f"time-domain synthesis of {type(model).__name__} is not ported yet (ROADMAP A10)"
+        raise TypeError(
+            f"time-domain synthesis of {type(model).__name__}: supported are "
+            "DiffGFDNVarReceiverPos and DiffDirectionalFDNVarReceiverPos"
         )
     fl = model.feedback_loop
     nper = model.num_delay_lines_per_group

@@ -30,6 +30,22 @@ def scaled_sigmoid(x: torch.Tensor, lower: float, upper: float) -> torch.Tensor:
     return lower + (upper - lower) * sigmoid(x)
 
 
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """log(1 + e^x), always positive (as the JAX package writes it)."""
+    return torch.log1p(torch.exp(x))
+
+
+def scaled_softplus(x: torch.Tensor, lower: float, upper: float) -> torch.Tensor:
+    """Softplus squashed into (lower, upper)."""
+    sp = softplus(x)
+    return lower + (upper - lower) * sp / (1.0 + sp)
+
+
+def tan_sigmoid(x: torch.Tensor, scale_factor: float = 1.0) -> torch.Tensor:
+    """tan(pi / 2 * sigmoid(x)): positive, unbounded above."""
+    return torch.tan(np.pi * sigmoid(scale_factor * x) * 0.5)
+
+
 class SinusoidalEncoding(nn.Module):
     """Fourier-feature position encoding.
 

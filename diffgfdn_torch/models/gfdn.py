@@ -20,6 +20,7 @@ rFFT bins at once.
 when the colorless loss is on, so serving never computes it.
 """
 
+import inspect
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -75,7 +76,23 @@ class DiffGFDN(nn.Module):
     (the optimizer and the checkpoints do not see them), and ``M`` starts at
     the prototypes' optima. The coupling and absorption arguments go to
     :class:`FeedbackLoop`.
+
+    A model keeps the arguments it was built with, so that
+    :meth:`redrawn` can build its twin with parameters drawn anew.
     """
+
+    def __new__(cls, *args, **kwargs):
+        model = super().__new__(cls)
+        model.__dict__["init_args"] = (args, kwargs)  # before nn.Module's own state
+        return model
+
+    def redrawn(self, generator: torch.Generator) -> "DiffGFDN":
+        """A model built as this one was, on the CPU, its parameters drawn
+        from ``generator`` (what ``build_gfdn_model`` would build with a
+        generator of another seed)."""
+        bound = inspect.signature(type(self)).bind(*self.init_args[0], **self.init_args[1])
+        bound.arguments["generator"] = generator
+        return type(self)(*bound.args, **bound.kwargs)
 
     def __init__(
         self,

@@ -7,6 +7,8 @@
   built, never inside the forward pass.
 """
 
+from typing import List, Tuple
+
 import numpy as np
 import torch
 
@@ -35,6 +37,21 @@ def decay_times_to_gain_per_sample(common_decay_times, delay_length_samp, fs: fl
     t = np.asarray(common_decay_times, dtype=np.float32)
     d = np.asarray(delay_length_samp, dtype=np.float32)
     return np.power(np.float32(10.0), -3.0 * d / (fs * t))
+
+
+def absorption_to_gain_per_sample(room_dims: Tuple, absorption_coeff: float,
+                                  delay_length_samp: List[int], fs: float
+                                  ) -> Tuple[float, np.ndarray]:
+    """(Sabine T60 of a room with a uniform absorption coefficient, each delay
+    line's gain per sample for it); 2-D ``room_dims`` take the perimeter."""
+    volume = float(np.prod(room_dims))
+    if len(room_dims) == 3:
+        area = 2.0 * (room_dims[0] * room_dims[1] + room_dims[1] * room_dims[2]
+                      + room_dims[2] * room_dims[0])
+    else:
+        area = 2.0 * (room_dims[0] + room_dims[1])
+    rt60 = 0.161 * volume / (area * absorption_coeff)
+    return rt60, db2lin_np(-60.0 * np.asarray(delay_length_samp) / (fs * rt60))
 
 
 def decay_times_to_gain_filters_geq(

@@ -2,8 +2,11 @@
 
 * :func:`svf_to_biquad` — state-variable-filter parameters -> biquad
   coefficients for whole cascades at once (torch, batched);
-* the host numpy designers the GEQ fit needs, and the host cascade response
+* the host numpy designers (the GEQ fit's shelving and peaking sections,
+  RBJ lowpass / highpass / bandpass), and the host cascade response
   :func:`sos_response_np` of the subband filters' Butterworth design;
+* :func:`biquad_freqz` / :func:`sosfreqz` — cascade responses on the rFFT
+  bins from the coefficients' rFFTs (torch, on the caller's device);
 * :func:`iir_frequency_response` — direct-form IIR responses at complex
   points (the warped-Prony absorption filters), Horner in z^-1, complex64.
 
@@ -138,6 +141,42 @@ def peak_filter_np(
     return b, a
 
 
+def lowpass_filter_np(fc: float, fs: float, gain_db: float = 0.0
+                      ) -> Tuple[np.ndarray, np.ndarray]:
+    """RBJ lowpass biquad coefficients."""
+    omega = 2.0 * np.pi * fc / fs
+    alpha = np.sin(omega) / 2.0 * np.sqrt(2.0)
+    c = np.cos(omega)
+    b = np.array([(1 - c) / 2, 1 - c, (1 - c) / 2]) * 10 ** (gain_db / 20)
+    a = np.array([1 + alpha, -2 * c, 1 - alpha])
+    return b, a
+
+
+def highpass_filter_np(fc: float, fs: float, gain_db: float = 0.0
+                       ) -> Tuple[np.ndarray, np.ndarray]:
+    """RBJ highpass biquad coefficients."""
+    omega = 2.0 * np.pi * fc / fs
+    alpha = np.sin(omega) / 2.0 * np.sqrt(2.0)
+    c = np.cos(omega)
+    b = np.array([(1 + c) / 2, -(1 + c), (1 + c) / 2]) * 10 ** (gain_db / 20)
+    a = np.array([1 + alpha, -2 * c, 1 - alpha])
+    return b, a
+
+
+def bandpass_filter_np(fc1: float, fc2: float, fs: float, gain_db: float = 0.0
+                       ) -> Tuple[np.ndarray, np.ndarray]:
+    """RBJ constant-skirt bandpass biquad between two corner frequencies."""
+    w1 = 2.0 * np.pi * fc1 / fs
+    w2 = 2.0 * np.pi * fc2 / fs
+    omega = (w1 + w2) / 2.0
+    bw_oct = np.log2(fc2 / fc1)
+    alpha = np.sin(omega) * np.sinh(np.log(2.0) / 2.0 * bw_oct * omega / np.sin(omega))
+    c = np.cos(omega)
+    b = np.array([alpha, 0.0, -alpha]) * 10 ** (gain_db / 20)
+    a = np.array([1 + alpha, -2 * c, 1 - alpha])
+    return b, a
+
+
 def iir_frequency_response(
     num: torch.Tensor, den: torch.Tensor, z: torch.Tensor, eps: float = 1e-9,
     dtype: torch.dtype = torch.complex64,
@@ -159,6 +198,27 @@ def iir_frequency_response(
         hnum = hnum * zinv + n[..., i, None]
         hden = hden * zinv + d[..., i, None]
     return hnum / (hden + eps)
+
+
+def biquad_freqz(b: torch.Tensor, a: torch.Tensor, nfft: int) -> torch.Tensor:
+    """Cascade response on the ``nfft`` rFFT bins from the rFFTs of the
+    coefficients: ``b`` / ``a`` (3, n_sections), or (3,) for one section,
+    on the caller's device."""
+    if b.dim() < 2:
+        b = b[:, None]
+    if a.dim() < 2:
+        a = a[:, None]
+    num = torch.fft.rfft(b, nfft, dim=0)
+    den = torch.fft.rfft(a, nfft, dim=0)
+    return torch.prod(num, dim=1) / torch.prod(den, dim=1)
+
+
+def sosfreqz(sos: torch.Tensor, nfft: int = 512) -> torch.Tensor:
+    """Cascade response on the ``nfft`` rFFT bins from (n_sections, 6)
+    second-order sections, on the caller's device."""
+    num = torch.fft.rfft(sos[:, :3], nfft, dim=-1)
+    den = torch.fft.rfft(sos[:, 3:], nfft, dim=-1)
+    return torch.prod(num, dim=0) / torch.prod(den, dim=0)
 
 
 def sos_response_np(sos: np.ndarray, freqs_hz: np.ndarray, fs: float) -> np.ndarray:

@@ -36,6 +36,15 @@ output heads are the sequential trainer's (:func:`edr_options`,
 :func:`reg_length`): one filterbank and one set of weights for all bands of
 the group, the target features grouped alike.
 
+Besides ``fit_indexed`` (the dataset uploaded once, batches gathered on the
+card), the JAX trainer's host-batch entry points: :meth:`BandParallelTrainer.init`
+redraws every band's parameters from its own seed and resets Adam;
+:meth:`BandParallelTrainer.step` takes a batch made on the host
+(``data/batching.iterate_batches``), sent up as ``training/host_batches.py``
+sends it, and each band's loss compares H times the band's response with the
+batch's raw target spectrum times the same response (JAX's loss without
+features); :meth:`BandParallelTrainer.fit` runs epochs of such steps.
+
 Over a (band, batch) grid of ranks (``mesh``, ``parallel/mesh.py``; by
 default ``make_mesh(num_bands)`` over the initialized process group, as the
 JAX trainer's default mesh):
@@ -54,7 +63,7 @@ JAX trainer's default mesh):
 """
 
 import logging
-from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -63,6 +72,7 @@ from torch import nn
 from ..config.schema import TrainerConfig
 from ..losses import edc_mask
 from ..ops.basic import ms_to_samps
+from ..training.host_batches import grid_keys, HostBatches, MODEL_KEYS
 from ..training.optim import make_optimizer
 from ..training.scan import GraphedSteps
 from ..training.trainer import (
@@ -99,9 +109,30 @@ class _BandLoss(nn.Module):
 
     def forward(self, batch: Batch, feats: Batch, band_resp: torch.Tensor,
                 mask: Optional[torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The band's weighted losses on ``batch`` against ``feats``, its
+        target features (empty: the batch's own features, or without them its
+        raw target spectrum times ``band_resp``)."""
+        batch = {**batch, **feats}
+        if "target_edc_db" not in batch:
+            batch["target_rir_response"] = batch["target_rir_response"] * band_resp
         with self.model.feedback_loop.sharing_orthogonal_blocks():
-            return gfdn_losses(self.model, self.cfg, {**batch, **feats}, *self.windows,
+            return gfdn_losses(self.model, self.cfg, batch, *self.windows,
                                band_resp, mask, shard=self.shard, **self.options)
+
+
+def make_band_loss_fn(model: nn.Module, cfg: TrainerConfig, sample_rate: float,
+                      max_ir_len_ms: float, edr_win: int, edr_hop: int,
+                      erb_filters: Optional[torch.Tensor] = None,
+                      freq_weights: Optional[torch.Tensor] = None) -> _BandLoss:
+    """One band's loss as a module over ``model`` (the JAX package's
+    ``make_band_loss_fn``): ``loss(batch, feats, band_resp, mask)`` gives
+    {name: weighted loss} of EDC from 20 ms to ``max_ir_len_ms`` and EDR
+    (ERB-grouped / weighted when given), the aliasing regularizer of SVF
+    output heads when the config uses it, and the colorless terms, on H times
+    ``band_resp``."""
+    return _BandLoss(model, cfg, ms_to_samps(20.0, sample_rate),
+                     ms_to_samps(max_ir_len_ms, sample_rate), edr_win, edr_hop, erb_filters,
+                     freq_weights, reg_length(cfg, model, sample_rate))
 
 
 def _stack(models: Sequence[nn.Module], named: Callable, device: torch.device
@@ -145,6 +176,7 @@ class BandParallelTrainer(GraphedSteps):
         self.mesh = mesh if mesh is not None else make_mesh(self.num_bands)
         self.bands = band_slice(self.num_bands, self.mesh)
         models = list(models)[self.bands]
+        self._redraw = [m.redrawn for m in models]  # init's parameter draws
         self.params = {
             k: nn.Parameter(v)
             for k, v in _stack(models, nn.Module.named_parameters, self.device).items()
@@ -167,15 +199,15 @@ class BandParallelTrainer(GraphedSteps):
         self.max_ir_len_samps = ms_to_samps(max_ir_len_ms, sample_rate)
         self.erb_filters, self.freq_weights = edr_options(cfg, sample_rate, self.edr_win,
                                                           self.device)
-        self._loss = _BandLoss(self.model, cfg, self.mixing_time_samps, self.max_ir_len_samps,
-                               self.edr_win, self.edr_hop, self.erb_filters, self.freq_weights,
-                               reg_length(cfg, self.model, sample_rate))
+        self._loss = make_band_loss_fn(self.model, cfg, sample_rate, max_ir_len_ms, self.edr_win,
+                                       self.edr_hop, self.erb_filters, self.freq_weights)
         self._band_losses = torch.func.vmap(self._one_band, in_dims=(0, 0, 0, 0, None, None))
         self.init_graphs(self.device)
         self.optimizer, self.scheduler = make_optimizer(cfg, self, self.steps_per_epoch)
         self._stopped = {(False,) * self.num_bands: torch.zeros(
             self.bands.stop - self.bands.start, dtype=torch.bool, device=self.device)}
         self.mask_generator = torch.Generator(device=self.device).manual_seed(0)
+        self.host_batches = HostBatches(self.device)
         self.band_feats: Optional[Batch] = None
         self.data: Optional[Batch] = None
         self.train_loss: List[np.ndarray] = []
@@ -190,6 +222,30 @@ class BandParallelTrainer(GraphedSteps):
         """True on the rank that writes the checkpoints of its bands: batch
         rank 0 of its band rank."""
         return self.mesh.batch_index == 0
+
+    @torch.no_grad()
+    def init(self, example_batch: Dict, seed: int = 0, seeds: Optional[Sequence[int]] = None
+             ) -> Dict[str, nn.Parameter]:
+        """Draw every band's parameters anew and reset the optimizer: band b
+        from a ``torch.Generator`` seeded with ``seeds[b]`` (each band's own
+        config seed gives what ``build_gfdn_model`` draws for it), by default
+        with seeds drawn from ``seed``. ``example_batch`` (a host batch) must
+        hold the bands' z. Returns the band-stacked parameters (bands, ...)."""
+        num_bins = np.shape(example_batch["z_values"])[0]
+        if num_bins != self.band_responses.shape[-1]:
+            raise ValueError(f"the example batch has {num_bins} bins, the band responses "
+                             f"{self.band_responses.shape[-1]}")
+        if seeds is None:
+            seeds = torch.randint(2 ** 31 - 1, (self.num_bands,),
+                                  generator=torch.Generator().manual_seed(seed)).tolist()
+        if len(seeds) != self.num_bands:
+            raise ValueError(f"{len(seeds)} seeds for {self.num_bands} bands")
+        drawn = [redraw(torch.Generator().manual_seed(int(s)))
+                 for redraw, s in zip(self._redraw, list(seeds)[self.bands])]
+        for k, v in _stack(drawn, nn.Module.named_parameters, self.device).items():
+            self.params[k].copy_(v)
+        self.optimizer, self.scheduler = make_optimizer(self.cfg, self, self.steps_per_epoch)
+        return self.params
 
     @torch.no_grad()
     def load_band_params(self, state: Dict[str, torch.Tensor]) -> None:
@@ -224,21 +280,34 @@ class BandParallelTrainer(GraphedSteps):
         return self._band_losses(self.params, self.buffers, self.band_responses,
                                  self.gather_feats(idx), self.gather(shard.local(idx)), mask)
 
-    def _edc_mask(self) -> Optional[torch.Tensor]:
+    def _edc_mask(self, num_bins: Optional[int] = None) -> Optional[torch.Tensor]:
         if not self.cfg.use_edc_mask:
             return None
-        n = 2 * (self.data["z_values"].shape[0] - 1)
+        n = 2 * ((self.data["z_values"].shape[0] if num_bins is None else num_bins) - 1)
         length = min(self.max_ir_len_samps, n) - self.mixing_time_samps
         return edc_mask(length, self.mask_generator, self.device)
 
-    def loss_and_grads(self, idx: torch.Tensor, mask: Optional[torch.Tensor] = None
+    def host_losses(self, batch: Batch, mask: Optional[torch.Tensor] = None
+                    ) -> Dict[str, torch.Tensor]:
+        """Each of this rank's bands' weighted losses on a sent host batch
+        (the whole batch: its targets, and its model inputs of which the
+        model sees this rank's block): {name: (bands,)}."""
+        shard = self.batch_shard(batch["listener_position"].shape[0])
+        self._loss.shard = None if shard.trivial else shard
+        local = {k: shard.local(v) if k in MODEL_KEYS else v for k, v in batch.items()}
+        return self._band_losses(self.params, self.buffers, self.band_responses, {}, local,
+                                 mask)
+
+    def loss_and_grads(self, idx: Union[torch.Tensor, Batch],
+                       mask: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """Zero the gradients, then each band's total loss (bands,) and the
-        backward of their sum: ``.grad`` of each stacked parameter holds every
-        band's own gradient."""
+        """Zero the gradients, then each band's total loss (bands,) on the
+        receivers ``idx`` (or a sent host batch) and the backward of their
+        sum: ``.grad`` of each stacked parameter holds every band's own
+        gradient."""
         for p in self.params.values():
             p.grad = None
-        losses = self.losses(idx, mask)
+        losses = self.host_losses(idx, mask) if isinstance(idx, dict) else self.losses(idx, mask)
         totals = sum(losses.values())
         totals.sum().backward()
         if self.mesh.distributed:
@@ -257,6 +326,11 @@ class BandParallelTrainer(GraphedSteps):
                 p.copy_(torch.where(keep.view(-1, *([1] * (p.dim() - 1))), before[k], p))
         return totals, aux
 
+    def _host_train_step(self, mask: Optional[torch.Tensor], keep: torch.Tensor,
+                         **batch: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The step closure of a host batch, as :meth:`_train_step`."""
+        return self._train_step(batch, mask, keep)
+
     def _valid_step(self, idx: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
         """The validation closure: each band's total loss (bands,), no gradient."""
         with torch.no_grad():
@@ -272,20 +346,28 @@ class BandParallelTrainer(GraphedSteps):
             self._stopped[stopped] = torch.tensor(stopped[self.bands], device=self.device)
         return self._stopped[stopped]
 
-    def step(self, idx: torch.Tensor, active: Optional[np.ndarray] = None,
+    def step(self, batch: Union[torch.Tensor, Dict], active: Optional[np.ndarray] = None,
              mask: Optional[torch.Tensor] = None
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """One optimizer step of every band on the receivers ``idx`` (a device
-        tensor), graphed with ``scan_epochs``. ``active`` (bands,) 0/1: a band
-        at 0 keeps its parameters exactly, while its Adam moments advance as
-        the JAX trainer's do. ``mask``: the EDC time mask (None draws one
-        when the config uses it). Returns the device-resident per-band losses
-        (no host sync; with ``scan_epochs`` on the card, valid until the next
-        step)."""
-        if mask is None:
-            mask = self._edc_mask()
-        out = self.run_step("train", self._train_step, idx=idx, mask=mask,
-                            keep=self.stopped_bands(active))
+        """One optimizer step of every band, graphed with ``scan_epochs`` (one
+        graph a batch shape). ``batch``: the receivers' indices into the
+        uploaded data (a device tensor, :meth:`fit_indexed`'s steps), or a
+        batch made on the host (a dict, as ``iterate_batches`` yields it),
+        sent to the device first. ``active`` (bands,) 0/1: a band at 0 keeps
+        its parameters exactly, while its Adam moments advance as the JAX
+        trainer's do. ``mask``: the EDC time mask (None draws one when the
+        config uses it). Returns the device-resident per-band losses (no host
+        sync; with ``scan_epochs`` on the card, valid until the next step)."""
+        keep = self.stopped_bands(active)
+        if isinstance(batch, dict):
+            data = self.host_batches(batch, grid_keys(batch))
+            if mask is None:
+                mask = self._edc_mask(data["z_values"].shape[0])
+            out = self.run_step("host_train", self._host_train_step, mask=mask, keep=keep, **data)
+        else:
+            if mask is None:
+                mask = self._edc_mask()
+            out = self.run_step("train", self._train_step, idx=batch, mask=mask, keep=keep)
         self.scheduler.step()
         return out
 
@@ -396,6 +478,25 @@ class BandParallelTrainer(GraphedSteps):
             if valid_batches and not active.any():
                 break
         return np.stack(self.train_loss)
+
+    def fit(self, train_batches: Callable[[int], Iterable[Dict]],
+            max_epochs: Optional[int] = None, seed: int = 0) -> np.ndarray:
+        """Epochs of :meth:`step` on the host batches ``train_batches(epoch)``
+        (every band active, no validation, as the JAX trainer's ``fit``);
+        returns each epoch's mean loss of every band (epochs, bands). The EDC
+        masks come from ``mask_generator`` seeded with ``seed``; the host
+        reads the device once an epoch."""
+        self.mask_generator.manual_seed(seed)
+        history = []
+        for epoch in range(max_epochs or self.cfg.max_epochs):
+            total, n = 0.0, 0
+            for batch in train_batches(epoch):
+                loss, _ = self.step(batch)
+                total, n = total + loss, n + 1
+            if n == 0:
+                raise ValueError(f"train_batches({epoch}) gave no batch")
+            history.append(self._all_bands((total / n)[None]).cpu().numpy()[0])
+        return np.stack(history)
 
     def _all_bands(self, rows: torch.Tensor) -> torch.Tensor:
         """(k, bands of this rank) -> (k, bands of the group), gathered over

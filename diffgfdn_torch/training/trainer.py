@@ -47,6 +47,15 @@ colorless loss is on, the step evaluates the sub-FDN inverse once for both
 (it depends on M alone, not on the gains), as the JAX trainer's two
 evaluations give the same values.
 
+:meth:`GFDNTrainer.fit` is the JAX trainer's other entry point: it takes
+batches that the caller makes on the host (``data/batching.iterate_batches``)
+and sends each to the device before its step (``training/host_batches.py``);
+its steps, validation batches, normalization, histories, checkpoints and
+early stopping are JAX ``fit``'s, its steps graphed as ``fit_indexed``'s
+(one graph a batch shape). A batch that carries precomputed target features
+(``BatchArrays.precomputed``, filled by :meth:`precompute_target_features`)
+takes the features' losses, one without them the raw target spectrum's.
+
 A single-position fit (:class:`SinglePosGFDNTrainer`) uploads its one
 full-spectrum batch once and compares raw spectra each step, as JAX's
 trainer does for a batch without precomputed features.
@@ -57,10 +66,11 @@ Each step's gradients run through the hand-written backward kernels: B2
 the scalar heads' and the directional model's ``drive``.
 """
 
+import itertools
 import logging
 import os
 import time
-from typing import Dict, Iterable, List, Optional, Tuple, Union
+from typing import Callable, Dict, Iterable, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -81,6 +91,7 @@ from .checkpoints import (
     save_checkpoint,
     save_opt_state,
 )
+from .host_batches import grid_keys, HostBatches
 from .optim import load_optimizer_state, make_optimizer
 from .scan import GraphedSteps
 
@@ -313,6 +324,15 @@ def target_rirs(arrays, nfft: int, device: torch.device) -> torch.Tensor:
     return torch.nn.functional.pad(rirs[:, :nfft], (0, max(0, nfft - rirs.shape[1])))
 
 
+def _accumulate(sums: Dict, split: str, total: torch.Tensor, aux: Dict[str, torch.Tensor]
+                ) -> None:
+    """Add a batch's total and each loss to ``sums`` on the device, keyed
+    (split, loss name), the total under (split, None). New tensors: a step
+    graph's outputs are overwritten by its next replay."""
+    for k, v in [(None, total), *aux.items()]:
+        sums[(split, k)] = v.clone() if (split, k) not in sums else sums[(split, k)] + v
+
+
 class GFDNTrainer(GraphedSteps):
     """Trainer for position-conditioned (grid) GFDNs.
 
@@ -376,6 +396,7 @@ class GFDNTrainer(GraphedSteps):
         self.init_graphs(self.device)
         self.scheduler = None
         self.mask_generator = torch.Generator(device=self.device).manual_seed(0)
+        self.host_batches = HostBatches(self.device)
 
     # ----------------------------- loss assembly -----------------------------
 
@@ -420,31 +441,53 @@ class GFDNTrainer(GraphedSteps):
         total.backward()
         return total.detach(), {k: v.detach() for k, v in losses.items()}
 
-    def draw_edc_mask(self) -> Optional[torch.Tensor]:
+    def draw_edc_mask(self, num_bins: Optional[int] = None) -> Optional[torch.Tensor]:
         """A step's EDC time mask from ``mask_generator`` when the config
-        uses one, else None."""
+        uses one, else None; at ``num_bins`` bins (default: the uploaded z's)."""
         if not self.cfg.use_edc_mask:
             return None
-        return edc_mask(self.edc_mask_length(self.data["z_values"].shape[0]),
-                        self.mask_generator, self.device)
+        if num_bins is None:
+            num_bins = self.data["z_values"].shape[0]
+        return edc_mask(self.edc_mask_length(num_bins), self.mask_generator, self.device)
 
-    def _train_step(self, idx: Optional[torch.Tensor], mask: Optional[torch.Tensor]
-                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """The step closure: the per-step normalization of scalar heads, then
-        the loss, its backward and the optimizer step on the gathered batch."""
+    def _step_on(self, batch: Batch, mask: Optional[torch.Tensor]
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The per-step normalization of scalar heads (from the batch's z),
+        then the loss, its backward and the optimizer step on ``batch``."""
         sub_inverse = None
         if not self.model.use_svf_in_output:
-            sub_inverse = self._normalize_params(keep_inverse=self.cfg.use_colorless_loss)
-        total, aux = self.loss_and_grads(self.gather(idx), mask, sub_inverse)
+            sub_inverse = self._normalize_params(keep_inverse=self.cfg.use_colorless_loss,
+                                                 z=batch["z_values"])
+        total, aux = self.loss_and_grads(batch, mask, sub_inverse)
         self.optimizer.step()
         return total, aux
 
+    def _valid_on(self, batch: Batch, mask: Optional[torch.Tensor]
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The total and each loss of ``batch``, no gradient."""
+        with torch.no_grad():
+            losses = self._losses(batch, mask)
+        return sum(losses.values()), losses
+
+    def _train_step(self, idx: Optional[torch.Tensor], mask: Optional[torch.Tensor]
+                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The step closure of :meth:`fit_indexed`: one step on the gathered batch."""
+        return self._step_on(self.gather(idx), mask)
+
     def _valid_step(self, idx: torch.Tensor, mask: Optional[torch.Tensor]
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """The validation closure: the total and each loss of one batch, no gradient."""
-        with torch.no_grad():
-            losses = self._losses(self.gather(idx), mask)
-        return sum(losses.values()), losses
+        """The validation closure of :meth:`fit_indexed`."""
+        return self._valid_on(self.gather(idx), mask)
+
+    def _host_train_step(self, mask: Optional[torch.Tensor], **batch: torch.Tensor
+                         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The step closure of :meth:`fit`: one step on the sent batch."""
+        return self._step_on(batch, mask)
+
+    def _host_valid_step(self, mask: Optional[torch.Tensor], **batch: torch.Tensor
+                         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The validation closure of :meth:`fit`."""
+        return self._valid_on(batch, mask)
 
     def fit_step(self, idx: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """One step of :meth:`fit_indexed` on the receivers ``idx`` (a device
@@ -463,13 +506,41 @@ class GFDNTrainer(GraphedSteps):
         ``scan_epochs`` (:meth:`run_valid`)."""
         return self.run_valid(self._valid_step, batch_size, idx=idx, mask=self.draw_edc_mask())
 
+    def host_keys(self, batch: Dict) -> Tuple[str, ...]:
+        """The entries of a host batch that a step reads, besides the shared
+        ones: the model's inputs and the losses' targets."""
+        return grid_keys(batch)
+
+    def send(self, batch: Dict) -> Batch:
+        """A host batch's shared entries and :meth:`host_keys` on the device."""
+        return self.host_batches(batch, self.host_keys(batch))
+
+    def host_step(self, batch: Dict) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """One step of :meth:`fit` on a host batch (numpy, as
+        ``iterate_batches`` yields it), graphed with ``scan_epochs`` (one
+        graph a batch shape), then the schedule's step. Returns the
+        device-resident losses, as :meth:`fit_step`."""
+        data = self.send(batch)
+        mask = self.draw_edc_mask(data["z_values"].shape[0])
+        out = self.run_step("host_train", self._host_train_step, mask=mask, **data)
+        self.scheduler.step()
+        return out
+
+    def host_valid_step(self, batch: Dict) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The losses of a host validation batch (total, {name: loss}),
+        graphed with ``scan_epochs``."""
+        data = self.send(batch)
+        mask = self.draw_edc_mask(data["z_values"].shape[0])
+        return self.run_step("host_valid", self._host_valid_step, mask=mask, **data)
+
     # ----------------------- device-resident data path -----------------------
 
     @torch.no_grad()
     def precompute_target_features(self, arrays, chunk: int = 32) -> None:
         """Target EDC (dB) after truncation, target EDR (dB) and its |.| sum per
         receiver, computed once on the device from the time-domain RIRs (zero
-        padded or cut to nfft) and kept there."""
+        padded or cut to nfft) and kept there; ``arrays.precomputed`` holds
+        them too, so that ``gather_batch`` adds them to host batches."""
         rirs = target_rirs(arrays, 2 * (arrays.z_values.shape[0] - 1), self.device)
         chunks = [
             target_features(rirs[k : k + chunk], self.mixing_time_samps, self.max_ir_len_samps,
@@ -477,6 +548,7 @@ class GFDNTrainer(GraphedSteps):
             for k in range(0, rirs.shape[0], chunk)
         ]
         self.features = {k: torch.cat([c[k] for c in chunks]) for k in chunks[0]}
+        arrays.precomputed = self.features  # host batches gather them on the device
         self.data = None
 
     @torch.no_grad()
@@ -509,10 +581,12 @@ class GFDNTrainer(GraphedSteps):
                 "matrix has none: the JAX trainer cannot train this model either "
                 "(ROADMAP C16)")
 
-    def _normalize_params(self, keep_inverse: bool = False) -> Optional[torch.Tensor]:
+    def _normalize_params(self, keep_inverse: bool = False, z: Optional[torch.Tensor] = None
+                          ) -> Optional[torch.Tensor]:
         """Scale b and c so each sub-FDN has unit average energy: divide each
-        group's io gains by E[|H_sub_g|^2]^(1/4), in place. A no-op returning
-        None when the io gains are fixed (a colorless warm start), as in JAX.
+        group's io gains by E[|H_sub_g|^2]^(1/4) over the bins ``z`` (default:
+        the uploaded z), in place. A no-op returning None when the io gains
+        are fixed (a colorless warm start), as in JAX.
 
         ``keep_inverse``: evaluate the sub-FDN inverse with its autograd graph
         and return it, for the step's colorless loss to reuse (the gains
@@ -521,7 +595,7 @@ class GFDNTrainer(GraphedSteps):
         if self.model.io_gains_fixed:
             return None
         self._require_sub_fdns()
-        z = sub_fdn_bins(self.model, self.data["z_values"])
+        z = sub_fdn_bins(self.model, self.data["z_values"] if z is None else z)
         with torch.set_grad_enabled(keep_inverse):
             p = self.model.sub_fdn_inverse(z)
         with torch.no_grad():
@@ -648,6 +722,71 @@ class GFDNTrainer(GraphedSteps):
         logger.info("training time: %.3fs", time.time() - start)
         return self.model
 
+    def fit(
+        self,
+        train_batches: Callable[[int], Iterable[Dict]],
+        valid_batches: Callable[[], Iterable[Dict]],
+        seed: int = 0,
+    ) -> torch.nn.Module:
+        """Epoch loop over batches made on the host; returns the trained model.
+
+        ``train_batches(epoch)`` and ``valid_batches()`` return fresh
+        iterables of batch dicts (``data/batching.iterate_batches``). As the
+        JAX trainer's ``fit``: a new optimizer; a checkpoint before the first
+        epoch and after each; the io gains normalized from the batch's z before
+        every step for scalar heads, before each epoch's first step for SVF
+        heads; the epoch's losses the mean over its batches (validation
+        included); early stopping only after a validation pass. The EDC masks
+        come from ``mask_generator`` seeded with ``seed``. The host reads the
+        device once an epoch.
+        """
+        cfg = self.cfg
+        if not self.model.io_gains_fixed:
+            self._require_sub_fdns()
+        self.optimizer, self.scheduler = make_optimizer(cfg, self.model, self.steps_per_epoch)
+        self.mask_generator.manual_seed(seed)
+        save_checkpoint(cfg.train_dir, -1, jax_params_from_torch(self.model))
+        start = time.time()
+        for epoch in range(cfg.max_epochs):
+            ep_start = time.time()
+            batches = iter(train_batches(epoch))
+            first = next(batches, None)
+            if first is not None and self.model.use_svf_in_output:
+                self._normalize_params(z=self.host_batches.shared("z_values", first["z_values"]))
+            sums, n_train = {}, 0
+            for batch in itertools.chain([first], batches) if first is not None else ():
+                total, aux = self.host_step(batch)
+                _accumulate(sums, "train", total, aux)
+                n_train += 1
+            n_valid = 0
+            for batch in valid_batches():
+                total, aux = self.host_valid_step(batch)
+                _accumulate(sums, "valid", total, aux)
+                n_valid += 1
+            keys = list(sums)  # the epoch's one read of device values
+            host = dict(zip(keys, torch.stack([sums[k] for k in keys]).tolist())) if keys else {}
+            for split, n, total_list, each_list in (
+                    ("train", n_train, self.train_loss, self.individual_train_loss),
+                    ("valid", n_valid, self.valid_loss, self.individual_valid_loss)):
+                total_list.append(host[(split, None)] / n if n else 0.0)
+                each_list.append({k: v / n for (s, k), v in host.items()
+                                  if s == split and k is not None})
+            save_checkpoint(cfg.train_dir, epoch, jax_params_from_torch(self.model))
+            logger.info("epoch %d train %.4f valid %.4f (%.2fs)", epoch, self.train_loss[-1],
+                        self.valid_loss[-1], time.time() - ep_start)
+            # without a validation pass valid_loss holds 0.0, which must not
+            # trip early stopping
+            if n_valid > 0 and len(self.valid_loss) >= 2:
+                if abs(self.valid_loss[-2] - self.valid_loss[-1]) <= self.early_stop_tol:
+                    self._early_stop += 1
+                else:
+                    self._early_stop = 0
+            if self._early_stop == self.patience:
+                logger.info("early stopping at epoch %d", epoch)
+                break
+        logger.info("training time: %.3fs", time.time() - start)
+        return self.model
+
     # ------------------------------ IR export --------------------------------
 
     def save_irs(
@@ -696,6 +835,10 @@ class DirectionalGFDNTrainer(GFDNTrainer):
     def precompute_target_features(self, arrays, chunk: int = 32) -> None:
         """No target feature: the targets are the common-slope amplitudes."""
         self.features, self.data = {}, None
+
+    def host_keys(self, batch: Dict) -> Tuple[str, ...]:
+        """The positions and common-slope amplitudes of a host batch."""
+        return ("listener_position", "norm_listener_position", "target_common_slope_amps")
 
     @torch.no_grad()
     def upload_arrays(self, arrays) -> Batch:
@@ -783,10 +926,11 @@ class SinglePosGFDNTrainer(GFDNTrainer):
         return self.data
 
     @torch.no_grad()
-    def _normalize_params(self, keep_inverse: bool = False) -> Optional[torch.Tensor]:
+    def _normalize_params(self, keep_inverse: bool = False, z: Optional[torch.Tensor] = None
+                          ) -> Optional[torch.Tensor]:
         """The sub-FDN normalization, then the energy match of the io scalars:
         both divided by (E|H|^2 / E|target|^2)^(1/4), in place."""
-        super()._normalize_params()
+        super()._normalize_params(z=z)
         model = self.model
         if model.use_svf_in_output or model.use_svf_in_input:
             return None

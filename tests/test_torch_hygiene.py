@@ -119,6 +119,49 @@ def test_single_position_and_colorless_entry_points_default_to_cuda(tmp_path):
     assert not (tmp_path / "train").exists()
 
 
+# the upload of the host-batch entry points: the import check above must load it
+HOST_BATCH_MODULES = ("diffgfdn_torch.training.host_batches",)
+
+
+def test_host_batch_entry_points_default_to_cuda(tmp_path):
+    """``GFDNTrainer.fit`` and ``BandParallelTrainer.fit`` run on their
+    trainer's device: without a card the default raises before any step, and
+    ``device="cpu"`` trains one epoch of host batches."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card: the default device is valid here")
+    from diffgfdn_torch.config import preset_config
+    from diffgfdn_torch.data import (
+        arrays_from_room_dataset,
+        iterate_batches,
+        synthetic_three_room_dataset,
+    )
+    from diffgfdn_torch.parallel import BandParallelTrainer
+    from diffgfdn_torch.training import build_gfdn_model, GFDNTrainer
+
+    assert set(HOST_BATCH_MODULES) <= set(PORT_MODULES)
+    cfg = preset_config("three_room_example", sample_rate=8000.0, num_delay_lines=6)
+    tc = cfg.trainer_config
+    tc.train_dir, tc.max_epochs, tc.batch_size, tc.num_freq_bins = str(tmp_path / "t"), 1, 2, 512
+    room = synthetic_three_room_dataset(tmp_path, nfft=512, num_rec_per_room=1, rir_len_s=0.05)
+    model = build_gfdn_model(cfg, room.common_decay_times, device="cpu")
+    resp = np.ones((1, 257), np.complex64)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        GFDNTrainer(model, tc, 1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        BandParallelTrainer([model], tc, resp, 1)
+    arrays = arrays_from_room_dataset(room)
+
+    def batches(epoch):
+        return iterate_batches(arrays, np.arange(3), 2, seed=epoch)
+
+    trainer = GFDNTrainer(model, tc, 1, common_decay_times=room.common_decay_times,
+                          device="cpu")
+    trainer.fit(batches, lambda: iterate_batches(arrays, np.arange(1), 2, drop_last=False))
+    assert len(trainer.train_loss) == 1 and np.isfinite(trainer.train_loss[0])
+    band = BandParallelTrainer([model], tc, resp, 1, device="cpu")
+    assert band.fit(batches).shape == (1, 1)
+
+
 def test_port_is_lint_clean():
     sys.path.insert(0, str(ROOT / "tools"))
     import lint

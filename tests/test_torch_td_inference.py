@@ -151,7 +151,9 @@ def test_directional_models_raise_naming_the_roadmap_item(tmp_path):
     """The directional model synthesizes (test_torch_directional_inference.py);
     the source-and-receiver model raises ``ValueError`` naming ROADMAP C17
     (JAX's synthesis of it leaves out the source heads:
-    test_torch_var_source.py); a model of no ported kind raises naming A10."""
+    test_torch_var_source.py); a model of no supported kind raises
+    ``TypeError`` naming the supported ones (the single-position model's
+    ``ValueError``, C22, is in test_torch_library_remainder.py)."""
     raw = raw_config(tmp_path, False, nfft=NUM_SAMPLES, batch=BATCH)
     _, port_room = rooms(tmp_path, False, NUM_SAMPLES)
     model = build_gfdn_model(DiffGFDNConfig.from_dict(raw), port_room.common_decay_times,
@@ -162,7 +164,8 @@ def test_directional_models_raise_naming_the_roadmap_item(tmp_path):
     class UnportedModel(torch.nn.Module):
         pass
 
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+    with pytest.raises(TypeError, match="supported are DiffGFDNVarReceiverPos and "
+                       "DiffDirectionalFDNVarReceiverPos"):
         make_time_domain_synthesis_fn(UnportedModel(), NUM_SAMPLES)
 
 

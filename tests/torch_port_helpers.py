@@ -6,6 +6,7 @@ parameters (carried into the port by diffgfdn_torch.utils.params).
 """
 
 import numpy as np
+import pytest
 
 FS = 8000.0
 BANDS = [250.0, 500.0, 1000.0, 2000.0]
@@ -402,3 +403,16 @@ def single_pos_models(raw, tmp_path, colorless_params=None):
                              colorless_params=colorless_params)
     load_jax_params(model, params)
     return jcfg, jmodel, params, model, batch, rir
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread for a module of small CPU fits (restored after it):
+    on tensors of a few thousand bins the thread pool costs more than it
+    saves, and far more beside the other test workers on the same cores."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
