@@ -9,6 +9,7 @@ Run from the repository root on a machine with one CUDA card:
     python3 chip_smoke.py --options
     python3 chip_smoke.py --parallel
     python3 chip_smoke.py --host-batches
+    python3 chip_smoke.py --examples
 
 Phases (any failure raises and exits non-zero, with no result line):
 
@@ -323,6 +324,22 @@ Phases (any failure raises and exits non-zero, with no result line):
    the bytes copied a batch with the gather and copy times, and the card's
    idle share in a profiled host-batch step. ``--host-batches`` runs phase
    17 alone.
+18. run the README's walkthrough and the notebook studies through the port's
+   ``diffgfdn_torch/examples/``: (a) the walkthrough's steps 1-5 at its own
+   sizes (dataset, colorless warm start and scalar-head grid training,
+   checkpoint inference, the two-band subband CLI, the binaural render; the
+   animation needs matplotlib and is left out), every artifact written and
+   the RIRs finite; (b) each study's compute function at its ``main``
+   defaults and the conclusion ``tests/test_examples.py`` asserts (the
+   colorless study from the JAX package's own draw, its seed-0 torch draw
+   printed; the amplitude study's GMM by the EM fallback where sklearn is
+   absent, held to the EM's result, ROADMAP C25); (c) every launch count
+   set to 0 before each part and read after it: each kernel of
+   ``EXAMPLE_KERNELS`` must have launched, no other; (d) each kernel against
+   its plain version at every input shape a part gave it (B1, B2, B5, B6,
+   B7 bit for bit; B7's plan printed), and the new shapes timed beside
+   their bound, plain version and library call; (e) each part's wall time.
+   ``--examples`` runs phase 18 alone.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``. ``--kernel-times ROOT``
@@ -6028,6 +6045,429 @@ def host_batches(tmp: Path, log_dir) -> dict:
     return out
 
 
+# ---------------- phase 18: the walkthrough and the notebook studies ----------------
+
+# the kernels each part of phase 18 launches, and no other: the walkthrough's
+# colorless warm start (B1 / B2 on the 2-line prototypes) and its scalar-head
+# grid training (B5 / B6); its inference (B5); the subband CLI's two bands
+# (the colorless loss's B1 / B2, the scalar heads' B5 / B6; the synthetic
+# dataset's scalar absorption builds no SOS filters: no B3 / B4); the
+# binaural render (no kernel); the studies
+EXAMPLE_KERNELS = {
+    "walkthrough_train": ("cinv", "neg_ptgpt", "lu", "lut_apply"),
+    "walkthrough_infer": ("lu",),
+    "walkthrough_subband": ("cinv", "neg_ptgpt", "lu", "lut_apply"),
+    "walkthrough_render": (),
+    "loss_surface": ("cinv",),
+    "fdn_colouration": ("cinv",),
+    "fadein_study": ("tdgfdn",),
+    "low_rank_study": ("tdgfdn",),
+    "colorless_output_study": ("cinv", "neg_ptgpt"),
+    "check_edr_loss": (),
+    "cs_amplitude_study": (),
+    "room_geometry_study": (),
+    "compare_flops": (),
+}
+# the kernels held and timed at each part's new launch shapes (the largest
+# recorded call of each; B7 at the study's first N-line call)
+EXAMPLE_ROWS = (("loss_surface", "cinv"), ("fdn_colouration", "cinv"),
+                ("fadein_study", "tdgfdn"), ("low_rank_study", "tdgfdn"),
+                ("walkthrough_train", "cinv"), ("walkthrough_train", "neg_ptgpt"),
+                ("walkthrough_train", "lu"), ("walkthrough_train", "lut_apply"),
+                ("walkthrough_subband", "lu"), ("walkthrough_subband", "lut_apply"),
+                ("colorless_output_study", "cinv"), ("colorless_output_study", "neg_ptgpt"))
+# the JAX package's colorless study draws each group's prototype from
+# PRNGKey(g) (``ColorlessFDN.init``, examples/colorless_output_study.py);
+# these are those draws (tests/test_torch_examples.py holds them to JAX), so
+# that the card trains the reference's own start. The port's torch.Generator
+# draw at seed 0 misses the study's conclusion in its second and third groups, as
+# JAX's own draws at seeds 2-4 do (ROADMAP C25): it is trained and printed too
+COLORLESS_JAX_INIT = (
+    {"input_gains": [-0.21192875504493713, -1.057873010635376, -1.092886209487915,
+                     0.1063445508480072],
+     "output_gains": [0.05087786912918091, -0.12233859300613403, -0.11316075921058655,
+                      -1.348760724067688],
+     "random_feedback_matrix": [
+         -0.18820416927337646, 0.3959047794342041, 0.3980250358581543, 0.1735067367553711,
+         -0.28652775287628174, -0.3049508333206177, 0.24836599826812744, -0.17970573902130127,
+         -0.10865139961242676, 0.16720151901245117, 0.3165961503982544, -0.2682422399520874,
+         0.4457317590713501, 0.42637574672698975, 0.4308100938796997, 0.44273459911346436]},
+    {"input_gains": [0.5624796152114868, -0.09593465924263, 0.5806792378425598,
+                     0.2702077627182007],
+     "output_gains": [-0.5155810713768005, -0.8035312294960022, 0.17861109972000122,
+                      -1.033357858657837],
+     "random_feedback_matrix": [
+         0.14834284782409668, -0.4831491708755493, 0.20190834999084473, -0.19254803657531738,
+         -0.3190140724182129, -0.44324052333831787, 0.16093730926513672, 0.25077521800994873,
+         -0.21328258514404297, -0.28577184677124023, 0.19192492961883545, -0.0800391435623169,
+         -0.47819340229034424, 0.3037172555923462, -0.3712574243545532, 0.33035099506378174]},
+    {"input_gains": [-0.39993515610694885, -0.27035731077194214, -1.4117337465286255,
+                     -1.041123628616333],
+     "output_gains": [-0.8695033192634583, 0.012001723051071167, 0.32459431886672974,
+                      0.20632871985435486],
+     "random_feedback_matrix": [
+         -0.09675300121307373, 0.3425283432006836, 0.30464422702789307, 0.4670071601867676,
+         0.4485654830932617, 0.1441594362258911, -0.3529895544052124, 0.05073404312133789,
+         0.29665040969848633, -0.3250093460083008, -0.4065239429473877, 0.30273449420928955,
+         -0.2782045602798462, 0.39159250259399414, -0.3321995735168457, 0.24555933475494385]},
+)
+# the colouration study at tests/test_examples.py's size, where its conclusion
+# (the filterbank sum decays within 2 dB of the top band alone) is drawn, and
+# at its main default; there the top band's decay over the window (-82 to -87
+# dB in float64) sits at float32's rounding floor, where the 2 dB gap is
+# rounding in every float32 run (ROADMAP C25): the plain sum's excess is held
+COLOURATION_NFFTS = (8192, 16384)
+# the EM fallback of fit_gmm (the card's image has no sklearn) assigns 113 of
+# the 180 receivers to their room, in both packages (ROADMAP C25); sklearn's
+# mixture more than 0.85 of them, the study's conclusion
+CS_EM_ACCURACY = 113 / 180
+
+
+def colorless_jax_init() -> list:
+    """:data:`COLORLESS_JAX_INIT` as the JAX parameter trees (numpy) that
+    ``load_jax_params`` takes."""
+    return [{"params": {
+        "feedback_loop": {"random_feedback_matrix": np.asarray(
+            g["random_feedback_matrix"], np.float32).reshape(4, 4)},
+        "input_gains": np.asarray(g["input_gains"], np.float32).reshape(4, 1),
+        "output_gains": np.asarray(g["output_gains"], np.float32).reshape(4, 1),
+    }} for g in COLORLESS_JAX_INIT]
+
+
+def _signature(args) -> tuple:
+    return tuple(tuple(a.shape) if hasattr(a, "shape") else a for a in args)
+
+
+@contextlib.contextmanager
+def recorded_launches(store: dict):
+    """Within the block each counted kernel wrapper is replaced by one that
+    counts its launches from 0 (the kernel's own count, which lands on the
+    replacement; a replayed graph adds its captured counts to it too) and
+    keeps a copy of the inputs of its first eager call at each distinct
+    shape, ``store[name][signature]``. Yields a function that reads the
+    counts."""
+    import torch
+
+    from diffgfdn_torch.kernels import cinv, counted_wrappers, lu, sos, tdgfdn
+
+    patched = [(cinv, "cinv"), (cinv, "neg_ptgpt"), (sos, "sos_cascade_response"),
+               (sos, "sos_cascade_backward"), (lu, "lu_solve"), (lu, "lut_apply"),
+               (tdgfdn, "delay_line_outputs")]
+    names = {id(fn): name for name, fn in counted_wrappers().items()}
+    originals = [getattr(mod, attr) for mod, attr in patched]
+
+    def recorder(fn, name):
+        def wrapped(*args):
+            calls = store.setdefault(name, {})
+            sig = _signature(args)
+            if sig not in calls and not torch.cuda.is_current_stream_capturing():
+                calls[sig] = tuple(a.detach().clone() if torch.is_tensor(a) else a
+                                   for a in args)
+            return fn(*args)
+        wrapped.launches = 0
+        return wrapped
+
+    for (mod, attr), fn in zip(patched, originals):
+        setattr(mod, attr, recorder(fn, names[id(fn)]))
+    try:
+        yield lambda: {name: fn.launches for name, fn in counted_wrappers().items()}
+    finally:
+        for (mod, attr), fn in zip(patched, originals):
+            setattr(mod, attr, fn)
+
+
+def example_part(label: str, fn, parts: dict, inputs: dict):
+    """Run ``fn()`` as the phase-18 part ``label`` with every launch count
+    at 0 and the kernels' inputs recorded; every kernel of
+    :data:`EXAMPLE_KERNELS` ``[label]`` must have launched, no other.
+    Returns ``fn()``'s result; notes the part's wall time and launches."""
+    import torch
+
+    store = {}
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with recorded_launches(store) as counts:
+        out = fn()
+        if DEVICE == "cuda":
+            torch.cuda.synchronize()
+        launches = {k: v for k, v in counts().items() if v}
+    wall = time.perf_counter() - t0
+    expect = EXAMPLE_KERNELS[label]
+    require(set(launches) == set(expect),
+            f"phase 18 {label}: launched {launches}, expected each of {expect} and no other")
+    parts[label] = {"wall_s": wall, "launches": launches}
+    inputs[label] = store
+    print(f"phase 18 {label} in {wall:.2f} s: launches {launches}", flush=True)
+    return out
+
+
+def example_kernel_checks(inputs: dict) -> dict:
+    """Phase 18 (d): each kernel against its plain version on the card at
+    every input shape a part recorded: B1, B2, B5, B6 and B7 bit for bit,
+    B3 / B4 within 1e-4 of the largest value. Returns {(part, kernel):
+    (largest signature, max abs error)}."""
+    import torch
+
+    from diffgfdn_torch.kernels import counted_wrappers, tdgfdn
+    from diffgfdn_torch.kernels.dispatch import plain_versions
+
+    wrappers = counted_wrappers()
+    limit = tdgfdn.shared_memory_limit(torch.device(DEVICE))
+    out = {}
+    for part, store in inputs.items():
+        for name, calls in store.items():
+            for sig, args in calls.items():
+                got = wrappers[name](*args)
+                with plain_versions():
+                    ref = wrappers[name](*args)
+                got = got if isinstance(got, tuple) else (got,)
+                ref = ref if isinstance(ref, tuple) else (ref,)
+                if name in ("sos", "sos_backward"):
+                    err = max(rel_err(a, b) for a, b in zip(got, ref))
+                    require(err <= KERNEL_TOL, f"phase 18 {part} {name} {sig}: rel err {err}")
+                    differ = None
+                else:
+                    differ = sum(int((a != b).sum()) for a, b in zip(got, ref))
+                    require(differ == 0, f"phase 18 {part} {name} {sig}: {differ} elements "
+                            "differ from the plain version")
+                err = max(float(torch.max(torch.abs(a - b).to(torch.float64)))
+                          for a, b in zip(got, ref) if a.is_floating_point() or a.is_complex())
+                plan = ""
+                if name == "tdgfdn":
+                    plan = f", plan {tdgfdn.kernel_plan(args[0], limit)}"
+                print(f"phase 18 (d) {part} {name} {sig}: elements differing from plain "
+                      f"{differ}, max abs err {err:.3e}{plan}")
+                size = int(np.prod(args[-1].shape)) if name != "tdgfdn" else len(args[0])
+                key = (part, name)
+                if key not in out or size > out[key][2]:
+                    out[key] = (sig, err, size)
+    return {k: v[:2] for k, v in out.items()}
+
+
+def example_row(part: str, name: str, args, launches: int, err: float, store: dict) -> dict:
+    """A kernel row of phase 18 at one recorded input (``timed_row``)."""
+    import torch
+
+    from diffgfdn_torch.kernels import counted_wrappers, tdgfdn
+    from diffgfdn_torch.kernels.dispatch import plain_versions
+
+    fn = counted_wrappers()[name]
+
+    def plain():
+        with plain_versions():
+            return fn(*args)
+
+    replaces = {"cinv": ("cinv.cu", "diffgfdn_tpu/kernels/pallas_cinv.py:34"),
+                "neg_ptgpt": ("cinv.cu", "diffgfdn_tpu/kernels/pallas_cinv.py:146"),
+                "lu": ("lu.cu", "diffgfdn_tpu/kernels/pallas_lu.py:46"),
+                "lut_apply": ("lu.cu", "diffgfdn_tpu/kernels/pallas_lu.py:142"),
+                "tdgfdn": ("tdgfdn.cu", "diffgfdn_tpu/kernels/tdgfdn.py:167")}
+    source, site = replaces[name]
+    library, kernel_call = None, (lambda: fn(*args))
+    if name == "cinv":
+        (m,) = args
+        cost, shape = cinv_cost(m.shape[0], m.shape[1]), m.shape
+        library = lambda: torch.linalg.inv(m)  # noqa: E731
+    elif name == "neg_ptgpt":
+        p, g = args
+        cost, shape = neg_ptgpt_cost(p.shape[0], p.shape[1]), p.shape
+        library = lambda: -(p.mH @ g @ p.mH)  # noqa: E731
+    elif name == "lu":
+        m, b = args
+        cost, shape = lu_cost(m.shape[0], m.shape[1]), m.shape
+        library = lambda: torch.linalg.solve(m, b.unsqueeze(-1))  # noqa: E731
+    elif name == "lut_apply":
+        _, _, g = args
+        cost, shape = lut_apply_cost(g.shape[0], g.shape[1]), g.shape
+        # the factored systems: the part's B5 input with as many systems
+        systems = [a[0] for a in store.get("lu", {}).values() if a[0].shape[0] == g.shape[0]]
+        if systems:
+            m = systems[0]
+            library = lambda: torch.linalg.solve(m.mH, g.unsqueeze(-1))  # noqa: E731
+    else:
+        delays, gains, a, b, u = args
+        cost, shape = tdgfdn_cost(u.shape[0], len(delays)), (u.shape[0], len(delays))
+        kernel_call = bare_tdgfdn(tdgfdn, delays, gains, a, b, u)
+    row = timed_row(name, source, site, launches, err, lambda: fn(*args), plain, kernel_call,
+                    cost, library, shape)
+    row["part"] = part
+    return row
+
+
+def example_conclusions(tmp: Path, parts: dict, inputs: dict) -> dict:
+    """Phase 18 (b): each study's compute function at its ``main`` defaults
+    on the card, and the conclusion ``tests/test_examples.py`` asserts."""
+    import importlib.util
+
+    from diffgfdn_torch.examples import (check_edr_loss, colorless_output_study, compare_flops,
+                                         cs_amplitude_study, fadein_study, fdn_colouration,
+                                         loss_surface, low_rank_study, room_geometry_study)
+
+    res = {}
+    g, edc, edr, prod = example_part("loss_surface", lambda: loss_surface.compute_surfaces(
+        device=DEVICE), parts, inputs)
+    require(bool(np.isfinite(edc).all() and np.isfinite(edr).all()), "loss surface: not finite")
+    i, j = np.unravel_index(np.argmin(edc), edc.shape)
+    mirror = abs(edc[len(g) - 1 - i, len(g) - 1 - j] - edc[i, j])
+    require(abs(g[i] * g[j] - prod) < 0.15 and mirror < 1e-3,
+            f"loss surface: valley at {g[i] * g[j]} (true {prod}), mirror off by {mirror}")
+    res["loss_surface"] = {"grid": int(len(g)), "argmin_product": float(g[i] * g[j]),
+                           "mirror_db": float(mirror)}
+
+    fs = 32000.0
+    responses = example_part("fdn_colouration", lambda: {
+        nfft: fdn_colouration.band_responses(nfft, fs, device=DEVICE)
+        for nfft in COLOURATION_NFFTS}, parts, inputs)
+    res["fdn_colouration"] = {}
+    for nfft, (centres, h_bands, w_bands, _) in responses.items():
+        freqs = np.fft.rfftfreq(nfft, d=1.0 / fs)
+        top = w_bands[-1]
+        d_plain = fdn_colouration.band_decay_db(h_bands.sum(0), top, nfft, fs)
+        d_filt = fdn_colouration.band_decay_db((w_bands * h_bands).sum(0), top, nfft, fs,
+                                               undo_delay_samps=2 ** 11)
+        d_ref = fdn_colouration.band_decay_db(h_bands[-1], top, nfft, fs)
+        sel = (freqs >= centres[0]) & (freqs <= fs / 2 * 0.9)
+        colour = fdn_colouration.colouration_db(h_bands.sum(0), freqs, centres[0], fs / 2 * 0.9)
+        require(d_plain > d_filt + 3.0 and (nfft != 8192 or abs(d_filt - d_ref) < 2.0),
+                f"colouration at nfft {nfft}: decays plain {d_plain}, filtered {d_filt}, "
+                f"top band {d_ref}")
+        require(bool(np.allclose(np.abs(w_bands.sum(0))[sel], 1.0, atol=0.1))
+                and bool(np.isfinite(colour)), "colouration: the bank does not reconstruct")
+        res["fdn_colouration"][nfft] = {
+            "decay_plain_db": float(d_plain), "decay_filtered_db": float(d_filt),
+            "decay_top_band_db": float(d_ref), "colouration_db": colour}
+
+    fs, t60s = 16000.0, (0.25, 0.9)
+    t, rirs, analytic, t0, u = example_part(
+        "fadein_study", lambda: fadein_study.synthesize_cases(fs=fs, device=DEVICE),
+        parts, inputs)
+    d = 3.0 * np.log(10) / np.asarray(t60s)
+    w = 0.2 / np.sqrt(abs(d[1] - d[0]))
+    got, got_ss = rirs["uncoupled, +/- taps"], rirs["uncoupled, same-sign taps"]
+    err_pm = float(np.max(np.abs(got - w * (np.exp(-d[0] * t) - np.exp(-d[1] * t)) * u))
+                   / np.max(np.abs(got)))
+    err_ss = float(np.max(np.abs(got_ss - 0.35 * (np.exp(-d[0] * t) + np.exp(-d[1] * t)) * u))
+                   / np.max(np.abs(got_ss)))
+    win = int(0.01 * fs)
+    pk_pm = float(t[np.argmax(fadein_study.envelope_db(got, win))] - t0)
+    pk_ss = float(t[np.argmax(fadein_study.envelope_db(got_ss, win))] - t0)
+    require(err_pm < 1e-3 and err_ss < 1e-3, f"fade-in: identities off by {err_pm}, {err_ss}")
+    require(pk_pm > pk_ss + 0.01 and 0 < np.argmax(analytic) < len(t) - 1,
+            f"fade-in: envelope peaks {pk_pm} (+/-), {pk_ss} (same sign)")
+    res["fadein_study"] = {"identity_err_pm": err_pm, "identity_err_same_sign": err_ss,
+                           "peak_pm_s": pk_pm, "peak_same_sign_s": pk_ss}
+
+    lr = example_part("low_rank_study", lambda: low_rank_study.low_rank_render(device=DEVICE),
+                      parts, inputs)
+    require(bool(np.all(lr["explained"] > 0.95)) and lr["mean_edc_err_db"] < 4.0,
+            f"low rank: explained {lr['explained']}, EDC error {lr['mean_edc_err_db']} dB")
+    require(bool(np.isfinite(lr["rendered"]).all()), "low rank: renders not finite")
+    res["low_rank_study"] = {"explained": lr["explained"].tolist(),
+                             "mean_edc_err_db": lr["mean_edc_err_db"]}
+
+    def colorless():
+        ref = colorless_output_study.train_groups(tmp / "colorless_jax_init", device=DEVICE,
+                                                  params=colorless_jax_init())
+        own = colorless_output_study.train_groups(tmp / "colorless", device=DEVICE)
+        return ref, own
+
+    ref, own = example_part("colorless_output_study", colorless, parts, inputs)
+    for r in ref:
+        require(r["flat1"] > r["flat0"] and r["mse1"] < 0.5 * r["mse0"],
+                f"colorless study (the reference's start): {r['flat0']} -> {r['flat1']}, "
+                f"MSE {r['mse0']} -> {r['mse1']}")
+    require(all(np.isfinite([r[k] for r in own for k in ("flat1", "mse1")])),
+            "colorless study: the port's own start trained to non-finite numbers")
+    res["colorless_output_study"] = {
+        label: [{k: r[k] for k in ("flat0", "flat1", "mse0", "mse1")} for r in rs]
+        for label, rs in (("jax_init", ref), ("torch_generator_seed0", own))}
+
+    edr = example_part("check_edr_loss", lambda: check_edr_loss.edr_errors(device=DEVICE),
+                       parts, inputs)
+    require(edr["err_irfft_db"] < 0.05 and edr["err_shortcut_db"] > 20.0 * edr["err_irfft_db"]
+            and edr["err_shortcut_db"] > 5.0,
+            f"EDR check: irfft {edr['err_irfft_db']}, shortcut {edr['err_shortcut_db']} dB")
+    res["check_edr_loss"] = {k: edr[k] for k in ("err_irfft_db", "err_shortcut_db")}
+
+    cs = example_part("cs_amplitude_study", cs_amplitude_study.amplitude_statistics,
+                      parts, inputs)
+    sklearn = importlib.util.find_spec("sklearn") is not None
+    if sklearn:
+        require(cs["accuracy"] > 0.85, f"amplitude study: GMM accuracy {cs['accuracy']}")
+    else:
+        require(abs(cs["accuracy"] - CS_EM_ACCURACY) <= 1.0 / 180,
+                f"amplitude study: the EM's accuracy {cs['accuracy']}, JAX's {CS_EM_ACCURACY}")
+    require(all(r > 0.9 for r in cs["lowpass_ratios"]),
+            f"amplitude study: low-pass ratios {cs['lowpass_ratios']}")
+    res["cs_amplitude_study"] = {"gmm": "sklearn" if sklearn else "em",
+                                 "accuracy": cs["accuracy"],
+                                 "lowpass_ratios": [float(r) for r in cs["lowpass_ratios"]]}
+
+    geo = example_part("room_geometry_study", lambda: room_geometry_study.geometry_checks(
+        tmp / "room_geometry", device=DEVICE), parts, inputs)
+    require(all(geo["one_hot"][s]["unique"] for s in ("train", "valid"))
+            and int((geo["feat_std"] > 0.05).sum()) >= len(geo["feat_std"]) // 2
+            and geo["patches"]["disjoint"] and geo["patches"]["covered"] > 0.9,
+            f"room geometry: {geo['one_hot']}, {geo['patches']}")
+    res["room_geometry_study"] = {"one_hot": geo["one_hot"], "patches": geo["patches"]}
+
+    flops = example_part("compare_flops", compare_flops.cost_table, parts, inputs)
+    costs = dict(flops["rows"])
+    conv = costs["partitioned conv, 9ch 2s SRIR"]
+    require(costs["full-band GFDN, GEQ absorption"] < conv
+            and costs["8 parallel subband GFDNs"] < conv,
+            f"FLOP table: {costs}")
+    res["compare_flops"] = costs
+    return res
+
+
+def walkthrough_artifacts(tmp: Path, parts: dict, inputs: dict) -> dict:
+    """Phase 18 (a): the walkthrough's steps 1-5 on the card, the animation
+    left out (matplotlib), each step counted as a part."""
+    from diffgfdn_torch.examples import walkthrough
+
+    out = tmp / "walkthrough"
+    out.mkdir(parents=True, exist_ok=True)
+    omni, spatial = walkthrough.step1_dataset(out)
+    config = example_part("walkthrough_train", lambda: walkthrough.step2_train(out, omni, DEVICE),
+                          parts, inputs)
+    rirs = example_part("walkthrough_infer",
+                        lambda: walkthrough.step3_infer(out, config, omni, DEVICE), parts, inputs)
+    broadband = example_part("walkthrough_subband",
+                             lambda: walkthrough.step4_subband(out, omni, DEVICE), parts, inputs)
+    binaural, *_ = example_part("walkthrough_render",
+                                lambda: walkthrough.step5_render(out, spatial, DEVICE),
+                                parts, inputs)
+    for name in ("srirs.pkl", "spatial_srirs.pkl", "config.yml", "inferred_rir.wav",
+                 "subband/broadband_rirs.npy", "binaural_walkthrough.wav"):
+        require((out / name).exists(), f"walkthrough: {name} not written")
+    require(bool(np.isfinite(np.load(out / "subband" / "broadband_rirs.npy")).all()),
+            "walkthrough: the broadband subband RIRs are not finite")
+    require(bool(np.isfinite(rirs).all() and np.isfinite(binaural).all()),
+            "walkthrough: the inferred RIRs or the binaural render are not finite")
+    return {"inferred": list(rirs.shape), "broadband": list(broadband.shape),
+            "binaural": list(binaural.shape)}
+
+
+def examples(tmp: Path) -> tuple:
+    """Phase 18: the README's walkthrough (a) and the notebook studies (b)
+    through the port's ``examples/`` on the card, each part's launch set
+    (c), each new launch shape held to its plain version (d), each part's
+    wall time (e). Returns (results, kernel rows)."""
+    parts, inputs = {}, {}
+    results = {"walkthrough": walkthrough_artifacts(tmp, parts, inputs)}
+    results.update(example_conclusions(tmp, parts, inputs))
+    checked = example_kernel_checks(inputs)
+    rows = []
+    for part, name in EXAMPLE_ROWS:
+        sig, err = checked[(part, name)]
+        rows.append(example_row(part, name, inputs[part][name][sig],
+                                parts[part]["launches"][name], err, inputs[part]))
+    results["parts"] = parts
+    return results, rows
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--log-dir", default=None,
@@ -6052,6 +6492,9 @@ def main(argv=None) -> int:
     parser.add_argument("--host-batches", action="store_true",
                         help="only build the kernels and run phase 17 (training on batches "
                              "made on the host); no result line")
+    parser.add_argument("--examples", action="store_true",
+                        help="only build the kernels and run phase 18 (the walkthrough and the "
+                             "notebook studies); prints its kernel rows; no result line")
     parser.add_argument("--edc-loss", action="store_true",
                         help="only hold the directional EDC loss against autograd through "
                              "db, time both and print their peak memory as one JSON line "
@@ -6110,6 +6553,18 @@ def main(argv=None) -> int:
             t0 = time.perf_counter()
             host_batches(Path(tmp_name), log_dir)
             print(f"phase 17 in {time.perf_counter() - t0:.1f} s", flush=True)
+        return 0
+    if args.examples:
+        print(card)
+        t0 = time.perf_counter()
+        print(f"phase 1: built {sorted(_build.build_all())} in {time.perf_counter() - t0:.1f} s")
+        with tempfile.TemporaryDirectory() as tmp_name:
+            t0 = time.perf_counter()
+            result, example_rows = examples(Path(tmp_name))
+            print(f"phase 18 in {time.perf_counter() - t0:.1f} s: " + json.dumps(result),
+                  flush=True)
+        print(card)
+        print(json.dumps({"kernels": example_rows}))
         return 0
     if args.tools:
         print(card)
@@ -6264,6 +6719,11 @@ def main(argv=None) -> int:
         host_batches(tmp, log_dir)
         print(f"phase 17: batches made on the host in {time.perf_counter() - t0:.1f} s",
               flush=True)
+        t0 = time.perf_counter()
+        result, example_rows = examples(tmp)
+        rows += example_rows
+        print(f"phase 18: the walkthrough and the notebook studies in "
+              f"{time.perf_counter() - t0:.1f} s: " + json.dumps(result), flush=True)
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({

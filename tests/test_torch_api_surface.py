@@ -1,6 +1,8 @@
 """The port's public API against the JAX package's, name by name.
 
-Every ``diffgfdn_tpu/**/*.py`` is parsed with ``ast`` (not imported). Each
+Every ``diffgfdn_tpu/**/*.py``, and every study of ``examples/*.py`` (the
+README's walkthrough and the notebook studies, whose port is
+``diffgfdn_torch/examples/``), is parsed with ``ast`` (not imported). Each
 public top-level function or class, and each public method or property of
 such a class, must be defined under the same name in the port's module at
 the same path (``diffgfdn_torch/...``); an attribute that the class's
@@ -21,6 +23,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 JAX, PORT = ROOT / "diffgfdn_tpu", ROOT / "diffgfdn_torch"
+EXAMPLES = "examples/"  # the studies: examples/<name>.py -> diffgfdn_torch/examples/<name>.py
 
 # "<module path>:<name>" in the JAX package -> the same in the port
 RENAMED = {
@@ -131,8 +134,13 @@ def _parse(path: Path) -> ast.Module:
     return ast.parse(path.read_text(), filename=str(path))
 
 
+def jax_path(module: str) -> Path:
+    """The JAX package's file of ``module``, or the study's under ``examples/``."""
+    return ROOT / module if module.startswith(EXAMPLES) else JAX / module
+
+
 def jax_public(module: str) -> Set[str]:
-    return public_names(_parse(JAX / module))
+    return public_names(_parse(jax_path(module)))
 
 
 def port_defined(module: str) -> Set[str]:
@@ -140,7 +148,8 @@ def port_defined(module: str) -> Set[str]:
     return defined_names(_parse(path)) if path.exists() else set()
 
 
-JAX_MODULES = sorted(str(p.relative_to(JAX)) for p in JAX.rglob("*.py"))
+JAX_MODULES = (sorted(str(p.relative_to(JAX)) for p in JAX.rglob("*.py"))
+               + sorted(EXAMPLES + p.name for p in (ROOT / "examples").glob("*.py")))
 
 
 def _missing(module: str) -> Set[str]:
@@ -163,7 +172,7 @@ def test_recorded_entries_are_current():
     a reason that cites ROADMAP."""
     for key in list(RENAMED) + list(OMITTED):
         module, name = key.split(":")
-        assert (JAX / module).exists() and name in jax_public(module), f"stale entry {key}"
+        assert jax_path(module).exists() and name in jax_public(module), f"stale entry {key}"
         assert name not in port_defined(module), f"{key}: the port has it now"
     assert not set(RENAMED) & set(OMITTED)
     assert all("ROADMAP" in why for why in OMITTED.values())
@@ -178,3 +187,13 @@ def test_the_checker_sees_a_missing_name():
                "    def m(self):\n        self.h = 0\n"
     missing = public_names(ast.parse(jax_src)) - defined_names(ast.parse(port_src))
     assert missing == {"A.h", "k"}
+
+
+def test_the_studies_are_checked():
+    """The ten studies of ``examples/`` are among the checked modules, and a
+    study the port lacked would be missing name by name."""
+    studies = [m for m in JAX_MODULES if m.startswith(EXAMPLES)]
+    assert len(studies) == 10 and "examples/walkthrough.py" in studies
+    assert {"step1_dataset", "step5_binaural", "main"} <= jax_public("examples/walkthrough.py")
+    assert _missing("examples/walkthrough.py") == set()
+    assert port_defined("examples/no_such_study.py") == set()

@@ -396,3 +396,63 @@ def test_no_entry_point_chooses_gloo_or_the_cpu_unless_asked(monkeypatch):
                 main(argv + ["--device", device])
             assert chosen[-1] == backend
     assert len(chosen) == 4
+
+
+# the README's walkthrough and the notebook studies (diffgfdn_torch/examples/)
+EXAMPLE_MODULES = tuple(f"diffgfdn_torch.examples.{name}" for name in (
+    "check_edr_loss", "colorless_output_study", "compare_flops", "cs_amplitude_study",
+    "fadein_study", "fdn_colouration", "loss_surface", "low_rank_study", "room_geometry_study",
+    "walkthrough"))
+
+
+def test_examples_import_no_jax_and_no_matplotlib():
+    """The walkthrough and the studies are among the modules the import check
+    loads, and importing them loads neither JAX, the JAX package nor
+    matplotlib (their drawing functions import it when they draw)."""
+    assert set(EXAMPLE_MODULES) <= set(PORT_MODULES)
+    assert len([m for m in PORT_MODULES if m.startswith("diffgfdn_torch.examples.")]) == 10
+    code = ("import sys, importlib\n"
+            f"for name in {EXAMPLE_MODULES!r}:\n"
+            "    importlib.import_module(name)\n"
+            "print([m for m in sys.modules\n"
+            "       if m.split('.')[0] in ('jax', 'flax', 'diffgfdn_tpu', 'matplotlib')])\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "[]", out.stderr
+
+
+def test_examples_default_to_cuda_and_raise_without_a_card(tmp_path):
+    """Every study's entry point that computes on a device, and its ``main``
+    without ``--device cpu``, raises the device error; the walkthrough
+    raises before it writes its output directory."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card: the default device is valid here")
+    from diffgfdn_torch.examples import (check_edr_loss, colorless_output_study, fadein_study,
+                                         fdn_colouration, loss_surface, low_rank_study,
+                                         room_geometry_study, walkthrough)
+
+    calls = [
+        lambda: loss_surface.compute_surfaces(nfft=64, grid=3),
+        lambda: loss_surface.main(["--out", str(tmp_path / "a.png")]),
+        lambda: fdn_colouration.band_responses(nfft=64),
+        lambda: fdn_colouration.main(["--out", str(tmp_path / "b.png")]),
+        lambda: fadein_study.synthesize_cases(dur_s=0.01),
+        lambda: fadein_study.main(["--out", str(tmp_path / "c.png")]),
+        lambda: low_rank_study.low_rank_render(),
+        lambda: low_rank_study.run(str(tmp_path / "d")),
+        lambda: colorless_output_study.train_groups(str(tmp_path / "e"), epochs=1),
+        lambda: colorless_output_study.main(["--out", str(tmp_path / "e")]),
+        lambda: check_edr_loss.make_rir(),
+        lambda: check_edr_loss.stft_edr(np.zeros(64)),
+        lambda: check_edr_loss.run(str(tmp_path / "f")),
+        lambda: room_geometry_study.geometry_checks(str(tmp_path / "g")),
+        lambda: room_geometry_study.main(["--out", str(tmp_path / "g")]),
+        lambda: walkthrough.step2_train(tmp_path, tmp_path / "srirs.pkl"),
+        lambda: walkthrough.step5_render(tmp_path, tmp_path / "spatial.pkl"),
+        lambda: walkthrough.main(["--out-dir", str(tmp_path / "walk")]),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert not (tmp_path / "walk").exists()
+    assert not list(tmp_path.glob("*.png"))
