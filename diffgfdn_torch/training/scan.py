@@ -21,6 +21,11 @@ captured once in a CUDA graph and replayed. This module owns that skeleton:
   eagerly, so the CPU tests exercise the plumbing that the graph relies on.
 * :class:`StepGraphs` keeps the graphs of one trainer (one per step kind and
   input shapes), all in one memory pool.
+* The host's part of a step shows in the program's spans
+  (``utils/profiling.py``): ``gfdn.graph.fill`` (the refill),
+  ``gfdn.graph.replay`` (the launch) and ``gfdn.graph.eager`` for a closure
+  :class:`GraphedSteps` runs outside any graph. The first calls are timed
+  by :class:`StepGraph`'s ``warmup_s`` and ``capture_s``.
 
 What a caller must keep in mind:
 
@@ -54,6 +59,7 @@ import torch
 
 from ..kernels import counted_wrappers
 from ..kernels.dispatch import plain_on_card
+from ..utils.profiling import span
 
 WARMUP_STEPS = 1  # eager steps on the side stream before the capture
 
@@ -144,15 +150,17 @@ class StepGraph:
         return self.graph is not None
 
     def _fill(self, values: Inputs) -> None:
-        if self.inputs is None:
-            self.inputs = {k: torch.empty_like(v, device=self.device) for k, v in values.items()}
-        if values.keys() != self.inputs.keys():
-            raise ValueError(f"step inputs {sorted(values)} != {sorted(self.inputs)}")
-        for k, v in values.items():
-            if v.shape != self.inputs[k].shape:
-                raise ValueError(f"step input {k}: shape {tuple(v.shape)} != "
-                                 f"{tuple(self.inputs[k].shape)}")
-            self.inputs[k].copy_(v)
+        with span("gfdn.graph.fill"):
+            if self.inputs is None:
+                self.inputs = {k: torch.empty_like(v, device=self.device)
+                               for k, v in values.items()}
+            if values.keys() != self.inputs.keys():
+                raise ValueError(f"step inputs {sorted(values)} != {sorted(self.inputs)}")
+            for k, v in values.items():
+                if v.shape != self.inputs[k].shape:
+                    raise ValueError(f"step input {k}: shape {tuple(v.shape)} != "
+                                     f"{tuple(self.inputs[k].shape)}")
+                self.inputs[k].copy_(v)
 
     def __call__(self, **values: torch.Tensor) -> Any:
         self._fill(values)
@@ -193,12 +201,14 @@ class StepGraph:
         return self.outputs
 
     def _replay(self) -> Any:
-        if plain_on_card() != self._plain:
-            raise RuntimeError(
-                f"this step was captured {'on the plain versions' if self._plain else 'on the kernels'}"
-                ": compare kernels with plain versions on eager steps (scan_epochs=False)")
-        self.graph.replay()
-        self.counts.replayed()
+        with span("gfdn.graph.replay"):
+            if plain_on_card() != self._plain:
+                raise RuntimeError(
+                    "this step was captured "
+                    f"{'on the plain versions' if self._plain else 'on the kernels'}"
+                    ": compare kernels with plain versions on eager steps (scan_epochs=False)")
+            self.graph.replay()
+            self.counts.replayed()
         self.replays += 1
         return self.outputs
 
@@ -279,7 +289,8 @@ class GraphedSteps:
         ``scan_epochs`` (the inputs become its static buffers; None ones
         stay None)."""
         if not self.scan_epochs:
-            return step(**inputs)
+            with span("gfdn.graph.eager"):
+                return step(**inputs)
         if self.graphs.device.type == "cuda" and self.collective_backend not in (None, "nccl"):
             raise RuntimeError(
                 f"a step graph cannot capture {self.collective_backend}'s collectives: "
@@ -294,7 +305,8 @@ class GraphedSteps:
         remainder runs eagerly, as JAX's separate ``valid_step`` for it."""
         if len(inputs["idx"]) == batch_size:
             return self.run_step("valid", step, **inputs)
-        return step(**inputs)
+        with span("gfdn.graph.eager"):
+            return step(**inputs)
 
     def run_batches(self, kind: str, step: Callable[..., Any],
                     batches: List[Inputs]) -> Iterator[Any]:
@@ -304,4 +316,9 @@ class GraphedSteps:
         list runs eagerly, as JAX does when ``_stack`` returns None."""
         layouts = {tuple(sorted((k, tuple(v.shape)) for k, v in b.items())) for b in batches}
         for batch in batches:
-            yield self.run_step(kind, step, **batch) if len(layouts) == 1 else step(**batch)
+            if len(layouts) == 1:
+                yield self.run_step(kind, step, **batch)
+                continue
+            with span("gfdn.graph.eager"):
+                out = step(**batch)
+            yield out

@@ -85,6 +85,7 @@ from ..ops.stft import edr_from_stft, erb_filterbank, stft
 from ..utils.cio import upload_target_rirs
 from ..utils.device import resolve_device
 from ..utils.params import jax_params_from_torch, load_jax_params
+from ..utils.profiling import span
 from .checkpoints import (
     load_latest_checkpoint_with_epoch,
     load_opt_state,
@@ -448,7 +449,8 @@ class GFDNTrainer(GraphedSteps):
             return None
         if num_bins is None:
             num_bins = self.data["z_values"].shape[0]
-        return edc_mask(self.edc_mask_length(num_bins), self.mask_generator, self.device)
+        with span("gfdn.step.mask"):
+            return edc_mask(self.edc_mask_length(num_bins), self.mask_generator, self.device)
 
     def _step_on(self, batch: Batch, mask: Optional[torch.Tensor]
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -495,8 +497,10 @@ class GFDNTrainer(GraphedSteps):
         Returns the device-resident losses (no host sync): with
         ``scan_epochs`` on the card, the graph's outputs, valid until the
         next step."""
-        out = self.run_step("train", self._train_step, idx=idx, mask=self.draw_edc_mask())
-        self.scheduler.step()
+        with span("gfdn.step.train"):
+            out = self.run_step("train", self._train_step, idx=idx, mask=self.draw_edc_mask())
+            with span("gfdn.step.schedule"):
+                self.scheduler.step()
         return out
 
     def valid_step(self, idx: torch.Tensor, batch_size: int
@@ -504,7 +508,9 @@ class GFDNTrainer(GraphedSteps):
         """The losses of the validation batch ``idx`` (total, {name: loss});
         a full one of ``batch_size`` through the validation graph with
         ``scan_epochs`` (:meth:`run_valid`)."""
-        return self.run_valid(self._valid_step, batch_size, idx=idx, mask=self.draw_edc_mask())
+        with span("gfdn.step.valid"):
+            return self.run_valid(self._valid_step, batch_size, idx=idx,
+                                  mask=self.draw_edc_mask())
 
     def host_keys(self, batch: Dict) -> Tuple[str, ...]:
         """The entries of a host batch that a step reads, besides the shared
@@ -520,18 +526,21 @@ class GFDNTrainer(GraphedSteps):
         ``iterate_batches`` yields it), graphed with ``scan_epochs`` (one
         graph a batch shape), then the schedule's step. Returns the
         device-resident losses, as :meth:`fit_step`."""
-        data = self.send(batch)
-        mask = self.draw_edc_mask(data["z_values"].shape[0])
-        out = self.run_step("host_train", self._host_train_step, mask=mask, **data)
-        self.scheduler.step()
+        with span("gfdn.step.train"):
+            data = self.send(batch)
+            mask = self.draw_edc_mask(data["z_values"].shape[0])
+            out = self.run_step("host_train", self._host_train_step, mask=mask, **data)
+            with span("gfdn.step.schedule"):
+                self.scheduler.step()
         return out
 
     def host_valid_step(self, batch: Dict) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """The losses of a host validation batch (total, {name: loss}),
         graphed with ``scan_epochs``."""
-        data = self.send(batch)
-        mask = self.draw_edc_mask(data["z_values"].shape[0])
-        return self.run_step("host_valid", self._host_valid_step, mask=mask, **data)
+        with span("gfdn.step.valid"):
+            data = self.send(batch)
+            mask = self.draw_edc_mask(data["z_values"].shape[0])
+            return self.run_step("host_valid", self._host_valid_step, mask=mask, **data)
 
     # ----------------------- device-resident data path -----------------------
 
@@ -594,17 +603,18 @@ class GFDNTrainer(GraphedSteps):
         """
         if self.model.io_gains_fixed:
             return None
-        self._require_sub_fdns()
-        z = sub_fdn_bins(self.model, self.data["z_values"] if z is None else z)
-        with torch.set_grad_enabled(keep_inverse):
-            p = self.model.sub_fdn_inverse(z)
-        with torch.no_grad():
-            h_sub, _ = self.model.sub_fdn_output(z, p.detach())
-            scale = torch.pow(torch.mean(torch.abs(h_sub) ** 2, dim=0), 0.25)  # (G,)
-            per_line = torch.repeat_interleave(
-                scale, self.model.num_delay_lines_per_group)[:, None]
-            self.model.input_gains.div_(per_line)
-            self.model.output_gains.div_(per_line)
+        with span("gfdn.normalize"):
+            self._require_sub_fdns()
+            z = sub_fdn_bins(self.model, self.data["z_values"] if z is None else z)
+            with torch.set_grad_enabled(keep_inverse):
+                p = self.model.sub_fdn_inverse(z)
+            with torch.no_grad():
+                h_sub, _ = self.model.sub_fdn_output(z, p.detach())
+                scale = torch.pow(torch.mean(torch.abs(h_sub) ** 2, dim=0), 0.25)  # (G,)
+                per_line = torch.repeat_interleave(
+                    scale, self.model.num_delay_lines_per_group)[:, None]
+                self.model.input_gains.div_(per_line)
+                self.model.output_gains.div_(per_line)
         return p if keep_inverse else None
 
     # ------------------------------- training --------------------------------
@@ -665,10 +675,11 @@ class GFDNTrainer(GraphedSteps):
         start = time.time()
         for epoch in range(start_epoch, cfg.max_epochs):
             ep_start = time.time()
-            perm = train_idx[rng.permutation(len(train_idx))]
-            idx_mat = torch.as_tensor(
-                np.stack(list(padded_batches(perm, bs))), dtype=torch.long, device=self.device
-            )
+            with span("gfdn.epoch.order"):
+                perm = train_idx[rng.permutation(len(train_idx))]
+                idx_mat = torch.as_tensor(
+                    np.stack(list(padded_batches(perm, bs))), dtype=torch.long,
+                    device=self.device)
             if self.model.use_svf_in_output:
                 self._normalize_params()
             ep_total, ep_aux = 0.0, {}
@@ -689,7 +700,9 @@ class GFDNTrainer(GraphedSteps):
             row = [ep_total] + [ep_aux[k] for k in keys]
             if v_weight:
                 row += [v_total] + [v_aux[k] for k in vkeys]
-            host = torch.stack([torch.as_tensor(x, device=self.device) for x in row]).tolist()
+            with span("gfdn.epoch.read"):
+                host = torch.stack([torch.as_tensor(x, device=self.device)
+                                    for x in row]).tolist()
             n_steps = idx_mat.shape[0]
             self.train_loss.append(host[0] / n_steps)
             self.individual_train_loss.append(
@@ -704,9 +717,10 @@ class GFDNTrainer(GraphedSteps):
             else:
                 self.valid_loss.append(0.0)
                 self.individual_valid_loss.append({})
-            save_checkpoint(cfg.train_dir, epoch, jax_params_from_torch(self.model))
-            save_opt_state(cfg.train_dir, epoch, {"optimizer": self.optimizer.state_dict(),
-                                                  "scheduler": self.scheduler.state_dict()})
+            with span("gfdn.epoch.checkpoint"):
+                save_checkpoint(cfg.train_dir, epoch, jax_params_from_torch(self.model))
+                save_opt_state(cfg.train_dir, epoch, {"optimizer": self.optimizer.state_dict(),
+                                                      "scheduler": self.scheduler.state_dict()})
             logger.info("epoch %d train %.4f valid %.4f (%.2fs)", epoch, self.train_loss[-1],
                         self.valid_loss[-1], time.time() - ep_start)
             # an empty validation split pins valid_loss at 0.0, which must not
@@ -764,14 +778,17 @@ class GFDNTrainer(GraphedSteps):
                 _accumulate(sums, "valid", total, aux)
                 n_valid += 1
             keys = list(sums)  # the epoch's one read of device values
-            host = dict(zip(keys, torch.stack([sums[k] for k in keys]).tolist())) if keys else {}
+            with span("gfdn.epoch.read"):
+                host = (dict(zip(keys, torch.stack([sums[k] for k in keys]).tolist()))
+                        if keys else {})
             for split, n, total_list, each_list in (
                     ("train", n_train, self.train_loss, self.individual_train_loss),
                     ("valid", n_valid, self.valid_loss, self.individual_valid_loss)):
                 total_list.append(host[(split, None)] / n if n else 0.0)
                 each_list.append({k: v / n for (s, k), v in host.items()
                                   if s == split and k is not None})
-            save_checkpoint(cfg.train_dir, epoch, jax_params_from_torch(self.model))
+            with span("gfdn.epoch.checkpoint"):
+                save_checkpoint(cfg.train_dir, epoch, jax_params_from_torch(self.model))
             logger.info("epoch %d train %.4f valid %.4f (%.2fs)", epoch, self.train_loss[-1],
                         self.valid_loss[-1], time.time() - ep_start)
             # without a validation pass valid_loss holds 0.0, which must not

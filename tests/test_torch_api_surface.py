@@ -47,6 +47,7 @@ RENAMED = {
     "inference/cs_synthesis.py:band_noise": "inference/cs_synthesis.py:filter_band_noise",
 }
 
+_UNREAD = "nothing in the port or its benchmark reads it (ROADMAP A, not ported)"
 _TRANSPORT = "works around the TPU's transport and changes no number (ROADMAP A, not ported)"
 # "<module path>:<name>" in the JAX package -> why the port leaves it out
 OMITTED = {
@@ -85,6 +86,9 @@ OMITTED = {
     "kernels/tdgfdn.py:record_kernel_timing":
         "the TPU's timed choice of kernel or scan; B7 always runs on CUDA operands "
         "(ROADMAP A, not ported)",
+    **{f"utils/profiling.py:{name}": _UNREAD for name in (
+        "StepTimer", "StepTimer.steps_per_sec", "StepTimer.mean_step_ms", "x_realtime",
+        "emit_metric", "get_str_results")},
 }
 
 

@@ -18,7 +18,10 @@ each step (the buffers a CUDA graph reads on the card). Here:
   the step decay's boundary and a resume from the optimizer-state sidecar,
   its learning rates 0-d tensors on the parameters' device throughout;
 * the replay bookkeeping adds the launch counts seen at capture once per
-  replay (stand-in counters).
+  replay (stand-in counters);
+* one more step of each trainer records the program's spans: the step
+  graph's refill, or the eager closure (``tests/test_torch_profiling.py``
+  holds the recorder itself).
 """
 
 import contextlib
@@ -60,6 +63,7 @@ from diffgfdn_torch.training.optim import (
     step_decay_factor,
 )
 from diffgfdn_torch.training.scan import GraphedSteps, ReplayCounts, StepGraphs
+from diffgfdn_torch.utils import profiling
 from diffgfdn_torch.utils.params import flax_path, load_jax_params
 from diffgfdn_tpu.config.schema import DiffGFDNConfig as JaxDiffGFDNConfig
 from diffgfdn_tpu.training import optim as jax_optim
@@ -263,6 +267,48 @@ def test_a_step_reads_nothing_from_the_host(runs):
     with pytest.raises(AssertionError, match="Tensor.item"):
         with host_reads_raise():
             torch.zeros(()).item()
+
+
+GRID_STEPS = ("grid", "directional", "single_pos")  # GFDNTrainer.fit_step's spans
+
+
+def test_a_step_records_the_program_s_spans(runs):
+    """One more step of the scan run's trainer under ``profiling.recording``,
+    through its step graph and then eagerly: the graph's refill or the eager
+    closure; for ``GFDNTrainer.fit_step`` under ``gfdn.step.train`` with the
+    mask draw and the schedule's step; a validation remainder eagerly."""
+    name, out = runs
+    trainer, step = out[True][2], out[True][3]
+
+    def recorded(run):
+        profiling.clear()
+        with profiling.recording():
+            run()
+        spans = profiling.records()
+        parents = {s.id: s.name for s in spans}
+        return [(s.name, parents.get(s.parent)) for s in spans]
+
+    graphed = recorded(step)
+    trainer.scan_epochs = False
+    try:
+        eager = recorded(step)
+    finally:
+        del trainer.scan_epochs
+    for spans, through, other in ((graphed, "gfdn.graph.fill", "gfdn.graph.eager"),
+                                  (eager, "gfdn.graph.eager", "gfdn.graph.fill")):
+        assert other not in {n for n, _ in spans}, (name, spans)
+        if name not in GRID_STEPS:
+            assert spans == [(through, None)], (name, spans)
+            continue
+        assert ("gfdn.step.train", None) in spans
+        under = [n for n, p in spans if p == "gfdn.step.train"]
+        assert under[0] == "gfdn.step.mask" and under[-1] == "gfdn.step.schedule"
+        assert through in under, (name, spans)
+    if name in ("grid", "directional"):
+        remainder = recorded(lambda: trainer.valid_step(torch.arange(1), trainer.cfg.batch_size))
+        assert remainder == [("gfdn.step.mask", "gfdn.step.valid"),
+                             ("gfdn.graph.eager", "gfdn.step.valid"), ("gfdn.step.valid", None)]
+    profiling.clear()
 
 
 def test_replay_bookkeeping_adds_the_capture_counts_per_replay():

@@ -3,13 +3,12 @@
 ``utils/profiling.py``, the preset library and ``dump_config``.
 
 Host numpy code is copied, so it must agree in float64 to 1e-10 of the
-largest value; the written pickles array for array; the cost models and the
-profiling strings exactly; every preset field for field.
+largest value; the written pickles array for array; the cost models exactly;
+every preset field for field; ``trace`` writes a Chrome trace.
 """
 
 import dataclasses
 from enum import Enum
-import logging
 import pickle
 
 import numpy as np
@@ -42,7 +41,6 @@ from diffgfdn_tpu.data.spatial_dataset import (
 )
 from diffgfdn_tpu.ops.basic import LOG10E6
 from diffgfdn_tpu.utils import flops as jax_flops
-from diffgfdn_tpu.utils import profiling as jax_profiling
 
 TOL = 1e-10
 FS = 8000.0
@@ -198,21 +196,7 @@ def test_flops_match_jax():
         assert getattr(flops, name)(*args) == getattr(jax_flops, name)(*args), (name, args)
 
 
-def test_profiling_prints_jax_s_strings(tmp_path, caplog):
-    for kwargs in (dict(epoch=3, train_loss=[1.0, 0.5], time_s=2.0,
-                        individual_losses=[{"edc": 0.4, "edr": 1.25}]),
-                   dict(epoch=12), dict(train_loss=[0.123456]), {}):
-        assert profiling.get_str_results(**kwargs) == jax_profiling.get_str_results(**kwargs)
-    with caplog.at_level(logging.INFO, logger="diffgfdn_torch"):
-        line = profiling.emit_metric("m", 1.0, "u", 2.0)
-    assert line == jax_profiling.emit_metric("m", 1.0, "u", 2.0) and line in caplog.text
-    assert profiling.x_realtime(2.0, 0.001) == jax_profiling.x_realtime(2.0, 0.001)
-    timer = profiling.StepTimer(warmup=1)
-    for _ in range(3):
-        with timer:
-            sum(range(1000))
-    assert timer.steps_per_sec > 0 and timer.mean_step_ms > 0
-    assert len(timer._times) == 3
+def test_profiling_prints_jax_s_strings(tmp_path):
     with profiling.trace(str(tmp_path / "trace")):
         torch.fft.rfft(torch.randn(4, 1024)).abs().sum()
     trace = tmp_path / "trace" / profiling.TRACE_FILE
