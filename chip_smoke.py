@@ -10,6 +10,7 @@ Run from the repository root on a machine with one CUDA card:
     python3 chip_smoke.py --parallel
     python3 chip_smoke.py --host-batches
     python3 chip_smoke.py --examples
+    python3 chip_smoke.py --decay
 
 Phases (any failure raises and exits non-zero, with no result line):
 
@@ -59,7 +60,9 @@ Phases (any failure raises and exits non-zero, with no result line):
    step on both paths. One more graphed step runs under torch.profiler: it
    must replay its graph, and the launches the wrappers count for it (the
    counts seen at the capture, added again on each replay) must equal the
-   hand-written kernels the card ran in it, kernel by kernel. The phase
+   hand-written kernels the card ran in it, kernel by kernel; a graphed
+   step calls each of B8 / B9 forward and backward once (``DECAY_STEP``)
+   and runs no PyTorch scan. The phase
    prints both medians, steps/s, the warm-up and capture times, each path's
    peak memory and the profiled step's idle share (with ``--log-dir``, beside
    an eager step's);
@@ -340,6 +343,18 @@ Phases (any failure raises and exits non-zero, with no result line):
    B7 bit for bit; B7's plan printed), and the new shapes timed beside
    their bound, plain version and library call; (e) each part's wall time.
    ``--examples`` runs phase 18 alone.
+19. the energy-decay losses of the GFDN trainers (B8 EDC, B9 EDR), which
+   replace no TPU kernel: each forward and backward against its plain version
+   at each benchmark cell's shapes (32 rows of 131072 samples, the EDC window
+   of 38 720 samples of ``three_room_example`` and 46 592 of
+   ``fullband_grid_colorless``, masked, read in place at the row stride; the
+   STFT's 32 x 2049 x 63 complex): the loss within 1e-6 relative, the
+   gradient within 1e-5 of its largest value; each timed (``kernel_ms``, the
+   plain version's ``plain_ms``) beside its bound (bytes / 3.35 TB/s), its
+   ``launches`` the calls a step of phase 5's graphed step of that
+   configuration. Every launch check of phases 2-18 counts B8 / B9 with the
+   rest (``DECAY_STEP``, ``decay_calls``). ``--decay`` runs phase 5's two
+   trainings and phase 19.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``. ``--kernel-times ROOT``
@@ -378,10 +393,13 @@ CONFIGS = {
     "fullband_grid_colorless": ("cinv", "sos"),
     "three_room_example": ("lu",),
 }
-# ... and each one's training path, forward and backward
+# ... and each one's training path, forward and backward (the EDC and EDR
+# losses, B8 / B9, in every GFDN trainer's)
 TRAIN_KERNELS = {
-    "fullband_grid_colorless": ("cinv", "neg_ptgpt", "sos", "sos_backward"),
-    "three_room_example": ("lu", "lut_apply", "cinv"),
+    "fullband_grid_colorless": ("cinv", "neg_ptgpt", "sos", "sos_backward", "edc_loss",
+                                "edc_loss_backward", "edr_loss", "edr_loss_backward"),
+    "three_room_example": ("lu", "lut_apply", "cinv", "edc_loss", "edc_loss_backward",
+                           "edr_loss", "edr_loss_backward"),
 }
 TRAIN_EPOCHS = 2
 TIMED_STEPS = 5
@@ -401,6 +419,18 @@ TD_KERNELS = {
 # the float64 check of the cascade: a low-cutoff section evaluated in float32
 # near DC cancels about four digits (a0 + a1 + a2 ~ 4 f^2), in every version
 SOS_F64_TOL = 1e-2
+
+
+def decay_calls(steps: int, valid: int = 0) -> dict:
+    """The calls of the EDC and EDR loss kernels (B8, B9) in ``steps``
+    training steps and ``valid`` validation batches of a GFDN trainer (grid,
+    band-parallel under ``vmap``, single-position): a forward and a backward
+    of each a step, the forwards alone a validation batch."""
+    return {"edc_loss": steps + valid, "edc_loss_backward": steps,
+            "edr_loss": steps + valid, "edr_loss_backward": steps}
+
+
+DECAY_STEP = decay_calls(1)
 
 
 def require(cond: bool, what: str) -> None:
@@ -439,12 +469,14 @@ def device_busy_us(events, window) -> float:
 
 # device symbols of the hand-written kernels (csrc/*.cu)
 KERNEL_SYMBOLS = ("cinv_kernel", "neg_ptgpt_kernel", "sos_cascade_kernel", "sos_bwd_",
-                  "lu_solve_kernel", "lut_apply_kernel", "tdgfdn_")
+                  "lu_solve_kernel", "lut_apply_kernel", "tdgfdn_", "edc_loss_", "edr_loss_")
 # the device symbol of the kernel that each counted wrapper launches once a call
 WRAPPER_SYMBOLS = {"cinv": "cinv_kernel", "neg_ptgpt": "neg_ptgpt_kernel",
                    "sos": "sos_cascade_kernel", "sos_backward": "sos_bwd_partial_kernel",
                    "lu": "lu_solve_kernel", "lut_apply": "lut_apply_kernel",
-                   "tdgfdn": "tdgfdn_"}
+                   "tdgfdn": "tdgfdn_", "edc_loss": "edc_loss_fwd_kernel",
+                   "edc_loss_backward": "edc_loss_bwd_kernel",
+                   "edr_loss": "edr_loss_fwd_kernel", "edr_loss_backward": "edr_loss_bwd_kernel"}
 
 
 def profile_window(events, label: str):
@@ -1037,8 +1069,8 @@ def graphed_vs_eager(label: str, trainer, params: dict, step, log_dir, generator
     replay adds, ``training/scan.py`` ``ReplayCounts``) must be the kernels
     the card ran in the profile, kernel by kernel (``WRAPPER_SYMBOLS``); with
     ``log_dir`` its tables are written there. Returns the numbers, with the
-    warm-up and capture times, each path's peak memory and the profiled
-    step's busy time and idle share.
+    warm-up and capture times, each path's peak memory, the profiled
+    step's busy time and idle share, and the PyTorch scan kernels it ran.
     """
     import torch
 
@@ -1114,6 +1146,7 @@ def graphed_vs_eager(label: str, trainer, params: dict, step, log_dir, generator
     out.update(graphed_profiled_step_ms=wall, graphed_profiled_device_busy_ms=busy,
                graphed_profiled_kernels_ms=ours, graphed_profiled_kernel_count=count,
                graphed_profiled_launches=ran, graphed_profiled_idle_share=1.0 - busy / wall,
+               graphed_profiled_scans=sum("scan_innermost_dim" in e.name for e in kernels),
                graphed_profiled_kernels_outside_window=outside)
     return out
 
@@ -1179,6 +1212,11 @@ def train(name: str, tmp: Path, log_dir):
     # an eager step on the plain versions, and a profiled eager step
     graph = graphed_vs_eager(name, trainer, dict(model.named_parameters()),
                              lambda: trainer.fit_step(idx)[0], log_dir, trainer.mask_generator)
+    decay = {k: graph["launches_per_step"].get(k) for k in DECAY_STEP}
+    require(decay == {k: float(v) for k, v in DECAY_STEP.items()}
+            and graph["graphed_profiled_scans"] == 0,
+            f"{name}: B8 / B9 calls a step {decay}, PyTorch scans in a profiled step "
+            f"{graph['graphed_profiled_scans']}")
     trainer.scan_epochs = False
     with plain_versions():
         t0 = time.perf_counter()
@@ -1981,6 +2019,9 @@ def subband(tmp: Path, log_dir):
                 f"{launches[kernel]} times in {steps} steps and {valid} validation batches")
     require(launches["sos_backward"] == 0 and launches["tdgfdn"] == 0,
             f"subband: kernels off the path launched {launches}")
+    decay = {k: launches[k] for k in DECAY_STEP}
+    require(decay == decay_calls(steps, valid),
+            f"subband: B8 / B9 launched {decay} in {steps} steps and {valid} validation batches")
     require(all(np.isfinite(h).all() and h.shape == (TRAIN_EPOCHS, len(g))
                 for h, g in zip(histories, groups)), f"subband: train losses {histories}")
     for cfg in configs:
@@ -2041,7 +2082,7 @@ def subband(tmp: Path, log_dir):
         graph = graphed_vs_eager(label, trainer, trainer.params,
                                  lambda trainer=trainer: trainer.step(idx)[0], log_dir,
                                  trainer.mask_generator)
-        require(graph["launches_per_step"] == {k: 1.0 for k in SUBBAND_KERNELS},
+        require(graph["launches_per_step"] == {k: 1.0 for k in SUBBAND_KERNELS + tuple(DECAY_STEP)},
                 f"subband {freqs}: launches per step {graph['launches_per_step']}")
         result.update(graph)
         if log_dir is not None:
@@ -2119,7 +2160,8 @@ def subband(tmp: Path, log_dir):
         "bands": len(configs), "groups": [len(g) for g in groups], "epochs": TRAIN_EPOCHS,
         "batch": BATCH, "nfft": nfft, "run_s": run_s, "peak_mem_run_mb": peak_run / 2 ** 20,
         "train_loss_last_epoch": [h[-1].tolist() for h in histories],
-        "launches": {k: launches[k] for k in SUBBAND_KERNELS + ("sos_backward",)},
+        "launches": {k: launches[k]
+                     for k in SUBBAND_KERNELS + ("sos_backward",) + tuple(DECAY_STEP)},
         "steps": steps, "valid_batches": valid, "group_steps": group_results,
         "all_bands_step_ms_parallel": [t * 1e3 for t in parallel_s],
         "all_bands_step_ms_sequential": [t * 1e3 for t in sequential_s],
@@ -2331,7 +2373,8 @@ def directional(tmp: Path, log_dir):
     for kernel in ("cinv", "lu"):
         require(launches[kernel] == steps + valid, f"directional: {kernel} launched "
                 f"{launches[kernel]} times in {steps} steps and {valid} validation batches")
-    require(launches["sos"] == launches["sos_backward"] == launches["tdgfdn"] == 0,
+    require(launches["sos"] == launches["sos_backward"] == launches["tdgfdn"] == 0
+            and not any(launches[k] for k in DECAY_STEP),
             f"directional: kernels off the path launched {launches}")
     losses = trainer.train_loss + trainer.valid_loss
     require(len(trainer.train_loss) == TRAIN_EPOCHS and bool(np.isfinite(losses).all()),
@@ -2877,7 +2920,7 @@ def single_rir(tmp: Path, log_dir):
             + (cfg.num_groups + groups_c * (steps_c + valid_c) if protos else 0),
             "neg_ptgpt": epochs + groups_c * steps_c,
             "sos": epochs * svf_sides, "sos_backward": epochs * svf_sides,
-            **{k: 0 for k in SINGLE_RIR_OFF_PATH},
+            **{k: 0 for k in SINGLE_RIR_OFF_PATH}, **decay_calls(epochs),
         }
         require({k: launches[k] for k in expected} == expected,
                 f"{name}: launches {launches}, expected {expected}")
@@ -3412,8 +3455,8 @@ SOURCE_RECEIVER_HEADS = {"scalar_scalar": False, "svf_svf": True}
 # normalize the io gains before every step, from the sub-FDN inverse the
 # colorless loss then reuses
 SOURCE_RECEIVER_STEP = {
-    "scalar_scalar": {"cinv": 2, "neg_ptgpt": 2, "sos": 1},
-    "svf_svf": {"cinv": 2, "neg_ptgpt": 2, "sos": 3, "sos_backward": 2},
+    "scalar_scalar": {"cinv": 2, "neg_ptgpt": 2, "sos": 1, **DECAY_STEP},
+    "svf_svf": {"cinv": 2, "neg_ptgpt": 2, "sos": 3, "sos_backward": 2, **DECAY_STEP},
 }
 # ... and of one served batch: the blocks' inverse, the heads' and the
 # absorption cascades
@@ -3579,7 +3622,8 @@ def single_room(tmp: Path) -> tuple:
     trainer.loss_and_grads(batch)
     torch.cuda.synchronize()
     grad_launches = {k: v for k, v in launch_counts().items() if v}
-    require(grad_launches == {"cinv": 1, "neg_ptgpt": 1, "sos": 2, "sos_backward": 1},
+    require(grad_launches == {"cinv": 1, "neg_ptgpt": 1, "sos": 2, "sos_backward": 1,
+                              **DECAY_STEP},
             f"{SINGLE_ROOM_PRESET}: one gradient launched {grad_launches}")
 
     def step():
@@ -3721,7 +3765,7 @@ def hyp_tuning(tmp: Path) -> dict:
     for t in trials[1:]:
         require(t["reserved_after_mb"] <= first["reserved_after_mb"] + 0.1 * held,
                 f"{HYP_TUNING_PRESET}: reserved memory grew from trial to trial: {trials}")
-    for kernel in ("cinv", "neg_ptgpt", "sos", "sos_backward"):
+    for kernel in ("cinv", "neg_ptgpt", "sos", "sos_backward", *DECAY_STEP):
         require(launches.get(kernel, 0) > 0, f"{HYP_TUNING_PRESET}: {kernel} never launched")
     require(not any(launches.get(k, 0) for k in OFF_PATH),
             f"{HYP_TUNING_PRESET}: kernels off the path launched {launches}")
@@ -4291,10 +4335,10 @@ OPTIONS_DIRECTIONAL = "directional_1000Hz_res0.9m"
 #     blocks' and the sub-FDNs' inverses (B1, B2), the heads' and the
 #     regularizer's cascades (B3, B4)
 OPTIONS_STEP = {
-    "a": {"cinv": 2, "neg_ptgpt": 2, "sos": 2, "sos_backward": 1},
-    "b": {"cinv": 1, "neg_ptgpt": 1, "lu": 1, "lut_apply": 1, "sos": 1},
+    "a": {"cinv": 2, "neg_ptgpt": 2, "sos": 2, "sos_backward": 1, **DECAY_STEP},
+    "b": {"cinv": 1, "neg_ptgpt": 1, "lu": 1, "lut_apply": 1, "sos": 1, **DECAY_STEP},
     "c": {"cinv": 1, "neg_ptgpt": 1, "lu": 1, "lut_apply": 1},
-    "d": {"cinv": 2, "neg_ptgpt": 2, "sos": 2, "sos_backward": 2},
+    "d": {"cinv": 2, "neg_ptgpt": 2, "sos": 2, "sos_backward": 2, **DECAY_STEP},
 }
 OPTIONS_SERVE = {"a": {"cinv": 1, "sos": 2}, "b": {"lu": 1, "sos": 1}, "c": {"lu": 1},
                  "d": {"cinv": 1, "sos": 1}, "e": {"cinv": 1, "sos": 1}}
@@ -4635,7 +4679,7 @@ def band_options(tmp: Path) -> dict:
     require({"edc_loss", "edr_loss", "reg_loss"} <= set(losses)
             and all(bool(torch.isfinite(v).all()) for v in losses.values()),
             f"band-parallel options {freqs}: losses {losses}")
-    require({"cinv", "neg_ptgpt", "sos", "sos_backward"} <= set(launches),
+    require({"cinv", "neg_ptgpt", "sos", "sos_backward", *DECAY_STEP} <= set(launches),
             f"band-parallel options {freqs}: launches {launches}")
     require(loss_rel <= LOSS_TOL and grad_errs[worst] <= GRAD_TOL,
             f"band-parallel options {freqs}: kernels vs plain loss {loss_rel}, gradient "
@@ -5231,7 +5275,7 @@ MXU_PEAK_TOL = 1e-5  # matmul irfft vs torch.fft.irfft: max abs error / max |irf
 MXU_LOSS_TOL = 1e-5  # the directional loss with and without the matmul irfft, relative
 # B1-B4 launches a frequency-sharded step; B1, B2, B3, B5, B6 a band step
 SHARD_STEP_KERNELS = {"cinv": 1, "neg_ptgpt": 1, "sos": 2, "sos_backward": 2}
-BAND_STEP_KERNELS = {"cinv": 1, "neg_ptgpt": 1, "sos": 1, "lu": 1, "lut_apply": 1}
+BAND_STEP_KERNELS = {"cinv": 1, "neg_ptgpt": 1, "sos": 1, "lu": 1, "lut_apply": 1, **DECAY_STEP}
 
 
 def parallel_data(tmp: Path) -> dict:
@@ -5332,7 +5376,8 @@ def shard_single_rir(spec: dict, mesh, device, rows: list) -> dict:
     launches = launch_counts()
     epochs = len(trainer.train_loss)
     expected = {"cinv": epochs + 1, "neg_ptgpt": epochs, "sos": 2 * epochs,
-                "sos_backward": 2 * epochs, "lu": 0, "lut_apply": 0, "tdgfdn": 0}
+                "sos_backward": 2 * epochs, "lu": 0, "lut_apply": 0, "tdgfdn": 0,
+                **decay_calls(epochs)}
     require(epochs == PARALLEL_EPOCHS and bool(np.isfinite(trainer.train_loss).all()),
             f"(a): losses {trainer.train_loss}")
     require({k: launches[k] for k in expected} == expected,
@@ -5725,8 +5770,9 @@ HOST_TIMED = 3  # timed host-batch and indexed steps, after 2 untimed
 # terms, which read no target, can dwarf them in the total: ROADMAP C2)
 HOST_TARGET_TERMS = ("edc_loss", "edr_loss")
 # the hand-written kernels of one host-batch step (as of one fit_indexed step)
-HOST_STEP = {"fullband_grid_colorless": {"cinv": 2, "neg_ptgpt": 2, "sos": 2, "sos_backward": 1},
-             "three_room_example": {"cinv": 1, "lu": 1, "lut_apply": 1}}
+HOST_STEP = {"fullband_grid_colorless": {"cinv": 2, "neg_ptgpt": 2, "sos": 2, "sos_backward": 1,
+                                         **DECAY_STEP},
+             "three_room_example": {"cinv": 1, "lu": 1, "lut_apply": 1, **DECAY_STEP}}
 
 
 def host_copy_numbers(send, uploader, arrays, idx: np.ndarray) -> dict:
@@ -6052,13 +6098,14 @@ def host_batches(tmp: Path, log_dir) -> dict:
 # grid training (B5 / B6); its inference (B5); the subband CLI's two bands
 # (the colorless loss's B1 / B2, the scalar heads' B5 / B6; the synthetic
 # dataset's scalar absorption builds no SOS filters: no B3 / B4); the
-# binaural render (no kernel); the studies
+# binaural render (no kernel); the studies; the trainings' EDC and EDR losses,
+# forward and backward (B8 / B9), and the loss surface's forwards
 EXAMPLE_KERNELS = {
-    "walkthrough_train": ("cinv", "neg_ptgpt", "lu", "lut_apply"),
+    "walkthrough_train": ("cinv", "neg_ptgpt", "lu", "lut_apply", *DECAY_STEP),
     "walkthrough_infer": ("lu",),
-    "walkthrough_subband": ("cinv", "neg_ptgpt", "lu", "lut_apply"),
+    "walkthrough_subband": ("cinv", "neg_ptgpt", "lu", "lut_apply", *DECAY_STEP),
     "walkthrough_render": (),
-    "loss_surface": ("cinv",),
+    "loss_surface": ("cinv", "edc_loss", "edr_loss"),
     "fdn_colouration": ("cinv",),
     "fadein_study": ("tdgfdn",),
     "low_rank_study": ("tdgfdn",),
@@ -6150,6 +6197,7 @@ def recorded_launches(store: dict):
 
     from diffgfdn_torch.kernels import cinv, counted_wrappers, lu, sos, tdgfdn
 
+    reset_counts()  # the wrappers left as they are (B8, B9) count from 0 too
     patched = [(cinv, "cinv"), (cinv, "neg_ptgpt"), (sos, "sos_cascade_response"),
                (sos, "sos_cascade_backward"), (lu, "lu_solve"), (lu, "lut_apply"),
                (tdgfdn, "delay_line_outputs")]
@@ -6468,6 +6516,112 @@ def examples(tmp: Path) -> tuple:
     return results, rows
 
 
+# ------------------ phase 19: the energy-decay losses (B8, B9) ------------------
+
+DECAY_ROWS, DECAY_NFFT, DECAY_MIXING = 32, 131072, 640  # the cells' batch, nfft, 20 ms
+# each benchmark cell's configuration and its EDC window (samples)
+DECAY_WINDOWS = {"three_room_example": 38720, "fullband_grid_colorless": 46592}
+DECAY_STFT = (4096, 2048)  # the cells' EDR window and hop: 2049 bins x 63 frames
+
+
+def decay_cost(kind: str, rows: int, t_len: int = 0, bins: int = 0, frames: int = 0) -> tuple:
+    """Bytes of one call (each input byte read once, each output byte written
+    once) and 0 operations: EDC forward reads the window, the target and the
+    mask and writes h; its backward reads the window and h and writes the
+    gradient; EDR forward reads the complex STFT and the target and writes
+    h; its backward reads the STFT and h and writes the gradient."""
+    if kind == "edc_loss":
+        return 12 * rows * t_len + 4 * t_len, 0
+    if kind == "edc_loss_backward":
+        return 12 * rows * t_len, 0
+    cells = rows * bins * frames
+    return (16 if kind == "edr_loss" else 20) * cells, 0
+
+
+def decay_rows(step_launches: dict) -> list:
+    """Phase 19: B8 and B9 against their plain versions at each benchmark
+    cell's shapes, timed beside their bounds; each row's ``launches`` the
+    calls a step of that configuration's graphed training step
+    (``step_launches[name]``, phase 5's ``launches_per_step``)."""
+    import torch
+
+    from diffgfdn_torch.kernels import decay
+    from diffgfdn_torch.kernels.dispatch import plain_versions
+    from diffgfdn_torch.ops.basic import db, schroeder_backward_int
+    from diffgfdn_torch.ops.stft import edr_from_stft, stft
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    t = torch.arange(DECAY_NFFT, device=DEVICE)
+    x = torch.randn((DECAY_ROWS, DECAY_NFFT), generator=gen, device=DEVICE) * torch.exp(-t / 8000.0)
+    mask = torch.bernoulli(torch.rand(max(DECAY_WINDOWS.values()), generator=gen, device=DEVICE),
+                           generator=gen)
+    with plain_versions():
+        edr = edr_from_stft(stft(1.1 * x, *DECAY_STFT)).contiguous()
+    abs_sum = torch.sum(torch.abs(edr), dim=(-2, -1))
+    s = stft(x, *DECAY_STFT)
+    rows_, bins, frames = s.shape
+    g = torch.ones(1, device=DEVICE)
+    rows = []
+
+    def check_and_row(name, config, loss_fn, fwd_call, bwd_call, cost_fwd, cost_bwd, shape):
+        def loss_grad():
+            leaf = x.detach().requires_grad_()
+            loss = loss_fn(leaf)
+            (grad,) = torch.autograd.grad(loss, leaf)
+            return loss.detach(), grad
+
+        loss, grad = loss_grad()
+        with plain_versions():
+            loss_p, grad_p = loss_grad()
+        rel = float(torch.abs(loss - loss_p) / torch.abs(loss_p))
+        err = float(torch.max(torch.abs(grad - grad_p)) / torch.max(torch.abs(grad_p)))
+        require(rel <= 1e-6 and err <= 1e-5,
+                f"{name} {shape}: loss rel err {rel:.3e}, gradient {err:.3e} of its largest")
+        print(f"phase 19: {name} {shape}: loss rel err {rel:.3e}, gradient err {err:.3e} "
+              f"of its largest value")
+        for kind, call, cost in ((name, fwd_call, cost_fwd),
+                                 (f"{name}_backward", bwd_call, cost_bwd)):
+            def plain(call=call):
+                with plain_versions():
+                    return call()
+
+            b_ms, b_by = bound(*cost)
+            rows.append({
+                "name": f"{kind} [{config}]", "route": "cuda",
+                "source": "diffgfdn_torch/csrc/decay.cu", "replaces": None,
+                "launches": step_launches[config][kind], "max_abs_err": None,
+                "rel_err": err if kind.endswith("backward") else rel,
+                "ms": device_ms(call), "plain_ms": device_ms(plain),
+                "kernel_ms": kernel_ms(call), "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": None, "shape": list(shape),
+            })
+
+    for config, t_len in DECAY_WINDOWS.items():
+        start, end = DECAY_MIXING, DECAY_MIXING + t_len
+        with plain_versions():
+            target = db(schroeder_backward_int(1.1 * x[:, start:end]), is_squared=True).contiguous()
+        m = mask[:t_len]
+        window = x[:, start:end]
+        _, h, norm = decay.edc_loss_forward(window, target, m, DECAY_ROWS, True)
+        check_and_row(
+            "edc_loss", config, lambda r: decay.edc_window_loss(target, r[:, start:end], m),
+            lambda: decay.edc_loss_forward(window, target, m, DECAY_ROWS, True),
+            lambda: decay.edc_loss_backward(window, h, norm, g, DECAY_ROWS),
+            decay_cost("edc_loss", DECAY_ROWS, t_len),
+            decay_cost("edc_loss_backward", DECAY_ROWS, t_len),
+            (DECAY_ROWS, t_len, DECAY_NFFT))
+        _, h_edr = decay.edr_loss_forward(s, edr, abs_sum, None, DECAY_ROWS, True)
+        check_and_row(
+            "edr_loss", config,
+            lambda r: decay.edr_features_loss(edr, abs_sum, stft(r, *DECAY_STFT)),
+            lambda: decay.edr_loss_forward(s, edr, abs_sum, None, DECAY_ROWS, True),
+            lambda: decay.edr_loss_backward(s, h_edr, abs_sum, g, DECAY_ROWS),
+            decay_cost("edr_loss", rows_, bins=bins, frames=frames),
+            decay_cost("edr_loss_backward", rows_, bins=bins, frames=frames),
+            (rows_, bins, frames))
+    return rows
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--log-dir", default=None,
@@ -6495,6 +6649,10 @@ def main(argv=None) -> int:
     parser.add_argument("--examples", action="store_true",
                         help="only build the kernels and run phase 18 (the walkthrough and the "
                              "notebook studies); prints its kernel rows; no result line")
+    parser.add_argument("--decay", action="store_true",
+                        help="only build the kernels and run phase 5's two trainings and "
+                             "phase 19 (the EDC and EDR loss kernels B8 / B9 at the benchmark "
+                             "cells' shapes); prints its kernel rows; no result line")
     parser.add_argument("--edc-loss", action="store_true",
                         help="only hold the directional EDC loss against autograd through "
                              "db, time both and print their peak memory as one JSON line "
@@ -6566,6 +6724,23 @@ def main(argv=None) -> int:
         print(card)
         print(json.dumps({"kernels": example_rows}))
         return 0
+    if args.decay:
+        print(card)
+        t0 = time.perf_counter()
+        print(f"phase 1: built {sorted(_build.build_all())} in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        step_launches = {}
+        with tempfile.TemporaryDirectory() as tmp_name:
+            for name in DECAY_WINDOWS:
+                result, _, _ = train(name, Path(tmp_name), log_dir)
+                step_launches[name] = result["launches_per_step"]
+                print(f"phase 5: {name}: launches per graphed step "
+                      f"{json.dumps(step_launches[name])}", flush=True)
+        decay_kernel_rows = decay_rows(step_launches)
+        print(f"phase 19 in {time.perf_counter() - t0:.1f} s", flush=True)
+        print(card)
+        print(json.dumps({"kernels": decay_kernel_rows}))
+        return 0
     if args.tools:
         print(card)
         t0 = time.perf_counter()
@@ -6634,10 +6809,11 @@ def main(argv=None) -> int:
         print("phase 3: every kernel matches its plain version and numpy")
         rows = time_kernels(inputs, errors, launches)
         del inputs
-        backward_inputs, train_launches = {}, {}
+        backward_inputs, train_launches, step_launches = {}, {}, {}
         for name in TRAIN_KERNELS:
             t0 = time.perf_counter()
             result, recorded, counts = train(name, tmp, log_dir)
+            step_launches[name] = result["launches_per_step"]
             backward_inputs.update(recorded)
             for kernel in ("neg_ptgpt", "sos_backward", "lut_apply"):
                 if kernel in TRAIN_KERNELS[name]:
@@ -6724,6 +6900,10 @@ def main(argv=None) -> int:
         rows += example_rows
         print(f"phase 18: the walkthrough and the notebook studies in "
               f"{time.perf_counter() - t0:.1f} s: " + json.dumps(result), flush=True)
+        t0 = time.perf_counter()
+        rows += decay_rows(step_launches)
+        print(f"phase 19: the energy-decay losses in {time.perf_counter() - t0:.1f} s",
+              flush=True)
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({

@@ -6,6 +6,8 @@
   (``csrc/sos.cu``);
 * ``lu``    — batched pivoted-LU single-RHS solve and the conjugate-transposed
   solve from its factors (``csrc/lu.cu``);
+* ``decay`` — the EDC and EDR losses with their energy-decay integrals,
+  forward and backward (``csrc/decay.cu``);
 * ``linalg`` — the batch-shape front ends ``cinv`` and ``csolve1`` as
   autograd functions, and ``csolve`` (``cinv(M) @ B``), exported here as
   the JAX package's ``kernels`` exports it (its ``cinv`` stays
@@ -24,7 +26,7 @@ def counted_wrappers() -> dict:
     """{name: wrapper} of every kernel wrapper that counts its launches in
     ``wrapper.launches``, looked up anew on each call (so that a wrapper a
     caller replaced is the one counted)."""
-    from . import cinv, lu, sos, tdgfdn
+    from . import cinv, decay, lu, sos, tdgfdn
 
     return {
         "cinv": cinv.cinv,
@@ -34,4 +36,8 @@ def counted_wrappers() -> dict:
         "lu": lu.lu_solve,
         "lut_apply": lu.lut_apply,
         "tdgfdn": tdgfdn.delay_line_outputs,
+        "edc_loss": decay.edc_loss_forward,
+        "edc_loss_backward": decay.edc_loss_backward,
+        "edr_loss": decay.edr_loss_forward,
+        "edr_loss_backward": decay.edr_loss_backward,
     }

@@ -22,7 +22,7 @@ from typing import Dict, Iterable, List
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "diffgfdn_torch_kernels"
-SOURCES = ("cinv", "sos", "lu", "tdgfdn")
+SOURCES = ("cinv", "sos", "lu", "tdgfdn", "decay")
 # --fmad=false keeps every product and sum separately rounded, as the plain
 # PyTorch versions compute them, so pivot choices agree bit for bit
 NVCC_FLAGS = (

@@ -24,6 +24,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..kernels.decay import edc_window_loss, edr_features_loss
 from ..kernels.sos import sos_cascade_response
 from ..ops.basic import db, schroeder_backward_int
 from ..ops.stft import edr_from_stft, stft
@@ -61,12 +62,15 @@ def frequency_weighting(
         cutoff_freq_hz, top, bottom)
 
 
+def _erb_grouped(s: torch.Tensor, erb_filters: Optional[torch.Tensor]) -> torch.Tensor:
+    """An STFT (..., bins, frames) as the EDR takes it: its |.| summed into
+    the ERB bands when ``erb_filters`` (bands, bins) are given, else as is."""
+    return s if erb_filters is None else torch.matmul(erb_filters, torch.abs(s))
+
+
 def _edr_features(s: torch.Tensor, erb_filters: Optional[torch.Tensor]) -> torch.Tensor:
-    """EDR (dB) of an STFT (..., bins, frames), its |.| first summed into the
-    ERB bands when ``erb_filters`` (bands, bins) are given."""
-    if erb_filters is not None:
-        s = torch.matmul(erb_filters, torch.abs(s))
-    return edr_from_stft(s)
+    """EDR (dB) of an STFT (..., bins, frames), grouped as :func:`_erb_grouped`."""
+    return edr_from_stft(_erb_grouped(s, erb_filters))
 
 
 def edc_loss(
@@ -135,15 +139,12 @@ def edc_loss_from_rir(
     """Mean |dB| difference between the target EDC and the achieved RIR's EDC.
 
     ``achieved_rir_trunc``: (..., T) RIRs already cut to [mixing time, max
-    length]; ``mask``: optional (T,) 0/1 time mask, the loss then being
-    sum(err * mask) / (sum(mask) * batch + 1e-9).
+    length] (a slice of whole RIRs is read in place); ``mask``: optional (T,)
+    0/1 time mask, the loss then being sum(err * mask) / (sum(mask) * batch +
+    1e-9). One call of the EDC loss kernel forward and one backward on CUDA
+    tensors (``kernels/decay.py``).
     """
-    a_edc = schroeder_backward_int(achieved_rir_trunc)
-    err = torch.abs(target_edc_db - db(a_edc, is_squared=True))
-    if mask is None:
-        return torch.mean(err)
-    items = err.numel() // err.shape[-1]
-    return torch.sum(err * mask) / (torch.sum(mask) * items + 1e-9)
+    return edc_window_loss(target_edc_db, achieved_rir_trunc, mask)
 
 
 def edr_loss_from_rir(
@@ -161,15 +162,14 @@ def edr_loss_from_rir(
     |target - achieved| over frequency and time, divided by the item's sum,
     summed over the batch; unbatched inputs give the single ratio. With
     ``erb_filters`` F is the ERB bands (the target grouped alike);
-    ``frequency_weights`` (F,) weight each frequency's sum over time.
+    ``frequency_weights`` (F,) weight each frequency's sum over time. The
+    STFT is PyTorch's; the integral and everything after it are one call of
+    the EDR loss kernel forward and one backward on CUDA tensors
+    (``kernels/decay.py``), which read the STFT where ``torch.fft.rfft``
+    wrote it.
     """
-    ach_edr = _edr_features(stft(achieved_rir, win_size, hop_size), erb_filters)
-    freq_loss = torch.sum(torch.abs(target_edr_db - ach_edr), dim=-1)
-    if frequency_weights is not None:
-        freq_loss = freq_loss * frequency_weights
-    if target_edr_db.dim() == 3:
-        return torch.sum(torch.sum(freq_loss, dim=-1) / target_edr_abs_sum)
-    return torch.sum(freq_loss) / target_edr_abs_sum
+    s = _erb_grouped(stft(achieved_rir, win_size, hop_size), erb_filters)
+    return edr_features_loss(target_edr_db, target_edr_abs_sum, s, frequency_weights)
 
 
 _reg_points: Dict[Tuple[int, torch.device], torch.Tensor] = {}

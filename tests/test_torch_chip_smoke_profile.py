@@ -103,3 +103,21 @@ def test_profiled_kernels_count_by_the_wrapper_that_launches_them():
         "cinv": 2, "neg_ptgpt": 1, "sos": 1, "sos_backward": 1, "lu": 1, "lut_apply": 1,
         "tdgfdn": 1}
     assert set(chip_smoke.WRAPPER_SYMBOLS) == set(counted_wrappers())
+
+
+def test_the_decay_kernels_count_by_their_wrappers():
+    """B8 / B9 run two and three kernels a call each way: only the one named
+    for each wrapper counts (``edc_loss_bwd_kernel`` is not a part of
+    ``edc_loss_bwd_totals_kernel``)."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+
+    names = ["edc_loss_totals_kernel", "edc_loss_fwd_kernel", "edc_loss_final_kernel",
+             "edc_loss_bwd_totals_kernel", "edc_loss_bwd_kernel",
+             "edr_loss_fwd_kernel<true>", "edr_loss_final_kernel", "edr_loss_bwd_kernel<true>"]
+    kernels = [SimpleNamespace(name=n, time_range=Interval(10, 20), device_type=DeviceType.CUDA,
+                               is_user_annotation=False) for n in names]
+    assert chip_smoke.wrapper_launches(kernels) == {
+        "edc_loss": 1, "edc_loss_backward": 1, "edr_loss": 1, "edr_loss_backward": 1}
+    assert set(chip_smoke.DECAY_STEP) == {
+        "edc_loss", "edc_loss_backward", "edr_loss", "edr_loss_backward"} <= set(counted_wrappers())

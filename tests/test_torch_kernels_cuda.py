@@ -29,7 +29,11 @@ served path's delays and length (T = 131072), impulse and random input
 ring fills the card's shared memory exactly and at one a sample longer
 (which takes the device-memory history), at a spread of 50000 samples, at
 the directional presets' 27 delays (coefficients in shared memory), and
-on two launches alike.
+on two launches alike. The EDC and EDR loss kernels (B8, B9) are held to
+their plain versions at the benchmark cells' shapes (the loss within 1e-6
+relative, the gradient within 1e-5 of its largest value), B8's tail energy
+to float64, both to the same bits on two launches, and a captured loss
+step to their planned calls and no PyTorch scan.
 """
 
 import contextlib
@@ -481,3 +485,199 @@ def test_band_parallel_step_on_kernels_matches_plain_versions(cuda_device, tmp_p
             err = float(torch.linalg.vector_norm(grads[k][b] - p.grad[b])
                         / torch.linalg.vector_norm(p.grad[b]))
             assert err <= 1e-3, (k, b, err)
+
+
+# ------------------- the energy-decay losses (B8 EDC, B9 EDR) -------------------
+
+DECAY_ROWS, DECAY_NFFT, DECAY_MIXING = 32, 131072, 640
+DECAY_WINDOWS = (38720, 46592)  # the three-room and fullband cells' EDC windows
+LOSS_TOL, GRAD_TOL = 1e-6, 1e-5  # loss relative; gradient max abs error / max |plain|
+
+
+def _decaying_rows(device, rows=DECAY_ROWS, n=DECAY_NFFT, seed=0, tau=8000.0):
+    """RIR-like rows: noise under an exponential decay (float32, on the card)."""
+    rng = np.random.RandomState(seed)
+    t = np.arange(n)
+    x = rng.randn(rows, n) * np.exp(-t / (tau * rng.uniform(0.8, 1.2, (rows, 1))))
+    return torch.tensor(x, dtype=torch.float32, device=device)
+
+
+def _offset_target(d, seed):
+    """A target in dB at 0.5-3 dB from d on either side, so that no sign of
+    target - D is left to rounding."""
+    gen = torch.Generator(device=d.device).manual_seed(seed)
+    size = torch.rand(d.shape, generator=gen, device=d.device) * 2.5 + 0.5
+    sign = torch.where(torch.rand(d.shape, generator=gen, device=d.device) < 0.5, -1.0, 1.0)
+    return (d + sign * size).contiguous()
+
+
+def _loss_and_grad(fn, x):
+    x = x.detach().requires_grad_()
+    loss = fn(x)
+    (grad,) = torch.autograd.grad(loss, x)
+    return loss.detach(), grad
+
+
+def _held_to_plain(fn, x, counters):
+    before = [c.launches for c in counters]
+    loss, grad = _loss_and_grad(fn, x)
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counters, before)] == [1] * len(counters)
+    with plain_versions():
+        loss_p, grad_p = _loss_and_grad(fn, x)
+    rel = float(torch.abs(loss - loss_p) / torch.abs(loss_p))
+    err = float(torch.max(torch.abs(grad - grad_p)) / torch.max(torch.abs(grad_p)))
+    assert rel <= LOSS_TOL and err <= GRAD_TOL, (rel, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t_len", DECAY_WINDOWS)
+@pytest.mark.parametrize("masked", [False, True])
+def test_edc_loss_kernels_match_plain_on_card(cuda_device, t_len, masked):
+    """B8 forward and backward at the cells' windows sliced from rows of
+    131072 samples (read in place at the row stride): the loss within 1e-6
+    relative of the plain version's, the gradient (the whole rows, zero
+    outside the window) within 1e-5 of its largest value."""
+    from diffgfdn_torch.kernels import decay
+    from diffgfdn_torch.ops.basic import db, schroeder_backward_int
+
+    x = _decaying_rows(cuda_device, seed=t_len)
+    start, end = DECAY_MIXING, DECAY_MIXING + t_len
+    target = _offset_target(db(schroeder_backward_int(x[:, start:end]), is_squared=True), 1)
+    mask = None
+    if masked:
+        gen = torch.Generator(device=cuda_device).manual_seed(2)
+        mask = torch.bernoulli(torch.rand(t_len, generator=gen, device=cuda_device),
+                               generator=gen)
+    _held_to_plain(lambda r: decay.edc_window_loss(target, r[:, start:end], mask), x,
+                   [decay.edc_loss_forward, decay.edc_loss_backward])
+
+
+@pytest.mark.cuda
+def test_edc_loss_kernel_tail_energy_matches_float64(cuda_device):
+    """B8's E over the last tenth of the fullband window, read back from its
+    local derivative (a target far above D gives h = -10 / ((E + eps) ln 10)),
+    within 1e-5 relative of the float64 reverse integral: summed from the end,
+    the tail some 60 dB below the window's start keeps its digits."""
+    from diffgfdn_torch.kernels import decay
+
+    t_len = DECAY_WINDOWS[1]
+    x = 100.0 * _decaying_rows(cuda_device, seed=3, tau=t_len / 6.9)
+    start = DECAY_MIXING
+    target = torch.full((DECAY_ROWS, t_len), 1000.0, device=cuda_device)
+    _, h, _ = decay.edc_loss_forward(x[:, start:start + t_len], target, None, DECAY_ROWS, True)
+    e = -10.0 / (h.double() * decay.LN10) - decay.EPS_F32
+    w = x[:, start:start + t_len].double() ** 2
+    ref = torch.flip(torch.cumsum(torch.flip(w, (-1,)), -1), (-1,))
+    # the last tenth but its last 100 samples, whose energy may come near eps
+    tail = slice(t_len - t_len // 10, t_len - 100)
+    assert float(torch.max(ref[:, tail.stop] / ref[:, 0])) < 1e-4
+    err = float(torch.max(torch.abs(e[:, tail] - ref[:, tail]) / ref[:, tail]))
+    assert err <= 1e-5, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("erb,weighted", [(False, False), (False, True), (True, True)])
+def test_edr_loss_kernels_match_plain_on_card(cuda_device, erb, weighted):
+    """B9 forward and backward on the STFT of 32 rows of 131072 samples
+    (4096 / 2048: 2049 bins x 63 frames, complex, read through the
+    transpose), and on its 64 ERB bands: the loss within 1e-6 relative of
+    the plain version's, the gradient within 1e-5 of its largest value."""
+    from diffgfdn_torch.kernels import decay
+    from diffgfdn_torch.ops.stft import edr_from_stft, erb_filterbank, stft
+
+    x = _decaying_rows(cuda_device, seed=5)
+    fb = None
+    if erb:
+        fb = torch.as_tensor(erb_filterbank(32000.0, 4096, 64)[0], dtype=torch.float32,
+                             device=cuda_device)
+
+    def features(r):
+        s = stft(r, 4096, 2048)
+        return s if fb is None else torch.matmul(fb, torch.abs(s))
+
+    with plain_versions():
+        target = _offset_target(edr_from_stft(features(x)), 4)
+    abs_sum = torch.sum(torch.abs(target), dim=(-2, -1))
+    weights = None
+    if weighted:
+        weights = torch.linspace(2.0, 1.0, target.shape[-2], device=cuda_device)
+    _held_to_plain(lambda r: decay.edr_features_loss(target, abs_sum, features(r), weights), x,
+                   [decay.edr_loss_forward, decay.edr_loss_backward])
+
+
+@pytest.mark.cuda
+def test_decay_kernels_give_the_same_bits_on_two_launches(cuda_device):
+    """No float atomics: two calls of each forward and backward agree bit for bit."""
+    from diffgfdn_torch.kernels import decay
+    from diffgfdn_torch.ops.stft import stft
+
+    x = _decaying_rows(cuda_device, seed=6)
+    target = torch.zeros((DECAY_ROWS, DECAY_WINDOWS[0]), device=cuda_device)
+    s = stft(x, 4096, 2048)
+    edr_target = torch.zeros(s.shape, device=cuda_device)
+    abs_sum = torch.ones(DECAY_ROWS, device=cuda_device)
+    runs = []
+    for _ in range(2):
+        a = _loss_and_grad(lambda r: decay.edc_window_loss(
+            target, r[:, DECAY_MIXING:DECAY_MIXING + DECAY_WINDOWS[0]]), x)
+        b = _loss_and_grad(lambda r: decay.edr_features_loss(
+            edr_target, abs_sum, stft(r, 4096, 2048)), x)
+        runs.append(a + b)
+    assert all(torch.equal(p, q) for p, q in zip(*runs))
+
+
+@pytest.mark.cuda
+def test_a_captured_loss_step_launches_b8_and_b9_and_no_scan(cuda_device):
+    """The trainer's EDC and EDR losses (``_omni_losses``, masked EDC) and
+    their backward captured in a ``StepGraph`` at the three-room cell's
+    shapes: each replay adds one call of each of B8 / B9 forward and
+    backward to the counters, and a profiled replay runs their kernels and
+    no PyTorch scan."""
+    from types import SimpleNamespace
+
+    from torch.autograd import DeviceType
+    from torch.profiler import profile, ProfilerActivity
+
+    from diffgfdn_torch.kernels import decay
+    from diffgfdn_torch.ops.basic import db, schroeder_backward_int
+    from diffgfdn_torch.ops.stft import edr_from_stft, stft
+    from diffgfdn_torch.training.scan import StepGraph
+    from diffgfdn_torch.training.trainer import _omni_losses
+
+    x = _decaying_rows(cuda_device, seed=7)
+    start, end = DECAY_MIXING, DECAY_MIXING + DECAY_WINDOWS[0]
+    with plain_versions():
+        edr = edr_from_stft(stft(x * 1.1, 4096, 2048))
+    batch = {"target_edc_db": db(schroeder_backward_int(x[:, start:end] * 1.1), True),
+             "target_edr_db": edr, "target_edr_abs_sum": torch.sum(torch.abs(edr), dim=(-2, -1))}
+    cfg = SimpleNamespace(edc_loss_weight=1.0, edr_loss_weight=1.0, reduced_pole_radius=1.0)
+    h = torch.fft.rfft(x, dim=-1).requires_grad_()
+    mask = torch.bernoulli(torch.full((end - start,), 0.5, device=cuda_device))
+
+    def step(inputs):
+        h.grad = None
+        losses = _omni_losses(cfg, batch, h * inputs["scale"], start, end, 4096, 2048,
+                              inputs["mask"], None, None)
+        total = sum(losses.values())
+        total.backward()
+        return total.detach(), h.grad
+
+    graph = StepGraph(step, cuda_device, torch.cuda.graph_pool_handle())
+    scale = torch.ones((), device=cuda_device)
+    for _ in range(2):  # the warm-up, the capture
+        graph(scale=scale, mask=mask)
+    counters = [decay.edc_loss_forward, decay.edc_loss_backward, decay.edr_loss_forward,
+                decay.edr_loss_backward]
+    before = [c.launches for c in counters]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            graph(scale=scale, mask=mask)
+        torch.cuda.synchronize()
+    assert graph.replays == 3
+    assert [c.launches - b for c, b in zip(counters, before)] == [3, 3, 3, 3]
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert not any("scan_innermost_dim" in n for n in names)
+    for symbol in ("edc_loss_fwd_kernel", "edc_loss_bwd_kernel", "edr_loss_fwd_kernel",
+                   "edr_loss_bwd_kernel"):
+        assert sum(symbol in n for n in names) == 3, symbol
